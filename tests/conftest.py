@@ -31,3 +31,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: process-level e2e tests (spawn real servers)"
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc (the kueue_tpu_torch kernels); "
+        "skips elsewhere",
+    )
