@@ -1,18 +1,19 @@
-"""Host glue lowering a Snapshot + pending workloads into dense tensors
-(port of kueue_tpu/core/solver.py, the drain's part).
+"""Host glue lowering a Snapshot + heads into dense tensors (port of
+kueue_tpu/core/solver.py).
 
 It mirrors the candidate enumeration the host FlavorAssigner performs
 sequentially — flavor eligibility (taints, node-selector labels),
 resume-from-cursor (LastAssignment), per-resource-group cartesian
-candidates — but emits it as padded numpy tensors the drain consumes.
-Workloads the dense form cannot represent exactly (resources not
-covered, no eligible flavor, candidate fan-out beyond K or cells beyond
-C, TAS podsets) are reported in ``MultiLowered.fallback``.
+candidates — but emits it as padded numpy tensors the solvers consume.
+Heads the dense form cannot represent exactly are reported in
+``fallback`` and nominate on the host.
 
-This slice carries ``lower_heads_multi`` (the drain's lowering), its
-template builder, ``tree_arrays`` and ``_bucket``. The interactive
-cycle's ``lower_heads`` / ``pack_heads`` / ``dispatch_lowered`` and
-``ResidentCycleState`` belong to the cycle path and are not ported yet.
+Two lowerings: ``lower_heads`` for the interactive cycle (one podset,
+default fungibility; ``dispatch_lowered`` ships it to the cycle solver,
+``ops/assign_kernel.solve_cycle_segmented_packed``, with the quota
+tensors kept on the card between cycles by ``ResidentCycleState``) and
+``lower_heads_multi`` for the bulk drain. The mesh-sharded dispatch is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,40 @@ from kueue_tpu_torch.core.snapshot import Snapshot
 from kueue_tpu_torch.core.workload_info import effective_podset_count, quota_per_pod
 from kueue_tpu_torch.resources import PODS, FlavorResource
 from kueue_tpu_torch.utils.priority import priority_of
+from kueue_tpu_torch.ops._build import KernelError
+from kueue_tpu_torch.ops.assign_kernel import solve_cycle_segmented_packed
+from kueue_tpu_torch.ops.resident import scatter_rows
+
+
+@dataclass
+class Lowered:
+    """Dense batch + bookkeeping to map results back to workloads."""
+
+    cq_row: np.ndarray  # int32[W]
+    cells: np.ndarray  # int32[W,K,C]
+    qty: np.ndarray  # int64[W,K,C]
+    valid: np.ndarray  # bool[W,K]
+    priority: np.ndarray  # int64[W]
+    timestamp: np.ndarray  # int64[W] (ns)
+    no_reclaim: np.ndarray  # bool[W] — reserve capacity when blocked
+    # int64[W,K] admission-policy candidate scores (kueue_tpu/policy:
+    # annotate_lowered compiles them from workload labels); None = the
+    # default first-fit policy (pack_heads ships zeros, the kernel's
+    # score-argmax then IS the first-fit argmax)
+    score: Optional[np.ndarray] = None
+
+    # per head: candidate k -> flavor name chosen per resource group
+    candidate_flavors: List[List[Dict[str, str]]] = field(default_factory=list)
+    # per head: candidate k -> resource -> host-equivalent tried-flavor
+    # cursor (LastAssignment idx; -1 when the chosen flavor is the last
+    # of its resource group, matching _find_flavor_for_resource)
+    candidate_tried: List[List[Dict[str, int]]] = field(default_factory=list)
+    heads: List[Workload] = field(default_factory=list)
+    cq_names: List[str] = field(default_factory=list)
+    fallback: List[int] = field(default_factory=list)  # indices into input heads
+    # per head: number of resource groups its request touches
+    n_groups: List[int] = field(default_factory=list)
+
 
 def _default_fungibility(cq: ClusterQueue) -> bool:
     ff = cq.flavor_fungibility
@@ -256,6 +291,111 @@ def _resolve_starts(cq, per_pod, state, ps_idx: int) -> Tuple[int, ...]:
     return tuple(starts_l)
 
 
+def lower_heads(
+    snapshot: Snapshot,
+    heads: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    max_candidates: int = 8,
+    max_cells: int = 16,
+    timestamp_fn=None,
+    transform=None,  # ResourceTransformConfig for the quota view
+) -> Lowered:
+    """Build the dense head batch for the INTERACTIVE cycle path; route
+    inexpressible heads to ``fallback`` (handled by the host
+    FlavorAssigner). The drain lowers via lower_heads_multi, which also
+    carries multi-podset, fungibility-policy and cursor-vector inputs.
+
+    Candidate enumeration is memoized per (CQ, podset shape, cursor):
+    a bulk backlog over 1k CQs lowers in O(templates + heads), not
+    O(heads x flavors)."""
+    w = len(heads)
+    k, c = max_candidates, max_cells
+    out = Lowered(
+        cq_row=np.full(w, -1, dtype=np.int32),
+        cells=np.full((w, k, c), -1, dtype=np.int32),
+        qty=np.zeros((w, k, c), dtype=np.int64),
+        valid=np.zeros((w, k), dtype=bool),
+        priority=np.zeros(w, dtype=np.int64),
+        timestamp=np.zeros(w, dtype=np.int64),
+        no_reclaim=np.zeros(w, dtype=bool),
+    )
+    templates: Dict[tuple, _Template] = {}
+    # template key -> (template, head indexes, per-head (per_pod, count))
+    groups: Dict[tuple, tuple] = {}
+
+    for i, (wl, cq_name) in enumerate(heads):
+        out.heads.append(wl)
+        out.cq_names.append(cq_name)
+        out.candidate_flavors.append([])
+        out.candidate_tried.append([])
+        out.n_groups.append(0)
+        if cq_name not in snapshot.cq_models:
+            out.fallback.append(i)
+            continue
+        cq = snapshot.cq_models[cq_name]
+        if len(wl.pod_sets) != 1 or not _default_fungibility(cq):
+            out.fallback.append(i)
+            continue
+        ps = wl.pod_sets[0]
+        if ps.topology_request is not None:
+            out.fallback.append(i)  # TAS placement stays on the host path
+            continue
+        per_pod = quota_per_pod(ps, transform)
+
+        # per-RG cursor starts (LastAssignment resume)
+        state = wl.last_assignment
+        gen = snapshot.generations.get(cq_name, 0)
+        if state is not None and gen > state.cluster_queue_generation:
+            state = None
+        starts = _resolve_starts(cq, per_pod, state, 0)
+
+        key = (cq_name, _podset_sig(ps, per_pod), starts)
+        t = templates.get(key)
+        if t is None:
+            t = _build_template(
+                snapshot, cq, cq_name, ps, per_pod, starts, flavors, k, c
+            )
+            templates[key] = t
+        out.n_groups[i] = t.n_groups
+        if t.fallback:
+            out.fallback.append(i)
+            continue
+
+        count = effective_podset_count(wl, ps)
+
+        out.no_reclaim[i] = t.no_reclaim
+        out.priority[i] = priority_of(wl, snapshot.priority_classes)
+        ts = timestamp_fn(wl) if timestamp_fn else wl.creation_time
+        out.timestamp[i] = int(ts * 1e9)
+        # shared read-only maps (one list per template, not per head)
+        out.candidate_flavors[i] = t.flavor_list
+        out.candidate_tried[i] = t.tried_list
+        # defer the array fills: heads sharing a template batch into ONE
+        # numpy op per field instead of four small ops per head (the
+        # per-head fills dominated bulk-drain lowering wall time)
+        group = groups.get(key)
+        if group is None:
+            group = groups[key] = (t, [], [])
+        group[1].append(i)
+        group[2].append((per_pod, count))
+
+    for t, idxs, pcs in groups.values():
+        ii = np.asarray(idxs, dtype=np.intp)
+        out.cq_row[ii] = t.cq_row
+        out.cells[ii] = t.cells_arr
+        out.valid[ii] = t.valid_row
+        # request matrix: rows = heads in this group, cols = the
+        # template's resource order (+1 zero column for padding cells)
+        rmat = np.zeros((len(ii), len(t.res_names) + 1), dtype=np.int64)
+        for x, r in enumerate(t.res_names):
+            if r == PODS:
+                rmat[:, x] = [count for (_, count) in pcs]
+            else:
+                rmat[:, x] = [pp.get(r, 0) * count for (pp, count) in pcs]
+        out.qty[ii] = rmat[:, t.qty_sel]
+    return out
+
+
 def tree_arrays(snapshot: Snapshot, device):
     """(QuotaTree, paths, roots) device inputs from a Snapshot, via the
     shared snapshot->array codec (core/encode.py)."""
@@ -274,6 +414,224 @@ def _bucket(w: int, minimum: int = 64) -> int:
     while n < w:
         n *= 2
     return n
+
+
+class ResidentCycleState:
+    """Device-resident quota tensors for the interactive cycle path.
+
+    The tree changes rarely (quota/config edits) and usage changes touch
+    a few ClusterQueue rows per cycle (admissions, evictions, finishes),
+    so both stay RESIDENT on the device between cycles: per cycle the
+    host compares the fresh snapshot against its copy of the device
+    content and ships only the changed usage rows (``scatter_rows``, in
+    place on the resident buffer), re-uploading everything only when
+    the structure fingerprint (row order, cell universe, quota values,
+    cohort edges) changes. The heads batch still ships per cycle: it IS
+    the cycle's input.
+    """
+
+    def __init__(self, device=None):
+        from kueue_tpu_torch._torch import resolve_device
+
+        self.device = resolve_device(device)
+        self._names = None
+        self._parent = None
+        self._quota_key = None  # (nominal, lending, borrowing) copies
+        self._tree = None
+        self._paths = None
+        self._roots = None
+        self._usage = None  # device [N, FR]
+        self._usage_host = None  # numpy mirror of the device content
+        # telemetry (debugging)
+        self.full_uploads = 0
+        self.delta_cycles = 0
+        self.delta_rows = 0
+
+    def _structure_matches(self, snapshot: Snapshot) -> bool:
+        if self._names != tuple(snapshot.flat.cq_names):
+            return False
+        if self._usage_host is None or (
+            self._usage_host.shape != snapshot.local_usage.shape
+        ):
+            return False
+        if not np.array_equal(self._parent, snapshot.flat.parent):
+            return False
+        nom, lend, bor = self._quota_key
+        return (
+            np.array_equal(nom, snapshot.nominal)
+            and np.array_equal(lend, snapshot.lending_limit)
+            and np.array_equal(bor, snapshot.borrowing_limit)
+        )
+
+    def refresh(self, snapshot: Snapshot):
+        """(tree, paths, roots, usage_dev) with minimal transfer."""
+        from kueue_tpu_torch._torch import torch
+
+        if not self._structure_matches(snapshot):
+            self._tree, self._paths, self._roots = tree_arrays(snapshot, self.device)
+            # torch.tensor copies: the buffer is updated in place later
+            # and must not alias the snapshot's array
+            self._usage = torch.tensor(snapshot.local_usage, device=self.device)
+            self._usage_host = snapshot.local_usage.copy()
+            self._names = tuple(snapshot.flat.cq_names)
+            self._parent = np.array(snapshot.flat.parent, copy=True)
+            self._quota_key = (
+                snapshot.nominal.copy(),
+                snapshot.lending_limit.copy(),
+                snapshot.borrowing_limit.copy(),
+            )
+            self.full_uploads += 1
+            return self._tree, self._paths, self._roots, self._usage
+
+        new = snapshot.local_usage
+        changed = (new != self._usage_host).any(axis=1)
+        idx = np.flatnonzero(changed)
+        if idx.size:
+            if idx.size > max(16, new.shape[0] // 4):
+                # bulk change: a fresh upload beats a huge scatter
+                self._usage = torch.tensor(new, device=self.device)
+            else:
+                # the reference buckets the delta width (padding by
+                # repeating the first changed row, idempotent under a
+                # set) so its jit compiles once per bucket; the port
+                # keeps the same padded launch
+                n = _bucket(int(idx.size), minimum=4)
+                idx_p = np.concatenate(
+                    [idx, np.full(n - idx.size, idx[0], dtype=idx.dtype)]
+                ).astype(np.int32)
+                scatter_rows(
+                    self._usage,
+                    torch.as_tensor(idx_p, device=self.device),
+                    torch.as_tensor(new[idx_p], device=self.device),
+                )
+            self._usage_host = new.copy()
+            self.delta_rows += int(idx.size)
+        self.delta_cycles += 1
+        return self._tree, self._paths, self._roots, self._usage
+
+
+def pack_heads(lowered: Lowered, roots, w_pad: int):
+    """Pad a lowered head batch to ``w_pad`` rows and derive the
+    segmented phase-2 schedule inputs. Shared by the cycle dispatch and
+    the host mirror so the two cannot disagree on padding or segment
+    compaction. Returns numpy (HeadsBatch, seg_id, n_segments,
+    n_steps)."""
+    from kueue_tpu_torch.ops.assign_kernel import HeadsBatch
+
+    w = len(lowered.heads)
+    cq_row, cells, qty = lowered.cq_row, lowered.cells, lowered.qty
+    valid, priority = lowered.valid, lowered.priority
+    timestamp, no_reclaim = lowered.timestamp, lowered.no_reclaim
+    # score tensor always shipped (zeros = the default first-fit policy)
+    score = lowered.score
+    if score is None:
+        score = np.zeros(valid.shape, dtype=np.int64)
+    if w_pad > w:
+        pad = w_pad - w
+        cq_row = np.concatenate([cq_row, np.full(pad, -1, dtype=np.int32)])
+        cells = np.concatenate(
+            [cells, np.full((pad,) + cells.shape[1:], -1, dtype=np.int32)]
+        )
+        qty = np.concatenate([qty, np.zeros((pad,) + qty.shape[1:], dtype=np.int64)])
+        valid = np.concatenate([valid, np.zeros((pad,) + valid.shape[1:], dtype=bool)])
+        priority = np.concatenate([priority, np.zeros(pad, dtype=np.int64)])
+        timestamp = np.concatenate([timestamp, np.zeros(pad, dtype=np.int64)])
+        no_reclaim = np.concatenate([no_reclaim, np.zeros(pad, dtype=bool)])
+        score = np.concatenate(
+            [score, np.zeros((pad,) + score.shape[1:], dtype=np.int64)]
+        )
+    batch_np = HeadsBatch(
+        cq_row=cq_row, cells=cells, qty=qty, valid=valid,
+        priority=priority, timestamp=timestamp, no_reclaim=no_reclaim,
+        score=score,
+    )
+    # compact segment ids: one per LIVE root cohort; the max head count
+    # within one root bounds phase-2's sequential depth
+    seg_id = np.full(w_pad, -1, dtype=np.int32)
+    live_mask = cq_row >= 0
+    if live_mask.any():
+        uniq, inv = np.unique(roots[cq_row[live_mask]], return_inverse=True)
+        seg_id[live_mask] = inv.astype(np.int32)
+        n_segments = _bucket(len(uniq), minimum=8)
+        n_steps = _bucket(int(np.bincount(inv).max()), minimum=8)
+    else:
+        n_segments = n_steps = 8
+    return batch_np, seg_id, n_segments, n_steps
+
+
+def dispatch_lowered(
+    snapshot: Snapshot,
+    lowered: Lowered,
+    pad_heads: bool = True,
+    mesh=None,
+    resident: Optional[ResidentCycleState] = None,
+    device=None,
+):
+    """Ship an already-lowered batch to the segmented cycle solver.
+
+    Padding rows (cq_row == -1) are inert in both solver phases, so the
+    first ``len(lowered.heads)`` result entries map 1:1 onto the input
+    heads. With ``resident`` the quota tree, paths and usage matrix stay
+    on its device between cycles and the host ships only changed usage
+    rows; without it they ship to ``device`` (the card unless the
+    caller names the CPU).
+
+    Returns a HOST-side SolveResult (numpy arrays, usage omitted): all
+    per-head outputs come back in one packed copy."""
+    from kueue_tpu_torch._torch import resolve_device, torch
+    from kueue_tpu_torch.ops.assign_kernel import HeadsBatch, SolveResult
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "the mesh-sharded cycle dispatch (B16) is not ported yet (ROADMAP A11)"
+        )
+    w = len(lowered.heads)
+    w_pad = _bucket(w) if pad_heads else w
+    dev = resident.device if resident is not None else resolve_device(device)
+    try:
+        if resident is not None:
+            tree, paths, roots, usage_in = resident.refresh(snapshot)
+        else:
+            tree, paths, roots = tree_arrays(snapshot, dev)
+            usage_in = torch.tensor(snapshot.local_usage, device=dev)
+        batch_np, seg_id, n_segments, n_steps = pack_heads(lowered, roots, w_pad)
+        batch = HeadsBatch(*(torch.as_tensor(x, device=dev) for x in batch_np))
+        packed = (
+            solve_cycle_segmented_packed(
+                tree, usage_in, batch, paths, seg_id, n_segments, n_steps
+            )
+            .cpu()
+            .numpy()
+        )  # ONE device->host copy for the whole cycle outcome
+    except torch.AcceleratorError as exc:
+        # a kernel's fault on the card surfaces at the next CUDA call
+        # (the fetch, or the next cycle's upload): never contained
+        raise KernelError(f"the cycle's kernels failed on {dev}: {exc}") from exc
+    return SolveResult(
+        chosen=packed[0].astype(np.int32),
+        admitted=packed[1].astype(bool),
+        borrows=packed[2].astype(bool),
+        reserved=packed[3].astype(bool),
+        usage=None,
+        order=packed[4].astype(np.int32),
+    )
+
+
+def solve_heads(
+    snapshot: Snapshot,
+    heads: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    max_candidates: int = 8,
+    max_cells: int = 16,
+    timestamp_fn=None,
+    pad_heads: bool = True,
+    device=None,
+):
+    """One-call convenience: lower, dispatch, return (Lowered, SolveResult)."""
+    lowered = lower_heads(
+        snapshot, heads, flavors, max_candidates, max_cells, timestamp_fn
+    )
+    return lowered, dispatch_lowered(snapshot, lowered, pad_heads, device=device)
 
 
 @dataclass

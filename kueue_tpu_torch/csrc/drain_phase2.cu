@@ -33,6 +33,7 @@
 // 50 SMs at once. A set `done` flag makes the launch a no-op.
 
 #include "drain_common.cuh"
+#include "quota_path.cuh"
 
 namespace drain {
 namespace {
@@ -55,30 +56,6 @@ __device__ __forceinline__ bool orders_before(const Args& a, int x, int y) {
 
 __device__ __forceinline__ bool nominated(const Args& a, int x) {
   return a.b.is_fit[x] || a.b.is_pre[x];
-}
-
-// available() at the leaf of `path` for one cell, root-down.
-__device__ long long avail_along_path(const Args& a, const int* path, int cell) {
-  const int D = a.D, FR = a.FR;
-  int n_valid = 0;
-  for (int d = 0; d <= D; ++d) n_valid += path[d] >= 0;
-  const int root_pos = n_valid - 1;
-  long long avail = 0;
-  for (int d = D; d >= 0; --d) {
-    const int node = path[d];
-    if (node < 0) continue;
-    const size_t x = (size_t)node * FR + cell;
-    const long long s = a.t.subtree[x], g = a.t.guaranteed[x];
-    const long long bl = a.t.borrowing_limit[x], u = a.b.usage[x];
-    if (d == root_pos) {
-      avail = s - u;
-    } else {
-      const long long with_max = (s - g) - max(0LL, u - g) + bl;
-      const long long clamped = bl < kNoLimit ? min(with_max, avail) : avail;
-      avail = max(0LL, g - u) + clamped;
-    }
-  }
-  return avail;
 }
 
 __global__ void phase2(Args a) {
@@ -118,7 +95,10 @@ __global__ void phase2(Args a) {
       qv = a.b.qty_eff[(size_t)h * PC + lane];
     }
     const bool cell_valid = cell >= 0 && qv > 0;
-    const bool ok = !cell_valid || avail_along_path(a, path, cell) >= qv;
+    const bool ok = !cell_valid ||
+                    quota_path::avail_along_path(path, D, FR, cell, a.t.subtree,
+                                                 a.t.guaranteed, a.t.borrowing_limit,
+                                                 a.b.usage) >= qv;
     const bool fits = __all_sync(0xffffffffu, ok);
     const bool admit = a.b.is_fit[h] && fits;
     const bool reserve = a.b.is_pre[h] && a.q.no_reclaim[h];

@@ -1,10 +1,11 @@
-"""Carry drain inputs given as numpy arrays into this package.
+"""Carry solver inputs given as numpy arrays into this package.
 
 ``drain_inputs`` takes the arrays a plain drain consumes — the encoded
 snapshot's fields and a plan's per-queue tensors, as plain dicts of
 numpy arrays (whichever package produced them) — and returns this
 package's ``QuotaTree``, ``DrainQueues``, leaf usage and ancestor paths
-on a device. The parity tests feed the same arrays to both packages
+on a device; ``heads_batch`` does the same for the cycle solver's
+``HeadsBatch``. The parity tests feed the same arrays to both packages
 through it; nothing here imports the JAX package.
 """
 
@@ -15,7 +16,7 @@ from typing import Mapping, Tuple
 import numpy as np
 
 from kueue_tpu_torch._torch import resolve_device, torch
-from kueue_tpu_torch.ops.assign_kernel import build_paths
+from kueue_tpu_torch.ops.assign_kernel import HeadsBatch, build_paths
 from kueue_tpu_torch.ops.drain_kernel import DrainQueues
 from kueue_tpu_torch.ops.quota import QuotaTree
 
@@ -34,6 +35,19 @@ QUEUE_DTYPES = {
     "ffb": np.bool_,
     "ffp": np.bool_,
     "retry_cap": np.int32,
+    "priority": np.int64,
+    "timestamp": np.int64,
+    "no_reclaim": np.bool_,
+    "score": np.int64,
+}
+
+
+# HeadsBatch field -> numpy dtype
+HEADS_DTYPES = {
+    "cq_row": np.int32,
+    "cells": np.int32,
+    "qty": np.int64,
+    "valid": np.bool_,
     "priority": np.int64,
     "timestamp": np.int64,
     "no_reclaim": np.bool_,
@@ -83,3 +97,13 @@ def drain_inputs(
     local = _on(enc["local_usage"], np.int64, dev)
     paths = _on(build_paths(np.asarray(enc["parent"]), int(enc["max_depth"])), np.int32, dev)
     return tree, queues, local, paths
+
+
+def heads_batch(batch: Mapping[str, np.ndarray], device=None) -> HeadsBatch:
+    """HeadsBatch from the cycle batch's fields (a missing or None
+    ``score`` stays None, which the solver reads as all zeros)."""
+    dev = resolve_device(device)
+    return HeadsBatch(**{
+        name: None if batch.get(name) is None else _on(batch[name], dtype, dev)
+        for name, dtype in HEADS_DTYPES.items()
+    })

@@ -12,6 +12,11 @@ Every C entry point takes its pointers and the CUDA stream as
 ``void*``, launches on that stream, does not synchronise, and returns
 ``cudaGetLastError()``; ``check(rc, name)`` raises when it is not 0.
 
+A kernel that cannot be built or loaded, refuses its input or fails to
+launch raises ``KernelError`` (``KernelInputError`` for refused input,
+also a ValueError). Nothing in the port contains it: the cycle's guard
+re-raises it rather than solving on the host while the card sits idle.
+
 ``LAUNCHES`` counts kernel launches per kernel name. A wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that
 its main path really went through the kernels (``reset_launches`` /
@@ -34,7 +39,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-KERNELS = ("quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion")
+KERNELS = (
+    "quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion",
+    "cycle_phase1", "cycle_phase2", "scatter_rows",
+)
+# the interactive cycle's kernels (core/solver.dispatch_lowered and the
+# resident row scatter)
+CYCLE_KERNELS = ("quota_tree", "cycle_phase1", "cycle_phase2", "scatter_rows")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +58,15 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, object] = {}
 _LOCK = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built or loaded, or failed to
+    launch."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A kernel refused its input (device, dtype, layout or shape)."""
 
 
 def reset_launches() -> None:
@@ -69,7 +89,7 @@ def nvcc_path() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _target(name: str) -> Path:
@@ -103,7 +123,7 @@ def _finish(name: str, target: Path, pending) -> None:
     out, _ = proc.communicate()
     (BUILD_DIR / f"{name}.log").write_text(out)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+        raise KernelError(f"nvcc failed for csrc/{name}.cu:\n{out}")
     os.replace(tmp, target)
 
 
@@ -137,14 +157,25 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build_all()
-        lib = ctypes.CDLL(str(_target(name)))
+        try:
+            lib = ctypes.CDLL(str(_target(name)))
+        except OSError as exc:
+            raise KernelError(f"cannot load the library of {name}: {exc}") from exc
         _LIBS[name] = lib
     return lib
 
 
+def load(names=KERNELS) -> None:
+    """Build (where needed) and load the libraries of ``names`` now, so
+    that a missing or broken toolchain raises here and not at the first
+    launch."""
+    for name in names:
+        library(name)
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
 
 
 def stream_ptr(device) -> int:
@@ -160,12 +191,12 @@ def ptr(kernel: str, name: str, t, dtype, shape=None):
     if t is None:
         return None
     if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(
+        raise KernelInputError(
             f"{kernel}: {name} must be a contiguous CUDA {dtype} tensor, "
             f"got {t.dtype} on {t.device}"
         )
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(
+        raise KernelInputError(
             f"{kernel}: {name} has shape {tuple(t.shape)}, want {tuple(shape)}"
         )
     return t.data_ptr()

@@ -1,17 +1,30 @@
-"""Batched admission solver pieces (port of kueue_tpu/ops/assign_kernel.py).
+"""Batched admission solver (port of kueue_tpu/ops/assign_kernel.py).
 
-This slice carries what the plain bulk drain uses:
+One interactive scheduling cycle's nomination and conflict resolution
+over dense tensors, as in the JAX package:
 
-- ``build_paths`` / ``build_roots``: host-side (numpy) ancestor paths
-  and root cohorts of the node forest;
-- plain torch versions of ``cell_masks`` (phase-1 per-cell
-  classification), ``_avail_along_path`` (available() along one
-  ancestor path, batched) and ``segmented_rank``. The drain's plain
-  version calls them; on the card the drain kernels compute the same
-  values inside ``csrc/drain_nominate.cu`` and ``csrc/drain_phase2.cu``.
+- phase 1, ``phase1_classify``: every (head, flavor candidate) pair
+  against the cycle-start availability; the first fitting candidate (or
+  the masked score-argmax), its borrow bit, and the representative
+  preempt-mode candidate of unfit heads. Kernel ``cycle_phase1``
+  (``csrc/cycle_phase1.cu``), one warp per head.
+- phase 2, ``cycle_phase2``: the reference's entry order (lexsort over
+  all heads: no-fit last, non-borrowing first, priority desc,
+  timestamp asc), then within each root cohort the heads in that order
+  re-check availability along their ancestor path, admit or reserve,
+  and bubble the usage delta up the path. Kernel ``cycle_phase2``
+  (``csrc/cycle_phase2.cu``), one block per root cohort.
+- ``solve_cycle_segmented`` / ``solve_cycle_segmented_packed``: the
+  whole cycle (four ``quota_tree`` launches, then the two kernels); the
+  packed form returns int64[5, W] (chosen, admitted, borrows, reserved,
+  order) for one device-to-host copy.
 
-The interactive cycle solver (``phase1_classify``, ``solve_cycle*``)
-belongs to the cycle path and is not ported yet.
+Every wrapper launches its CUDA kernel for a CUDA tensor (or raises) and
+runs the plain torch version beside it (``*_plain``) for a CPU tensor.
+The drain reuses the host helpers here (``build_paths``,
+``build_roots``, ``build_segments``, ``cell_masks``,
+``_avail_along_path``, ``segmented_rank``, ``_lexsort``); the
+unsegmented ``solve_cycle`` is not ported yet.
 
 Shapes: N nodes (CQs then cohorts), FR flavor-resource cells, W heads,
 K flavor candidates per head, C requested cells per candidate, D max
@@ -20,16 +33,70 @@ tree depth.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
 import numpy as np
 
-from kueue_tpu_torch._torch import torch
+from kueue_tpu_torch._torch import BOOL, I32, I64, torch
+from kueue_tpu_torch.ops import _build
 from kueue_tpu_torch.ops.quota import (
     NO_LIMIT,
     QuotaTree,
     available_all,
     potential_available_all,
+    subtree_quota,
     usage_tree,
 )
+
+# jnp.argmax's sentinel for ineligible candidates in the score-argmax
+NEG_SCORE = -(2**62)
+# widest candidate fan-out the phase-1 kernel takes (one lane per k)
+MAX_K = 32
+# widest cell list the phase-2 kernel takes (one lane per cell)
+MAX_C = 32
+
+
+class HeadsBatch(NamedTuple):
+    """One cycle's nominated heads, densely packed (torch tensors).
+
+    cq_row:    int32[W]   — head's ClusterQueue row, -1 for padding.
+    cells:     int32[W,K,C] — FR cell indices requested by candidate k,
+                              -1 for unused cell slots.
+    qty:       int64[W,K,C] — requested quantity per cell.
+    valid:     bool[W,K]  — candidate slot is populated.
+    priority:  int64[W]
+    timestamp: int64[W]   — queue-order timestamp (ns); lower = older.
+    no_reclaim: bool[W]   — CQ cannot always reclaim: blocked
+                            preempt-mode heads RESERVE capacity.
+    score:     int64[W,K] candidate scores; None is all-zero (the
+                          default first-fit policy).
+    """
+
+    cq_row: torch.Tensor
+    cells: torch.Tensor
+    qty: torch.Tensor
+    valid: torch.Tensor
+    priority: torch.Tensor
+    timestamp: torch.Tensor
+    no_reclaim: torch.Tensor
+    score: Optional[torch.Tensor] = None
+
+
+class SolveResult(NamedTuple):
+    """chosen: int32[W] candidate index (-1 = no fit in phase 1).
+    admitted: bool[W]; borrows: bool[W] (of the chosen candidate);
+    reserved: bool[W] — blocked preempt-mode head reserved capacity;
+    usage: int64[N,FR] the cycle's usage tree after all admissions and
+    reservations (None where only the packed outcome came back);
+    order: int32[W] — the admission entry order used by phase 2."""
+
+    chosen: object
+    admitted: object
+    borrows: object
+    reserved: object
+    usage: object
+    order: object
 
 
 def build_paths(parent, max_depth: int):
@@ -164,3 +231,405 @@ def segmented_rank(seg: torch.Tensor, valid_sorted: torch.Tensor) -> torch.Tenso
     out = torch.zeros_like(rank2)
     out[order2] = rank2
     return out
+
+
+def _lexsort(keys):
+    """``jnp.lexsort``: the LAST key is the primary one; stable."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for key in keys:
+        order = order[torch.sort(key[order], stable=True).indices]
+    return order
+
+
+class Segments(NamedTuple):
+    """Root-cohort membership in CSR form: the rows (heads or queues) of
+    segment s are members[offsets[s]:offsets[s+1]], ascending."""
+
+    offsets: torch.Tensor  # int32[S+1]
+    members: torch.Tensor  # int32[M]
+    max_size: int = 0  # rows in the largest segment
+
+    @property
+    def count(self) -> int:
+        return self.offsets.shape[0] - 1
+
+
+def build_segments(seg_id: np.ndarray, device) -> Segments:
+    """CSR membership of the root-cohort segments (host-side)."""
+    seg_id = np.asarray(seg_id)
+    live = np.nonzero(seg_id >= 0)[0]
+    n_seg = int(seg_id[live].max()) + 1 if live.size else 0
+    members = live[np.argsort(seg_id[live], kind="stable")].astype(np.int32)
+    counts = np.bincount(seg_id[live], minlength=n_seg)
+    offsets = np.zeros(n_seg + 1, dtype=np.int32)
+    np.cumsum(counts, out=offsets[1:])
+    return Segments(
+        offsets=torch.as_tensor(offsets, device=device),
+        members=torch.as_tensor(members, device=device),
+        max_size=int(counts.max()) if n_seg else 0,
+    )
+
+
+# ---- phase 1: kernel cycle_phase1 (csrc/cycle_phase1.cu) ----------------
+
+
+def phase1_classify_plain(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    local_usage: torch.Tensor,
+    avail: torch.Tensor,
+    potential: torch.Tensor,
+    heads: HeadsBatch,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of ``cycle_phase1``: (chosen int32[W],
+    borrows bool[W,K], preempt_k int32[W]) from the cycle-start
+    availability ``avail`` and ``potential`` (both [N, FR])."""
+    cq = heads.cq_row.clamp_min(0).long()
+    qty = heads.qty
+    # zero-quantity cells never constrain the fit (the host path masks
+    # usage > 0 and clamps available() at 0)
+    cell_need = (heads.cells >= 0) & (qty > 0)
+    idx = (cq[:, None, None], heads.cells.clamp_min(0).long())
+    avail_wkc = avail[idx]
+    subtree_wkc = subtree[idx]
+    local_wkc = local_usage[idx]
+    potential_wkc = potential[idx]
+    nominal_wkc = tree.nominal[idx]
+
+    fits = torch.where(cell_need, avail_wkc >= qty, True).all(dim=-1)
+    # default-policy PREEMPT per cell: request <= potentialAvailable AND
+    # request <= nominal
+    pot_fits = torch.where(
+        cell_need, (qty <= potential_wkc) & (qty <= nominal_wkc), True
+    ).all(dim=-1)
+    has_cohort = (tree.parent[cq] >= 0)[:, None]
+    borrows = (
+        torch.where(cell_need, local_wkc + qty > subtree_wkc, False).any(dim=-1)
+        & has_cohort
+    )
+
+    # masked score-argmax; torch.argmax returns the first maximum, as
+    # jnp.argmax does, so all-zero scores give the first fit
+    score = heads.score if heads.score is not None else torch.zeros_like(qty[:, :, 0])
+    neg = torch.full_like(score, NEG_SCORE)
+    populated = heads.cq_row >= 0
+    fit_ok = fits & heads.valid
+    first_fit = torch.argmax(torch.where(fit_ok, score, neg), dim=1)
+    chosen = torch.where(fit_ok.any(dim=1) & populated, first_fit, -1).to(I32)
+    pre_ok = pot_fits & heads.valid
+    first_pre = torch.argmax(torch.where(pre_ok, score, neg), dim=1)
+    preempt_k = torch.where(
+        pre_ok.any(dim=1) & populated & (chosen < 0), first_pre, -1
+    ).to(I32)
+    return chosen, borrows, preempt_k
+
+
+def phase1_classify(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    local_usage: torch.Tensor,
+    heads: HeadsBatch,
+    avail: Optional[torch.Tensor] = None,
+    potential: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pick each head's first fitting candidate against the cycle-start
+    snapshot. Returns (chosen int32[W], borrows bool[W,K], preempt_k
+    int32[W]). ``avail`` / ``potential`` are computed (``quota_tree``
+    launches) when not given."""
+    if avail is None:
+        usage = usage_tree(tree, guaranteed, local_usage)
+        avail = available_all(tree, subtree, guaranteed, usage)
+    if potential is None:
+        potential = potential_available_all(tree, subtree, guaranteed)
+    if not local_usage.is_cuda:
+        return phase1_classify_plain(tree, subtree, local_usage, avail, potential, heads)
+
+    kernel = "cycle_phase1"
+    w, k, c = heads.cells.shape
+    n, fr = tree.nominal.shape
+    if k > MAX_K:
+        raise _build.KernelInputError(f"{kernel}: takes K<={MAX_K} candidates, got {k}")
+    dev = local_usage.device
+    chosen = torch.empty(w, dtype=I32, device=dev)
+    borrows = torch.empty((w, k), dtype=BOOL, device=dev)
+    preempt_k = torch.empty(w, dtype=I32, device=dev)
+    ptr = _build.ptr
+    ptrs = [
+        ptr(kernel, "cq_row", heads.cq_row, I32, (w,)),
+        ptr(kernel, "cells", heads.cells, I32, (w, k, c)),
+        ptr(kernel, "qty", heads.qty, I64, (w, k, c)),
+        ptr(kernel, "valid", heads.valid, BOOL, (w, k)),
+        ptr(kernel, "score", heads.score, I64, (w, k)),
+        ptr(kernel, "avail", avail, I64, (n, fr)),
+        ptr(kernel, "potential", potential, I64, (n, fr)),
+        ptr(kernel, "subtree", subtree, I64, (n, fr)),
+        ptr(kernel, "local_usage", local_usage, I64, (n, fr)),
+        ptr(kernel, "nominal", tree.nominal, I64, (n, fr)),
+        ptr(kernel, "parent", tree.parent, I32, (n,)),
+        chosen.data_ptr(),
+        borrows.data_ptr(),
+        preempt_k.data_ptr(),
+    ]
+    _call(kernel, [w, k, c, n, fr], ptrs, dev)
+    return chosen, borrows, preempt_k
+
+
+def _call(kernel: str, ints, ptrs, device) -> None:
+    """Launch ``kernel`` through its C entry ``(ints, n_ints, ptrs,
+    n_ptrs, stream)`` and count the launch."""
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    fn = _build.c_function(
+        kernel,
+        kernel,
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    )
+    _build.note_launch(kernel)
+    rc = fn(
+        ctypes.addressof(c_ints), len(ints), ctypes.addressof(c_ptrs), len(ptrs),
+        _build.stream_ptr(device),
+    )
+    _build.check(rc, kernel)
+
+
+# ---- phase 2: kernel cycle_phase2 (csrc/cycle_phase2.cu) ----------------
+
+
+def _bubble_usage(
+    path: torch.Tensor,  # int32[B, D+1]
+    cells: torch.Tensor,  # int32[B, C]
+    delta: torch.Tensor,  # int64[B, C], already masked by cell validity
+    usage: torch.Tensor,  # int64[N, FR], updated in place
+    guaranteed: torch.Tensor,
+    max_depth: int,
+) -> None:
+    """addUsage bubble-up (resource_node.go:123-144) for B paths at
+    once: add ``delta`` at each leaf, then each node's over-guaranteed
+    delta to its parent. Every gather of a level happens before its
+    scatter-add, as in the JAX ``.at[].add``."""
+    ccells = cells.clamp_min(0).long()
+    for d in range(0, max_depth + 1):
+        node = path[:, d].clamp_min(0).long()[:, None].expand_as(ccells)
+        node_valid = (path[:, d] >= 0)[:, None]
+        old = usage[node, ccells]
+        g = guaranteed[node, ccells]
+        new = old + delta
+        usage.index_put_((node, ccells), torch.where(node_valid, delta, 0), accumulate=True)
+        over_old = (old - g).clamp_min(0)
+        over_new = (new - g).clamp_min(0)
+        delta = torch.where(node_valid, over_new - over_old, delta)
+
+
+def cycle_phase2_plain(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    usage: torch.Tensor,  # int64[N, FR] the cycle usage tree, mutated
+    paths: torch.Tensor,
+    heads: HeadsBatch,
+    seg_id: torch.Tensor,  # int32[W] compact root-cohort id, -1 pad
+    n_segments: int,
+    n_steps: int,
+    chosen: torch.Tensor,
+    borrows_wk: torch.Tensor,
+    preempt_k: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of ``cycle_phase2``: entry order, segmented
+    rank and the step scan of the JAX ``solve_cycle_segmented``.
+    Returns the packed int64[5, W] outcome (chosen, admitted, borrows,
+    reserved, order); ``usage`` ends as the cycle's final usage tree."""
+    max_depth = tree.max_depth
+    w, k, c = heads.cells.shape
+    dev = usage.device
+    eff_k = torch.where(chosen >= 0, chosen, preempt_k)
+    eff_safe = eff_k.clamp_min(0).long()
+    rows = torch.arange(w, device=dev)
+    head_borrow = borrows_wk[rows, eff_safe] & (eff_k >= 0)
+    nofit = eff_k < 0
+    order = _lexsort(
+        (heads.timestamp, -heads.priority, head_borrow.to(I64), nofit.to(I64))
+    )
+
+    seg = seg_id.clamp_min(0)[order]
+    valid_sorted = (heads.cq_row[order] >= 0) & (seg_id[order] >= 0) & ~nofit[order]
+    rank = segmented_rank(seg, valid_sorted)
+    # ranks >= n_steps (and segments >= n_segments) drop, as the JAX
+    # mode="drop" scatter drops them
+    keep = valid_sorted & (rank < n_steps) & (seg < n_segments)
+    mat = torch.full((n_steps, n_segments), -1, dtype=I32, device=dev)
+    mat[rank[keep].long(), seg[keep].long()] = order[keep].to(I32)
+
+    cells_eff = heads.cells[rows, eff_safe]  # [W, C]
+    qty_eff = heads.qty[rows, eff_safe]
+    cq = heads.cq_row.clamp_min(0).long()
+    admitted = torch.zeros(w, dtype=BOOL, device=dev)
+    reserved = torch.zeros(w, dtype=BOOL, device=dev)
+    for s in range(n_steps):
+        idx = mat[s]
+        active = idx >= 0
+        if not bool(active.any()):
+            continue
+        hidx = idx[active].long()
+        cqs = cq[hidx]
+        path = paths[cqs]
+        cells_ = cells_eff[hidx]
+        qty_ = qty_eff[hidx]
+        ccells = cells_.clamp_min(0).long()
+        cell_valid = (cells_ >= 0) & (qty_ > 0)
+
+        avail = _avail_along_path(
+            path, cells_, usage, subtree, guaranteed, tree.borrowing_limit, max_depth
+        )
+        fits = torch.where(cell_valid, avail >= qty_, True).all(dim=1)
+        admit = (chosen[hidx] >= 0) & fits
+        # blocked preempt-mode head: reserve capacity so later entries
+        # cannot take it (resourcesToReserve, scheduler.go:391-416)
+        reserve = (chosen[hidx] < 0) & (preempt_k[hidx] >= 0) & heads.no_reclaim[hidx]
+        nominal_c = tree.nominal[cqs[:, None], ccells]
+        bl_c = tree.borrowing_limit[cqs[:, None], ccells]
+        leaf_c = usage[cqs[:, None], ccells]
+        borrow_cap = torch.where(
+            bl_c < NO_LIMIT, torch.minimum(qty_, nominal_c + bl_c - leaf_c), qty_
+        )
+        nominal_cap = torch.minimum(qty_, nominal_c - leaf_c).clamp_min(0)
+        reserve_qty = torch.where(head_borrow[hidx][:, None], borrow_cap, nominal_cap)
+        delta = torch.where(
+            cell_valid & admit[:, None],
+            qty_,
+            torch.where(cell_valid & reserve[:, None], reserve_qty, 0),
+        )
+        _bubble_usage(path, cells_, delta, usage, guaranteed, max_depth)
+        admitted[hidx] = admit
+        reserved[hidx] = reserve
+
+    return torch.stack(
+        [
+            chosen.to(I64),
+            admitted.to(I64),
+            head_borrow.to(I64),
+            reserved.to(I64),
+            order.to(I64),
+        ]
+    )
+
+
+def cycle_phase2(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    usage: torch.Tensor,
+    paths: torch.Tensor,
+    heads: HeadsBatch,
+    seg_id: torch.Tensor,
+    segments: Segments,
+    n_segments: int,
+    n_steps: int,
+    chosen: torch.Tensor,
+    borrows_wk: torch.Tensor,
+    preempt_k: torch.Tensor,
+) -> torch.Tensor:
+    """Phase 2 of the cycle: the packed int64[5, W] outcome. ``usage``
+    (the cycle usage tree, never the resident leaf buffer) is updated
+    in place by the admissions and reservations. ``segments`` is the
+    CSR of ``seg_id`` (``build_segments``), which the kernel walks."""
+    if not usage.is_cuda:
+        return cycle_phase2_plain(
+            tree, subtree, guaranteed, usage, paths, heads, seg_id,
+            n_segments, n_steps, chosen, borrows_wk, preempt_k,
+        )
+    kernel = "cycle_phase2"
+    w, k, c = heads.cells.shape
+    n, fr = tree.nominal.shape
+    d = tree.max_depth
+    if c > MAX_C:
+        raise _build.KernelInputError(f"{kernel}: takes C<={MAX_C} cells, got {c}")
+    n_seg = segments.count
+    packed = torch.empty((5, w), dtype=I64, device=usage.device)
+    ptr = _build.ptr
+    ptrs = [
+        ptr(kernel, "cq_row", heads.cq_row, I32, (w,)),
+        ptr(kernel, "cells", heads.cells, I32, (w, k, c)),
+        ptr(kernel, "qty", heads.qty, I64, (w, k, c)),
+        ptr(kernel, "priority", heads.priority, I64, (w,)),
+        ptr(kernel, "timestamp", heads.timestamp, I64, (w,)),
+        ptr(kernel, "no_reclaim", heads.no_reclaim, BOOL, (w,)),
+        ptr(kernel, "chosen", chosen, I32, (w,)),
+        ptr(kernel, "borrows", borrows_wk, BOOL, (w, k)),
+        ptr(kernel, "preempt_k", preempt_k, I32, (w,)),
+        ptr(kernel, "seg_id", seg_id, I32, (w,)),
+        ptr(kernel, "seg_offsets", segments.offsets, I32, (n_seg + 1,)),
+        ptr(kernel, "seg_members", segments.members, I32, None),
+        ptr(kernel, "nominal", tree.nominal, I64, (n, fr)),
+        ptr(kernel, "borrowing_limit", tree.borrowing_limit, I64, (n, fr)),
+        ptr(kernel, "subtree", subtree, I64, (n, fr)),
+        ptr(kernel, "guaranteed", guaranteed, I64, (n, fr)),
+        ptr(kernel, "paths", paths, I32, (n, d + 1)),
+        ptr(kernel, "usage", usage, I64, (n, fr)),
+        packed.data_ptr(),
+    ]
+    ints = [w, k, c, n, fr, d, n_segments, n_steps, n_seg, segments.max_size]
+    _call(kernel, ints, ptrs, usage.device)
+    return packed
+
+
+# ---- the whole cycle ----------------------------------------------------
+
+
+def _as_seg_id(seg_id, device) -> Tuple[torch.Tensor, Segments]:
+    seg_np = seg_id.cpu().numpy() if isinstance(seg_id, torch.Tensor) else np.asarray(seg_id)
+    return (
+        torch.as_tensor(seg_np.astype(np.int32), device=device),
+        build_segments(seg_np, device),
+    )
+
+
+def _solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps):
+    subtree, guaranteed = subtree_quota(tree)
+    usage = usage_tree(tree, guaranteed, local_usage)
+    avail = available_all(tree, subtree, guaranteed, usage)
+    potential = potential_available_all(tree, subtree, guaranteed)
+    chosen, borrows_wk, preempt_k = phase1_classify(
+        tree, subtree, guaranteed, local_usage, heads, avail, potential
+    )
+    seg_t, segments = _as_seg_id(seg_id, local_usage.device)
+    # phase 2 mutates the cycle usage tree built above, never the
+    # caller's leaf usage (the resident buffer of ResidentCycleState)
+    packed = cycle_phase2(
+        tree, subtree, guaranteed, usage, paths, heads, seg_t, segments,
+        n_segments, n_steps, chosen, borrows_wk, preempt_k,
+    )
+    return packed, usage
+
+
+def solve_cycle_segmented(
+    tree: QuotaTree,
+    local_usage: torch.Tensor,
+    heads: HeadsBatch,
+    paths: torch.Tensor,  # int32[N, D+1]
+    seg_id,  # int32[W] compact root-cohort id per head (-1 pad)
+    n_segments: int,
+    n_steps: int,
+) -> SolveResult:
+    """One admission cycle with independent root cohorts resolved in
+    parallel (the JAX ``solve_cycle_segmented``): heads of different
+    roots touch disjoint node rows, so only heads within one root
+    serialize, in the global entry order."""
+    packed, usage = _solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps)
+    return SolveResult(
+        chosen=packed[0].to(I32),
+        admitted=packed[1].to(BOOL),
+        borrows=packed[2].to(BOOL),
+        reserved=packed[3].to(BOOL),
+        usage=usage,
+        order=packed[4].to(I32),
+    )
+
+
+def solve_cycle_segmented_packed(
+    tree, local_usage, heads, paths, seg_id, n_segments: int, n_steps: int
+) -> torch.Tensor:
+    """solve_cycle_segmented with the per-head outputs stacked into ONE
+    int64[5, W] tensor (chosen, admitted, borrows, reserved, order), so
+    the host retrieves the whole cycle outcome in a single copy."""
+    return _solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps)[0]

@@ -36,12 +36,14 @@ import ctypes
 from dataclasses import dataclass, fields
 from typing import NamedTuple, Optional
 
-import numpy as np
 
 from kueue_tpu_torch._torch import BOOL, I32, I64, torch
 from kueue_tpu_torch.ops import _build
 from kueue_tpu_torch.ops.assign_kernel import (
+    Segments,
     _avail_along_path,
+    _lexsort,
+    build_segments,
     cell_masks,
     segmented_rank,
 )
@@ -193,33 +195,6 @@ class CycleBuffers:
 
     def clone(self) -> "CycleBuffers":
         return CycleBuffers(**{f.name: getattr(self, f.name).clone() for f in fields(self)})
-
-
-class Segments(NamedTuple):
-    """Root-cohort membership in CSR form (static for a drain): queues
-    of segment s are members[offsets[s]:offsets[s+1]], ascending."""
-
-    offsets: torch.Tensor  # int32[S+1]
-    members: torch.Tensor  # int32[Q']
-
-    @property
-    def count(self) -> int:
-        return self.offsets.shape[0] - 1
-
-
-def build_segments(seg_id: np.ndarray, device) -> Segments:
-    """CSR membership of the queues' root-cohort segments (host-side)."""
-    seg_id = np.asarray(seg_id)
-    live = np.nonzero(seg_id >= 0)[0]
-    n_seg = int(seg_id[live].max()) + 1 if live.size else 0
-    members = live[np.argsort(seg_id[live], kind="stable")].astype(np.int32)
-    counts = np.bincount(seg_id[live], minlength=n_seg)
-    offsets = np.zeros(n_seg + 1, dtype=np.int32)
-    np.cumsum(counts, out=offsets[1:])
-    return Segments(
-        offsets=torch.as_tensor(offsets, device=device),
-        members=torch.as_tensor(members, device=device),
-    )
 
 
 def _done(state: DrainState) -> bool:
@@ -402,14 +377,6 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
     buf.cells_eff.copy_(mcells)
     buf.qty_eff.copy_(mqty)
     buf.admitted.zero_()
-
-
-def _lexsort(keys):
-    """``jnp.lexsort``: the LAST key is the primary one; stable."""
-    order = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for key in keys:
-        order = order[torch.sort(key[order], stable=True).indices]
-    return order
 
 
 def drain_phase2_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
@@ -610,7 +577,7 @@ class DrainContext:
         g = queues.gidx.shape[-1]
         n, fr = tree.nominal.shape
         if k > MAX_K or c > MAX_C or g > MAX_G or pmax > MAX_P:
-            raise ValueError(
+            raise _build.KernelInputError(
                 f"{kernel}: the drain kernels take K<={MAX_K}, C<={MAX_C}, "
                 f"G<={MAX_G}, P<={MAX_P}; got K={k}, C={c}, G={g}, P={pmax}"
             )

@@ -15,6 +15,10 @@ drain, as pure data (a spec dict), plus its builder for this package.
 The spec format is the one tests/test_solver_path.random_spec uses,
 extended with "cohorts" and per-CQ "fungibility" / "reclaim" names, so
 the tests can build the same cluster in both packages.
+``build_scheduler(spec)`` builds the interactive cycle over a spec: the
+cache, a QueueManager with one LocalQueue ``lq-<cq>`` per ClusterQueue
+holding the spec's workloads, and a ``Scheduler`` with the host
+``Preemptor``, as tests/test_solver_path.build_env does.
 """
 
 from __future__ import annotations
@@ -126,6 +130,42 @@ def mixed_spec(seed: int, cqs_per_team: int = 2, workloads_per_cq: int = 6) -> d
     }
 
 
+def cycle_spec(seed: int, workloads_per_cq: int = 10) -> dict:
+    """A small seeded cluster for the interactive cycle: the depth-3
+    cohort forest of ``mixed_spec`` with cohort quotas, borrowing and
+    lending limits, two resource groups, reclaimWithinCohort Any/Never
+    (Never reserves capacity when blocked), some queues preempting
+    lower priorities within themselves (the host victim search), and
+    single-podset workloads at the default flavorFungibility, so every
+    head is one the cycle solver takes."""
+    rng = np.random.default_rng(seed)
+    spec = mixed_spec(seed, workloads_per_cq=0)
+    for cq in spec["cqs"]:
+        cq.pop("fungibility")
+        cq["reclaim"] = "ANY" if rng.random() < 0.4 else "NEVER"
+        if rng.random() < 0.3:
+            cq["within"] = "LOWER_PRIORITY"
+    t = 0.0
+    for cq in spec["cqs"]:
+        name = cq["name"]
+        for wi in range(workloads_per_cq):
+            t += 1.0
+            req = {"cpu": _quota(rng, 1, 6), "memory": _quota(rng, 1, 10, "Gi")}
+            if rng.random() < 0.4:
+                req["gpu"] = _quota(rng, 1, 3)
+            spec["workloads"].append({
+                "name": f"wl-{name}-{wi}",
+                "queue": f"lq-{name}",
+                "cq": name,
+                "prio": int(rng.integers(0, 4)) * 10,
+                "t": t,
+                "pod_sets": [{
+                    "name": "main", "count": int(rng.integers(1, 4)), "requests": req,
+                }],
+            })
+    return spec
+
+
 def build_cache(spec: dict):
     """(Cache, pending) of this package for a spec; ``pending`` is in
     per-CQ heap order (priority desc, timestamp asc)."""
@@ -137,6 +177,7 @@ def build_cache(spec: dict):
         FlavorFungibilityPolicy,
         FlavorQuotas,
         Preemption,
+        PreemptionPolicy,
         ReclaimWithinCohortPolicy,
         ResourceFlavor,
         ResourceGroup,
@@ -172,10 +213,13 @@ def build_cache(spec: dict):
                 when_can_borrow=FlavorFungibilityPolicy[wb],
                 when_can_preempt=FlavorFungibilityPolicy[wp],
             )
-        if cq.get("reclaim") is not None:
+        if cq.get("reclaim") is not None or cq.get("within") is not None:
             kwargs["preemption"] = Preemption(
-                reclaim_within_cohort=ReclaimWithinCohortPolicy[cq["reclaim"]]
+                within_cluster_queue=PreemptionPolicy[cq.get("within", "NEVER")],
+                reclaim_within_cohort=ReclaimWithinCohortPolicy[cq.get("reclaim", "NEVER")],
             )
+        if cq.get("preemption") is not None:
+            kwargs["preemption"] = cq["preemption"]  # a models.Preemption
         cache.add_or_update_cluster_queue(
             ClusterQueue(
                 name=cq["name"],
@@ -191,7 +235,7 @@ def build_cache(spec: dict):
             namespace="ns",
             name=w["name"],
             queue_name=w["queue"],
-            priority=w["prio"],
+            priority=w.get("prio", 0),
             creation_time=w["t"],
             pod_sets=tuple(
                 PodSet.build(ps["name"], ps["count"], ps["requests"])
@@ -201,3 +245,134 @@ def build_cache(spec: dict):
         pending.append((wl, w.get("cq") or w["queue"][len("lq-"):]))
     pending.sort(key=lambda e: (e[1], -e[0].priority, e[0].creation_time))
     return cache, pending
+
+
+def build_scheduler(spec: dict, device=None, use_solver=True, guard=None):
+    """(Scheduler, QueueManager, Cache) of this package for a spec, the
+    workloads queued in spec order; ``device`` is where the cycle solve
+    runs (the card unless "cpu")."""
+    from kueue_tpu_torch.core.preemption import Preemptor
+    from kueue_tpu_torch.core.queue_manager import QueueManager
+    from kueue_tpu_torch.core.scheduler import Scheduler
+    from kueue_tpu_torch.models import LocalQueue
+    from kueue_tpu_torch.utils.clock import FakeClock
+
+    clock = FakeClock(1000.0)
+    cache, pending = build_cache(spec)
+    mgr = QueueManager(clock=clock)
+    for cq in spec["cqs"]:
+        mgr.add_cluster_queue(cache.cluster_queues[cq["name"]].model)
+        mgr.add_local_queue(
+            LocalQueue(namespace="ns", name=f"lq-{cq['name']}", cluster_queue=cq["name"])
+        )
+    by_name = {wl.name: wl for wl, _ in pending}
+    for w in spec["workloads"]:
+        mgr.add_or_update_workload(by_name[w["name"]])
+    sched = Scheduler(
+        queues=mgr,
+        cache=cache,
+        clock=clock,
+        preemptor=Preemptor(clock),
+        use_solver=use_solver,
+        solver_threshold=1,
+        guard=guard,
+        device=device,
+    )
+    return sched, mgr, cache
+
+
+def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
+                n_cq: int = 10, fr: int = 6, drop_steps: bool = False) -> dict:
+    """A random cycle-solver input as numpy arrays: a cohort forest of
+    ``depth`` levels with quotas, lending and borrowing limits (NO_LIMIT
+    where unset), leaf usage, and a heads batch of ``w`` rows (a few of
+    them pads) with ``k`` candidates of up to ``c`` distinct cells,
+    zero-quantity cells, priority and timestamp ties, no_reclaim flags
+    and, for odd seeds, nonzero scores. Keys: the encoded-snapshot
+    fields (``parent``, ``level_mask``, ``nominal``, ``lending_limit``,
+    ``borrowing_limit``, ``local_usage``, ``max_depth``), the
+    HeadsBatch fields, ``paths``, ``seg_id``, ``n_segments`` and
+    ``n_steps`` (below the largest segment when ``drop_steps``, so
+    phase 2 drops ranks)."""
+    from kueue_tpu_torch.ops.assign_kernel import build_paths, build_roots
+    from kueue_tpu_torch.ops.quota import NO_LIMIT
+
+    rng = np.random.default_rng(seed)
+    # cohorts: a chain of levels, each cohort under one of the level above
+    parents_c, level = [], [-1]
+    for d in range(depth):
+        cur = []
+        for _ in range(int(rng.integers(1, 3))):
+            parents_c.append(int(rng.choice(level)))
+            cur.append(len(parents_c) - 1)
+        level = cur
+    n_cohort = len(parents_c)
+    n = n_cq + n_cohort
+    parent = np.full(n, -1, dtype=np.int32)
+    for j, p in enumerate(parents_c):
+        parent[n_cq + j] = -1 if p < 0 else n_cq + p
+    for i in range(n_cq):
+        parent[i] = -1 if (i > 0 and rng.random() < 0.1) else n_cq + int(rng.integers(0, n_cohort))
+    if depth:
+        parent[0] = n_cq + level[0]  # one ClusterQueue at the full depth
+    dep = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        cur = i
+        while parent[cur] >= 0:
+            dep[i] += 1
+            cur = parent[cur]
+    max_depth = int(dep.max())
+    level_mask = np.stack([dep == d for d in range(max_depth + 1)])
+    nominal = rng.integers(0, 40, size=(n, fr)).astype(np.int64)
+    nominal[n_cq:] *= rng.random((n_cohort, fr)) < 0.5
+    nominal[0, 0] = 64 << 30  # beyond int32
+    lend = np.where(rng.random((n, fr)) < 0.35, rng.integers(0, 30, (n, fr)), NO_LIMIT)
+    borrow = np.where(rng.random((n, fr)) < 0.35, rng.integers(0, 30, (n, fr)), NO_LIMIT)
+    local = np.zeros((n, fr), dtype=np.int64)
+    local[:n_cq] = rng.integers(0, 45, size=(n_cq, fr))
+
+    cq_row = rng.integers(0, n_cq, size=w).astype(np.int32)
+    n_pad = max(1, w // 8)
+    cq_row[-n_pad:] = -1
+    cells = np.full((w, k, c), -1, dtype=np.int32)
+    qty = np.zeros((w, k, c), dtype=np.int64)
+    for i in range(w):
+        for kk in range(k):
+            m = int(rng.integers(1, min(c, fr) + 1))
+            cells[i, kk, :m] = rng.choice(fr, size=m, replace=False)
+            qty[i, kk, :m] = rng.integers(0, 25, size=m)  # some zero cells
+    qty[0, 0, 0] = 1 << 33  # beyond int32
+    valid = rng.random((w, k)) < 0.85
+    score = (rng.integers(-3, 4, size=(w, k)) if seed % 2 else np.zeros((w, k))).astype(np.int64)
+    priority = (rng.integers(0, 3, size=w) * 10).astype(np.int64)
+    timestamp = rng.integers(0, 6, size=w).astype(np.int64) * 10**9
+    no_reclaim = rng.random(w) < 0.6
+
+    roots = build_roots(parent)
+    seg_id = np.full(w, -1, dtype=np.int32)
+    live = cq_row >= 0
+    uniq, inv = np.unique(roots[cq_row[live]], return_inverse=True)
+    seg_id[live] = inv
+    biggest = int(np.bincount(inv).max())
+    n_steps = max(1, biggest - 2) if drop_steps else biggest
+    return {
+        "parent": parent,
+        "level_mask": level_mask,
+        "nominal": nominal,
+        "lending_limit": lend.astype(np.int64),
+        "borrowing_limit": borrow.astype(np.int64),
+        "local_usage": local,
+        "max_depth": max_depth,
+        "cq_row": cq_row,
+        "cells": cells,
+        "qty": qty,
+        "valid": valid,
+        "priority": priority,
+        "timestamp": timestamp,
+        "no_reclaim": no_reclaim,
+        "score": score,
+        "paths": build_paths(parent, max_depth),
+        "seg_id": seg_id,
+        "n_segments": len(uniq),
+        "n_steps": n_steps,
+    }

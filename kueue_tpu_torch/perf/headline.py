@@ -76,6 +76,22 @@ def build_cluster(rng: np.random.Generator):
     return cache
 
 
+def build_queues(cache, clock):
+    """The headline QueueManager: one LocalQueue ``lq-cq-i`` per
+    ClusterQueue, as bench.py's ``build_cluster`` makes it."""
+    from kueue_tpu_torch.core.queue_manager import QueueManager
+    from kueue_tpu_torch.models import LocalQueue
+
+    mgr = QueueManager(clock)
+    for i in range(N_CQ):
+        name = f"cq-{i}"
+        mgr.add_cluster_queue(cache.cluster_queues[name].model)
+        mgr.add_local_queue(
+            LocalQueue(namespace="ns", name=f"lq-{name}", cluster_queue=name)
+        )
+    return mgr
+
+
 def build_backlog(rng: np.random.Generator):
     """N_CQ x WL_PER_CQ single-podset workloads, ~a third requesting
     gpus, as (workload, cq name) in per-CQ heap order (priority desc,

@@ -1,22 +1,34 @@
-"""Hold every kernel of the drain to its plain version, step by step.
+"""Hold every kernel to its plain version, step by step.
 
-``lockstep`` runs a drain on the kernels and, before every kernel step,
-copies the state; the plain version of that step runs on the copy, and
-the two results must be equal in every field (int64, tolerance 0). On
-the card this checks each CUDA kernel at every cycle of a real drain;
+- The drain: ``lockstep`` runs a drain on the kernels and, before every
+  kernel step, copies the state; the plain version of that step runs on
+  the copy, and the two results must be equal in every field (int64,
+  tolerance 0).
+- The interactive cycle: inside ``cycle_kernels_through(check)``, every
+  cycle dispatch of the port's Scheduler (core/solver.dispatch_lowered)
+  and every resident row scatter run launch by launch through
+  ``check(name, kernel, plain)``; ``Lockstep`` is the check that runs
+  the plain version on the same inputs (copies of what the kernel
+  writes in place) and compares.
+
+On the card this checks each CUDA kernel at every cycle of a real run;
 on the CPU both sides are the plain versions (a check of the harness).
 chip_smoke.py and tests/test_torch_cuda.py use it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import fields
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from kueue_tpu_torch._torch import torch
+from kueue_tpu_torch.core import solver
+from kueue_tpu_torch.ops import _build
+from kueue_tpu_torch.ops import assign_kernel as ak
 from kueue_tpu_torch.ops import drain_kernel as dk
-from kueue_tpu_torch.ops import quota
+from kueue_tpu_torch.ops import quota, resident
 
 
 class LockstepMismatch(AssertionError):
@@ -54,6 +66,7 @@ STEPS = (
     ("drain_phase2", dk.drain_phase2, dk.drain_phase2_plain),
     ("drain_queue_motion", dk.drain_queue_motion, dk.drain_queue_motion_plain),
 )
+DRAIN_KERNELS = tuple(dict.fromkeys(name for name, _, _ in STEPS))
 
 
 def max_abs_diff(a, b, skip=()) -> int:
@@ -125,3 +138,140 @@ def lockstep(
                 )
         cycles += 1
     return ctx, state, cycles
+
+
+# ---- the interactive cycle ----------------------------------------------
+
+CYCLE_KERNELS = _build.CYCLE_KERNELS
+
+# check(kernel name, kernel thunk, plain thunk) -> the kernel's result
+Check = Callable[[str, Callable, Callable], object]
+
+
+def cycle_solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps, check):
+    """``solve_cycle_segmented_packed`` launch by launch (four quota_tree
+    passes, cycle_phase1, cycle_phase2), each through ``check``."""
+    sub, g = check(
+        "quota_tree", lambda: quota.subtree_quota(tree), lambda: quota.subtree_quota_plain(tree)
+    )
+    usage = check(
+        "quota_tree",
+        lambda: quota.usage_tree(tree, g, local_usage),
+        lambda: quota.usage_tree_plain(tree, g, local_usage),
+    )
+    avail = check(
+        "quota_tree",
+        lambda: quota.available_all(tree, sub, g, usage),
+        lambda: quota.available_all_plain(tree, sub, g, usage),
+    )
+    pot = check(
+        "quota_tree",
+        lambda: quota.potential_available_all(tree, sub, g),
+        lambda: quota.potential_available_all_plain(tree, sub, g),
+    )
+    chosen, borrows, pk = check(
+        "cycle_phase1",
+        lambda: ak.phase1_classify(tree, sub, g, local_usage, heads, avail, pot),
+        lambda: ak.phase1_classify_plain(tree, sub, local_usage, avail, pot, heads),
+    )
+    seg_t, segments = ak._as_seg_id(seg_id, local_usage.device)
+    usage_p = usage.clone()  # phase 2 updates the usage tree in place
+    packed, _ = check(
+        "cycle_phase2",
+        lambda: (
+            ak.cycle_phase2(
+                tree, sub, g, usage, paths, heads, seg_t, segments,
+                n_segments, n_steps, chosen, borrows, pk,
+            ),
+            usage,
+        ),
+        lambda: (
+            ak.cycle_phase2_plain(
+                tree, sub, g, usage_p, paths, heads, seg_t,
+                n_segments, n_steps, chosen, borrows, pk,
+            ),
+            usage_p,
+        ),
+    )
+    return packed
+
+
+def scatter_step(usage, idx, rows, check) -> None:
+    """``scatter_rows`` through ``check`` (the plain version on a copy
+    of the buffer as the kernel found it)."""
+    expect = usage.clone()
+
+    def kern():
+        resident.scatter_rows(usage, idx, rows)
+        return usage
+
+    def plain():
+        resident.scatter_rows_plain(expect, idx, rows)
+        return expect
+
+    check("scatter_rows", kern, plain)
+
+
+@contextlib.contextmanager
+def cycle_kernels_through(check: Check):
+    """While active, the cycle dispatch (``solver.dispatch_lowered``)
+    and the resident scatter (``ResidentCycleState.refresh``) run launch
+    by launch through ``check``."""
+    saved = (solver.solve_cycle_segmented_packed, solver.scatter_rows)
+    solver.solve_cycle_segmented_packed = (
+        lambda tree, local, heads, paths, seg_id, n_segments, n_steps: cycle_solve(
+            tree, local, heads, paths, seg_id, n_segments, n_steps, check
+        )
+    )
+    solver.scatter_rows = lambda usage, idx, rows: scatter_step(usage, idx, rows, check)
+    try:
+        yield
+    finally:
+        solver.solve_cycle_segmented_packed, solver.scatter_rows = saved
+
+
+def _tensors(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+class Lockstep:
+    """The check that holds each kernel launch to its plain version on
+    the same inputs: ``errs`` collects the largest difference per
+    kernel, ``launches`` the launches checked, ``plain_ms`` (when given)
+    each plain call's wall time in ms, synchronised on both sides. A
+    difference raises LockstepMismatch and is kept in ``failures`` too,
+    since the Scheduler contains an exception raised inside a cycle."""
+
+    def __init__(self, errs: Dict[str, int], label: str = "",
+                 plain_ms: Optional[Dict[str, List[float]]] = None):
+        self.errs = errs
+        self.label = label
+        self.plain_ms = plain_ms
+        self.launches: Dict[str, int] = {}
+        self.failures: List[str] = []
+
+    def __call__(self, name, kern, plain):
+        out_k = kern()
+        if self.plain_ms is None:
+            out_p = plain()
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_p = plain()
+            torch.cuda.synchronize()
+            self.plain_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        err = 0
+        for x, y in zip(_tensors(out_k), _tensors(out_p)):
+            x, y = x.to(torch.int64), y.to(torch.int64)
+            if x.shape != y.shape:
+                err = max(err, 1 << 62)
+            elif x.numel():
+                err = max(err, int((x - y).abs().max().item()))
+        self.errs[name] = max(self.errs.get(name, 0), err)
+        self.launches[name] = self.launches.get(name, 0) + 1
+        if err:
+            msg = (f"{self.label}: {name} differs from its plain version by {err} "
+                   f"at its launch {self.launches[name]}")
+            self.failures.append(msg)
+            raise LockstepMismatch(msg)
+        return out_k

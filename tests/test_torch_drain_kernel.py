@@ -288,8 +288,7 @@ def test_group_walk_matches(seed):
 def test_lockstep_harness_runs_on_cpu():
     """The harness chip_smoke.py holds the kernels with: on the CPU both
     sides are the plain versions, so it must report zero everywhere."""
-    from kueue_tpu_torch.ops import _build
-    from kueue_tpu_torch.perf.lockstep import lockstep
+    from kueue_tpu_torch.perf.lockstep import DRAIN_KERNELS, lockstep
 
     enc, queues_np, plan = _plan_inputs(mixed_spec(8, workloads_per_cq=4), 8)
     tree, queues, local, paths = interop.drain_inputs(enc, queues_np, "cpu")
@@ -298,4 +297,4 @@ def test_lockstep_harness_runs_on_cpu():
         tree, local, queues, paths, plan.n_segments, plan.n_steps, plan.max_cycles, errs
     )
     assert cycles == int(state.cycle.item()) > 0
-    assert errs == {name: 0 for name in _build.KERNELS}
+    assert errs == {name: 0 for name in DRAIN_KERNELS}

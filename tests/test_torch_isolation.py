@@ -68,6 +68,9 @@ from kueue_tpu_torch.perf.cases import build_cache, mixed_spec
 cache, pending = build_cache(mixed_spec(1, workloads_per_cq=3))
 out = run_drain(take_snapshot(cache), pending, cache.flavors, device="cpu")
 assert out.admitted and out.cycles > 0
+from kueue_tpu_torch.perf.cases import build_scheduler, cycle_spec
+sched, _, _ = build_scheduler(cycle_spec(0, workloads_per_cq=2), device="cpu")
+assert sched.schedule().admitted
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "kueue_tpu")
             and sys.modules[m] is not None]
 print("OK", len(mods), out.cycles, len(out.admitted))

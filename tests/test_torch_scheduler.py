@@ -1,0 +1,377 @@
+"""The port's interactive admission cycle (kueue_tpu_torch's Scheduler
+on the CPU, its plain torch versions) against the JAX package's
+Scheduler, exactly:
+
+- per-cycle decision traces (admitted workloads with their flavors in
+  admission order, preempting, skipped) and the final cache on
+  tests/test_solver_path.py's seeded specs (fit-only, with preemption,
+  two resource groups) and on perf.cases.cycle_spec's depth-3 clusters;
+- the guard's host mirror (solve_lowered_host) against the JAX one and
+  against the port's own dispatch;
+- ResidentCycleState's delta path against a fresh upload;
+- the QueueManager's pop order on the headline backlog;
+- the branches the port refuses, and no silent CPU fallback: a kernel
+  that cannot be built or launched raises out of the guard and the
+  Scheduler instead of failing over to the host mirror.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from kueue_tpu.core.guard import solve_lowered_host as jax_solve_lowered_host
+from kueue_tpu.core.queue_manager import queue_order_timestamp as jax_ts
+from kueue_tpu.core.snapshot import take_snapshot as jax_take_snapshot
+from kueue_tpu.core.solver import lower_heads as jax_lower_heads
+from kueue_tpu.models import FlavorFungibility, FlavorFungibilityPolicy
+from kueue_tpu.models.cluster_queue import Preemption
+from kueue_tpu.models.constants import PreemptionPolicy, ReclaimWithinCohortPolicy
+from kueue_tpu_torch.core.guard import results_match, solve_lowered_host
+from kueue_tpu_torch.core.queue_manager import queue_order_timestamp
+from kueue_tpu_torch.core.snapshot import take_snapshot
+from kueue_tpu_torch.core.solver import ResidentCycleState, dispatch_lowered, lower_heads
+from kueue_tpu_torch.ops import _build
+from kueue_tpu_torch.perf import cases, headline
+
+from tests.test_solver_path import build_env, drain_and_trace, random_spec
+
+
+def port_spec(spec):
+    """A test_solver_path spec with its JAX Preemption objects as the
+    policy names perf.cases.build_cache reads."""
+    out = copy.deepcopy({k: v for k, v in spec.items()})
+    for cq in out["cqs"]:
+        p = cq.pop("preemption", None)
+        if p is not None:
+            cq["within"] = p.within_cluster_queue.name
+            cq["reclaim"] = p.reclaim_within_cohort.name
+    return out
+
+
+def jax_spec(spec):
+    """A perf.cases spec (policy names) in test_solver_path.build_env's
+    form (the JAX package's model objects)."""
+    out = copy.deepcopy(spec)
+    for cq in out["cqs"]:
+        f = cq.pop("fungibility", None)
+        if f is not None:
+            cq["fungibility"] = FlavorFungibility(
+                when_can_borrow=FlavorFungibilityPolicy[f[0]],
+                when_can_preempt=FlavorFungibilityPolicy[f[1]],
+            )
+        within, reclaim = cq.pop("within", None), cq.pop("reclaim", None)
+        if within is not None or reclaim is not None:
+            cq["preemption"] = Preemption(
+                within_cluster_queue=PreemptionPolicy[within or "NEVER"],
+                reclaim_within_cohort=ReclaimWithinCohortPolicy[reclaim or "NEVER"],
+            )
+    return out
+
+
+def both_envs(spec, names=False):
+    """((jax sched, mgr, cache), (port sched, mgr, cache)); ``names``:
+    the spec carries policy names (perf.cases), not JAX objects."""
+    jspec = jax_spec(spec) if names else spec
+    pspec = spec if names else port_spec(spec)
+    js, jm, jc, _ = build_env(jspec, use_solver=True)
+    ps, pm, pc = cases.build_scheduler(pspec, device="cpu")
+    return (js, jm, jc), (ps, pm, pc)
+
+
+def assert_same_cycles(spec, names=False):
+    jax_env, port_env = both_envs(spec, names)
+    jt, jf = drain_and_trace(*jax_env)
+    pt, pf = drain_and_trace(*port_env)
+    assert pt == jt
+    assert pf == jf
+    resolutions = [t.resolution for t in port_env[0].last_traces]
+    assert resolutions == [t.resolution for t in jax_env[0].last_traces]
+    return jt, port_env[0]
+
+
+class TestSchedulerParity:
+    @pytest.mark.parametrize("seed", range(8))
+    def test_fit_only(self, seed):
+        trace, sched = assert_same_cycles(random_spec(seed))
+        assert any(c["admitted"] for c in trace)
+        assert "device" in [t.resolution for t in sched.last_traces]
+
+    @pytest.mark.parametrize("seed", range(12, 20))
+    def test_with_preemption(self, seed):
+        assert_same_cycles(random_spec(seed, with_preemption=True))
+
+    def test_multi_resource_groups(self, monkeypatch):
+        """test_solver_path's two-resource-group spec (cpu+memory | gpu),
+        taken from its test by standing in for its parity assertion."""
+        import tests.test_solver_path as tsp
+
+        spec = {}
+        monkeypatch.setattr(tsp, "assert_parity", spec.update)
+        tsp.TestSolverPathParity().test_multi_resource_groups()
+        trace, _ = assert_same_cycles(spec)
+        assert any(c["admitted"] for c in trace)
+
+    @pytest.mark.parametrize("seed", range(4))
+    def test_depth3_cohorts_limits_and_reservations(self, seed):
+        trace, sched = assert_same_cycles(cases.cycle_spec(seed), names=True)
+        assert any(c["admitted"] for c in trace)
+        assert sched._resident_state.delta_rows > 0  # the scatter path ran
+
+    def test_victim_search_is_host(self):
+        spec = random_spec(15, with_preemption=True)
+        _, (sched, mgr, cache) = both_envs(spec)
+        seen = []
+        sched.cycle_observers.append(
+            lambda res: seen.extend(e.victim_search for e in res.preempting)
+        )
+        drain_and_trace(sched, mgr, cache)
+        assert seen and set(seen) == {"host"}
+
+
+def test_cycle_lockstep_harness_on_cpu():
+    """perf.lockstep's cycle harness (what chip_smoke.py runs on the card)
+    leaves decisions unchanged, checks every launch, and restores the
+    solver afterwards; on the CPU both sides are the plain versions."""
+    from kueue_tpu_torch.core import solver
+    from kueue_tpu_torch.core.guard import GuardConfig, SolverGuard
+    from kueue_tpu_torch.perf.lockstep import CYCLE_KERNELS, Lockstep, cycle_kernels_through
+    from kueue_tpu_torch.utils.clock import FakeClock
+
+    spec = cases.cycle_spec(0)
+    guard = SolverGuard(clock=FakeClock(1000.0),
+                        config=GuardConfig(mode="device", divergence_check_every=1))
+    sched, mgr, cache = cases.build_scheduler(spec, device="cpu", guard=guard)
+    errs = {}
+    check = Lockstep(errs)
+    saved = solver.solve_cycle_segmented_packed
+    with cycle_kernels_through(check):
+        checked = drain_and_trace(sched, mgr, cache)
+    assert solver.solve_cycle_segmented_packed is saved
+    assert checked == drain_and_trace(*cases.build_scheduler(spec, device="cpu"))
+    assert set(check.launches) == set(CYCLE_KERNELS)
+    assert all(e == 0 for e in errs.values()) and check.failures == []
+    assert guard.divergence_checks > 0 and guard.divergences == 0
+
+
+def _heads(mgr):
+    return [(wl, cq) for cq, pq in mgr.cluster_queues.items() for wl in pq.snapshot_sorted()]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_host_mirror_matches_jax_and_the_dispatch(seed):
+    spec = cases.cycle_spec(seed)
+    (_, jm, jc), (_, pm, pc) = both_envs(spec, names=True)
+    jsnap, psnap = jax_take_snapshot(jc), take_snapshot(pc)
+    jlow = jax_lower_heads(jsnap, _heads(jm), jc.flavors,
+                           timestamp_fn=lambda wl: jax_ts(wl, jm._ts_policy))
+    plow = lower_heads(psnap, _heads(pm), pc.flavors,
+                       timestamp_fn=lambda wl: queue_order_timestamp(wl, pm._ts_policy))
+    want = jax_solve_lowered_host(jsnap, jlow)
+    got = solve_lowered_host(psnap, plow)
+    for name in ("chosen", "admitted", "borrows", "reserved", "order"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+    dev = dispatch_lowered(psnap, plow, device="cpu")
+    assert results_match(dev, got) == []
+    assert np.asarray(got.admitted).any()
+
+
+def test_resident_delta_matches_a_fresh_upload():
+    """The delta path (scatter of changed rows) decides as a fresh
+    upload does, across usage changes and a quota edit."""
+    from kueue_tpu_torch.core.workload_info import make_admission
+    from kueue_tpu_torch.models import ClusterQueue, Workload, WorkloadConditionType
+    from kueue_tpu_torch.models.cluster_queue import FlavorQuotas, ResourceGroup
+    from kueue_tpu_torch.models.workload import PodSet
+
+    spec = port_spec(random_spec(21))
+    _, mgr, cache = cases.build_scheduler(spec, device="cpu", use_solver=False)
+    resident = ResidentCycleState("cpu")
+    ts = lambda wl: queue_order_timestamp(wl, mgr._ts_policy)  # noqa: E731
+
+    def compare():
+        snapshot = take_snapshot(cache)
+        lowered = lower_heads(snapshot, _heads(mgr), cache.flavors, timestamp_fn=ts)
+        fresh = dispatch_lowered(snapshot, lowered, device="cpu")
+        res = dispatch_lowered(snapshot, lowered, resident=resident)
+        for name in ("chosen", "admitted", "borrows", "reserved", "order"):
+            np.testing.assert_array_equal(getattr(fresh, name), getattr(res, name))
+        # the resident buffer holds exactly the snapshot's leaf usage
+        np.testing.assert_array_equal(resident._usage.numpy(), snapshot.local_usage)
+
+    compare()
+    assert resident.full_uploads == 1
+    cq_name = spec["cqs"][0]["name"]
+    flavor = spec["cqs"][0]["groups"][0]["flavors"][0][0]
+    for i, cpu in enumerate(("2", "3")):
+        wl = Workload(
+            namespace="ns", name=f"resident-{i}", queue_name=f"lq-{cq_name}",
+            priority=0, creation_time=500.0,
+            pod_sets=(PodSet.build("main", 1, {"cpu": cpu}),),
+        )
+        wl.admission = make_admission(cq_name, {"main": {"cpu": flavor}}, wl)
+        wl.set_condition(WorkloadConditionType.QUOTA_RESERVED, True,
+                         reason="QuotaReserved", now=500.0)
+        cache.add_or_update_workload(wl)
+        compare()
+    assert resident.full_uploads == 1
+    assert resident.delta_rows >= 2
+
+    cq0 = cache.cluster_queues[cq_name].model
+    cache.add_or_update_cluster_queue(
+        ClusterQueue(
+            name=cq_name, cohort=cq0.cohort, namespace_selector={},
+            resource_groups=(ResourceGroup(("cpu",), (FlavorQuotas.build(flavor, {"cpu": "99"}),)),),
+        )
+    )
+    compare()
+    assert resident.full_uploads == 2
+
+
+def test_queue_pop_order_on_the_headline_backlog():
+    """The port's Python heap pops the headline backlog (priority and
+    timestamp ties included) in the JAX QueueManager's order."""
+    import bench
+    from kueue_tpu_torch.utils.clock import FakeClock
+
+    rng = np.random.default_rng(headline.HEADLINE_SEED)
+    _, jmgr = bench.build_cluster(rng)
+    for wl, _ in bench.build_backlog(rng):
+        jmgr.add_or_update_workload(wl)
+    rng = np.random.default_rng(headline.HEADLINE_SEED)
+    pcache = headline.build_cluster(rng)
+    pmgr = headline.build_queues(pcache, FakeClock(0.0))
+    for wl, _ in headline.build_backlog(rng):
+        pmgr.add_or_update_workload(wl)
+    assert list(pmgr.cluster_queues) == list(jmgr.cluster_queues)
+    for name, jpq in jmgr.cluster_queues.items():
+        ppq = pmgr.cluster_queues[name]
+        jorder = [jpq.heap.pop().name for _ in range(len(jpq.heap))]
+        porder = [ppq.heap.pop().name for _ in range(len(ppq.heap))]
+        assert porder == jorder, name
+
+
+class TestRefusals:
+    def _env(self):
+        return cases.build_scheduler(port_spec(random_spec(0)), device="cpu")
+
+    def test_runs_on_the_card_unless_asked(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cases.build_scheduler(port_spec(random_spec(0)))
+
+    @pytest.mark.parametrize("kwargs", [
+        {"fair_sharing": True},
+        {"use_preempt_solver": True},
+    ])
+    def test_unported_branches_raise(self, kwargs):
+        from kueue_tpu_torch.core.scheduler import Scheduler
+
+        _, mgr, cache = self._env()
+        with pytest.raises(NotImplementedError):
+            Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu", **kwargs)
+
+    def test_non_default_policy_raises(self):
+        from kueue_tpu_torch.core.scheduler import Scheduler
+
+        class Scored:
+            is_default = False
+            name = "scored"
+
+        _, mgr, cache = self._env()
+        with pytest.raises(NotImplementedError):
+            Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu", policy=Scored())
+
+    def test_mesh_dispatch_raises(self):
+        _, mgr, cache = self._env()
+        snapshot = take_snapshot(cache)
+        lowered = lower_heads(snapshot, _heads(mgr), cache.flavors)
+        with pytest.raises(NotImplementedError):
+            dispatch_lowered(snapshot, lowered, mesh=object(), device="cpu")
+
+
+class TestKernelErrorsAreNotContained:
+    """A hand-written kernel that cannot be built, refuses its input or
+    fails to launch raises out of the guard and the Scheduler; the
+    guard's failover to the host mirror is kept for everything else."""
+
+    def _lowered(self):
+        sched, mgr, cache = cases.build_scheduler(port_spec(random_spec(0)), device="cpu")
+        snapshot = take_snapshot(cache)
+        return snapshot, lower_heads(snapshot, _heads(mgr), cache.flavors)
+
+    @pytest.mark.parametrize("exc", [
+        _build.KernelError("nvcc failed for csrc/cycle_phase2.cu"),
+        _build.KernelError("CUDA kernel cycle_phase1 failed to launch: cudaError 700"),
+        _build.KernelInputError("cycle_phase2: takes C<=32 cells, got 40"),
+    ])
+    def test_guard_reraises(self, exc):
+        from kueue_tpu_torch.core.guard import SolverGuard
+        from kueue_tpu_torch.utils.clock import FakeClock
+
+        snapshot, lowered = self._lowered()
+        guard = SolverGuard(clock=FakeClock(0.0))  # mode="auto"
+
+        def dispatch():
+            raise exc
+
+        with pytest.raises(type(exc)):
+            guard.solve(snapshot, lowered, dispatch)
+        assert guard.failovers == 0 and guard.breaker.consecutive_failures == 0
+
+    def test_guard_fails_over_on_other_errors(self):
+        from kueue_tpu_torch.core.guard import SolverGuard
+        from kueue_tpu_torch.utils.clock import FakeClock
+
+        snapshot, lowered = self._lowered()
+        guard = SolverGuard(clock=FakeClock(0.0))
+
+        def dispatch():
+            raise RuntimeError("transient device fault")
+
+        out = guard.solve(snapshot, lowered, dispatch)
+        assert out.via == "host-mirror" and out.result is not None
+        assert guard.failovers == 1
+        assert results_match(out.result, solve_lowered_host(snapshot, lowered)) == []
+
+    def test_scheduler_does_not_contain_them(self, monkeypatch):
+        from kueue_tpu_torch.core import solver
+
+        sched, _, _ = cases.build_scheduler(port_spec(random_spec(0)), device="cpu")
+
+        def broken(*args, **kwargs):
+            raise _build.KernelError("CUDA kernel cycle_phase2 failed to launch: cudaError 700")
+
+        monkeypatch.setattr(solver, "dispatch_lowered", broken)
+        with pytest.raises(_build.KernelError):
+            sched.schedule()
+        assert sched.guard.failovers == 0 and sched.guard.contained_cycles == 0
+
+    def test_device_faults_in_the_dispatch_become_kernel_errors(self, monkeypatch):
+        """A kernel's fault on the card surfaces as torch.AcceleratorError
+        at the next CUDA call; the dispatch raises it as a KernelError."""
+        from kueue_tpu_torch.core import solver
+
+        snapshot, lowered = self._lowered()
+
+        def faulted(*args, **kwargs):
+            raise torch.AcceleratorError("CUDA error: an illegal memory access was encountered")
+
+        monkeypatch.setattr(solver, "solve_cycle_segmented_packed", faulted)
+        with pytest.raises(_build.KernelError, match="illegal memory access"):
+            dispatch_lowered(snapshot, lowered, device="cpu")
+
+    def test_scheduler_on_card_builds_at_construction(self, monkeypatch, tmp_path):
+        """Built for cuda, the Scheduler builds and loads its kernels in
+        its constructor: without nvcc it raises there."""
+        import shutil
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(shutil, "which", lambda name: None)
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(_build, "_LIBS", {})
+        with pytest.raises(_build.KernelError, match="nvcc not found"):
+            cases.build_scheduler(port_spec(random_spec(0)), device="cuda")
