@@ -3,11 +3,12 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without them, or without the package beside
-it, it exits non-zero and prints no result. It drives two paths: the
-plain bulk drain (phases 2-3) and the interactive admission cycle
-(phase 4).
+it, it exits non-zero and prints no result. It drives four paths: the
+plain bulk drain (phases 2-3), the K-round megaloop (phase 4), the
+fair-sharing drain (phase 5) and the interactive admission cycle
+(phase 6).
 
-1. Prints the card's name and power limit, builds the seven kernels from
+1. Prints the card's name and power limit, builds the nine kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
    the build seconds and each kernel's registers and spills.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
@@ -20,14 +21,37 @@ plain bulk drain (phases 2-3) and the interactive admission cycle
    every launch timed on the device (a spin kernel holds the stream
    while the host enqueues the events and the launch), and each
    cycle's bytes bound is counted from that cycle's data.
-3. Drives the slice through its entry point: headline cluster (seed 0)
-   -> Cache -> take_snapshot -> run_drain(device="cuda"), with the
-   launch counters reset just before; asserts 74 cycles, 15178
+3. Drives the plain drain through its entry point: headline cluster
+   (seed 0) -> Cache -> take_snapshot -> run_drain(device="cuda"), with
+   the launch counters reset just before; asserts 74 cycles, 15178
    admitted, 34822 parked, 0 fallback, not truncated, the decision
    digest the JAX package gives, and that every kernel launched. Prints
    the drain's wall time (median of 3 after a warm run), and the
    device time of the same drain's launches replayed as one CUDA graph.
-4. The interactive cycle (``Scheduler.schedule``) over the headline
+4. The megaloop chain at the headline (perf/megaloop.py: 8 rounds of 8
+   cycles a launch, relaunched over the last round's undecided backlog
+   until a log is not truncated):
+   a. lockstep: every launch of its six per-cycle launches (quota_tree
+      twice, drain_nominate, drain_phase2, drain_queue_motion,
+      megaloop_boundary) held to its plain version at every cycle of
+      both launches of the chain, and of mixed_spec(7) at 56 cycles a
+      round, where a round boundary retires stuck queues;
+   b. the main path: the chained launch_drain_megaloop(device="cuda"),
+      counters reset before; asserts MEGALOOP_EXPECT, the lockstep's
+      rounds, and every kernel launched; prints each launch's rounds,
+      host syncs and wall split into plan, enqueue and fetch;
+   c. each round equal to the serial chain of launch_drain(max_cycles=8)
+      on cuda (outcome signature, undecided, final usage), with that
+      chain's wall beside the megaloop's;
+   d. every launch of the chain timed alone on the device, with its
+      bytes bound from its own cycle's data.
+5. The fair-sharing drain at the headline: lockstep of its launches
+   (drain_fair_phase2 in place of drain_phase2) at every cycle of the
+   headline and of the depth-3 weighted perf.cases.fair_spec;
+   run_drain(fair_sharing=True, device="cuda") gives FAIR_EXPECT with
+   every kernel launched; its wall and solve time; every launch timed
+   alone with its bytes bound.
+6. The interactive cycle (``Scheduler.schedule``) over the headline
    cluster with the whole 50k backlog queued (1000 heads a cycle): the
    16 cycles of CYCLE_EXPECT, then on to cycle 40 (steady state: from
    cycle 24 on each cycle changes at most N/4 usage rows, so the
@@ -53,8 +77,8 @@ plain bulk drain (phases 2-3) and the interactive admission cycle
       16 cycles' wall per cycle split into snapshot, lowering,
       dispatch (solve and the one fetch), the rest of nomination and
       the host apply.
-5. Prints the kernels' JSON line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+7. Prints the nine kernels' JSON line, the card line, and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 No phase is caught and passed over: any failure exits non-zero.
 """
@@ -73,6 +97,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock, per timed launch
 SMALL_SEED = 7  # mixed_spec seed whose drain freezes PendingFlavors queues
+FAIR_SEED = 4  # fair_spec seed: depth 3, weights 0-2000, 133 cycles
 SMALL_CYCLE_SEED = 0  # cycle_spec seed: reservations, preemption, scatters
 SMALL_CYCLES = 24  # its preempting heads re-nominate until then (no evictions)
 STEADY_CYCLES = 40  # the headline run goes on to here: from cycle 24 on, each
@@ -86,6 +111,8 @@ SOURCES = {
     "cycle_phase1": "kueue_tpu_torch/csrc/cycle_phase1.cu",
     "cycle_phase2": "kueue_tpu_torch/csrc/cycle_phase2.cu",
     "scatter_rows": "kueue_tpu_torch/csrc/scatter_rows.cu",
+    "megaloop_boundary": "kueue_tpu_torch/csrc/megaloop_boundary.cu",
+    "drain_fair_phase2": "kueue_tpu_torch/csrc/drain_fair_phase2.cu",
 }
 REPLACES = {
     "quota_tree": "kueue_tpu/ops/quota.py:93",
@@ -95,6 +122,8 @@ REPLACES = {
     "cycle_phase1": "kueue_tpu/ops/assign_kernel.py:199",
     "cycle_phase2": "kueue_tpu/ops/assign_kernel.py:475",
     "scatter_rows": "kueue_tpu/core/solver.py:504",
+    "megaloop_boundary": "kueue_tpu/ops/megaloop_kernel.py:82",
+    "drain_fair_phase2": "kueue_tpu/ops/drain_kernel.py:1297",
 }
 
 
@@ -145,11 +174,12 @@ def _distinct(rows: np.ndarray, cells: np.ndarray, fr: int) -> int:
     return int(np.unique(rows[keep].astype(np.int64) * fr + cells[keep]).size)
 
 
-def cycle_bytes(bd: BoundData, cursor: np.ndarray, buf) -> dict:
+def cycle_bytes(bd: BoundData, cursor: np.ndarray, buf, alive=None) -> dict:
     """Bytes each kernel must move in one cycle (each input read once,
     each output written once), counted from the cycle's own data:
-    ``cursor`` at the cycle's start and the buffers after it, which say
-    who was nominated and admitted. quota_tree gets its two passes."""
+    ``cursor`` (and the megaloop's ``alive``) at the cycle's start and
+    the buffers after it, which say who was nominated and admitted.
+    quota_tree gets its two passes."""
     q, l, p, k, c, g, fr, d1 = bd.q, bd.l, bd.p, bd.k, bd.c, bd.g, bd.fr, bd.d1
     tree_links = 4 * bd.n + d1 * bd.n
     mat = bd.n * fr * 8
@@ -158,6 +188,8 @@ def cycle_bytes(bd: BoundData, cursor: np.ndarray, buf) -> dict:
     quota = [3 * mat + tree_links, 5 * mat + tree_links]
 
     active = cursor < bd.qlen
+    if alive is not None:
+        active &= alive
     n_act = int(active.sum())
     cur = np.minimum(cursor, l - 1)
     head_cells = bd.cells[np.arange(q), cur]  # [Q,P,K,C]
@@ -670,6 +702,374 @@ def cycle_path(device) -> dict:
     }
 
 
+# ---- the megaloop and the fair drain --------------------------------------
+
+
+def boundary_bytes(bd: BoundData, cursor, closing: bool, alive_after, n_stamped: int) -> int:
+    """Bytes megaloop_boundary must move in one cycle: per queue its
+    cursor, length, alive, stuck and admitted flags; a 4-byte round
+    stamp per admission of the cycle; at a boundary the leaf usage read
+    and its snapshot written, per queue the snapshot's cursor and stuck
+    flag, the new alive, stuck, retries, per-group cursors and budget
+    written, and the budget read for each remaining queue; the
+    scalars."""
+    q, pg = bd.q, bd.p * bd.g
+    b = q * 11 + 4 * n_stamped + 24
+    if closing:
+        remaining = (cursor < bd.qlen) & alive_after
+        b += 2 * bd.n * bd.fr * 8 + q * (4 + 1 + 1 + 1 + 4 + 4 * pg + 4)
+        b += 4 * int(remaining.sum())
+    return b
+
+
+def fair_bytes(bd: BoundData, cursor, alive, buf, n_res: int) -> int:
+    """Bytes drain_fair_phase2 must move in one cycle (each input read
+    once, each output written once): per participating head its used
+    cells and their quantities (an unused slot costs nothing), cursor, priority, timestamp, ClusterQueue row and
+    flags; per distinct node on their paths its usage and subtree rows
+    (the borrowed sums), lendable, weight, parent and depth; guaranteed
+    and borrowing_limit per distinct (node, cell) pair on the paths;
+    nominal per reserving head's leaf pair; usage written per moved
+    pair; local read and written per admitted leaf pair; the cell-to-
+    resource map, the segments and the admitted flags."""
+    fr, d1 = bd.fr, bd.d1
+    active = (cursor < bd.qlen) & alive
+    is_fit = buf.is_fit.cpu().numpy()
+    is_pre = buf.is_pre.cpu().numpy()
+    admitted = buf.admitted.cpu().numpy()
+    part = np.nonzero(active & (is_fit | is_pre) & (bd.rows >= 0))[0]
+    ce = buf.cells_eff.cpu().numpy()
+    qe = buf.qty_eff.cpu().numpy()
+    ce = np.where(qe > 0, ce, -1)
+    pc = ce.shape[1]
+    path_nodes = bd.paths[bd.rows[part]]  # [H, D+1]
+    nodes = np.unique(path_nodes[path_nodes >= 0])
+    node_rows = np.repeat(path_nodes, pc, axis=1)
+    node_cells = np.where(node_rows >= 0, np.tile(ce[part], (1, d1)), -1)
+    pairs = _distinct(node_rows.reshape(-1), node_cells.reshape(-1), fr)
+    adm = np.nonzero(admitted)[0]
+    adm_pairs = _distinct(np.repeat(bd.rows[adm], pc), ce[adm].reshape(-1), fr)
+    reserve = np.nonzero(is_pre & bd.no_reclaim & active)[0]
+    res_pairs = _distinct(np.repeat(bd.rows[reserve], pc), ce[reserve].reshape(-1), fr)
+    moved = np.nonzero(admitted | (is_pre & bd.no_reclaim & active))[0]
+    mrows = np.repeat(bd.paths[bd.rows[moved]], pc, axis=1)
+    mcells = np.where(mrows >= 0, np.tile(ce[moved], (1, d1)), -1)
+    moved_pairs = _distinct(mrows.reshape(-1), mcells.reshape(-1), fr)
+    per_head = 4 + 8 + 8 + 4 + 4 * d1 + 4 + 5
+    per_node = 2 * fr * 8 + 8 * n_res + 8 + 4 + 4
+    return (len(part) * per_head + 12 * int((ce[part] >= 0).sum()) + len(nodes) * per_node + pairs * 16 + res_pairs * 8
+            + moved_pairs * 8 + adm_pairs * 16 + 4 * fr + 4 * (bd.s + 1) + 4 * bd.q
+            + bd.q)
+
+
+def megaloop_inputs(snap, pending, flavors, dev):
+    """One chain launch's plan and device inputs, as
+    launch_drain_megaloop builds them."""
+    from kueue_tpu_torch._torch import to_device
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.perf import headline
+
+    plan = pd.plan_drain(snap, pending, flavors, max_cells=headline.HEADLINE_MAX_CELLS)
+    tree, paths, local, queues = pd._drain_device_inputs(snap, plan, dev)
+    cap = to_device(pd._cap_suffix_of(plan), dev, np.int32)
+    return dict(snap=snap, pending=list(pending), plan=plan, tree=tree, paths=paths,
+                local=local, queues=queues, cap=cap)
+
+
+def megaloop_log(inp, state):
+    """The host-decoded log a megaloop state holds."""
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.ops.megaloop_kernel import pack_megaloop, result_of
+    from kueue_tpu_torch.perf import megaloop
+
+    return pd.MegaloopLaunch(
+        plan=inp["plan"], queues_np=inp["plan"].queues_np,
+        flat_dev=pack_megaloop(result_of(state)),
+        usage_shape=tuple(inp["snap"].local_usage.shape),
+        start_usage=np.asarray(inp["snap"].local_usage), pending=inp["pending"],
+        chunk_cycles=megaloop.CHUNK_CYCLES, max_rounds=megaloop.MAX_ROUNDS,
+    ).fetch()
+
+
+def round_view(out):
+    from kueue_tpu_torch.core.pipeline import outcome_signature
+
+    sig = outcome_signature(out)
+    sig["undecided"] = sorted((wl.key, cq) for wl, cq in out.undecided)
+    sig["final_usage"] = np.asarray(out.final_usage).tolist()
+    return sig
+
+
+def megaloop_path(dev, cache, pending) -> dict:
+    """Phase 4: the megaloop chain at the headline (module docstring)."""
+    import torch
+
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.pipeline import speculative_snapshot
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.ops import megaloop_kernel as ml
+    from kueue_tpu_torch.perf import cases, headline, megaloop
+    from kueue_tpu_torch.perf.lockstep import MEGALOOP_STEPS, lockstep_megaloop
+
+    ch, mr = megaloop.CHUNK_CYCLES, megaloop.MAX_ROUNDS
+    errs, plain = {}, {}
+
+    # 4a. lockstep over the chain's launches, and the small case
+    t0 = time.perf_counter()
+    inputs, lock_logs = [], []
+    s, p = take_snapshot(cache), pending
+    while True:
+        inp = megaloop_inputs(s, p, cache.flavors, dev)
+        _, state, cyc = lockstep_megaloop(
+            inp["tree"], inp["local"], inp["queues"], inp["paths"], inp["cap"],
+            inp["plan"].n_segments, inp["plan"].n_steps, ch, mr, errs,
+            label=f"megaloop launch {len(inputs) + 1}", plain_ms=plain,
+        )
+        log = megaloop_log(inp, state)
+        inputs.append(inp)
+        lock_logs.append(log)
+        if not log.truncated:
+            break
+        if len(inputs) >= megaloop.MAX_LAUNCHES:
+            fail("the lockstep megaloop chain did not end")
+        last = log.rounds[-1]
+        s, p = speculative_snapshot(s, last.final_usage), last.undecided
+    lsum = megaloop.chain_summary(lock_logs)
+    if lsum != megaloop.MEGALOOP_EXPECT:
+        fail(f"megaloop lockstep chain {lsum} != expected {megaloop.MEGALOOP_EXPECT}")
+    print(f"{stamp()} megaloop lockstep headline (chunk_cycles={ch}, max_rounds={mr}): "
+          f"{len(lock_logs)} launches, rounds {lsum['rounds_per_launch']}, "
+          f"{lsum['cycles']} cycles, every launch of {sorted(errs)} bit-exact to its plain "
+          f"version ({time.perf_counter() - t0:.1f} s)")
+
+    spec = cases.mixed_spec(SMALL_SEED)
+    s_cache, s_pending = cases.build_cache(spec)
+    sinp = megaloop_inputs(take_snapshot(s_cache), s_pending, s_cache.flavors, dev)
+    sp = sinp["plan"]
+    # at 56 cycles a round its PendingFlavors queues freeze in the second
+    # round, and that round's boundary retires them
+    _, s_state, s_cyc = lockstep_megaloop(
+        sinp["tree"], sinp["local"], sinp["queues"], sinp["paths"], sinp["cap"],
+        sp.n_segments, sp.n_steps, 56, 6, errs, label="megaloop small",
+    )
+    retired = int((~s_state.alive).sum())
+    if retired == 0:
+        fail("the small megaloop retired no stuck queue")
+    print(f"{stamp()} megaloop lockstep small case (mixed_spec({SMALL_SEED}), 56 x 6): "
+          f"{s_cyc} cycles, {int(s_state.round_idx.item())} rounds, {retired} queues "
+          f"retired at a boundary, bit-exact")
+
+    # 4b. the main path: the chained launch_drain_megaloop on cuda
+    plan_s = []
+    real_plan = pd.plan_drain
+
+    def timed_plan(*a, **k):
+        t = time.perf_counter()
+        out = real_plan(*a, **k)
+        plan_s.append(time.perf_counter() - t)
+        return out
+
+    _build.reset_launches()
+    logs, walls = [], []
+    pd.plan_drain = timed_plan
+    try:
+        s, p = take_snapshot(cache), pending
+        while True:
+            torch.cuda.synchronize()
+            reads = dk.DONE_READS
+            t0 = time.perf_counter()
+            launch = pd.launch_drain_megaloop(
+                s, p, cache.flavors, max_cells=headline.HEADLINE_MAX_CELLS,
+                chunk_cycles=ch, max_rounds=mr, device="cuda",
+            )
+            t1 = time.perf_counter()
+            syncs = dk.DONE_READS - reads + 1  # the done-flag reads and the fetch
+            torch.cuda.synchronize()  # the fetch's wait for the card, timed apart
+            tw = time.perf_counter()
+            log = launch.fetch()
+            t2 = time.perf_counter()
+            logs.append(log)
+            walls.append({"plan_ms": plan_s[-1] * 1e3,
+                          "enqueue_ms": (t1 - t0 - plan_s[-1]) * 1e3,
+                          "fetch_ms": (t2 - t1) * 1e3, "fetch_wait_ms": (tw - t1) * 1e3,
+                          "fetch_copy_decode_ms": (t2 - tw) * 1e3, "host_syncs": syncs,
+                          "rounds": log.n_rounds, "cycles": log.cycles})
+            if not log.truncated or len(logs) >= megaloop.MAX_LAUNCHES:
+                break
+            last = log.rounds[-1]
+            s, p = speculative_snapshot(s, last.final_usage), last.undecided
+    finally:
+        pd.plan_drain = real_plan
+    launches = _build.launch_counts()
+    summary = megaloop.chain_summary(logs)
+    print(f"{stamp()} launch_drain_megaloop chain on cuda: {json.dumps(summary)}; "
+          f"launches {json.dumps(launches)}")
+    if summary != megaloop.MEGALOOP_EXPECT:
+        fail(f"megaloop chain {summary} != expected {megaloop.MEGALOOP_EXPECT}")
+    if [[round_view(r) for r in g.rounds] for g in logs] != [
+            [round_view(r) for r in g.rounds] for g in lock_logs]:
+        fail("the megaloop chain on cuda differs from its lockstep run")
+    for name in _build.MEGALOOP_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the megaloop chain")
+    for i, w in enumerate(walls):
+        print(f"  launch {i + 1}: {w['rounds']} rounds, {w['cycles']} cycles, host syncs "
+              f"{w['host_syncs']}; wall {w['plan_ms'] + w['enqueue_ms'] + w['fetch_ms']:.1f} ms"
+              f" = plan {w['plan_ms']:.1f} + enqueue {w['enqueue_ms']:.1f} + fetch "
+              f"{w['fetch_ms']:.1f} ms (the card's remaining work {w['fetch_wait_ms']:.1f}, "
+              f"the copy and the host decode of the rounds "
+              f"{w['fetch_copy_decode_ms']:.1f})")
+
+    # 4c. each round equals the serial launch_drain chain on cuda
+    rounds = [r for g in logs for r in g.rounds]
+    t0 = time.perf_counter()
+    serial = megaloop.serial_chain(
+        pd.launch_drain, speculative_snapshot, take_snapshot(cache), pending,
+        cache.flavors, len(rounds), device="cuda",
+    )
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    if [round_view(r) for r in serial] != [round_view(r) for r in rounds]:
+        fail("the megaloop rounds differ from the serial launch_drain chain")
+    print(f"{stamp()} serial chain: {len(serial)} launch_drain(max_cycles={ch}) launches on "
+          f"cuda equal the megaloop's {len(rounds)} rounds (signature, undecided, final "
+          f"usage); its wall {serial_ms:.1f} ms beside the megaloop chain's "
+          f"{sum(w['plan_ms'] + w['enqueue_ms'] + w['fetch_ms'] for w in walls):.1f} ms")
+
+    # 4d. every launch of the chain timed alone on the device
+    timer = TimedLaunches()
+    for inp in inputs:
+        plan = inp["plan"]
+        ctx = dk.DrainContext.build(
+            inp["tree"], inp["queues"], inp["paths"], plan.n_segments, plan.n_steps,
+            ch * mr, chunk_cycles=ch, max_rounds=mr,
+        )
+        bd = BoundData(ctx)
+        state = ml.MegaloopState.initial_rounds(inp["local"], inp["queues"], inp["cap"], mr)
+        buf = dk.CycleBuffers.empty(inp["local"], inp["queues"])
+        while not state.done.item():
+            cursor = state.cursor.cpu().numpy()
+            alive = state.alive.cpu().numpy()
+            rnd = int(state.round_idx.item())
+            for name, kern, _ in MEGALOOP_STEPS:
+                timer(name, lambda: kern(ctx, state, buf), None)
+            per = cycle_bytes(bd, cursor, buf, alive)
+            after = state.cursor.cpu().numpy()
+            per["megaloop_boundary"] = [boundary_bytes(
+                bd, after, int(state.round_idx.item()) != rnd,
+                state.alive.cpu().numpy(), int(buf.admitted.sum()))]
+            timer.add_bytes(per)
+    timing = {name: timing_of(timer, name, plain) for name in _build.MEGALOOP_KERNELS}
+    print(f"{stamp()} timed megaloop chain: "
+          f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "
+          f"alone, {timer.uncovered} uncovered")
+    return {"errs": errs, "timing": timing, "launches": launches, "walls": walls,
+            "serial_ms": serial_ms, "summary": summary}
+
+
+def fair_inputs_of(cache, pending, dev, max_cells):
+    """The fair drain's plan (preempt-capable queues routed out) and its
+    device inputs, as run_drain(fair_sharing=True) builds them."""
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+
+    snap = take_snapshot(cache)
+    plan = pd.plan_drain(snap, pending, cache.flavors, max_cells=max_cells)
+    pd._route_preempt_capable(snap, plan)
+    tree, paths, local, queues = pd._drain_device_inputs(snap, plan, dev)
+    return plan, tree, paths, local, queues, pd.fair_inputs(snap, tree.max_depth, dev)
+
+
+def fair_path(dev, cache, pending) -> dict:
+    """Phase 5: the fair-sharing drain at the headline (module docstring)."""
+    import torch
+
+    from kueue_tpu_torch.core.drain import run_drain
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.perf import cases, headline
+    from kueue_tpu_torch.perf.lockstep import FAIR_STEPS, lockstep
+
+    mc = headline.HEADLINE_MAX_CELLS
+    errs, plain = {}, {}
+
+    # 5a. lockstep at the headline and on the depth-3 weighted case
+    t0 = time.perf_counter()
+    plan, tree, paths, local, queues, fair = fair_inputs_of(cache, pending, dev, mc)
+    _, _, cyc = lockstep(tree, local, queues, paths, plan.n_segments, plan.n_steps,
+                         plan.max_cycles, errs, label="fair headline", plain_ms=plain,
+                         fair=fair)
+    if cyc != headline.FAIR_EXPECT["cycles"]:
+        fail(f"fair lockstep headline ran {cyc} cycles")
+    print(f"{stamp()} fair lockstep headline: {cyc} cycles, every launch of {sorted(errs)} "
+          f"bit-exact ({time.perf_counter() - t0:.1f} s)")
+    f_cache, f_pending = cases.build_cache(cases.fair_spec(FAIR_SEED))
+    fp, ft, fpa, fl, fq, ff = fair_inputs_of(f_cache, f_pending, dev, 4)
+    _, _, fcyc = lockstep(ft, fl, fq, fpa, fp.n_segments, fp.n_steps, fp.max_cycles, errs,
+                          label="fair small", fair=ff)
+    print(f"{stamp()} fair lockstep small case (fair_spec({FAIR_SEED}), D={ft.max_depth}, "
+          f"{int((fq.qlen > 0).sum())} queues in the tournament): {fcyc} cycles, bit-exact")
+
+    # 5b. the main path
+    _build.reset_launches()
+    out = run_drain(take_snapshot(cache), pending, cache.flavors, max_cells=mc,
+                    fair_sharing=True, device="cuda")
+    launches = _build.launch_counts()
+    summary = headline.outcome_summary(out)
+    print(f"{stamp()} run_drain(fair_sharing=True) on cuda: {json.dumps(summary)}; "
+          f"launches {json.dumps(launches)}")
+    if summary != headline.FAIR_EXPECT:
+        fail(f"fair drain {summary} != expected {headline.FAIR_EXPECT}")
+    for name in _build.FAIR_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the fair drain")
+    walls, solves = [], []
+    for _ in range(3):
+        snap = take_snapshot(cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_drain(snap, pending, cache.flavors, max_cells=mc, fair_sharing=True, device="cuda")
+        walls.append(time.perf_counter() - t0)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dk._solve_drain_packed(
+            tree, local, queues, paths, plan.n_segments, plan.n_steps, plan.max_cycles,
+            seg_id=plan.queues_np["seg_id"], fair=fair,
+        ).cpu()
+        solves.append(time.perf_counter() - t0)
+    wall_ms = float(np.median(walls)) * 1e3
+    solve_ms = float(np.median(solves)) * 1e3
+    print(f"{stamp()} fair drain wall (run_drain, lowering included, median of 3): "
+          f"{wall_ms:.1f} ms = {wall_ms / cyc:.3f} ms/cycle; solve (inputs on the card, "
+          f"{cyc} cycles, one fetch) {solve_ms:.2f} ms = {solve_ms / cyc:.4f} ms/cycle")
+
+    # 5c. every launch timed alone on the device
+    ctx = dk.DrainContext.build(tree, queues, paths, plan.n_segments, plan.n_steps,
+                                plan.max_cycles, fair=fair)
+    bd = BoundData(ctx)
+    state = dk.DrainState.initial(local, queues, plan.max_cycles)
+    buf = dk.CycleBuffers.empty(local, queues)
+    timer = TimedLaunches()
+    while not state.done.item():
+        cursor = state.cursor.cpu().numpy()
+        alive = state.alive.cpu().numpy()
+        for name, kern, _ in FAIR_STEPS:
+            timer(name, lambda: kern(ctx, state, buf), None)
+        per = cycle_bytes(bd, cursor, buf)
+        del per["drain_phase2"]
+        per["drain_fair_phase2"] = [fair_bytes(bd, cursor, alive, buf, fair.n_res)]
+        timer.add_bytes(per)
+    timing = {name: timing_of(timer, name, plain) for name in _build.FAIR_KERNELS}
+    print(f"{stamp()} timed fair drain: "
+          f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "
+          f"alone, {timer.uncovered} uncovered")
+    return {"errs": errs, "timing": timing, "launches": launches, "wall_ms": wall_ms,
+            "solve_ms": solve_ms, "cycles": cyc}
+
+
 # ---- main ---------------------------------------------------------------
 
 
@@ -842,34 +1242,48 @@ def main() -> int:
           f"graph, no host: {graph_ms:.3f} ms = {100 * graph_ms / solve_ms:.1f}% "
           f"of the solve")
 
-    # 4. the interactive cycle
+    # 4. the megaloop chain; 5. the fair drain
     drain_launches = launches
+    mega = megaloop_path(dev, cache, pending)
+    fairr = fair_path(dev, cache, pending)
+    for label, res in (("megaloop", mega), ("fair", fairr)):
+        for name, t in res["timing"].items():
+            print(f"kernel {name} [{label}]: mean over {t['timed']} launches with work: "
+                  f"{t['ms'] * 1e3:.2f} us/launch on the device ({t['device_ms_total']:.3f} ms "
+                  f"in all), {t['host_ms'] * 1e3:.2f} us/call to enqueue, plain "
+                  f"{t['plain_ms']:.3f} ms/call, bound {t['bound_ms'] * 1e3:.4f} us "
+                  f"({t['bytes']:.0f} B); main-path launches {res['launches'][name]}, "
+                  f"max_abs_err {res['errs'][name]}")
+
+    # 6. the interactive cycle
     cyc = cycle_path(dev)
     cerrs, ctiming, library = cyc["errs"], cyc["timing"], cyc["library"]
     cycle_launches = cyc["launches"]["cycle_headline"]
     small_launches = cyc["launches"]["cycle_small"]
 
-    # 5. result lines
+    # 7. result lines
+    by_path = {
+        "drain": drain_launches, "megaloop": mega["launches"], "fair": fairr["launches"],
+        "cycle_headline": cycle_launches, "cycle_small": small_launches,
+    }
     kernels = []
     for name in _build.KERNELS:
         if name in DRAIN_KERNELS:
             t, lib = timing[name], None
-            n_launch = drain_launches[name]
+        elif name == "megaloop_boundary":
+            t, lib = mega["timing"][name], None
+        elif name == "drain_fair_phase2":
+            t, lib = fairr["timing"][name], None
         else:
             t, lib = ctiming[name], library.get(name)
-            n_launch = cycle_launches[name] + small_launches[name]
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": n_launch,
-            "launches_by_path": {
-                "drain": drain_launches[name],
-                "cycle_headline": cycle_launches[name],
-                "cycle_small": small_launches[name],
-            },
-            "max_abs_err": max(errs.get(name, 0), cerrs.get(name, 0)),
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {k: c[name] for k, c in by_path.items()},
+            "max_abs_err": max(r.get(name, 0) for r in (errs, cerrs, mega["errs"], fairr["errs"])),
             "ms": t["ms"],
             "device_ms_total": t["device_ms_total"],
             "host_ms": t["host_ms"],
@@ -877,10 +1291,19 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes",
             "library_ms": lib,
-        })
+        }
+        for label, res in (("megaloop", mega), ("fair", fairr)):
+            if name in res["timing"] and name not in ("megaloop_boundary", "drain_fair_phase2"):
+                entry.setdefault("ms_by_path", {})[label] = res["timing"][name]["ms"]
+        kernels.append(entry)
+    if len(kernels) != 9:
+        fail(f"{len(kernels)} kernels in the result line")
     print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
                       "drain_graph_ms": graph_ms, "cycles": cycles,
+                      "megaloop_walls": mega["walls"], "megaloop_serial_ms": mega["serial_ms"],
+                      "fair_wall_ms": fairr["wall_ms"], "fair_solve_ms": fairr["solve_ms"],
+                      "fair_cycles": fairr["cycles"],
                       "cycle_ms": cyc["cycle_ms"], "cycle_max_ms": cyc["cycle_max_ms"],
                       "cycle_solve_device_ms": cyc["solve_dev"]}))
     print(card)

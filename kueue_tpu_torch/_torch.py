@@ -13,9 +13,10 @@ silent fallback.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["torch", "resolve_device", "I64", "I32", "BOOL"]
+__all__ = ["torch", "resolve_device", "to_device", "I64", "I32", "BOOL"]
 
 I64 = torch.int64
 I32 = torch.int32
@@ -35,3 +36,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def to_device(a, device, dtype=None) -> torch.Tensor:
+    """A copy of the array ``a`` (numpy dtype ``dtype`` when given) on
+    ``device``. The copy to a card does not wait for the card's queued
+    work: the host buffer is staged before the call returns and the
+    transfer runs in stream order, so a launch path that uploads its
+    inputs makes no host sync."""
+    t = torch.from_numpy(np.array(a, dtype=dtype, copy=True))
+    return t.to(device, non_blocking=True)

@@ -8,11 +8,15 @@ fetches the packed result in ONE device-to-host copy and maps the
 decisions back to workloads. Workloads the dense form can't express
 are reported in ``fallback``.
 
-This slice carries the plain drain: ``plan_drain``, ``run_drain``,
-``DrainLaunch.fetch`` and ``_map_drain_result``. The fair, preempt,
-fair-preempt, TAS and megaloop drains, mesh sharding and admission
-policies are not ported yet; ``run_drain`` raises NotImplementedError
-for them.
+Ported: the plain drain (``plan_drain``, ``run_drain``,
+``launch_drain`` and its ``DrainLaunch``), the fair-sharing drain
+(``run_drain(fair_sharing=True)``), the K-round megaloop
+(``launch_drain_megaloop`` and its ``MegaloopLaunch``, with the numpy
+host twin ``run_drain_megaloop_host``), and the scope routing
+(``classify_drain_scope``, ``run_drain_for_scope``,
+``launch_drain_for_scope``). The preempt, fair-preempt and TAS drains,
+mesh sharding and non-default admission policies are not ported yet
+and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -274,17 +278,156 @@ def plan_drain(
     )
 
 
+def _fair_lendable(snapshot: Snapshot, paths_np: np.ndarray):
+    """(depth_of, lendable, res_of_fr) for the fair-sharing drain.
+
+    lendable depends on quota only: potentialAvailable of the PARENT,
+    summed per resource (fair_sharing.go:90-104)."""
+    from kueue_tpu_torch.ops.quota_np import potential_available_all_np
+
+    parent = snapshot.flat.parent
+    depth_of = (np.sum(paths_np >= 0, axis=1) - 1).astype(np.int32)
+    pot = potential_available_all_np(
+        parent, snapshot.flat.level_masks(), snapshot.subtree,
+        snapshot.guaranteed, snapshot.borrowing_limit,
+    )
+    n_res = len(snapshot.resource_names)
+    lendable = np.zeros((len(parent), n_res), dtype=np.int64)
+    parent_pot = pot[np.maximum(parent, 0)]
+    np.add.at(lendable.T, snapshot.resource_index, parent_pot.T)
+    lendable[parent < 0] = 0
+    return depth_of, lendable, snapshot.resource_index.astype(np.int32)
+
+
+def _preempt_capable(snapshot: Snapshot, cq_name: str) -> bool:
+    """The ClusterQueue can preempt: within itself, or reclaim within its
+    cohort."""
+    from kueue_tpu_torch.models.constants import (
+        PreemptionPolicy,
+        ReclaimWithinCohortPolicy,
+    )
+
+    prem = snapshot.cq_models[cq_name].preemption
+    return prem.within_cluster_queue != PreemptionPolicy.NEVER or (
+        snapshot.has_cohort(cq_name)
+        and prem.reclaim_within_cohort != ReclaimWithinCohortPolicy.NEVER
+    )
+
+
+def classify_drain_scope(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    tas_flavors,
+    fair_sharing: bool,
+):
+    """Pick which drain covers a backlog.
+
+    Returns ``(kind, pending2)`` with kind one of ``"fair_preempt"``,
+    ``"fair"``, ``"preempt"``, ``"tas"``, ``"plain"``. TAS heads ride
+    the drain only through the TAS drain, which has no eviction
+    support: with fair sharing or any preempt-capable plain CQ in the
+    backlog they are dropped from ``pending2`` (the cycle loop decides
+    them) and the rest drains under the preempt/fair scopes.
+    """
+    tas_flavors = set(tas_flavors or ())
+
+    def _on_tas_cq(cq_name: str) -> bool:
+        cq = snapshot.cq_models.get(cq_name)
+        return cq is not None and any(
+            fq.name in tas_flavors
+            for rg in cq.resource_groups
+            for fq in rg.flavors
+        )
+
+    cq_names = {c for _, c in pending}
+    tas_cqs = (
+        {c for c in cq_names if _on_tas_cq(c)} if tas_flavors else set()
+    )
+    any_preempt = any(
+        _preempt_capable(snapshot, c) for c in cq_names - tas_cqs
+        if c in snapshot.cq_models
+    )
+    use_tas = bool(tas_cqs) and not fair_sharing and not any_preempt
+    pending2 = list(pending)
+    if tas_cqs and not use_tas:
+        pending2 = [(w, c) for w, c in pending2 if c not in tas_cqs]
+    if fair_sharing and any_preempt:
+        return "fair_preempt", pending2
+    if fair_sharing:
+        return "fair", pending2
+    if any_preempt:
+        return "preempt", pending2
+    if use_tas:
+        return "tas", pending2
+    return "plain", pending2
+
+
+def run_drain_for_scope(
+    kind: str,
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    timestamp_fn=None,
+    mesh=None,
+    policy=None,
+    now: float = 0.0,
+    device=None,
+):
+    """Dispatch the drain a classify_drain_scope kind names: the one
+    place the kind-to-drain mapping lives. The preempt, fair-preempt
+    and TAS drains are not ported yet (NotImplementedError)."""
+    if kind in ("fair_preempt", "preempt", "tas"):
+        raise NotImplementedError(f"the {kind} drain is not ported yet")
+    return run_drain(
+        snapshot, pending, flavors, timestamp_fn=timestamp_fn, mesh=mesh,
+        fair_sharing=kind == "fair", policy=policy, now=now, device=device,
+    )
+
+
+def launch_drain_for_scope(
+    kind: str,
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    mesh=None,
+    resident=None,
+    policy=None,
+    now: float = 0.0,
+    device=None,
+) -> Optional["DrainLaunch"]:
+    """Launch/fetch twin of ``run_drain_for_scope`` for the scopes a
+    pipelined drain loop can double-buffer: the plain one. Returns None
+    for every other kind (they keep the blocking path)."""
+    if kind != "plain":
+        return None
+    return launch_drain(
+        snapshot, pending, flavors, timestamp_fn=timestamp_fn,
+        max_cycles=max_cycles, mesh=mesh, resident=resident,
+        policy=policy, now=now, device=device,
+    )
+
+
 @dataclass
 class DrainLaunch:
-    """A plain-drain solve and its packed result, still on the device.
+    """An in-flight plain or fair drain (the launch/fetch split).
 
-    ``fetch()`` makes the ONE device-to-host copy and maps decisions
-    back to workloads."""
+    ``launch_drain`` enqueues the packed solve and returns; the card
+    works while the host does something else. ``fetch()`` makes the ONE
+    device-to-host copy (the sync) and maps decisions back to
+    workloads. Nothing between construction and fetch touches runtime
+    state, so an unfetched launch is always safe to discard."""
 
     plan: DrainPlan
     queues_np: dict
     flat_dev: object  # int64 tensor, _solve_drain_packed layout
     usage_shape: Tuple[int, int]
+    extra_fb_entries: List[Tuple[Workload, str]] = field(default_factory=list)
+    # the exact backlog this launch solves, in per-CQ heap order (the
+    # pipeline's commit check compares it with the real backlog)
+    pending: Optional[List[Tuple[Workload, str]]] = None
+    max_cycles: Optional[int] = None
 
     def fetch(self) -> DrainOutcome:
         flat = self.flat_dev.cpu().numpy()  # the single fetch
@@ -301,8 +444,125 @@ class DrainLaunch:
         cycles = int(flat[-1])
         return _map_drain_result(
             self.plan, adm_k, adm_cycle, cursor, stuck_q, cycles,
-            self.queues_np, [], final_usage=final_usage,
+            self.queues_np, self.extra_fb_entries, final_usage=final_usage,
         )
+
+
+def _route_preempt_capable(snapshot: Snapshot, plan: DrainPlan) -> List[Tuple[Workload, str]]:
+    """The fair drain orders admissions by the tournament; fair
+    preemption is not in it, so preempt-capable ClusterQueues leave the
+    plan (their queues emptied in place) and their entries return as
+    fallback, for the cycle loop."""
+    extra: List[Tuple[Workload, str]] = []
+    for qi, cq_name in enumerate(plan.cq_order):
+        if not _preempt_capable(snapshot, cq_name):
+            continue
+        plan.queues_np["qlen"][qi] = 0
+        plan.queues_np["cq_rows"][qi] = -1
+        plan.queues_np["seg_id"][qi] = -1
+        for pos in range(plan.queues_np["cells"].shape[1]):
+            i = plan.head_of.pop((qi, pos), None)
+            if i is not None:
+                extra.append((plan.lowered.heads[i], plan.lowered.cq_names[i]))
+    return extra
+
+
+def fair_inputs(snapshot: Snapshot, max_depth: int, dev):
+    """The fair drain's extra inputs on ``dev`` (ops/drain_kernel.FairInputs):
+    depth, weight and lendable per node, the resource of each cell, and
+    the PrioritySortingWithinCohort gate as it stands."""
+    from kueue_tpu_torch._torch import to_device
+    from kueue_tpu_torch.features import enabled as feature_enabled
+    from kueue_tpu_torch.ops.assign_kernel import build_paths
+    from kueue_tpu_torch.ops.drain_kernel import FairInputs
+
+    paths_np = build_paths(snapshot.flat.parent, max_depth)
+    depth_of, lendable, res_of_fr = _fair_lendable(snapshot, paths_np)
+    return FairInputs(
+        depth_of=to_device(depth_of, dev, np.int32),
+        weight=to_device(snapshot.weight_milli, dev, np.int64),
+        lendable=to_device(lendable, dev, np.int64),
+        res_of_fr=to_device(res_of_fr, dev, np.int32),
+        n_res=len(snapshot.resource_names),
+        prio_tie=bool(feature_enabled("PrioritySortingWithinCohort")),
+    )
+
+
+def _drain_device_inputs(snapshot: Snapshot, plan: DrainPlan, dev, resident=None):
+    """(tree, paths, leaf usage, DrainQueues) on ``dev``, uploaded with
+    no host sync; with ``resident`` (a ResidentEncoder on ``dev``) the
+    tree and paths stay on the card and only changed usage rows ship."""
+    from kueue_tpu_torch._torch import to_device
+    from kueue_tpu_torch.interop import drain_queues
+
+    if resident is not None:
+        tree, paths, usage_in = resident.refresh(snapshot)
+    else:
+        tree, paths, _ = tree_arrays(snapshot, dev)
+        usage_in = to_device(snapshot.local_usage, dev, np.int64)
+    return tree, paths, usage_in, drain_queues(plan.queues_np, dev)
+
+
+def launch_drain(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    mesh=None,
+    resident=None,  # core.encode.ResidentEncoder
+    policy=None,
+    now: float = 0.0,
+    device=None,
+    fair_sharing: bool = False,
+) -> DrainLaunch:
+    """Plan the drain and enqueue its solve without fetching: the
+    asynchronous half of ``run_drain``; ``run_drain(...) ==
+    launch_drain(...).fetch()`` by construction.
+
+    The inputs go up with no host sync. Where the cycle bound
+    (``max_cycles``, else the plan's backstop) is at most
+    ``ENQUEUE_ALL_CYCLES`` (a pipeline chunk) every cycle is enqueued
+    with no read of the device ``done`` flag, so the launch returns
+    while the card works and ``fetch()`` is the one sync; a larger
+    bound (a plan's backstop: 16384 cycles and up for the seeded
+    cases, 32768 at the headline) reads the flag every few cycles
+    rather than enqueueing that many no-op launches, so that launch
+    waits for the card. With
+    ``resident`` the tree and paths stay on the card between launches
+    and only changed leaf-usage rows ship. With ``fair_sharing`` the
+    fair drain (see ``run_drain``)."""
+    from kueue_tpu_torch._torch import resolve_device
+    from kueue_tpu_torch.ops.drain_kernel import _solve_drain_packed
+
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded drains are not ported yet")
+    dev = resolve_device(device)
+    plan = plan_drain(
+        snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+        policy=policy, now=now,
+    )
+    extra_fb = _route_preempt_capable(snapshot, plan) if fair_sharing else []
+    if max_cycles is not None:
+        plan.max_cycles = max_cycles
+    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev, resident)
+    flat_dev = _solve_drain_packed(
+        tree, usage_in, queues, paths,
+        n_segments=plan.n_segments, n_steps=plan.n_steps, max_cycles=plan.max_cycles,
+        seg_id=plan.queues_np["seg_id"],
+        fair=fair_inputs(snapshot, tree.max_depth, dev) if fair_sharing else None,
+    )
+    return DrainLaunch(
+        plan=plan,
+        queues_np=plan.queues_np,
+        flat_dev=flat_dev,
+        usage_shape=tuple(snapshot.local_usage.shape),
+        extra_fb_entries=extra_fb,
+        pending=list(pending),
+        max_cycles=plan.max_cycles,
+    )
 
 
 def run_drain(
@@ -324,14 +584,214 @@ def run_drain(
     Runs on the card: ``device`` defaults to ``cuda`` and raises where
     there is none; ``device="cpu"`` runs the plain torch versions of
     the kernels on the host. ``max_cycles`` overrides the computed
-    backstop. Fair sharing, mesh sharding and non-default admission
-    policies are not ported yet and raise NotImplementedError."""
-    from kueue_tpu_torch._torch import resolve_device
-    from kueue_tpu_torch.interop import drain_queues
-    from kueue_tpu_torch.ops.drain_kernel import _solve_drain_packed
+    backstop. With ``fair_sharing`` each cycle's admission order is the
+    fair-sharing cohort tournament (ops/drain_kernel.solve_drain with
+    ``fair``) instead of the (borrowing, priority, FIFO) sort;
+    preempt-capable ClusterQueues route to ``fallback``. Mesh sharding
+    and non-default admission policies are not ported yet and raise
+    NotImplementedError."""
+    return launch_drain(
+        snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+        max_cycles=max_cycles, mesh=mesh, policy=policy, now=now, device=device,
+        fair_sharing=fair_sharing,
+    ).fetch()
 
-    if fair_sharing:
-        raise NotImplementedError("the fair-sharing drain is not ported yet")
+
+def _cap_suffix_of(plan: DrainPlan) -> np.ndarray:
+    """int32[Q, L] suffix retry budgets: ``cap[q, p]`` is the
+    ``retry_cap`` a fresh ``plan_drain`` over the queue's entries at
+    positions >= p computes (min(4096, max walk_states + 1)), which the
+    megaloop gathers at each round boundary. Column 0 equals
+    ``plan.queues_np['retry_cap']`` for every queue with entries."""
+    q = plan.queues_np["qlen"].shape[0]
+    l = plan.queues_np["cells"].shape[1]
+    cap = np.zeros((q, l), dtype=np.int32)
+    per_q: Dict[int, List[Tuple[int, int]]] = {}
+    for (qi, pos), i in plan.head_of.items():
+        per_q.setdefault(qi, []).append((pos, i))
+    ws = plan.lowered.walk_states
+    for qi, items in per_q.items():
+        items.sort()
+        vals = np.array([ws[i] for _, i in items], dtype=np.int64)
+        sfx = np.maximum.accumulate(vals[::-1])[::-1]
+        cap[qi, : len(items)] = np.minimum(4096, sfx + 1).astype(np.int32)
+    return cap
+
+
+@dataclass
+class MegaloopLog:
+    """The host-decoded round-stamped log of one megaloop launch: one
+    DrainOutcome per round run, in order, each what a serial
+    ``launch_drain(max_cycles=chunk_cycles)`` over the previous round's
+    undecided backlog fetches. ``truncated``: the last round still left
+    entries undecided (the round budget ran out); the caller relaunches
+    from the post-apply state."""
+
+    rounds: List[DrainOutcome]
+    n_rounds: int
+    cycles: int
+    truncated: bool
+
+
+@dataclass
+class MegaloopLaunch:
+    """An in-flight megaloop: ONE launch and ONE fetch for up to K
+    rounds. Nothing between construction and ``fetch`` touches runtime
+    state, so an unfetched launch is always safe to discard."""
+
+    plan: DrainPlan
+    queues_np: dict
+    flat_dev: object  # int64 tensor: the packed log, on the device
+    usage_shape: Tuple[int, int]
+    start_usage: np.ndarray  # launch-time leaf usage
+    pending: List[Tuple[Workload, str]]
+    chunk_cycles: int
+    max_rounds: int
+
+    def _usage_offset(self, r: int) -> int:
+        q, l, p = self.queues_np["cells"].shape[:3]
+        n, fr = self.usage_shape
+        return (
+            q * l * p + 2 * q * l + 2 * self.max_rounds * q
+            + self.max_rounds + r * n * fr
+        )
+
+    def usage_dev(self, r: int):
+        """Round r's final leaf usage as a device view of the packed
+        log (what a ResidentEncoder adopts after a fully committed
+        launch, with no host round trip)."""
+        n, fr = self.usage_shape
+        off = self._usage_offset(r)
+        return self.flat_dev[off : off + n * fr].reshape((n, fr))
+
+    def fetch(self) -> MegaloopLog:
+        flat = self.flat_dev.cpu().numpy()  # the single fetch
+        q, l, p = self.queues_np["cells"].shape[:3]
+        n, fr = self.usage_shape
+        rr = self.max_rounds
+        qlp, ql = q * l * p, q * l
+        off = 0
+        adm_k = flat[off : off + qlp].reshape((q, l, p)); off += qlp
+        adm_cycle = flat[off : off + ql].reshape((q, l)); off += ql
+        adm_round = flat[off : off + ql].reshape((q, l)); off += ql
+        r_cursor = flat[off : off + rr * q].reshape((rr, q)); off += rr * q
+        r_stuck = flat[off : off + rr * q].reshape((rr, q)).astype(bool); off += rr * q
+        r_cycles = flat[off : off + rr]; off += rr
+        r_usage = flat[off : off + rr * n * fr].reshape((rr, n, fr))
+        n_rounds = int(flat[-2])
+        cycles = int(flat[-1])
+        rounds = _map_megaloop_rounds(
+            self.plan, self.queues_np, adm_k, adm_cycle, adm_round,
+            r_cursor, r_stuck, r_cycles, r_usage, n_rounds, self.start_usage,
+        )
+        return MegaloopLog(
+            rounds=rounds,
+            n_rounds=n_rounds,
+            cycles=cycles,
+            truncated=bool(rounds and rounds[-1].undecided),
+        )
+
+
+def _map_megaloop_rounds(
+    plan: DrainPlan,
+    queues_np: dict,
+    adm_k,
+    adm_cycle,
+    adm_round,
+    r_cursor,
+    r_stuck,
+    r_cycles,
+    r_usage,
+    n_rounds: int,
+    start_usage: np.ndarray,
+) -> List[DrainOutcome]:
+    """Slice the log into per-round DrainOutcomes, each what
+    ``_map_drain_result`` gives for a serial round launched over the
+    previous round's undecided backlog: a round's scope is the entries
+    past the previous cursor in queues not yet retired; unreached
+    entries route to fallback (and to ``undecided`` unless their queue
+    went stuck); ``plan.fallback`` belongs to round 0 only."""
+    lowered = plan.lowered
+    q = queues_np["qlen"].shape[0]
+    rounds: List[DrainOutcome] = []
+    prev_cursor = np.zeros(q, dtype=np.int64)
+    prev_dead = np.zeros(q, dtype=bool)
+    for r in range(max(int(n_rounds), 1)):
+        ran = r < int(n_rounds)
+        cursor_r = np.asarray(r_cursor[r] if ran else prev_cursor)
+        stuck_r = np.asarray(r_stuck[r]).astype(bool) if ran else prev_dead
+        cycles_r = int(r_cycles[r]) if ran else 0
+        usage_r = np.asarray(r_usage[r]) if ran else np.asarray(start_usage)
+        admitted: List[Tuple[Workload, str, Dict[str, str], int]] = []
+        parked: List[Tuple[Workload, str]] = []
+        fb_extra: List[Tuple[Workload, str]] = []
+        undecided: List[Tuple[Workload, str]] = []
+        for (qi, pos), i in plan.head_of.items():
+            if prev_dead[qi] or pos < prev_cursor[qi]:
+                continue  # decided (or retired) in an earlier round
+            wl = lowered.heads[i]
+            cq_name = lowered.cq_names[i]
+            if int(adm_round[qi, pos]) == r:
+                admitted.append(
+                    (wl, cq_name,
+                     _admitted_flavors(lowered, i, adm_k[qi, pos]),
+                     int(adm_cycle[qi, pos]))
+                )
+            elif pos >= int(cursor_r[qi]):
+                # never processed this round: no decision; stuck-frozen
+                # queues are terminal, the rest feed the next round
+                fb_extra.append((wl, cq_name))
+                if not stuck_r[qi]:
+                    undecided.append((wl, cq_name))
+            else:
+                parked.append((wl, cq_name))
+        admitted.sort(key=lambda t: t[3])
+        fb = (
+            [(lowered.heads[i], lowered.cq_names[i]) for i in plan.fallback]
+            if r == 0
+            else []
+        ) + fb_extra
+        rounds.append(
+            DrainOutcome(
+                admitted=admitted,
+                parked=parked,
+                fallback=fb,
+                cycles=cycles_r,
+                truncated=bool(undecided),
+                undecided=undecided,
+                final_usage=usage_r.astype(np.int64, copy=False),
+            )
+        )
+        prev_cursor = cursor_r.astype(np.int64).copy()
+        prev_dead = prev_dead | stuck_r
+    return rounds
+
+
+def launch_drain_megaloop(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    timestamp_fn=None,
+    chunk_cycles: int = 16,
+    max_rounds: int = 8,
+    mesh=None,
+    resident=None,  # core.encode.ResidentEncoder
+    policy=None,
+    now: float = 0.0,
+    device=None,
+) -> MegaloopLaunch:
+    """Plan and enqueue the K-round megaloop without fetching: up to
+    ``max_rounds`` drain rounds of ``chunk_cycles`` cycles in one launch
+    (ops/megaloop_kernel.solve_drain_megaloop). The uploads and the
+    ``chunk_cycles x max_rounds`` cycles of launches go out with no
+    host read, so this returns while the card works; ``fetch()`` is the
+    one sync. With ``resident`` the tree and paths stay on the card
+    between launches."""
+    from kueue_tpu_torch._torch import resolve_device, to_device
+    from kueue_tpu_torch.ops.megaloop_kernel import _solve_drain_megaloop_packed
+
     if mesh is not None:
         raise NotImplementedError("mesh-sharded drains are not ported yet")
     dev = resolve_device(device)
@@ -339,26 +799,81 @@ def run_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
         policy=policy, now=now,
     )
-    if max_cycles is not None:
-        plan.max_cycles = max_cycles
-    tree, paths, _ = tree_arrays(snapshot, dev)
-    usage_in = tree.nominal.new_tensor(snapshot.local_usage)
-    queues = drain_queues(plan.queues_np, dev)
-    flat_dev = _solve_drain_packed(
-        tree,
-        usage_in,
-        queues,
-        paths,
+    cap_suffix = _cap_suffix_of(plan)
+    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev, resident)
+    flat_dev = _solve_drain_megaloop_packed(
+        tree, usage_in, queues, paths, to_device(cap_suffix, dev, np.int32),
         n_segments=plan.n_segments,
         n_steps=plan.n_steps,
-        max_cycles=plan.max_cycles,
+        chunk_cycles=int(chunk_cycles),
+        max_rounds=int(max_rounds),
+        seg_id=plan.queues_np["seg_id"],
     )
-    return DrainLaunch(
+    return MegaloopLaunch(
         plan=plan,
         queues_np=plan.queues_np,
         flat_dev=flat_dev,
         usage_shape=tuple(snapshot.local_usage.shape),
-    ).fetch()
+        start_usage=np.asarray(snapshot.local_usage),
+        pending=list(pending),
+        chunk_cycles=int(chunk_cycles),
+        max_rounds=int(max_rounds),
+    )
+
+
+def run_drain_megaloop_host(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    timestamp_fn=None,
+    chunk_cycles: int = 16,
+    max_rounds: int = 8,
+    policy=None,
+    now: float = 0.0,
+) -> MegaloopLog:
+    """The megaloop's numpy host twin over the same plan tensors
+    (ops/megaloop_np.solve_megaloop_np, which IS the serial chunked loop
+    over suffix-trimmed queues), decoded by the same
+    ``_map_megaloop_rounds``."""
+    from kueue_tpu_torch.core.encode import encode_snapshot
+    from kueue_tpu_torch.ops.assign_kernel import build_paths
+    from kueue_tpu_torch.ops.megaloop_np import solve_megaloop_np
+
+    plan = plan_drain(
+        snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+        policy=policy, now=now,
+    )
+    cap_suffix = _cap_suffix_of(plan)
+    enc = encode_snapshot(snapshot)
+    paths_np = build_paths(enc.parent, enc.max_depth)
+    host = solve_megaloop_np(
+        enc.parent,
+        enc.level_mask,
+        enc.nominal.astype(np.int64, copy=False),
+        enc.lending_limit.astype(np.int64, copy=False),
+        enc.borrowing_limit.astype(np.int64, copy=False),
+        enc.local_usage.astype(np.int64, copy=False),
+        plan.queues_np,
+        paths_np,
+        enc.max_depth,
+        int(chunk_cycles),
+        int(max_rounds),
+        cap_suffix,
+    )
+    rounds = _map_megaloop_rounds(
+        plan, plan.queues_np, host.admitted_k, host.admitted_cycle,
+        host.admitted_round, host.round_cursor, host.round_stuck,
+        host.round_cycles, host.round_usage, host.rounds,
+        np.asarray(snapshot.local_usage),
+    )
+    return MegaloopLog(
+        rounds=rounds,
+        n_rounds=host.rounds,
+        cycles=host.cycles,
+        truncated=bool(rounds and rounds[-1].undecided),
+    )
 
 
 def _map_drain_result(

@@ -23,6 +23,7 @@
 // shared memory and no synchronisation. Uncoalesced gathers are
 // acceptable at this size. It also clears the cycle's `admitted`
 // flags for drain_phase2. A set `done` flag makes the launch a no-op.
+// A queue the megaloop retired (`alive` 0) nominates nothing.
 
 #include "drain_common.cuh"
 
@@ -37,7 +38,7 @@ __global__ void nominate(Args a) {
   if (*a.s.done || q >= a.Q) return;
   const int P = a.P, K = a.K, C = a.C, G = a.G, FR = a.FR, PC = a.P * a.C;
   a.b.admitted[q] = 0;
-  const bool active = a.s.cursor[q] < a.q.qlen[q];
+  const bool active = a.s.cursor[q] < a.q.qlen[q] && a.s.alive[q];
   if (!active) {
     a.b.is_fit[q] = 0;
     a.b.is_pre[q] = 0;

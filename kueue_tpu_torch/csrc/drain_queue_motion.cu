@@ -12,7 +12,11 @@
 // advances, and `done` is set once no unstuck queue has entries left
 // or max_cycles is reached. Every drain launch returns at once while
 // `done` is set, so the host may enqueue cycles ahead of its check and
-// the cycle count stays exact.
+// the cycle count stays exact. In the megaloop (max_rounds > 0) the
+// cycle counter counts cycles within the round and megaloop_boundary,
+// launched next, owns `done`; a queue it retired (`alive` 0) is
+// inactive, and the retry budget is its `cap` buffer, not the plan's
+// retry_cap (the two are equal in the plain and fair drains).
 //
 // What bounds it: global reductions over the queues (any advance, the
 // max retry budget, any live queue) in a ~65 KB pass: launch latency.
@@ -40,18 +44,18 @@ __global__ void motion(Args a) {
 
   // phase A: stuck / retries, and the reductions
   for (int q = threadIdx.x; q < a.Q; q += blockDim.x) {
-    const bool active = a.s.cursor[q] < a.q.qlen[q];
+    const bool active = a.s.cursor[q] < a.q.qlen[q] && a.s.alive[q];
     const bool is_fit = a.b.is_fit[q], pend = a.b.pend[q];
     const bool admitted = a.b.admitted[q];
     const int retries = a.s.retries[q];
-    bool stuck = a.s.stuck[q] || (active && !is_fit && pend && retries >= a.q.retry_cap[q]);
+    bool stuck = a.s.stuck[q] || (active && !is_fit && pend && retries >= a.s.cap[q]);
     const bool advance = active && (admitted || (!is_fit && !pend));
     stuck = stuck && !advance;
     const bool retrying = active && !is_fit && pend && !stuck;
     a.s.retries[q] = (advance || !active) ? 0 : (retrying ? retries + 1 : retries);
     a.s.stuck[q] = stuck;
     if (advance) any_advance = 1;
-    atomicMax(&max_cap, a.q.retry_cap[q]);
+    atomicMax(&max_cap, a.s.cap[q]);
   }
   __syncthreads();
   const int no_prog = any_advance ? 0 : *a.s.no_prog + 1;
@@ -61,7 +65,7 @@ __global__ void motion(Args a) {
   const int P = a.P, G = a.G;
   for (int q = threadIdx.x; q < a.Q; q += blockDim.x) {
     const int cursor = a.s.cursor[q];
-    const bool active = cursor < a.q.qlen[q];
+    const bool active = cursor < a.q.qlen[q] && a.s.alive[q];
     const bool is_fit = a.b.is_fit[q], pend = a.b.pend[q];
     const bool admitted = a.b.admitted[q];
     const bool advance = active && (admitted || (!is_fit && !pend));
@@ -89,7 +93,7 @@ __global__ void motion(Args a) {
   if (threadIdx.x == 0) {
     *a.s.no_prog = no_prog;
     *a.s.cycle = cycle + 1;
-    if (!(any_live && cycle + 1 < a.max_cycles)) *a.s.done = 1;
+    if (a.max_rounds == 0 && !(any_live && cycle + 1 < a.max_cycles)) *a.s.done = 1;
   }
 }
 

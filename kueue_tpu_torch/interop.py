@@ -4,8 +4,8 @@
 snapshot's fields and a plan's per-queue tensors, as plain dicts of
 numpy arrays (whichever package produced them) — and returns this
 package's ``QuotaTree``, ``DrainQueues``, leaf usage and ancestor paths
-on a device; ``heads_batch`` does the same for the cycle solver's
-``HeadsBatch``. The parity tests feed the same arrays to both packages
+on a device; ``fair_inputs`` adds the fair drain's ``FairInputs``;
+``heads_batch`` does the same for the cycle solver's ``HeadsBatch``. The parity tests feed the same arrays to both packages
 through it; nothing here imports the JAX package.
 """
 
@@ -15,9 +15,9 @@ from typing import Mapping, Tuple
 
 import numpy as np
 
-from kueue_tpu_torch._torch import resolve_device, torch
+from kueue_tpu_torch._torch import resolve_device, to_device, torch
 from kueue_tpu_torch.ops.assign_kernel import HeadsBatch, build_paths
-from kueue_tpu_torch.ops.drain_kernel import DrainQueues
+from kueue_tpu_torch.ops.drain_kernel import DrainQueues, FairInputs
 from kueue_tpu_torch.ops.quota import QuotaTree
 
 # DrainQueues field -> numpy dtype of the plan tensors
@@ -56,7 +56,7 @@ HEADS_DTYPES = {
 
 
 def _on(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, dtype=dtype, copy=True), device=device)
+    return to_device(a, device, dtype)
 
 
 def quota_tree(enc: Mapping[str, np.ndarray], device=None) -> QuotaTree:
@@ -97,6 +97,20 @@ def drain_inputs(
     local = _on(enc["local_usage"], np.int64, dev)
     paths = _on(build_paths(np.asarray(enc["parent"]), int(enc["max_depth"])), np.int32, dev)
     return tree, queues, local, paths
+
+
+def fair_inputs(fair: Mapping[str, object], device=None) -> FairInputs:
+    """FairInputs from ``depth_of``, ``weight``, ``lendable``,
+    ``res_of_fr`` (numpy arrays), ``n_res`` and ``prio_tie``."""
+    dev = resolve_device(device)
+    return FairInputs(
+        depth_of=_on(fair["depth_of"], np.int32, dev),
+        weight=_on(fair["weight"], np.int64, dev),
+        lendable=_on(fair["lendable"], np.int64, dev),
+        res_of_fr=_on(fair["res_of_fr"], np.int32, dev),
+        n_res=int(fair["n_res"]),
+        prio_tie=bool(fair["prio_tie"]),
+    )
 
 
 def heads_batch(batch: Mapping[str, np.ndarray], device=None) -> HeadsBatch:

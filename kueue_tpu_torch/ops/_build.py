@@ -42,9 +42,15 @@ BUILD_DIR = _PKG / "_build"
 KERNELS = (
     "quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion",
     "cycle_phase1", "cycle_phase2", "scatter_rows",
+    "megaloop_boundary", "drain_fair_phase2",
 )
-# the interactive cycle's kernels (core/solver.dispatch_lowered and the
-# resident row scatter)
+# the kernels of each path: the plain drain (ops/drain_kernel.solve_drain),
+# the megaloop (ops/megaloop_kernel.solve_drain_megaloop), the fair drain
+# (ops/drain_kernel.solve_drain with fair=), and the interactive cycle
+# (core/solver.dispatch_lowered and the resident row scatter)
+DRAIN_KERNELS = ("quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion")
+MEGALOOP_KERNELS = DRAIN_KERNELS + ("megaloop_boundary",)
+FAIR_KERNELS = ("quota_tree", "drain_nominate", "drain_fair_phase2", "drain_queue_motion")
 CYCLE_KERNELS = ("quota_tree", "cycle_phase1", "cycle_phase2", "scatter_rows")
 
 NVCC_FLAGS = [

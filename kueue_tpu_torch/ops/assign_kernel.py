@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
-from kueue_tpu_torch._torch import BOOL, I32, I64, torch
+from kueue_tpu_torch._torch import BOOL, I32, I64, to_device, torch
 from kueue_tpu_torch.ops import _build
 from kueue_tpu_torch.ops.quota import (
     NO_LIMIT,
@@ -264,8 +264,8 @@ def build_segments(seg_id: np.ndarray, device) -> Segments:
     offsets = np.zeros(n_seg + 1, dtype=np.int32)
     np.cumsum(counts, out=offsets[1:])
     return Segments(
-        offsets=torch.as_tensor(offsets, device=device),
-        members=torch.as_tensor(members, device=device),
+        offsets=to_device(offsets, device),
+        members=to_device(members, device),
         max_size=int(counts.max()) if n_seg else 0,
     )
 

@@ -1,6 +1,8 @@
-"""Multi-cycle admission drain — the plain bulk drain on the card.
+"""Multi-cycle admission drain: the plain and the fair-sharing bulk
+drains on the card.
 
-Port of the plain ``solve_drain`` of kueue_tpu/ops/drain_kernel.py.
+Port of ``solve_drain`` and ``solve_drain_fair`` of
+kueue_tpu/ops/drain_kernel.py (here ``solve_drain`` with ``fair``).
 Per-CQ pending queues are dense tensors; each cycle reproduces the
 reference's semantics (pkg/scheduler/scheduler.go:176-310) for
 preemption-free drains:
@@ -10,7 +12,9 @@ preemption-free drains:
   podsets in order (``drain_nominate``);
 - conflict resolution: the reference's entry order (borrowing asc,
   priority desc, timestamp asc) within each root cohort, independent
-  root cohorts in parallel (``drain_phase2``);
+  root cohorts in parallel (``drain_phase2``); in the fair drain the
+  fair-sharing cohort tournament, one pop per root cohort a step
+  against the live usage (``drain_fair_phase2``);
 - queue motion: admitted heads leave, NoFit heads park, conflict losers
   and PendingFlavors heads retry from their stored cursors, provably
   cycling queues freeze as stuck (``drain_queue_motion``);
@@ -27,7 +31,13 @@ a CPU tensor; plain and kernel share one in-place interface over
 ``DrainState`` and ``CycleBuffers``, so ``solve_drain`` is one loop for
 both. Kernel 4 keeps the cycle counter and a ``done`` flag on the
 device; every launch returns at once when ``done`` is set, so the host
-checks the flag only every few cycles and ``cycles`` stays exact.
+checks the flag only every few cycles (or, for a launch bounded by a
+few hundred cycles, never: ``run_cycles``) and ``cycles`` stays exact.
+
+The state carries ``alive`` and ``cap`` for the megaloop
+(ops/megaloop_kernel.py), whose round boundary retires stuck queues and
+rewrites the retry budgets; in the plain and fair drains they stay all
+ones and the plan's ``retry_cap``.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from kueue_tpu_torch.ops.assign_kernel import (
     segmented_rank,
 )
 from kueue_tpu_torch.ops.quota import (
+    DRS_MAX,
     NO_LIMIT,
     QuotaTree,
     available_all,
@@ -59,6 +70,8 @@ from kueue_tpu_torch.ops.quota import (
 # Widest shapes the CUDA kernels take (per-thread arrays are static):
 # candidates K, cells C, resource groups G, podsets P; P*C <= 32 lanes.
 MAX_K, MAX_C, MAX_G, MAX_P = 16, 8, 8, 4
+# resources the fair drain's kernel takes (its per-thread borrowed sums)
+MAX_R = 16
 
 
 class DrainQueues(NamedTuple):
@@ -130,15 +143,20 @@ class DrainState:
     no_prog: torch.Tensor  # int32[1] cycles without any advance
     adm_k: torch.Tensor  # int32[Q,L,P]
     adm_cycle: torch.Tensor  # int32[Q,L]
-    cycle: torch.Tensor  # int32[1]
+    cycle: torch.Tensor  # int32[1] (in the megaloop: the in-round cycle)
     done: torch.Tensor  # int32[1] loop condition failed
+    alive: torch.Tensor  # bool[Q] queues still in the drain (a megaloop
+    #                      round boundary retires stuck ones)
+    cap: torch.Tensor  # int32[Q] PendingFlavors retry budget in force
 
     @classmethod
     def initial(cls, local_usage, queues: DrainQueues, max_cycles: int):
+        """The state before the first cycle. ``done`` is computed on the
+        device, so building it reads nothing back to the host."""
         q, l, pmax, _, _ = queues.cells.shape
         g = queues.gidx.shape[-1]
         dev = local_usage.device
-        go = bool((queues.qlen > 0).any()) and max_cycles > 0
+        go = (queues.qlen > 0).any() & (max_cycles > 0)
         return cls(
             local=local_usage.clone(),
             cursor=torch.zeros(q, dtype=I32, device=dev),
@@ -149,11 +167,13 @@ class DrainState:
             adm_k=torch.full((q, l, pmax), -1, dtype=I32, device=dev),
             adm_cycle=torch.full((q, l), -1, dtype=I32, device=dev),
             cycle=torch.zeros(1, dtype=I32, device=dev),
-            done=torch.full((1,), 0 if go else 1, dtype=I32, device=dev),
+            done=(~go).to(I32).reshape(1),
+            alive=torch.ones(q, dtype=BOOL, device=dev),
+            cap=queues.retry_cap.clone(),
         )
 
-    def clone(self) -> "DrainState":
-        return DrainState(**{f.name: getattr(self, f.name).clone() for f in fields(self)})
+    def clone(self):
+        return type(self)(**{f.name: getattr(self, f.name).clone() for f in fields(self)})
 
 
 @dataclass
@@ -287,7 +307,7 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
     n_fr = local.shape[1]
     dev = local.device
     q_idx = torch.arange(q, device=dev)
-    active = state.cursor < queues.qlen
+    active = (state.cursor < queues.qlen) & state.alive
     cur = state.cursor.clamp_max(l - 1).long()
     head_cq = torch.where(active, queues.cq_rows, -1)
     g_start = state.g_start
@@ -395,7 +415,7 @@ def drain_phase2_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers) 
     q, l = queues.priority.shape
     dev = buf.usage.device
     q_idx = torch.arange(q, device=dev)
-    active = state.cursor < queues.qlen
+    active = (state.cursor < queues.qlen) & state.alive
     cur = state.cursor.clamp_max(l - 1).long()
     is_fit, is_pre, head_borrow = buf.is_fit, buf.is_pre, buf.head_borrow
     cells_eff, qty_eff = buf.cells_eff, buf.qty_eff
@@ -496,12 +516,12 @@ def drain_queue_motion_plain(ctx: DrainContext, state: DrainState, buf: CycleBuf
     dev = state.cursor.device
     q_idx = torch.arange(q, device=dev)
     cursor = state.cursor
-    active = cursor < queues.qlen
+    active = (cursor < queues.qlen) & state.alive
     cur = cursor.clamp_max(l - 1).long()
     is_fit, pend, admitted = buf.is_fit, buf.pend, buf.admitted
     retries = state.retries
 
-    over_budget = retries >= queues.retry_cap
+    over_budget = retries >= state.cap
     stuck = state.stuck | (active & ~is_fit & pend & over_budget)
     resolve = active & (admitted | (~is_fit & ~pend))
     stuck = stuck & ~resolve
@@ -511,7 +531,7 @@ def drain_queue_motion_plain(ctx: DrainContext, state: DrainState, buf: CycleBuf
         advance | ~active, 0, torch.where(retrying, retries + 1, retries)
     ).to(I32)
     no_prog = torch.where(advance.any(), 0, state.no_prog + 1).to(I32)
-    stuck = stuck | ((no_prog >= 2 * queues.retry_cap.max()) & active & ~advance)
+    stuck = stuck | ((no_prog >= 2 * state.cap.max()) & active & ~advance)
     wrote = admitted & active
     state.adm_k[q_idx, cur] = torch.where(wrote[:, None], buf.rep_k, state.adm_k[q_idx, cur])
     state.adm_cycle[q_idx, cur] = torch.where(wrote, state.cycle, state.adm_cycle[q_idx, cur])
@@ -523,7 +543,6 @@ def drain_queue_motion_plain(ctx: DrainContext, state: DrainState, buf: CycleBuf
     ).to(I32)
     cursor = (cursor + advance.to(I32)).to(I32)
     cycle = state.cycle + 1
-    go = ((cursor < queues.qlen) & ~stuck).any() & (cycle < ctx.max_cycles)
 
     state.retries.copy_(retries)
     state.stuck.copy_(stuck)
@@ -531,16 +550,34 @@ def drain_queue_motion_plain(ctx: DrainContext, state: DrainState, buf: CycleBuf
     state.g_start.copy_(g_start)
     state.cursor.copy_(cursor)
     state.cycle.copy_(cycle)
-    state.done.copy_((~go).to(I32).reshape(1))
+    if ctx.max_rounds == 0:  # in the megaloop the round boundary owns done
+        go = ((cursor < queues.qlen) & ~stuck).any() & (cycle < ctx.max_cycles)
+        state.done.copy_((~go).to(I32).reshape(1))
 
 
 # ---- kernels 2-4 (csrc/drain_*.cu) ---------------------------------------
 
 
 @dataclass
+class FairInputs:
+    """The fair-sharing drain's extra inputs (``solve_drain(fair=)``) and
+    the scratch its kernel keeps between the steps of a cycle."""
+
+    depth_of: torch.Tensor  # int32[N] tree depth (roots 0)
+    weight: torch.Tensor  # int64[N] fairSharing weight (milli)
+    lendable: torch.Tensor  # int64[N,R] quota-only lendable per resource
+    res_of_fr: torch.Tensor  # int32[FR] cell -> resource bucket
+    n_res: int
+    prio_tie: bool  # PrioritySortingWithinCohort
+    chain: Optional[torch.Tensor] = None  # int64[Q,D+1] kernel scratch
+    flags: Optional[torch.Tensor] = None  # uint8[Q] kernel scratch
+
+
+@dataclass
 class DrainContext:
     """What stays fixed for one drain: the tree and its derived
-    matrices, the queues, paths, segments and the static sizes. The
+    matrices, the queues, paths, segments and the static sizes; for the
+    megaloop its round sizes, for the fair drain its extra inputs. The
     kernel wrappers read it; ``kernel_args`` builds the C argument
     arrays once per (state, buffers) pair."""
 
@@ -554,21 +591,36 @@ class DrainContext:
     n_segments: int
     n_steps: int
     max_cycles: int
+    chunk_cycles: int = 0  # megaloop only: cycles per round
+    max_rounds: int = 0  # megaloop only; 0 for the plain and fair drains
+    fair: Optional[FairInputs] = None
     _args: Optional[tuple] = None  # (state, buf, ints, ptrs)
 
     @classmethod
-    def build(cls, tree, queues, paths, n_segments, n_steps, max_cycles):
+    def build(cls, tree, queues, paths, n_segments, n_steps, max_cycles,
+              seg_id=None, **extra):
+        """``seg_id`` is the host copy of ``queues.seg_id`` (read back
+        from the device when not given)."""
         subtree, guaranteed = subtree_quota(tree)
         potential = potential_available_all(tree, subtree, guaranteed)
-        segments = build_segments(queues.seg_id.cpu().numpy(), tree.device)
+        if seg_id is None:
+            seg_id = queues.seg_id.cpu().numpy()
+        segments = build_segments(seg_id, tree.device)
+        fair = extra.get("fair")
+        if fair is not None and fair.chain is None:
+            q = queues.qlen.shape[0]
+            fair.chain = torch.zeros((q, tree.max_depth + 1), dtype=I64, device=tree.device)
+            fair.flags = torch.zeros(q, dtype=torch.uint8, device=tree.device)
         return cls(
             tree, subtree, guaranteed, potential, paths, queues, segments,
-            n_segments, n_steps, max_cycles,
+            n_segments, n_steps, max_cycles, **extra,
         )
 
     def kernel_args(self, kernel: str, state: DrainState, buf: CycleBuffers):
         """(ints, ptrs) ctypes arrays in csrc/drain_common.cuh order,
-        every tensor checked; cached for the last (state, buf)."""
+        every tensor checked; cached for the last (state, buf). The
+        megaloop's round log (a MegaloopState's extra fields) and the
+        fair inputs are NULL where the drain has none."""
         cached = self._args
         if cached is not None and cached[0] is state and cached[1] is buf:
             return cached[2], cached[3]
@@ -576,6 +628,7 @@ class DrainContext:
         q, l, pmax, k, c = queues.cells.shape
         g = queues.gidx.shape[-1]
         n, fr = tree.nominal.shape
+        d1 = tree.max_depth + 1
         if k > MAX_K or c > MAX_C or g > MAX_G or pmax > MAX_P:
             raise _build.KernelInputError(
                 f"{kernel}: the drain kernels take K<={MAX_K}, C<={MAX_C}, "
@@ -584,6 +637,13 @@ class DrainContext:
         s = self.segments.count
         e5, e4 = (q, l, pmax, k, c), (q, l, pmax, k)
         eg = (q, l, pmax, k, g)
+        rr = self.max_rounds
+        fair = self.fair
+        if fair is not None and fair.n_res > MAX_R:
+            raise _build.KernelInputError(
+                f"{kernel}: the fair drain takes at most {MAX_R} resources, got {fair.n_res}"
+            )
+        rounds = getattr(state, "adm_round", None) is not None
         spec = [
             # DrainQueues
             ("cq_rows", queues.cq_rows, I32, (q,)),
@@ -610,7 +670,7 @@ class DrainContext:
             ("subtree", self.subtree, I64, (n, fr)),
             ("guaranteed", self.guaranteed, I64, (n, fr)),
             ("potential", self.potential, I64, (n, fr)),
-            ("paths", self.paths, I32, (n, tree.max_depth + 1)),
+            ("paths", self.paths, I32, (n, d1)),
             # DrainState
             ("local", state.local, I64, (n, fr)),
             ("cursor", state.cursor, I32, (q,)),
@@ -622,6 +682,8 @@ class DrainContext:
             ("adm_cycle", state.adm_cycle, I32, (q, l)),
             ("cycle", state.cycle, I32, (1,)),
             ("done", state.done, I32, (1,)),
+            ("alive", state.alive, BOOL, (q,)),
+            ("cap", state.cap, I32, (q,)),
             # CycleBuffers
             ("usage", buf.usage, I64, (n, fr)),
             ("avail", buf.avail, I64, (n, fr)),
@@ -638,11 +700,40 @@ class DrainContext:
             # segments
             ("seg_offsets", self.segments.offsets, I32, (s + 1,)),
             ("seg_members", self.segments.members, I32, None),
+            # the megaloop's round log (MegaloopState)
+            ("cap_suffix", getattr(state, "cap_suffix", None), I32, (q, l)),
+            ("adm_round", getattr(state, "adm_round", None), I32, (q, l)),
+            ("round_idx", getattr(state, "round_idx", None), I32, (1,)),
+            ("total", getattr(state, "total", None), I32, (1,)),
+            ("r_cursor", getattr(state, "r_cursor", None), I32, (rr, q)),
+            ("r_stuck", getattr(state, "r_stuck", None), BOOL, (rr, q)),
+            ("r_cycles", getattr(state, "r_cycles", None), I32, (rr,)),
+            ("r_usage", getattr(state, "r_usage", None), I64, (rr, n, fr)),
         ]
+        if rounds != (rr > 0):
+            raise _build.KernelInputError(
+                f"{kernel}: a megaloop context needs a MegaloopState and only it"
+            )
+        if fair is not None:
+            nr = fair.lendable.shape[1]
+            spec += [
+                ("depth_of", fair.depth_of, I32, (n,)),
+                ("weight", fair.weight, I64, (n,)),
+                ("lendable", fair.lendable, I64, (n, nr)),
+                ("res_of_fr", fair.res_of_fr, I32, (fr,)),
+                ("chain", fair.chain, I64, (q, d1)),
+                ("flags", fair.flags, torch.uint8, (q,)),
+            ]
+        else:
+            spec += [(name, None, None, None) for name in (
+                "depth_of", "weight", "lendable", "res_of_fr", "chain", "flags")]
         ptrs = [_build.ptr(kernel, name, t, dt, sh) for name, t, dt, sh in spec]
         ints = [
             q, l, pmax, k, c, g, n, fr, tree.max_depth,
             self.n_segments, self.n_steps, s, self.max_cycles,
+            self.chunk_cycles, rr,
+            fair.n_res if fair is not None else 0,
+            int(bool(fair.prio_tie)) if fair is not None else 0,
         ]
         c_ints = (ctypes.c_int * len(ints))(*ints)
         c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -688,24 +779,255 @@ def drain_queue_motion(ctx: DrainContext, state: DrainState, buf: CycleBuffers) 
     _launch("drain_queue_motion", ctx, state, buf)
 
 
+# ---- the fair-sharing drain's phase 2 (kernel drain_fair_phase2) -----------
+
+
+def _segment_min(vals, seg, num: int):
+    """jax.ops.segment_min: the minimum of ``vals`` per segment id, the
+    int64 maximum for an empty segment."""
+    out = torch.full((num,), torch.iinfo(I64).max, dtype=I64, device=vals.device)
+    return out.scatter_reduce_(0, seg, vals, "amin", include_self=True)
+
+
+def _fair_chain(
+    usage, borrowed_base, paths_q, mcells, mqty, subtree, guaranteed,
+    lendable, weight, parent, res_of, n_res: int, max_depth: int,
+):
+    """Per-head fair-sharing DRS chain (the JAX ``_fair_chain``): for
+    each queue q and path level d, the DominantResourceShare of path
+    node d with q's representative usage added at its ClusterQueue row.
+    Only the head's cells change, so the node's per-resource borrowed
+    total is ``borrowed_base`` plus the head-cell delta; lendable is
+    quota-only. Returns int64[Q, D+1]."""
+    qn = mcells.shape[0]
+    dev = usage.device
+    cells_c = mcells.clamp_min(0).long()
+    cell_ok = (mcells >= 0) & (mqty > 0)
+    delta = torch.where(cell_ok, mqty, 0)
+    q_rows = torch.arange(qn, device=dev)[:, None].expand_as(res_of)
+    chains = []
+    for d in range(max_depth + 1):
+        node = paths_q[:, d].clamp_min(0).long()
+        node_valid = paths_q[:, d] >= 0
+        u_at = usage[node[:, None], cells_c]
+        sub_at = subtree[node[:, None], cells_c]
+        g_at = guaranteed[node[:, None], cells_c]
+        new = u_at + delta
+        bdelta = (new - sub_at).clamp_min(0) - (u_at - sub_at).clamp_min(0)
+        badd = torch.zeros((qn, n_res + 1), dtype=I64, device=dev)
+        badd.index_put_(
+            (q_rows, res_of.long()), torch.where(cell_ok, bdelta, 0), accumulate=True
+        )
+        borrowed = borrowed_base[node] + badd[:, :n_res]
+        lend = lendable[node]
+        ratio = torch.where(
+            (borrowed > 0) & (lend > 0), borrowed * 1000 // lend.clamp_min(1), -1
+        )
+        drs = ratio.amax(dim=1)
+        has_parent = parent[node] >= 0
+        active = (borrowed > 0).any(dim=1) & has_parent & node_valid
+        w = weight[node]
+        num = drs * 1000
+        trunc = torch.sign(num) * (num.abs() // w.clamp_min(1))
+        chains.append(torch.where(active, torch.where(w == 0, DRS_MAX, trunc), 0))
+        # bubble the head usage to the next level (over-guaranteed)
+        delta = torch.where(
+            node_valid[:, None],
+            (new - g_at).clamp_min(0) - (u_at - g_at).clamp_min(0),
+            delta,
+        )
+    return torch.stack(chains, dim=1)
+
+
+def _fair_tournament(
+    chain, remaining, paths_q, cq_rows, depth_of, parent, prio, ts,
+    n_nodes: int, max_tree_depth: int, prio_tie: bool,
+):
+    """One fair-sharing pop per root cohort (the JAX ``_fair_tournament``):
+    every cohort node picks the best of its children's winners by the
+    child's DRS (the winner's chain value at the child's level), then
+    -priority when ``prio_tie``, then timestamp, then queue index; a
+    node keeps its winner only when some proposal's DRS is below
+    INF = 2^62. Returns bool[Q]: this queue's head wins its root."""
+    inf = 1 << 62
+    qn = remaining.shape[0]
+    dev = chain.device
+    q_ar = torch.arange(qn, device=dev)
+    cqr = cq_rows.clamp_min(0).long()
+    head_depth = depth_of[cqr].long()
+    win = torch.full((n_nodes + 1,), -1, dtype=I64, device=dev)
+    win[torch.where(remaining, cqr, n_nodes)] = q_ar
+    win_q = win[:n_nodes]
+    tie1 = -prio if prio_tie else torch.zeros_like(prio)
+    par = parent.long()
+    pp = par.clamp_min(0)
+    for d in range(max_tree_depth, 0, -1):
+        at_d = (depth_of == d) & (win_q >= 0)
+        wq = win_q.clamp_min(0)
+        lvl = (head_depth[wq] - d).clamp(0, chain.shape[1] - 1)
+        k_dws = torch.where(at_d, chain[wq, lvl], inf)
+        k_t1 = torch.where(at_d, tie1[wq], inf)
+        k_t2 = torch.where(at_d, ts[wq], inf)
+        k_qi = torch.where(at_d, wq, inf)
+        seg = torch.where(at_d & (par >= 0), par, n_nodes)
+        m1 = _segment_min(k_dws, seg, n_nodes + 1)[:n_nodes]
+        s1 = at_d & (k_dws == m1[pp])
+        m2 = _segment_min(torch.where(s1, k_t1, inf), seg, n_nodes + 1)[:n_nodes]
+        s2 = s1 & (k_t1 == m2[pp])
+        m3 = _segment_min(torch.where(s2, k_t2, inf), seg, n_nodes + 1)[:n_nodes]
+        s3 = s2 & (k_t2 == m3[pp])
+        m4 = _segment_min(torch.where(s3, k_qi, inf), seg, n_nodes + 1)[:n_nodes]
+        parent_win = torch.where(m4 < inf, m4, -1)
+        # only nodes that received proposals overwrite their winner
+        win_q = torch.where(m1 < inf, parent_win, win_q)
+    root_pos = (paths_q >= 0).sum(dim=1) - 1
+    root_row = paths_q[q_ar, root_pos.clamp_min(0)].clamp_min(0).long()
+    return remaining & (win_q[root_row] == q_ar)
+
+
+def drain_fair_phase2_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
+    """The fair cycle's conflict resolution (the step scan of the JAX
+    ``solve_drain_fair``): each of ``n_steps`` steps pops one head per
+    root cohort through the DRS tournament against the live usage
+    tree, then admits it (or reserves for it) exactly as phase 2 does.
+    Mutates ``buf.usage``; admissions are added to ``state.local``."""
+    if _done(state):
+        return
+    tree, queues, fair = ctx.tree, ctx.queues, ctx.fair
+    subtree, guaranteed = ctx.subtree, ctx.guaranteed
+    max_depth = tree.max_depth
+    q, l = queues.priority.shape
+    n_nodes, fr = tree.nominal.shape
+    dev = buf.usage.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    is_fit, is_pre, head_borrow = buf.is_fit, buf.is_pre, buf.head_borrow
+    cells_eff, qty_eff = buf.cells_eff, buf.qty_eff
+    nofit = ~(is_fit | is_pre)
+    prio = queues.priority[q_idx, cur]
+    ts = queues.timestamp[q_idx, cur]
+    cq = queues.cq_rows.clamp_min(0).long()
+    paths_q = ctx.paths[cq]
+    cells_c = cells_eff.clamp_min(0).long()
+    cell_valid_all = (cells_eff >= 0) & (qty_eff > 0)
+    n_res = fair.n_res
+    res_of_q = torch.where(cell_valid_all, fair.res_of_fr[cells_c], n_res)
+    node_rows = torch.arange(n_nodes, device=dev)[:, None].expand(n_nodes, fr)
+    node_res = fair.res_of_fr.long()[None, :].expand(n_nodes, fr)
+    nominal_c = tree.nominal[cq[:, None], cells_c]
+    bl_c = tree.borrowing_limit[cq[:, None], cells_c]
+
+    usage = buf.usage
+    remaining = active & ~nofit & (queues.cq_rows >= 0)
+    admitted = torch.zeros(q, dtype=BOOL, device=dev)
+    for _ in range(ctx.n_steps):
+        if not bool(remaining.any()):
+            break  # later steps have no winner and change nothing
+        bb = torch.zeros((n_nodes, n_res + 1), dtype=I64, device=dev)
+        bb.index_put_((node_rows, node_res), (usage - subtree).clamp_min(0), accumulate=True)
+        chain = _fair_chain(
+            usage, bb[:, :n_res], paths_q, cells_eff, qty_eff, subtree, guaranteed,
+            fair.lendable, fair.weight, tree.parent, res_of_q, n_res, max_depth,
+        )
+        win = _fair_tournament(
+            chain, remaining, paths_q, queues.cq_rows, fair.depth_of, tree.parent,
+            prio, ts, n_nodes, max_depth, fair.prio_tie,
+        )
+        avail = _avail_along_path(
+            paths_q, cells_eff, usage, subtree, guaranteed, tree.borrowing_limit, max_depth
+        )
+        cell_valid = cell_valid_all & win[:, None]
+        fits = torch.where(cell_valid, avail >= qty_eff, True).all(dim=1)
+        admit = win & is_fit & fits
+        reserve = win & is_pre & queues.no_reclaim
+        leaf_usage_c = usage[cq[:, None], cells_c]
+        borrow_cap = torch.where(
+            bl_c < NO_LIMIT, torch.minimum(qty_eff, nominal_c + bl_c - leaf_usage_c), qty_eff
+        )
+        nominal_cap = torch.minimum(qty_eff, nominal_c - leaf_usage_c).clamp_min(0)
+        reserve_qty = torch.where(head_borrow[:, None], borrow_cap, nominal_cap)
+        delta = torch.where(
+            cell_valid & admit[:, None],
+            qty_eff,
+            torch.where(cell_valid & reserve[:, None], reserve_qty, 0),
+        )
+        # winners are one per root cohort: their paths are disjoint
+        for d in range(max_depth + 1):
+            node = paths_q[:, d].clamp_min(0).long()[:, None].expand_as(cells_c)
+            node_valid = (paths_q[:, d] >= 0)[:, None]
+            old = usage[node, cells_c]
+            gg = guaranteed[node, cells_c]
+            new = old + delta
+            usage.index_put_((node, cells_c), torch.where(node_valid, delta, 0), accumulate=True)
+            delta = torch.where(
+                node_valid, (new - gg).clamp_min(0) - (old - gg).clamp_min(0), delta
+            )
+        remaining = remaining & ~win
+        admitted = admitted | admit
+    # leaf usage adds for admissions only: reservations die with the cycle
+    add = torch.where(cell_valid_all & admitted[:, None], qty_eff, 0)
+    state.local.index_put_((cq[:, None].expand_as(cells_c), cells_c), add, accumulate=True)
+    buf.admitted.copy_(admitted)
+
+
+def drain_fair_phase2(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
+    """Kernel 5: the fair cycle's tournament and admissions (one block
+    per root segment)."""
+    if not state.local.is_cuda:
+        return drain_fair_phase2_plain(ctx, state, buf)
+    _launch("drain_fair_phase2", ctx, state, buf)
+
+
 # ---- the drain ----------------------------------------------------------
 
 
 def drain_cycle(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
     """ONE drain cycle: five launches on the card (or their plain
-    versions on the CPU)."""
+    versions on the CPU); the fair drain's phase 2 is its tournament."""
     usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
     available_all(
         ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
     )
     drain_nominate(ctx, state, buf)
-    drain_phase2(ctx, state, buf)
+    if ctx.fair is None:
+        drain_phase2(ctx, state, buf)
+    else:
+        drain_fair_phase2(ctx, state, buf)
     drain_queue_motion(ctx, state, buf)
 
 
 # cycles the host enqueues between two reads of the device done flag
 CHECK_EVERY_CUDA = 8
 CHECK_EVERY_CPU = 1
+# a launch bounded by at most this many cycles (a pipeline chunk, a
+# megaloop's chunk_cycles x max_rounds) is enqueued whole, with no read
+# of the flag: cycles past the end return at once
+ENQUEUE_ALL_CYCLES = 256
+# reads of the device done flag on the card (each one a host sync)
+DONE_READS = 0
+
+
+def run_cycles(ctx, state, buf, cycle, bound: int) -> None:
+    """Run ``cycle(ctx, state, buf)`` until the device ``done`` flag is
+    set. On the card with ``bound`` at most ENQUEUE_ALL_CYCLES, all
+    ``bound`` cycles are enqueued with no host read, so the caller's
+    one fetch is the only sync; otherwise the flag is read every
+    CHECK_EVERY_CUDA cycles (CHECK_EVERY_CPU on the CPU). The result is
+    the same either way."""
+    global DONE_READS
+    on_card = state.local.is_cuda
+    if on_card and bound <= ENQUEUE_ALL_CYCLES:
+        for _ in range(bound):
+            cycle(ctx, state, buf)
+        return
+    every = CHECK_EVERY_CUDA if on_card else CHECK_EVERY_CPU
+    while True:
+        DONE_READS += int(on_card)
+        if bool(state.done.item()):
+            return
+        for _ in range(every):
+            cycle(ctx, state, buf)
 
 
 def solve_drain(
@@ -716,20 +1038,21 @@ def solve_drain(
     n_segments: int,
     n_steps: int,
     max_cycles: int,
+    seg_id=None,  # host copy of queues.seg_id
+    fair: Optional[FairInputs] = None,
 ) -> DrainResult:
-    """The plain drain to quiescence (or ``max_cycles``).
-
-    The host enqueues ``CHECK_EVERY_CUDA`` cycles on the card
-    (``CHECK_EVERY_CPU`` on the CPU) between reads of the device
-    ``done`` flag; cycles enqueued past the end return at once, so the
-    result is the same for any interval."""
-    ctx = DrainContext.build(tree, queues, paths, n_segments, n_steps, max_cycles)
+    """The plain drain to quiescence or ``max_cycles``; with ``fair``
+    the fair-sharing drain (the JAX ``solve_drain_fair``): each cycle
+    pops heads by the cohort DRS tournament, one per root cohort a
+    step, every pop against the usage as the cycle's earlier admissions
+    and reservations left it, while nomination and queue motion stay
+    the plain drain's."""
+    ctx = DrainContext.build(
+        tree, queues, paths, n_segments, n_steps, max_cycles, seg_id=seg_id, fair=fair
+    )
     state = DrainState.initial(local_usage, queues, max_cycles)
     buf = CycleBuffers.empty(local_usage, queues)
-    check_every = CHECK_EVERY_CUDA if local_usage.is_cuda else CHECK_EVERY_CPU
-    while not bool(state.done.item()):
-        for _ in range(check_every):
-            drain_cycle(ctx, state, buf)
+    run_cycles(ctx, state, buf, drain_cycle, max_cycles)
     return DrainResult(
         admitted_k=state.adm_k,
         admitted_cycle=state.adm_cycle,
@@ -740,13 +1063,10 @@ def solve_drain(
     )
 
 
-def _solve_drain_packed(
-    tree, local_usage, queues, paths, n_segments: int, n_steps: int, max_cycles: int
-) -> torch.Tensor:
-    """solve_drain with the decision tensors flattened into one int64
-    vector (the JAX ``_solve_drain_packed`` layout), so the host
-    retrieves the whole drain in a single copy."""
-    r = solve_drain(tree, local_usage, queues, paths, n_segments, n_steps, max_cycles)
+def _pack_drain(r: DrainResult) -> torch.Tensor:
+    """The decision tensors flattened into one int64 vector (the JAX
+    ``_solve_drain_packed`` layout), so the host retrieves the whole
+    drain in a single copy."""
     return torch.cat(
         [
             r.admitted_k.reshape(-1).to(I64),
@@ -757,3 +1077,15 @@ def _solve_drain_packed(
             r.cycles.reshape(1).to(I64),
         ]
     )
+
+
+def _solve_drain_packed(
+    tree, local_usage, queues, paths, n_segments: int, n_steps: int, max_cycles: int,
+    seg_id=None, fair: Optional[FairInputs] = None,
+) -> torch.Tensor:
+    """solve_drain, packed; the plain and the fair drain share the
+    layout, so one decoder serves both scopes."""
+    return _pack_drain(solve_drain(
+        tree, local_usage, queues, paths, n_segments, n_steps, max_cycles,
+        seg_id=seg_id, fair=fair,
+    ))

@@ -15,6 +15,9 @@ drain, as pure data (a spec dict), plus its builder for this package.
 The spec format is the one tests/test_solver_path.random_spec uses,
 extended with "cohorts" and per-CQ "fungibility" / "reclaim" names, so
 the tests can build the same cluster in both packages.
+``fair_spec(seed)`` adds fairSharing weights to ``mixed_spec``'s
+ClusterQueues for the fair drain ("fair_weight", as
+tests/test_solver_path.build_env names it).
 ``build_scheduler(spec)`` builds the interactive cycle over a spec: the
 cache, a QueueManager with one LocalQueue ``lq-<cq>`` per ClusterQueue
 holding the spec's workloads, and a ``Scheduler`` with the host
@@ -166,6 +169,21 @@ def cycle_spec(seed: int, workloads_per_cq: int = 10) -> dict:
     return spec
 
 
+def fair_spec(seed: int, workloads_per_cq: int = 6) -> dict:
+    """``mixed_spec``'s depth-3 cohort forest with fairSharing weights on
+    its ClusterQueues (0, 500, 1000 or 2000), for the fair drain: its
+    cohort tournament then runs at every level of the forest (team,
+    dept, org), weight 0 ranks a borrowing queue last (DRS_MAX), and
+    the queues with reclaimWithinCohort Any are preempt-capable and
+    route to fallback."""
+    rng = np.random.default_rng(seed + 1000)
+    spec = mixed_spec(seed, workloads_per_cq=workloads_per_cq)
+    weights = (0, 500, 1000, 2000)
+    for cq, w in zip(spec["cqs"], rng.permutation(len(spec["cqs"]))):
+        cq["fair_weight"] = weights[int(w) % len(weights)]
+    return spec
+
+
 def build_cache(spec: dict):
     """(Cache, pending) of this package for a spec; ``pending`` is in
     per-CQ heap order (priority desc, timestamp asc)."""
@@ -173,6 +191,7 @@ def build_cache(spec: dict):
     from kueue_tpu_torch.models import (
         ClusterQueue,
         Cohort,
+        FairSharing,
         FlavorFungibility,
         FlavorFungibilityPolicy,
         FlavorQuotas,
@@ -220,6 +239,8 @@ def build_cache(spec: dict):
             )
         if cq.get("preemption") is not None:
             kwargs["preemption"] = cq["preemption"]  # a models.Preemption
+        if cq.get("fair_weight") is not None:
+            kwargs["fair_sharing"] = FairSharing(weight_milli=int(cq["fair_weight"]))
         cache.add_or_update_cluster_queue(
             ClusterQueue(
                 name=cq["name"],

@@ -140,7 +140,7 @@ def outcome_digest(outcome) -> str:
 
 
 # What the headline drain (seed 0, max_cells=3) decides, from the JAX
-# package on the CPU; tests/test_torch_drain.py holds the JAX package
+# package on the CPU; tests/test_torch_headline.py holds the JAX package
 # to it and chip_smoke.py holds the port on the card to it.
 HEADLINE_SEED = 0
 HEADLINE_MAX_CELLS = 3
@@ -151,6 +151,22 @@ HEADLINE_EXPECT = {
     "fallback": 0,
     "truncated": False,
     "digest": "a3f6fca41732ea6d1827591e64ee2cf60afa6874bb32a95eb68f91d89fc3babf",
+}
+
+
+# What the fair-sharing drain decides on the same cluster and backlog
+# (run_drain(fair_sharing=True); every ClusterQueue has the default
+# weight and preemption Never, so all 1000 enter the tournament and none
+# falls back), from the JAX package on the CPU;
+# tests/test_torch_headline_drains.py holds the JAX package to it and
+# chip_smoke.py holds the port on the card to it.
+FAIR_EXPECT = {
+    "cycles": 76,
+    "admitted": 15037,
+    "parked": 34963,
+    "fallback": 0,
+    "truncated": False,
+    "digest": "27c9be35969d7ecb1ea1e45c3dc51b356a066b0cef44fc14034a30a95307476d",
 }
 
 

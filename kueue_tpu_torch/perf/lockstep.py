@@ -1,9 +1,11 @@
 """Hold every kernel to its plain version, step by step.
 
-- The drain: ``lockstep`` runs a drain on the kernels and, before every
-  kernel step, copies the state; the plain version of that step runs on
-  the copy, and the two results must be equal in every field (int64,
-  tolerance 0).
+- The drains: ``lockstep`` (the plain drain), ``lockstep_megaloop``
+  (the K-round megaloop: the plain cycle and the round boundary) and
+  ``lockstep_fair`` (the fair drain: its tournament in place of phase
+  2) run a drain on the kernels and, before every kernel step, copy the
+  state; the plain version of that step runs on the copy, and the two
+  results must be equal in every field (int64, tolerance 0).
 - The interactive cycle: inside ``cycle_kernels_through(check)``, every
   cycle dispatch of the port's Scheduler (core/solver.dispatch_lowered)
   and every resident row scatter run launch by launch through
@@ -28,6 +30,7 @@ from kueue_tpu_torch.core import solver
 from kueue_tpu_torch.ops import _build
 from kueue_tpu_torch.ops import assign_kernel as ak
 from kueue_tpu_torch.ops import drain_kernel as dk
+from kueue_tpu_torch.ops import megaloop_kernel as ml
 from kueue_tpu_torch.ops import quota, resident
 
 
@@ -66,7 +69,18 @@ STEPS = (
     ("drain_phase2", dk.drain_phase2, dk.drain_phase2_plain),
     ("drain_queue_motion", dk.drain_queue_motion, dk.drain_queue_motion_plain),
 )
-DRAIN_KERNELS = tuple(dict.fromkeys(name for name, _, _ in STEPS))
+MEGALOOP_STEPS = STEPS + (
+    ("megaloop_boundary", ml.megaloop_boundary, ml.megaloop_boundary_plain),
+)
+FAIR_STEPS = tuple(
+    ("drain_fair_phase2", dk.drain_fair_phase2, dk.drain_fair_phase2_plain)
+    if name == "drain_phase2" else step
+    for step in STEPS
+    for name in (step[0],)
+)
+DRAIN_KERNELS = _build.DRAIN_KERNELS
+MEGALOOP_KERNELS = _build.MEGALOOP_KERNELS
+FAIR_KERNELS = _build.FAIR_KERNELS
 
 
 def max_abs_diff(a, b, skip=()) -> int:
@@ -84,17 +98,7 @@ def max_abs_diff(a, b, skip=()) -> int:
     return err
 
 
-def lockstep(
-    tree, local, queues, paths, n_segments, n_steps, max_cycles,
-    errs: Dict[str, int], label: str = "",
-    plain_ms: Optional[Dict[str, List[float]]] = None,
-):
-    """Drain on the kernels, checking every step against its plain
-    version; ``errs`` collects the largest difference per kernel (0 on
-    success). When ``plain_ms`` is given, it collects each plain step's
-    wall time in ms (host and card, synchronised on both sides).
-    Returns (ctx, final state, cycles). Raises LockstepMismatch on the
-    first difference."""
+def _check_quota(tree, errs, label) -> None:
     sub_k, g_k = quota.subtree_quota(tree)
     sub_p, g_p = quota.subtree_quota_plain(tree)
     pot_k = quota.potential_available_all(tree, sub_k, g_k)
@@ -108,16 +112,20 @@ def lockstep(
     if e:
         raise LockstepMismatch(f"{label}: quota_tree subtree/potential differ by {e}")
 
-    ctx = dk.DrainContext.build(tree, queues, paths, n_segments, n_steps, max_cycles)
-    state = dk.DrainState.initial(local, queues, max_cycles)
-    buf = dk.CycleBuffers.empty(local, queues)
+
+def run_lockstep(ctx, state, buf, steps, bound: int, errs: Dict[str, int],
+                 label: str = "", plain_ms: Optional[Dict[str, List[float]]] = None,
+                 stop_after: Optional[int] = None) -> int:
+    """Cycles of ``steps`` until ``done`` (or ``stop_after`` cycles),
+    each kernel step checked against its plain step on copies; returns
+    the cycles run."""
     buf.usage.zero_()
     buf.avail.zero_()
     cycles = 0
-    while not state.done.item():
-        if cycles > max_cycles:
-            raise LockstepMismatch(f"{label}: the drain ran past max_cycles")
-        for name, kern, plain in STEPS:
+    while not state.done.item() and cycles != stop_after:
+        if cycles > bound:
+            raise LockstepMismatch(f"{label}: the drain ran past its bound of {bound} cycles")
+        for name, kern, plain in steps:
             ps, pb = state.clone(), buf.clone()
             kern(ctx, state, buf)
             if plain_ms is None:
@@ -137,6 +145,53 @@ def lockstep(
                     f"at cycle {cycles}"
                 )
         cycles += 1
+    return cycles
+
+
+def lockstep(
+    tree, local, queues, paths, n_segments, n_steps, max_cycles,
+    errs: Dict[str, int], label: str = "",
+    plain_ms: Optional[Dict[str, List[float]]] = None,
+    fair: Optional[dk.FairInputs] = None,
+    stop_after: Optional[int] = None,
+):
+    """The plain drain (the fair drain with ``fair``) on the kernels,
+    checking every step against its plain version; ``errs`` collects
+    the largest difference per kernel (0 on success). When ``plain_ms``
+    is given, it collects each plain step's wall time in ms (host and
+    card, synchronised on both sides). Returns (ctx, final state,
+    cycles). Raises LockstepMismatch on the first difference."""
+    _check_quota(tree, errs, label)
+    ctx = dk.DrainContext.build(
+        tree, queues, paths, n_segments, n_steps, max_cycles, fair=fair
+    )
+    state = dk.DrainState.initial(local, queues, max_cycles)
+    buf = dk.CycleBuffers.empty(local, queues)
+    steps = STEPS if fair is None else FAIR_STEPS
+    cycles = run_lockstep(ctx, state, buf, steps, max_cycles, errs, label, plain_ms, stop_after)
+    return ctx, state, cycles
+
+
+def lockstep_megaloop(
+    tree, local, queues, paths, cap_suffix, n_segments, n_steps, chunk_cycles,
+    max_rounds, errs: Dict[str, int], label: str = "",
+    plain_ms: Optional[Dict[str, List[float]]] = None,
+    stop_after: Optional[int] = None,
+):
+    """``lockstep`` for the megaloop: the plain cycle's five launches
+    and the round boundary at every cycle. Returns (ctx, final
+    MegaloopState, cycles)."""
+    _check_quota(tree, errs, label)
+    bound = chunk_cycles * max_rounds
+    ctx = dk.DrainContext.build(
+        tree, queues, paths, n_segments, n_steps, bound,
+        chunk_cycles=chunk_cycles, max_rounds=max_rounds,
+    )
+    state = ml.MegaloopState.initial_rounds(local, queues, cap_suffix, max_rounds)
+    buf = dk.CycleBuffers.empty(local, queues)
+    cycles = run_lockstep(
+        ctx, state, buf, MEGALOOP_STEPS, bound, errs, label, plain_ms, stop_after
+    )
     return ctx, state, cycles
 
 

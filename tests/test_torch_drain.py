@@ -53,11 +53,12 @@ def jax_env_of(spec):
     return out
 
 
-def _both(spec):
+def _both(spec, jax_env=None):
     """(jax snapshot, jax pending, jax cache, port snapshot, port
     pending, port cache, timestamp_fn): the port's pending list follows
-    the JAX QueueManager's heap order name by name."""
-    _, mgr, jcache, _ = build_env(jax_env_of(spec), use_solver=False)
+    the JAX QueueManager's heap order name by name. ``jax_env`` turns
+    the spec into build_env's form (``jax_env_of`` by default)."""
+    _, mgr, jcache, _ = build_env((jax_env or jax_env_of)(spec), use_solver=False)
     jpending = [
         (wl, cq) for cq, pq in mgr.cluster_queues.items() for wl in pq.snapshot_sorted()
     ]

@@ -1,6 +1,7 @@
 """The PyTorch port (kueue_tpu_torch) stands alone.
 
-- it imports and runs its CPU path with jax, flax and kueue_tpu blocked;
+- it imports and runs its CPU path with jax, flax and kueue_tpu blocked
+  (a plain drain, a megaloop launch, a fair drain, a cycle);
 - no module of the package, nor chip_smoke.py, imports jax, flax or
   kueue_tpu (AST scan);
 - its entry points run on the card: without one, and without an
@@ -68,6 +69,15 @@ from kueue_tpu_torch.perf.cases import build_cache, mixed_spec
 cache, pending = build_cache(mixed_spec(1, workloads_per_cq=3))
 out = run_drain(take_snapshot(cache), pending, cache.flavors, device="cpu")
 assert out.admitted and out.cycles > 0
+from kueue_tpu_torch.core.drain import launch_drain_megaloop
+log = launch_drain_megaloop(take_snapshot(cache), pending, cache.flavors,
+                            chunk_cycles=2, max_rounds=4, device="cpu").fetch()
+assert log.n_rounds >= 1 and log.rounds[0].admitted
+from kueue_tpu_torch.perf.cases import fair_spec
+fcache, fpending = build_cache(fair_spec(0, workloads_per_cq=3))
+fair = run_drain(take_snapshot(fcache), fpending, fcache.flavors, fair_sharing=True,
+                 device="cpu")
+assert fair.admitted and fair.cycles > 0
 from kueue_tpu_torch.perf.cases import build_scheduler, cycle_spec
 sched, _, _ = build_scheduler(cycle_spec(0, workloads_per_cq=2), device="cpu")
 assert sched.schedule().admitted
@@ -99,12 +109,29 @@ def test_run_drain_without_device_raises_without_cuda(monkeypatch):
 
     from kueue_tpu_torch.core.drain import run_drain
 
+    from kueue_tpu_torch.core.drain import (
+        launch_drain,
+        launch_drain_megaloop,
+        run_drain_for_scope,
+    )
+    from kueue_tpu_torch.core.encode import ResidentEncoder
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     snap, pending, flavors = _small_drain_inputs()
     with pytest.raises(RuntimeError, match="CUDA"):
         run_drain(snap, pending, flavors)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_drain(snap, pending, flavors, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_drain(snap, pending, flavors, fair_sharing=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_drain_for_scope("fair", snap, pending, flavors)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_drain(snap, pending, flavors, max_cycles=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch_drain_megaloop(snap, pending, flavors)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResidentEncoder()
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):
@@ -122,13 +149,26 @@ def test_resolve_device_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_drain_scopes_raise():
-    from kueue_tpu_torch.core.drain import run_drain
+    """The preempt, fair-preempt and TAS drains and mesh sharding are
+    not ported: they raise, and no launch/fetch split is offered for a
+    scope other than the plain one (None, as the reference returns)."""
+    from kueue_tpu_torch.core.drain import (
+        launch_drain,
+        launch_drain_for_scope,
+        launch_drain_megaloop,
+        run_drain,
+        run_drain_for_scope,
+    )
 
     snap, pending, flavors = _small_drain_inputs()
-    with pytest.raises(NotImplementedError):
-        run_drain(snap, pending, flavors, fair_sharing=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_drain(snap, pending, flavors, mesh=object(), device="cpu")
+    for kind in ("preempt", "fair_preempt", "tas"):
+        with pytest.raises(NotImplementedError):
+            run_drain_for_scope(kind, snap, pending, flavors, device="cpu")
+    for kind in ("preempt", "fair_preempt", "tas", "fair"):
+        assert launch_drain_for_scope(kind, snap, pending, flavors, device="cpu") is None
+    for fn in (run_drain, launch_drain, launch_drain_megaloop):
+        with pytest.raises(NotImplementedError):
+            fn(snap, pending, flavors, mesh=object(), device="cpu")
 
 
 def test_wrappers_reject_cpu_tensors_for_kernels():
