@@ -3,12 +3,13 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without them, or without the package beside
-it, it exits non-zero and prints no result. It drives four paths: the
+it, it exits non-zero and prints no result. It drives six paths: the
 plain bulk drain (phases 2-3), the K-round megaloop (phase 4), the
-fair-sharing drain (phase 5) and the interactive admission cycle
-(phase 6).
+fair-sharing drain (phase 5), the interactive admission cycle (phase
+6), the cycle with the batched victim search (phase 7) and the drain
+with classic preemption (phase 8).
 
-1. Prints the card's name and power limit, builds the nine kernels from
+1. Prints the card's name and power limit, builds the 13 kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
    the build seconds and each kernel's registers and spills.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
@@ -77,7 +78,41 @@ fair-sharing drain (phase 5) and the interactive admission cycle
       16 cycles' wall per cycle split into snapshot, lowering,
       dispatch (solve and the one fetch), the rest of nomination and
       the host apply.
-7. Prints the nine kernels' JSON line, the card line, and as the last
+7. The interactive cycle with classic preemption over bench.py's
+   contended cluster (perf/contended.py: 1000 ClusterQueues in 100
+   cohorts, 6000 admitted victims, 5000 queued, ~500 heads a cycle,
+   each cycle's victims evicted before the next):
+   a. lockstep: every launch of the cycle's kernels and of kernel B8
+      (preempt_search, the batched victim search) held to its plain
+      version on the same inputs, over 12 cycles;
+   b. the main path: Scheduler(use_solver=True,
+      use_preempt_solver=True, device="cuda"), counters reset before;
+      asserts CONTENDED_CYCLE_EXPECT, the lockstep's records, every
+      preempting head searched on the card, every kernel launched;
+   c. one cycle with the default use_preempt_solver=None: its first
+      probe batches ("device"), with the same decisions;
+   d. every B8 launch timed alone with its bytes bound from its own
+      problem; the cycles' wall split (snapshot, nomination, the
+      batched search within it, the host apply).
+8. The drain with classic preemption over the same cluster
+   (run_drain_preempt at bench.py's search_width=64):
+   a. lockstep: every launch of the preempt cycle (quota_tree twice,
+      drain_nominate with the reclaim oracle, drain_preempt_search,
+      drain_preempt_phase2, drain_preempt_motion) held to its plain
+      version at every cycle of both tiers a fresh PanelTuner solves
+      (16, which overflows, and 64), and of the depth-3 multi-podset
+      perf.cases.preempt_spec(6);
+   b. the main path: run_drain_preempt(device="cuda") with a fresh
+      tuner, counters reset before; asserts CONTENDED_EXPECT, the panel
+      schedule CONTENDED_PANELS and every kernel launched; a forced
+      (8, 64) schedule gives the same decisions; the small case on the
+      card equals the CPU;
+   c. the entry point's wall (median of 3), its host lowering and
+      upload, and the solve of each tier (inputs on the card, one
+      fetch);
+   d. every launch of both tiers timed alone, bytes bound from each
+      cycle's own data.
+9. Prints the 13 kernels' JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 No phase is caught and passed over: any failure exits non-zero.
@@ -102,6 +137,8 @@ SMALL_CYCLE_SEED = 0  # cycle_spec seed: reservations, preemption, scatters
 SMALL_CYCLES = 24  # its preempting heads re-nominate until then (no evictions)
 STEADY_CYCLES = 40  # the headline run goes on to here: from cycle 24 on, each
 # cycle changes at most N/4 usage rows, so the resident buffer takes row deltas
+SMALL_PREEMPT_SEED = 6  # preempt_spec seed: depth 3, three podsets, 65 cycles,
+# within-CQ preemption and cross-CQ reclamation, a stuck queue
 
 SOURCES = {
     "quota_tree": "kueue_tpu_torch/csrc/quota_tree.cu",
@@ -113,6 +150,10 @@ SOURCES = {
     "scatter_rows": "kueue_tpu_torch/csrc/scatter_rows.cu",
     "megaloop_boundary": "kueue_tpu_torch/csrc/megaloop_boundary.cu",
     "drain_fair_phase2": "kueue_tpu_torch/csrc/drain_fair_phase2.cu",
+    "preempt_search": "kueue_tpu_torch/csrc/preempt_search.cu",
+    "drain_preempt_search": "kueue_tpu_torch/csrc/drain_preempt_search.cu",
+    "drain_preempt_phase2": "kueue_tpu_torch/csrc/drain_preempt_phase2.cu",
+    "drain_preempt_motion": "kueue_tpu_torch/csrc/drain_preempt_motion.cu",
 }
 REPLACES = {
     "quota_tree": "kueue_tpu/ops/quota.py:93",
@@ -124,6 +165,10 @@ REPLACES = {
     "scatter_rows": "kueue_tpu/core/solver.py:504",
     "megaloop_boundary": "kueue_tpu/ops/megaloop_kernel.py:82",
     "drain_fair_phase2": "kueue_tpu/ops/drain_kernel.py:1297",
+    "preempt_search": "kueue_tpu/ops/preempt_kernel.py:246",
+    "drain_preempt_search": "kueue_tpu/ops/drain_kernel.py:1644",
+    "drain_preempt_phase2": "kueue_tpu/ops/drain_kernel.py:1745",
+    "drain_preempt_motion": "kueue_tpu/ops/drain_kernel.py:1745",
 }
 
 
@@ -1070,6 +1115,417 @@ def fair_path(dev, cache, pending) -> dict:
             "solve_ms": solve_ms, "cycles": cyc}
 
 
+# ---- classic preemption: the contended cycle and the contended drain -----
+
+
+def b8_bytes(p) -> int:
+    """Bytes one preempt_search launch must move, from its problem's own
+    data (padding rows, cells and candidates excluded): per attempt row
+    its real local rows' paths and six [rows, cells] panels, the head's
+    row, request and flags, each real candidate's row, flags, priority
+    and usage at the real cells; out, a target flag per real candidate
+    and the row's fit."""
+    paths = p.paths.cpu().numpy()
+    cells = (p.need_qty > 0).sum(dim=1).cpu().numpy()
+    cands = p.cvalid.sum(dim=1).cpu().numpy()
+    rows = (paths[:, :, 0] >= 0).sum(axis=1)
+    d1 = paths.shape[2]
+    live = p.row_valid.cpu().numpy()
+    b = (rows * d1 * 4 + 6 * rows * cells * 8 + 4 + cells * 9 + 11
+         + cands * (14 + cells * 8) + cands * 4 + 4)
+    return int(b[live].sum())
+
+
+@contextlib.contextmanager
+def timed_preempt_search(timer, spans):
+    """kernel B8, each launch through ``timer`` with its bytes, and the
+    host wall of each cycle's batched search (lowering, launch, fetch,
+    decode) in ``spans['victim_search']``."""
+    from kueue_tpu_torch.core import preempt_batch
+    from kueue_tpu_torch.ops import preempt_kernel as pk
+
+    saved, saved_bgt = pk.solve_preempt_packed, preempt_batch.batched_get_targets
+
+    def search(p, depth, n_cand):
+        out = timer("preempt_search", lambda: saved(p, depth, n_cand), None)
+        timer.add_bytes({"preempt_search": [b8_bytes(p)]})
+        return out
+
+    def bgt(*a, **k):
+        t0 = time.perf_counter()
+        out = saved_bgt(*a, **k)
+        spans.setdefault("victim_search", []).append(time.perf_counter() - t0)
+        return out
+
+    pk.solve_preempt_packed, preempt_batch.batched_get_targets = search, bgt
+    try:
+        yield
+    finally:
+        pk.solve_preempt_packed, preempt_batch.batched_get_targets = saved, saved_bgt
+
+
+def contended_cycle_path(dev) -> dict:
+    """Phase 7: the interactive cycle with classic preemption over the
+    contended cluster (module docstring)."""
+    import torch
+
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.perf import contended
+    from kueue_tpu_torch.perf.lockstep import (
+        PREEMPT_CYCLE_KERNELS,
+        Lockstep,
+        cycle_kernels_through,
+        preempt_search_through,
+    )
+
+    def fresh(**kw):
+        env = contended.build_contended(np.random.default_rng(contended.SEED))
+        return contended.build_scheduler(env, device=dev, **kw), env
+
+    # 7a. every launch of the cycle's kernels and of B8 in lockstep
+    errs, plain = {}, {}
+    t0 = time.perf_counter()
+    check = Lockstep(errs, label="contended cycles", plain_ms=plain)
+    sched, env = fresh(use_preempt_solver=True)
+    with cycle_kernels_through(check), preempt_search_through(check):
+        lock_records = contended.run_cycles(sched, env)
+    if check.failures:
+        fail(f"contended cycle lockstep: {check.failures}")
+    if set(check.launches) != set(PREEMPT_CYCLE_KERNELS):
+        fail(f"the contended cycles checked only {sorted(check.launches)}")
+    print(f"{stamp()} contended cycle lockstep: {len(lock_records)} cycles, launches checked "
+          f"{json.dumps(check.launches)}, every one bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # 7b. the main path: the Scheduler on cuda, batched victim search
+    _build.reset_launches()
+    sched, env = fresh(use_preempt_solver=True)
+    records = contended.run_cycles(sched, env)
+    launches = _build.launch_counts()
+    summary = contended.cycle_summary(records)
+    print(f"{stamp()} contended Scheduler on cuda (use_preempt_solver=True): "
+          f"{json.dumps(summary)}; launches {json.dumps(launches)}")
+    if summary != contended.CONTENDED_CYCLE_EXPECT:
+        fail(f"contended cycles {summary} != expected {contended.CONTENDED_CYCLE_EXPECT}")
+    if records != lock_records:
+        fail("the contended cycles on cuda differ from their lockstep run")
+    if any(r["victim_search"] != ["device"] for r in records if r["preempting"]):
+        fail("a preempting head of the contended cycles was not searched on the card")
+    for name in PREEMPT_CYCLE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the contended cycles")
+
+    # 7c. the default gate: its first probe batches
+    sched, env = fresh()
+    first = contended.run_cycles(sched, env, 1)
+    if first[0]["victim_search"] != ["device"] or first[0]["admitted"] != records[0]["admitted"]:
+        fail(f"use_preempt_solver=None: the first cycle searched {first[0]['victim_search']}")
+    print(f"{stamp()} use_preempt_solver=None: the first cycle's {len(first[0]['preempting'])} "
+          f"preempting heads searched on the card, decisions equal")
+
+    # 7d. timing: every B8 launch alone; the cycle's wall split
+    timer, spans = TimedLaunches(), {}
+    sched, env = fresh(use_preempt_solver=True)
+    totals = []
+    with timed_preempt_search(timer, spans):
+        timed = []
+        for _ in range(contended.CYCLE_CYCLES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timed += contended.run_cycles(sched, env, 1)
+            totals.append(time.perf_counter() - t0)
+    if contended.cycle_summary(timed) != contended.CONTENDED_CYCLE_EXPECT:
+        fail("the timed contended cycles changed their decisions")
+    traces = list(sched.last_traces)
+    cyc_ms = {
+        "total": 1e3 * float(np.mean(totals)),
+        "snapshot": 1e3 * float(np.mean([t.spans["snapshot"] for t in traces])),
+        "nominate": 1e3 * float(np.mean([t.spans["nominate"] for t in traces])),
+        "victim_search": 1e3 * float(np.mean(spans["victim_search"])),
+        "admit": 1e3 * float(np.mean([t.spans["admit"] for t in traces])),
+    }
+    timing = {"preempt_search": timing_of(timer, "preempt_search", plain)}
+    t = timing["preempt_search"]
+    print(f"{stamp()} contended cycle wall, mean of {contended.CYCLE_CYCLES} cycles: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in cyc_ms.items())
+          + f" (victim_search: lowering, B8 and decoding; within nominate)")
+    print(f"kernel preempt_search [contended cycles, {t['timed']} launches]: "
+          f"{t['ms'] * 1e3:.2f} us/launch on "
+          f"the device, {t['host_ms'] * 1e3:.2f} us/call to enqueue, plain "
+          f"{t['plain_ms']:.3f} ms/call, bound {t['bound_ms'] * 1e3:.4f} us ({t['bytes']:.0f} B); "
+          f"main-path launches {launches['preempt_search']}, max_abs_err {errs['preempt_search']}")
+    return {"errs": errs, "timing": timing, "launches": launches, "cycle_ms": cyc_ms,
+            "summary": summary}
+
+
+def preempt_cycle_bytes(ctx, state_before, buf, state_after) -> dict:
+    """Bytes each launch of one preempt drain cycle must move (each
+    input read once, each output written once), from the cycle's own
+    data: ``state_before`` (host copies of the cursor, the pool and the
+    cycle start's flags) and the buffers and state after the cycle. Pads
+    (slots without an owner, -1 cells, nodes beyond a segment) cost
+    nothing; reads shared by the heads of one segment count once."""
+    vic = ctx.preempt.victims
+    qs = ctx.queues
+    q, l, p, k, c = qs.cells.shape
+    g = qs.gidx.shape[-1]
+    n, fr = ctx.tree.nominal.shape
+    d1 = ctx.tree.max_depth + 1
+    pc = p * c
+    owner = vic.sowner.cpu().numpy()
+    seg_nodes = vic.seg_nodes.cpu().numpy()
+    seg_id = qs.seg_id.cpu().numpy()
+    sq = np.maximum(seg_id, 0)
+    v_real = (owner >= 0).sum(axis=1)  # [S]
+    m_real = (seg_nodes >= 0).sum(axis=1)
+    pcells = state_before["pcells"]
+    cells_real = (pcells >= 0).sum(axis=2)  # [S,V]
+    cursor, qlen = state_before["cursor"], qs.qlen.cpu().numpy()
+    active = cursor < qlen
+    is_fit = buf.is_fit.cpu().numpy()
+    is_pre = buf.is_pre.cpu().numpy()
+    ce = buf.cells_eff.cpu().numpy()
+    qe = buf.qty_eff.cpu().numpy()
+    ce = np.where(qe > 0, ce, -1)
+    head_cells = (ce >= 0).sum(axis=1)
+    rows = qs.cq_rows.cpu().numpy()
+    paths = ctx.paths.cpu().numpy()
+    elig = buf.elig_same.cpu().numpy()
+    psuccess = buf.psuccess.cpu().numpy()
+    preempt_ok = buf.preempt_ok.cpu().numpy()
+    admitted = buf.admitted.cpu().numpy()
+    targets = buf.targets.cpu().numpy()
+    ev_now = buf.ev_now.cpu().numpy()
+    mat = n * fr * 8
+    links = 4 * n + d1 * n
+    quota = [3 * mat + links, 5 * mat + links]
+
+    # nomination: the plain drain's walk (each head's entry, the quota
+    # cells it gathers), plus the oracle over the segment's live pool
+    act = np.nonzero(active)[0]
+    entry = p * k * c * 13 + p * k * 9 + p * k * g * 5
+    head_cells_all = qs.cells.cpu().numpy()[np.arange(q), np.minimum(cursor, l - 1)]
+    pairs = _distinct(np.repeat(rows[act], p * k * c), head_cells_all[act].reshape(-1), fr)
+    oracle = sum(int(v_real[sq[i]]) * 26 + int(cells_real[sq[i]][elig[i]].sum()) * 4 + 7
+                 for i in act)
+    nominate = (len(act) * (entry + 24 + 4 * p * g) + q * (8 + 5 + 8 * p + 4 * p * g + 13 * pc)
+                + pairs * 5 * 8 + oracle + q * fr + int(v_real[sq].sum()))
+
+    # the search: every queue's flags and targets row; per searching
+    # queue its head cells, priority and config; per segment with a
+    # searching head its panels at the distinct head cells, its pool
+    # and its local paths; per searching queue its eligibility and order
+    enabled = np.nonzero(active & is_pre)[0]
+    search = q * (12 + 3) + int(v_real[sq].sum())
+    segs = {}
+    for i in enabled:
+        segs.setdefault(int(sq[i]), set()).update(int(x) for x in ce[i] if x >= 0)
+        search += head_cells[i] * 13 + 30 + int(v_real[sq[i]]) * 5
+    for s_, cells_s in segs.items():
+        search += int(m_real[s_]) * (len(cells_s) * 6 * 8 + 4 + d1 * 4)
+        search += int(v_real[s_]) * 18 + int(cells_real[s_].sum()) * 12
+
+    # phase 2: the segments' leaf rows copied, the eviction record
+    # reset; ranking flags; per walked head its row, cells, path,
+    # targets and flags; path pairs read (and written where usage
+    # moved); the preempters' victims removed at their owners
+    phase2 = int(m_real.sum()) * fr * 16 + int(v_real.sum()) * 5 + q * 7
+    walked = np.nonzero(is_fit | is_pre)[0]
+    pcn = ce.shape[1]
+    phase2 += sum(16 + 4 + head_cells[i] * 12 + d1 * 4 + int(v_real[sq[i]]) + 7 for i in walked)
+    node_rows = np.repeat(paths[rows[walked]], pcn, axis=1)
+    node_cells = np.where(node_rows >= 0, np.tile(ce[walked], (1, d1)), -1)
+    phase2 += _distinct(node_rows.reshape(-1), node_cells.reshape(-1), fr) * 40
+    vr, vc = [], []
+    for i in np.nonzero(preempt_ok)[0]:
+        for v in np.nonzero(targets[i])[0]:
+            for cell in pcells[sq[i], v]:
+                if cell >= 0:
+                    o = owner[sq[i], v]
+                    phase2 += 12 + 16
+                    vr.append(paths[o])
+                    vc.append(np.where(paths[o] >= 0, cell, -1))
+    if vr:
+        phase2 += _distinct(np.concatenate(vr), np.concatenate(vc), fr) * 24
+
+    # motion: per queue its flags, budgets, cursors, status row and
+    # per-group cursors; the cycle's evictions (record, owner usage);
+    # admissions (stamps, leaf usage, part-B slot fill)
+    qlen_sum = int(np.minimum(qlen, l).sum())
+    motion = q * (42 + 12 * p * g) + qlen_sum * 4 + int(v_real.sum())
+    for s_, v in zip(*np.nonzero(ev_now)):
+        motion += 17 + int(cells_real[s_, v]) * 28
+    for i in np.nonzero(admitted)[0]:
+        motion += 8 * p + 8 + head_cells[i] * 28 + pcells.shape[2] * 12 + 1
+    return {
+        "quota_tree": quota, "drain_nominate": [nominate],
+        "drain_preempt_search": [search], "drain_preempt_phase2": [phase2],
+        "drain_preempt_motion": [motion],
+    }
+
+
+def contended_drain_path(dev) -> dict:
+    """Phase 8: the drain with classic preemption over the contended
+    cluster, and a small depth-3 multi-podset case (module
+    docstring)."""
+    import torch
+
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.perf import cases, contended
+    from kueue_tpu_torch.perf.lockstep import PREEMPT_KERNELS, PREEMPT_STEPS, lockstep_preempt
+
+    env = contended.build_contended(np.random.default_rng(contended.SEED))
+    width = contended.SEARCH_WIDTH
+    schedule = contended.CONTENDED_PANELS["widths"]
+
+    def inputs():
+        return pd.preempt_drain_inputs(take_snapshot(env.cache), env.pending,
+                                       env.cache.flavors, dev, timestamp_fn=env.ts_fn)
+
+    # 8a. lockstep at every cycle of each tier the main path solves
+    errs, plain = {}, {}
+    plan, low, tree, paths, local, queues, victims = inputs()
+    t0 = time.perf_counter()
+    tiers = {}
+    for w in schedule:
+        _, state, cyc = lockstep_preempt(
+            tree, local, queues, victims, paths, plan.n_segments, plan.n_steps,
+            plan.max_cycles, w, errs, label=f"contended drain, width {w}", plain_ms=plain,
+        )
+        tiers[w] = (cyc, bool(state.ovf.item()))
+    if tiers[width] != (contended.CONTENDED_EXPECT["cycles"], False) or not tiers[schedule[0]][1]:
+        fail(f"contended drain lockstep tiers {tiers}")
+    print(f"{stamp()} contended drain lockstep: tiers {json.dumps(tiers)} (cycles, overflowed); "
+          f"every launch of {sorted(errs)} bit-exact ({time.perf_counter() - t0:.1f} s)")
+    spec = cases.preempt_spec(SMALL_PREEMPT_SEED)
+    s_cache, s_pending = cases.build_cache(spec)
+    sp, _, st, spa, sl, sq_, sv = pd.preempt_drain_inputs(
+        take_snapshot(s_cache), s_pending, s_cache.flavors, dev)
+    _, s_state, s_cyc = lockstep_preempt(st, sl, sq_, sv, spa, sp.n_segments, sp.n_steps,
+                                         sp.max_cycles, 32, errs, label="preempt small")
+    shape = tuple(sp.queues_np["cells"].shape)
+    if shape[2] < 2 or st.max_depth != 3 or not bool(s_state.vevicted.any()):
+        fail(f"the small preempt case lost its coverage: cells {shape}, D={st.max_depth}")
+    print(f"{stamp()} preempt lockstep small case (preempt_spec({SMALL_PREEMPT_SEED})): cells "
+          f"{shape} D={st.max_depth}, {s_cyc} cycles, {int(s_state.vevicted.sum())} evictions, "
+          f"bit-exact")
+
+    # 8b. the main path: run_drain_preempt on cuda, a fresh tuner
+    tuner = pd.PanelTuner()
+    _build.reset_launches()
+    out = pd.run_drain_preempt(take_snapshot(env.cache), env.pending, env.cache.flavors,
+                               timestamp_fn=env.ts_fn, search_width=width, panel_tuner=tuner,
+                               device=dev)
+    launches = _build.launch_counts()
+    summary = contended.drain_summary(out)
+    panels = {"widths": list(schedule), "escalations": tuner.escalations,
+              "next_narrow": tuner._narrow[width]}
+    print(f"{stamp()} run_drain_preempt on cuda: {json.dumps(summary)}; panels "
+          f"{json.dumps(panels)}; launches {json.dumps(launches)}")
+    if summary != contended.CONTENDED_EXPECT:
+        fail(f"contended drain {summary} != expected {contended.CONTENDED_EXPECT}")
+    if panels != contended.CONTENDED_PANELS:
+        fail(f"contended panel schedule {panels} != {contended.CONTENDED_PANELS}")
+    for name in PREEMPT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the contended drain")
+    tier_flags, solve_tier = [], dk._solve_drain_preempt_packed
+
+    def spy(*a, **k):
+        flat = solve_tier(*a, **k)
+        tier_flags.append((k["search_width"], int(flat[-2])))
+        return flat
+
+    dk._solve_drain_preempt_packed = spy
+    try:
+        forced = pd.run_drain_preempt(take_snapshot(env.cache), env.pending,
+                                      env.cache.flavors, timestamp_fn=env.ts_fn,
+                                      search_width=width, panel_widths=(8, width), device=dev)
+    finally:
+        dk._solve_drain_preempt_packed = solve_tier
+    if tier_flags != [(8, 1), (width, 0)]:
+        fail(f"the forced (8, {width}) schedule's tiers (width, overflowed): {tier_flags}")
+    if contended.drain_summary(forced) != contended.CONTENDED_EXPECT:
+        fail("the forced (8, 64) panel schedule changed the decisions")
+    small = [pd.run_drain_preempt(take_snapshot(s_cache), s_pending, s_cache.flavors,
+                                  search_width=32, device=d) for d in (dev, "cpu")]
+    if [round_view_preempt(o) for o in small[:1]] != [round_view_preempt(o) for o in small[1:]]:
+        fail("the small preempt case on cuda differs from the CPU")
+    print(f"{stamp()} forced panels (8, {width}): tiers {tier_flags} (width, overflowed), "
+          f"the same decisions; the small case on "
+          f"cuda equals the CPU ({len(small[0].admitted)} admitted, {len(small[0].preempted)} "
+          f"evicted)")
+
+    # 8c. walls: the entry point, its host lowering, the solve per tier
+    walls, plans = [], []
+    for _ in range(3):
+        snap = take_snapshot(env.cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd.run_drain_preempt(snap, env.pending, env.cache.flavors, timestamp_fn=env.ts_fn,
+                             search_width=width, panel_tuner=pd.PanelTuner(), device=dev)
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        inputs()
+        torch.cuda.synchronize()
+        plans.append(time.perf_counter() - t0)
+    solves = {}
+    for w in schedule:
+        ts_ = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dk._solve_drain_preempt_packed(
+                tree, local, queues, victims, paths, plan.n_segments, plan.n_steps,
+                plan.max_cycles, w, seg_id=plan.queues_np["seg_id"]).cpu()
+            ts_.append(time.perf_counter() - t0)
+        solves[w] = 1e3 * float(np.median(ts_))
+    cyc = summary["cycles"]
+    wall_ms, plan_ms = 1e3 * float(np.median(walls)), 1e3 * float(np.median(plans))
+    print(f"{stamp()} contended drain wall (run_drain_preempt, fresh tuner: tiers "
+          f"{list(schedule)}, median of 3): {wall_ms:.1f} ms = {wall_ms / cyc:.3f} ms/cycle "
+          f"over {cyc} cycles; host lowering and upload {plan_ms:.1f} ms; solve per tier (inputs "
+          f"on the card, one fetch) " + ", ".join(f"{w}: {v:.2f} ms" for w, v in solves.items()))
+
+    # 8d. every launch of both tiers timed alone, bytes from each cycle
+    ctx_all = {}
+    timer = TimedLaunches()
+    for w in schedule:
+        ctx = dk.DrainContext.build(
+            tree, queues, paths, plan.n_segments, plan.n_steps, plan.max_cycles,
+            preempt=dk.PreemptInputs(victims=victims, search_width=w))
+        ctx_all[w] = ctx
+        state = dk.PreemptState.initial_preempt(local, queues, plan.max_cycles, victims)
+        buf = dk.PreemptBuffers.empty_preempt(local, queues, victims)
+        while not state.done.item():
+            before = {"cursor": state.cursor.cpu().numpy(), "pcells": state.pcells.cpu().numpy()}
+            for name, kern, _ in PREEMPT_STEPS:
+                timer(name, lambda: kern(ctx, state, buf), None)
+            timer.add_bytes(preempt_cycle_bytes(ctx, before, buf, state))
+    timing = {name: timing_of(timer, name, plain) for name in PREEMPT_KERNELS}
+    print(f"{stamp()} timed contended drain (tiers {list(schedule)}): "
+          f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "
+          f"alone, {timer.uncovered} uncovered")
+    for name, t in timing.items():
+        print(f"kernel {name} [contended drain]: mean over {t['timed']} launches: "
+              f"{t['ms'] * 1e3:.2f} us/launch on the device ({t['device_ms_total']:.3f} ms in "
+              f"all), {t['host_ms'] * 1e3:.2f} us/call to enqueue, plain {t['plain_ms']:.3f} "
+              f"ms/call, bound {t['bound_ms'] * 1e3:.4f} us ({t['bytes']:.0f} B); main-path "
+              f"launches {launches[name]}, max_abs_err {errs[name]}")
+    return {"errs": errs, "timing": timing, "launches": launches, "wall_ms": wall_ms,
+            "plan_ms": plan_ms, "solve_ms": solves, "cycles": cyc, "panels": panels}
+
+
+def round_view_preempt(out):
+    return (sorted((wl.name, repr(sorted(f.items())), c) for wl, _, f, c in out.admitted),
+            sorted(wl.name for wl, _ in out.parked), sorted(wl.name for wl, _ in out.fallback),
+            sorted((e.victim.name, e.cycle, e.by_cq, e.reason) for e in out.evictions),
+            out.cycles, out.truncated)
+
+
 # ---- main ---------------------------------------------------------------
 
 
@@ -1261,10 +1717,15 @@ def main() -> int:
     cycle_launches = cyc["launches"]["cycle_headline"]
     small_launches = cyc["launches"]["cycle_small"]
 
-    # 7. result lines
+    # 7. the contended cycle; 8. the contended drain
+    pcyc = contended_cycle_path(dev)
+    pdrain = contended_drain_path(dev)
+
+    # 9. result lines
     by_path = {
         "drain": drain_launches, "megaloop": mega["launches"], "fair": fairr["launches"],
         "cycle_headline": cycle_launches, "cycle_small": small_launches,
+        "contended_cycle": pcyc["launches"], "contended_drain": pdrain["launches"],
     }
     kernels = []
     for name in _build.KERNELS:
@@ -1274,6 +1735,10 @@ def main() -> int:
             t, lib = mega["timing"][name], None
         elif name == "drain_fair_phase2":
             t, lib = fairr["timing"][name], None
+        elif name == "preempt_search":
+            t, lib = pcyc["timing"][name], None
+        elif name.startswith("drain_preempt_"):
+            t, lib = pdrain["timing"][name], None
         else:
             t, lib = ctiming[name], library.get(name)
         entry = {
@@ -1283,7 +1748,8 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {k: c[name] for k, c in by_path.items()},
-            "max_abs_err": max(r.get(name, 0) for r in (errs, cerrs, mega["errs"], fairr["errs"])),
+            "max_abs_err": max(r.get(name, 0) for r in (errs, cerrs, mega["errs"], fairr["errs"],
+                                                         pcyc["errs"], pdrain["errs"])),
             "ms": t["ms"],
             "device_ms_total": t["device_ms_total"],
             "host_ms": t["host_ms"],
@@ -1292,11 +1758,11 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": lib,
         }
-        for label, res in (("megaloop", mega), ("fair", fairr)):
-            if name in res["timing"] and name not in ("megaloop_boundary", "drain_fair_phase2"):
+        for label, res in (("megaloop", mega), ("fair", fairr), ("contended_drain", pdrain)):
+            if name in res["timing"] and name in DRAIN_KERNELS:
                 entry.setdefault("ms_by_path", {})[label] = res["timing"][name]["ms"]
         kernels.append(entry)
-    if len(kernels) != 9:
+    if len(kernels) != 13:
         fail(f"{len(kernels)} kernels in the result line")
     print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
@@ -1305,7 +1771,13 @@ def main() -> int:
                       "fair_wall_ms": fairr["wall_ms"], "fair_solve_ms": fairr["solve_ms"],
                       "fair_cycles": fairr["cycles"],
                       "cycle_ms": cyc["cycle_ms"], "cycle_max_ms": cyc["cycle_max_ms"],
-                      "cycle_solve_device_ms": cyc["solve_dev"]}))
+                      "cycle_solve_device_ms": cyc["solve_dev"],
+                      "contended_cycle_ms": pcyc["cycle_ms"],
+                      "contended_drain_wall_ms": pdrain["wall_ms"],
+                      "contended_drain_plan_ms": pdrain["plan_ms"],
+                      "contended_drain_solve_ms": pdrain["solve_ms"],
+                      "contended_drain_cycles": pdrain["cycles"],
+                      "contended_panels": pdrain["panels"]}))
     print(card)
     print(json.dumps({
         "ok": True,

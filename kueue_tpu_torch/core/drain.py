@@ -12,11 +12,13 @@ Ported: the plain drain (``plan_drain``, ``run_drain``,
 ``launch_drain`` and its ``DrainLaunch``), the fair-sharing drain
 (``run_drain(fair_sharing=True)``), the K-round megaloop
 (``launch_drain_megaloop`` and its ``MegaloopLaunch``, with the numpy
-host twin ``run_drain_megaloop_host``), and the scope routing
+host twin ``run_drain_megaloop_host``), the drain with classic
+preemption (``run_drain_preempt``, its candidate-pool lowering and the
+``PanelTuner`` ladder of search widths), and the scope routing
 (``classify_drain_scope``, ``run_drain_for_scope``,
-``launch_drain_for_scope``). The preempt, fair-preempt and TAS drains,
-mesh sharding and non-default admission policies are not ported yet
-and raise NotImplementedError.
+``launch_drain_for_scope``). The fair-preempt and TAS drains, mesh
+sharding and non-default admission policies are not ported yet and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -314,6 +316,755 @@ def _preempt_capable(snapshot: Snapshot, cq_name: str) -> bool:
     )
 
 
+@dataclass
+class DrainEviction:
+    """One eviction with evictor attribution (the kernel records the
+    evicting queue exactly; the evicting ENTRY is the queue's next
+    admission at/after the eviction cycle — exact except for the rare
+    head that evicts, then loses every later fits() re-check)."""
+
+    victim: Workload
+    victim_cq: str
+    cycle: int
+    by_cq: Optional[str] = None
+    by_workload: Optional[Workload] = None
+    # Preempted condition reason (preemption.py IN_* constants)
+    reason: str = "InClusterQueue"
+
+
+@dataclass
+class PreemptDrainOutcome(DrainOutcome):
+    # (victim workload, cq_name, cycle index of the eviction)
+    preempted: List[Tuple[Workload, str, int]] = field(default_factory=list)
+    # same evictions, with evictor attribution (aligned order)
+    evictions: List[DrainEviction] = field(default_factory=list)
+
+
+@dataclass
+class _VictimLowering:
+    """The per-root-cohort candidate-pool lowering of the preempt drain
+    (``run_drain_preempt``)."""
+
+    victims_np: dict
+    slot_meta: Dict[int, list]
+    victim_of: Dict[Tuple[int, int], object]
+    extra_fb_entries: List[Tuple[Workload, str]]
+    seg_root: Dict[int, int]
+    seg_queues: Dict[int, List[int]]
+    seg_members: Dict[int, List[int]]
+    local_ids: Dict[int, Dict[int, int]]  # s -> global row -> local id
+    row_names: list
+    v_cap: int
+    s_dim: int
+    cv: int
+    m_dim: int
+
+
+def _lower_victim_pools(
+    snapshot: Snapshot,
+    plan: DrainPlan,
+    timestamp_fn,
+    now: Optional[float],
+    max_victims: int,
+    max_victim_cells: int,
+    max_cycles: Optional[int],
+) -> _VictimLowering:
+    """Build the SegVictims arrays + metadata for a preemption drain
+    and set plan.max_cycles. Mutates plan (drops ineligible queues).
+    The candidate order is the default policy's: without PREMA victim
+    costs (kueue_tpu/policy is not ported, ROADMAP A1)."""
+    from kueue_tpu_torch.models.constants import (
+        BorrowWithinCohortPolicy,
+        PreemptionPolicy,
+        ReclaimWithinCohortPolicy,
+        WorkloadConditionType,
+    )
+    from kueue_tpu_torch.ops.assign_kernel import build_paths, build_roots
+    from kueue_tpu_torch.ops.drain_kernel import NO_BWC_THRESHOLD as NO_THR
+
+    q = max(len(plan.cq_order), 1)
+    nl = plan.queues_np["cells"].shape[1]
+    pdim, kdim, cdim = plan.queues_np["cells"].shape[2:]
+    merged_cells = pdim * cdim  # the kernel's mcells width
+
+    # ---- per-queue preemption policy flags ----
+    same_enabled = np.zeros(q, dtype=bool)
+    same_prio_ok = np.zeros(q, dtype=bool)
+    reclaim_enabled = np.zeros(q, dtype=bool)
+    only_lower = np.zeros(q, dtype=bool)
+    bwc = np.zeros(q, dtype=bool)
+    bwc_thr1 = np.full(q, NO_THR, dtype=np.int64)
+    for qi, cq_name in enumerate(plan.cq_order):
+        prem = snapshot.cq_models[cq_name].preemption
+        same_enabled[qi] = prem.within_cluster_queue != PreemptionPolicy.NEVER
+        same_prio_ok[qi] = (
+            prem.within_cluster_queue
+            == PreemptionPolicy.LOWER_OR_NEWER_EQUAL_PRIORITY
+        )
+        reclaim_enabled[qi] = snapshot.has_cohort(cq_name) and (
+            prem.reclaim_within_cohort != ReclaimWithinCohortPolicy.NEVER
+        )
+        # the host rule is != Any (preemption.py _find_candidates), not
+        # == LowerPriority — they differ on unknown policy values
+        only_lower[qi] = (
+            prem.reclaim_within_cohort != ReclaimWithinCohortPolicy.ANY
+        )
+        pol = prem.borrow_within_cohort
+        bwc[qi] = pol.policy != BorrowWithinCohortPolicy.NEVER
+        if pol.max_priority_threshold is not None:
+            bwc_thr1[qi] = int(pol.max_priority_threshold) + 1
+    can_search = same_enabled | reclaim_enabled
+
+    # ---- segment membership ----
+    cq_rows = plan.queues_np["cq_rows"]
+    seg_id = plan.queues_np["seg_id"]
+    qlen = plan.queues_np["qlen"]
+    roots_all = build_roots(snapshot.flat.parent)
+    n_cq = snapshot.flat.n_cq
+    row_names = snapshot.flat.cq_names  # row i -> name
+    queue_of_row = {int(cq_rows[qi]): qi for qi in range(len(plan.cq_order))}
+    seg_root = {}
+    seg_queues: Dict[int, List[int]] = {}
+    for qi in range(len(plan.cq_order)):
+        s = int(seg_id[qi])
+        if s < 0:
+            continue
+        seg_root[s] = int(roots_all[int(cq_rows[qi])])
+        seg_queues.setdefault(s, []).append(qi)
+    seg_members: Dict[int, List[int]] = {
+        s: [r for r in range(n_cq) if int(roots_all[r]) == root]
+        for s, root in seg_root.items()
+    }
+    scoped = {
+        s: any(reclaim_enabled[qi] for qi in seg_queues[s])
+        for s in seg_root
+    }
+    # part-B (drain-admitted-entry) slots are needed whenever ANY queue
+    # in the segment searches — not just under cohort reclaim: a parked
+    # higher-priority head reactivated by an eviction can preempt a
+    # drain-admitted lower-priority entry of its OWN ClusterQueue
+    dynamic = {
+        s: any(can_search[qi] for qi in seg_queues[s]) for s in seg_root
+    }
+
+    # ---- pool membership + segment scope checks ----
+    paths_np = build_paths(snapshot.flat.parent, snapshot.flat.max_depth)
+    pool_of: Dict[int, list] = {}  # s -> [(ws, owner_row)]
+    bad_segments: List[int] = []
+    for s, members in seg_members.items():
+        entries = []
+        bad = False
+        for r in members:
+            name = row_names[r]
+            qi = queue_of_row.get(r)
+            include = scoped[s] or (qi is not None and same_enabled[qi])
+            if not include:
+                continue
+            for ws in snapshot.workloads_in_cq(name):
+                if int(np.count_nonzero(ws.usage_vec)) > max_victim_cells:
+                    # an unrepresentable victim of an included CQ makes
+                    # the whole segment's searches unsound
+                    bad = True
+                    break
+                entries.append((ws, r))
+            if bad:
+                break
+        n_b = sum(int(qlen[qi]) for qi in seg_queues[s]) if dynamic[s] else 0
+        if bad or len(entries) + n_b > max_victims:
+            bad_segments.append(s)
+            pool_of[s] = []
+        else:
+            pool_of[s] = entries
+
+    # searching queues of bad segments fall back to the cycle loop
+    drop_queues: List[int] = [
+        qi
+        for s in bad_segments
+        for qi in seg_queues[s]
+        if can_search[qi]
+    ]
+    for s in bad_segments:
+        scoped[s] = False
+        dynamic[s] = False
+    dropped = set(drop_queues)
+
+    # ---- dense pool arrays ----
+    pool_totals = [
+        len(pool_of.get(s, []))
+        + (
+            sum(int(qlen[qi]) for qi in seg_queues[s] if qi not in dropped)
+            if dynamic[s]
+            else 0
+        )
+        for s in seg_root
+    ]
+    v_cap = _bucket(max(pool_totals, default=1), minimum=8)
+    s_dim = plan.n_segments
+    cv = max(
+        merged_cells,
+        max(
+            (
+                int(np.count_nonzero(ws.usage_vec))
+                for pool in pool_of.values()
+                for ws, _ in pool
+            ),
+            default=1,
+        ),
+    )
+    dmax = paths_np.shape[1]
+    node_counts = [
+        len(
+            np.unique(
+                paths_np[np.asarray(members, dtype=np.int64)][
+                    paths_np[np.asarray(members, dtype=np.int64)] >= 0
+                ]
+            )
+        )
+        for members in seg_members.values()
+    ]
+    m_dim = _bucket(max(node_counts, default=1), minimum=4)
+
+    scells = np.full((s_dim, v_cap, cv), -1, dtype=np.int32)
+    sqty = np.zeros((s_dim, v_cap, cv), dtype=np.int64)
+    sprio = np.zeros((s_dim, v_cap), dtype=np.int64)
+    sts = np.zeros((s_dim, v_cap), dtype=np.int64)
+    svalid0 = np.zeros((s_dim, v_cap), dtype=bool)
+    sowner = np.full((s_dim, v_cap), -1, dtype=np.int32)
+    sowner_local = np.zeros((s_dim, v_cap), dtype=np.int32)
+    sslot_q = np.full((s_dim, v_cap), -1, dtype=np.int32)
+    sslot_l = np.full((s_dim, v_cap), -1, dtype=np.int32)
+    seg_nodes = np.full((s_dim, m_dim), -1, dtype=np.int32)
+    lpaths = np.full((s_dim, m_dim, dmax), -1, dtype=np.int32)
+    hlocal = np.zeros(q, dtype=np.int32)
+    perm = np.tile(np.arange(v_cap, dtype=np.int32), (q, 1))
+    entry_slot = np.full((q, nl), -1, dtype=np.int32)
+    victim_of: Dict[Tuple[int, int], object] = {}
+    slot_meta: Dict[int, list] = {}  # s -> [(evicted0, owner, prio, rt, uid)]
+
+    if now is None:
+        rts = [
+            ws.quota_reserved_time
+            for pool in pool_of.values()
+            for ws, _ in pool
+        ]
+        now = (max(rts) + 1.0) if rts else 0.0
+
+    local_ids: Dict[int, Dict[int, int]] = {}
+    for s, members in seg_members.items():
+        nodes = np.unique(
+            paths_np[np.asarray(members, dtype=np.int64)]
+        )
+        nodes = nodes[nodes >= 0]
+        local_id = {int(g): i for i, g in enumerate(nodes)}
+        local_ids[s] = local_id
+        seg_nodes[s, : len(nodes)] = nodes
+        for i, gnode in enumerate(nodes):
+            gp = paths_np[int(gnode)]
+            for d in range(dmax):
+                if gp[d] >= 0:
+                    lpaths[s, i, d] = local_id[int(gp[d])]
+        for qi in seg_queues[s]:
+            hlocal[qi] = local_id[int(cq_rows[qi])]
+        meta = []
+        slot = 0
+        for ws, owner in pool_of.get(s, []):
+            js = np.flatnonzero(ws.usage_vec)
+            scells[s, slot, : len(js)] = js
+            sqty[s, slot, : len(js)] = ws.usage_vec[js]
+            sprio[s, slot] = ws.priority
+            tsv = (
+                timestamp_fn(ws.workload)
+                if timestamp_fn
+                else ws.workload.creation_time
+            )
+            sts[s, slot] = int(tsv * 1e9)
+            svalid0[s, slot] = True
+            sowner[s, slot] = owner
+            sowner_local[s, slot] = local_id[int(owner)]
+            victim_of[(s, slot)] = ws
+            meta.append(
+                (
+                    ws.workload.condition_true(WorkloadConditionType.EVICTED),
+                    int(owner),
+                    int(ws.priority),
+                    float(ws.quota_reserved_time),
+                    ws.workload.uid,
+                )
+            )
+            slot += 1
+        if dynamic[s]:
+            for qi in seg_queues[s]:
+                if qi in dropped:
+                    continue
+                for pos in range(int(qlen[qi])):
+                    i = plan.head_of[(qi, pos)]
+                    wl = plan.lowered.heads[i]
+                    sprio[s, slot] = plan.queues_np["priority"][qi, pos]
+                    sts[s, slot] = plan.queues_np["timestamp"][qi, pos]
+                    sowner[s, slot] = cq_rows[qi]
+                    sowner_local[s, slot] = local_id[int(cq_rows[qi])]
+                    sslot_q[s, slot] = qi
+                    sslot_l[s, slot] = pos
+                    entry_slot[qi, pos] = slot
+                    meta.append(
+                        (
+                            False,
+                            int(cq_rows[qi]),
+                            int(plan.queues_np["priority"][qi, pos]),
+                            float(now),
+                            wl.uid,
+                        )
+                    )
+                    slot += 1
+        slot_meta[s] = meta
+        # candidate order per queue (preemption.go:591-618): evicted
+        # first, other-CQ first, lowest priority, most recently
+        # reserved, uid; pad slots last
+        for qi in seg_queues[s]:
+            own = int(cq_rows[qi])
+            keyed = sorted(
+                range(len(meta)),
+                key=lambda j: (
+                    0 if meta[j][0] else 1,
+                    0 if meta[j][1] != own else 1,
+                    meta[j][2],
+                    -meta[j][3],
+                    meta[j][4],
+                ),
+            )
+            perm[qi, : len(keyed)] = np.asarray(keyed, dtype=np.int32)
+            perm[qi, len(keyed) :] = np.arange(
+                len(keyed), v_cap, dtype=np.int32
+            )
+
+    # ---- drop ineligible queues to the fallback path ----
+    extra_fb_entries: List[Tuple[Workload, str]] = []
+    if drop_queues:
+        for qi in drop_queues:
+            plan.queues_np["qlen"][qi] = 0
+            plan.queues_np["cq_rows"][qi] = -1
+            plan.queues_np["seg_id"][qi] = -1
+            for pos in range(plan.queues_np["cells"].shape[1]):
+                i = plan.head_of.pop((qi, pos), None)
+                if i is not None:
+                    extra_fb_entries.append(
+                        (plan.lowered.heads[i], plan.lowered.cq_names[i])
+                    )
+
+    # cycle cap: between evictions the preemption-free per-segment
+    # progress bound applies (>=1 retire per cycle per live segment);
+    # each eviction cycle retires nothing but consumes a pool slot and
+    # can reactivate the segment's parked entries once
+    qlen = plan.queues_np["qlen"]
+    seg_id = plan.queues_np["seg_id"]
+    live = seg_id >= 0
+    if live.any():
+        nseg = int(seg_id[live].max()) + 1
+        seg_entries = np.bincount(
+            seg_id[live], weights=qlen[live].astype(np.float64), minlength=nseg
+        )
+        seg_victims = np.zeros(nseg, dtype=np.float64)
+        for s in seg_root:
+            if s < nseg:
+                seg_victims[s] = len(slot_meta.get(s, []))
+        # each entry may additionally burn up to max_candidates cycles
+        # retrying with advanced per-group pending cursors before it
+        # retires (the PendingFlavors emulation), hence the (K+1) factor
+        cap = (
+            int(((seg_victims + 1) * seg_entries + seg_victims).max())
+            * (int(plan.queues_np["retry_cap"].max()) + 1)
+            + 8
+        )
+    else:
+        cap = 16
+    plan.max_cycles = _bucket(cap, minimum=16)
+    if max_cycles is not None:
+        plan.max_cycles = max_cycles
+
+    victims_np = dict(
+        scells=scells, sqty=sqty, sprio=sprio, sts=sts, svalid0=svalid0,
+        sowner=sowner, sowner_local=sowner_local, sslot_q=sslot_q,
+        sslot_l=sslot_l, seg_nodes=seg_nodes, lpaths=lpaths,
+        hlocal=hlocal, perm=perm, entry_slot=entry_slot,
+        same_enabled=same_enabled, same_prio_ok=same_prio_ok,
+        reclaim_enabled=reclaim_enabled, only_lower=only_lower, bwc=bwc,
+        bwc_thr1=bwc_thr1,
+    )
+    return _VictimLowering(
+        victims_np=victims_np,
+        slot_meta=slot_meta,
+        victim_of=victim_of,
+        extra_fb_entries=extra_fb_entries,
+        seg_root=seg_root,
+        seg_queues=seg_queues,
+        seg_members=seg_members,
+        local_ids=local_ids,
+        row_names=row_names,
+        v_cap=v_cap,
+        s_dim=s_dim,
+        cv=cv,
+        m_dim=m_dim,
+    )
+
+
+class PanelTuner:
+    """Online kernel-shape search for the victim-search panel width.
+
+    The search's cost grows with ``search_width`` (each step of the
+    ladder is a serial removal and fit check), so the shape lever is
+    the panel width itself. Candidate panels are already sorted by the
+    preemption-cost key (evicted first, other-CQ first, lowest
+    priority, most recently reserved — preemption.go:591-618, the
+    ordering PREMA/arXiv:1909.04548 motivates), so the true victim set
+    is a PREFIX of the panel in the common case and a narrow window
+    finds it. Exactness is guaranteed by the escape hatch in
+    ``run_drain_preempt``: a solve whose ``overflowed`` flag fired
+    (some eligible list overflowed the window AND the search missed)
+    is discarded and re-solved at the next wider width, ending at the
+    exact ``search_width`` — decisions are bit-for-bit the fixed-width
+    kernel's at every step.
+
+    This tuner is the per-workload-mix coordinate descent of
+    arXiv:2406.20037 reduced to the one live coordinate: per final
+    (exact) width it walks the width ladder — an escalation widens the
+    starting panel for the next call, ``shrink_after`` consecutive
+    clean narrow solves try the next narrower rung. State only ever
+    changes WHICH executable runs, never what it answers."""
+
+    LADDER = (8, 16, 32, 64, 128, 256, 512)
+
+    def __init__(self, shrink_after: int = 8):
+        self.shrink_after = shrink_after
+        self._narrow: Dict[int, int] = {}  # final width -> narrow width
+        self._clean: Dict[int, int] = {}  # consecutive clean solves
+        self.escalations = 0
+        self.solves = 0
+
+    def _default_narrow(self, final: int) -> int:
+        for w in self.LADDER:
+            if w * 4 >= final:
+                return min(w, final)
+        return final
+
+    def widths_for(self, final: int) -> Tuple[int, ...]:
+        """The width schedule for one drain: (narrow, ..., final)."""
+        narrow = self._narrow.get(final)
+        if narrow is None:
+            narrow = self._default_narrow(final)
+            self._narrow[final] = narrow
+        if narrow >= final:
+            return (final,)
+        return (narrow, final)
+
+    def observe(self, final: int, escalated: bool) -> None:
+        self.solves += 1
+        narrow = self._narrow.get(final, final)
+        if escalated:
+            self.escalations += 1
+            self._clean[final] = 0
+            # widen: next rung up (capped at final)
+            self._narrow[final] = min(final, max(narrow * 2, 8))
+        else:
+            n = self._clean.get(final, 0) + 1
+            self._clean[final] = n
+            if n >= self.shrink_after and narrow > self.LADDER[0]:
+                self._narrow[final] = narrow // 2
+                self._clean[final] = 0
+
+
+# process-wide default tuner: the production runtime and the bench
+# share it so the shape converges to the live workload mix
+_PANEL_TUNER = PanelTuner()
+
+# operator override (server --panel-widths): a fixed schedule replaces
+# the tuner's; None = tune online
+_PANEL_WIDTHS_OVERRIDE: Optional[Tuple[int, ...]] = None
+
+
+def set_default_panel_widths(widths: Optional[Sequence[int]]) -> None:
+    """Pin the victim-search panel schedule process-wide (the server's
+    ``--panel-widths`` knob); None restores the online PanelTuner."""
+    global _PANEL_WIDTHS_OVERRIDE
+    _PANEL_WIDTHS_OVERRIDE = tuple(widths) if widths is not None else None
+
+
+def preempt_drain_inputs(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    dev,
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    max_victims: int = 512,
+    max_victim_cells: int = 4,
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    now: Optional[float] = None,
+):
+    """The preempt drain's plan, pool lowering and device inputs, as
+    ``run_drain_preempt`` makes them: (plan, lowering, tree, paths,
+    leaf usage, DrainQueues, SegVictims) on ``dev``."""
+    from kueue_tpu_torch.interop import seg_victims
+
+    plan = plan_drain(
+        snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+        now=now or 0.0,
+    )
+    low = _lower_victim_pools(
+        snapshot, plan, timestamp_fn, now, max_victims, max_victim_cells, max_cycles,
+    )
+    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev)
+    return plan, low, tree, paths, usage_in, queues, seg_victims(low.victims_np, dev)
+
+
+def run_drain_preempt(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    max_victims: int = 512,
+    max_victim_cells: int = 4,
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    now: Optional[float] = None,
+    search_width: int = 32,
+    mesh=None,
+    panel_widths: Optional[Sequence[int]] = None,
+    panel_tuner: Optional[PanelTuner] = None,
+    policy=None,
+    device=None,
+) -> PreemptDrainOutcome:
+    """Multi-cycle drain WITH classic preemption — within-ClusterQueue
+    and cross-CQ cohort reclamation — on the card, one fetch for each
+    panel tier (ops/drain_kernel.solve_drain_preempt).
+
+    Candidates are pooled per root cohort (segment): every member CQ's
+    admitted workloads (part A), plus one slot per pending entry that
+    becomes a live reclaim candidate once the drain admits it (part B —
+    the host cycle loop sees drain-admitted workloads in its snapshot
+    the same way). ``now`` is the quota-reservation instant attributed
+    to in-drain admissions for candidate ordering (default: after every
+    part-A reservation). ``max_victims`` caps a SEGMENT's pool;
+    overflowing segments route their preempt-capable queues to
+    ``fallback`` for the sequential cycle loop, as do victims with more
+    than ``max_victim_cells`` distinct usage cells. ``search_width``
+    bounds one head's per-cycle candidate scan. The caller applies the
+    reported admissions and evictions in cycle order (a drain-admitted
+    entry may later be evicted by a reclaiming CQ: it appears in BOTH
+    lists) — this function only decides.
+
+    ``panel_widths`` overrides the panel schedule (last entry = the
+    trusted exact width); the default is the process-wide
+    ``PanelTuner``'s (narrow, search_width) schedule: the drain is
+    solved at the narrow cost-ordered panel and again at the next wider
+    width only when the kernel reports an inconclusive truncated search
+    (``overflowed``), so decisions always equal the fixed
+    ``search_width`` drain's.
+
+    Runs on the card: ``device`` defaults to ``cuda`` and raises where
+    there is none; ``device="cpu"`` runs the plain torch versions. Mesh
+    sharding (ROADMAP A11) and a non-default admission policy, whose
+    PREMA victim costs wait for ``policy/`` (A1), raise
+    NotImplementedError."""
+    from kueue_tpu_torch._torch import resolve_device
+    from kueue_tpu_torch.ops.drain_kernel import _solve_drain_preempt_packed
+
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded drains are not ported yet (ROADMAP A11)")
+    if policy is not None and not policy.is_default:
+        raise NotImplementedError(
+            "admission policies (PREMA victim costs, kueue_tpu/policy) are not ported "
+            "yet (ROADMAP A1)"
+        )
+    plan, low, tree, paths, usage_in, queues, victims = preempt_drain_inputs(
+        snapshot, pending, flavors, resolve_device(device), max_candidates, max_cells,
+        max_victims, max_victim_cells, timestamp_fn, max_cycles, now,
+    )
+    # ---- the two-tier panel ladder (exactness escape hatch): a clean
+    # narrow run is provably identical to the exact width's, and an
+    # escalated run IS the wider run
+    tuner = panel_tuner if panel_tuner is not None else _PANEL_TUNER
+    if panel_widths is None:
+        panel_widths = _PANEL_WIDTHS_OVERRIDE
+    if panel_widths is not None:
+        widths = tuple(panel_widths)
+    else:
+        widths = tuner.widths_for(search_width)
+    escalated = False
+    for i, width in enumerate(widths):
+        flat = _solve_drain_preempt_packed(
+            tree, usage_in, queues, victims, paths,
+            n_segments=plan.n_segments, n_steps=plan.n_steps,
+            max_cycles=plan.max_cycles, search_width=int(width),
+            seg_id=plan.queues_np["seg_id"],
+        ).cpu().numpy()  # one fetch per tier; the common case stops at the first
+        overflowed = bool(flat[-2])
+        if not overflowed or i == len(widths) - 1:
+            break
+        escalated = True
+    if panel_widths is None:
+        tuner.observe(search_width, escalated)
+    return _preempt_outcome(plan, low, flat, plan.queues_np)
+
+
+def _preempt_outcome(
+    plan: DrainPlan,
+    low: _VictimLowering,
+    flat: np.ndarray,
+    queues_np: dict,
+) -> PreemptDrainOutcome:
+    """Unpack a PreemptDrainResult flat vector and map decisions back
+    to workloads."""
+    lowered = plan.lowered
+    s_dim, v_cap = low.s_dim, low.v_cap
+    slot_meta, victim_of = low.slot_meta, low.victim_of
+    seg_root, row_names = low.seg_root, low.row_names
+    extra_fb_entries = low.extra_fb_entries
+    victims_np = low.victims_np
+    sowner = victims_np["sowner"]
+    sprio = victims_np["sprio"]
+    sslot_q = victims_np["sslot_q"]
+    sslot_l = victims_np["sslot_l"]
+    bwc = victims_np["bwc"]
+    bwc_thr1 = victims_np["bwc_thr1"]
+    cq_rows = plan.queues_np["cq_rows"]
+
+    nq, nl2, npd = queues_np["cells"].shape[:3]  # incl. mesh padding
+    ql, sv, qlp = nq * nl2, s_dim * v_cap, nq * nl2 * npd
+    off = 0
+    status = flat[off : off + ql].reshape((nq, nl2)); off += ql
+    adm_k = flat[off : off + qlp].reshape((nq, nl2, npd)); off += qlp
+    adm_cycle = flat[off : off + ql].reshape((nq, nl2)); off += ql
+    evicted = flat[off : off + sv].reshape((s_dim, v_cap)).astype(bool); off += sv
+    evict_cycle = flat[off : off + sv].reshape((s_dim, v_cap)); off += sv
+    evict_by = flat[off : off + sv].reshape((s_dim, v_cap)); off += sv
+    stuck_q = flat[off : off + nq].astype(bool); off += nq
+    cycles = int(flat[-1])
+    # truncated = the CYCLE CAP cut undecided work; queues frozen by
+    # the stuck machinery are a terminal no-decision, not truncation —
+    # rerunning with a larger cap cannot resolve them
+    truncated = bool(
+        np.any(
+            (status == 0)
+            & (np.arange(nl2)[None, :] < queues_np["qlen"][:, None])
+            & ~stuck_q[:, None]
+        )
+    )
+
+    lowered = plan.lowered
+    admitted: List[Tuple[Workload, str, Dict[str, str], int]] = []
+    parked: List[Tuple[Workload, str]] = []
+    extra_fallback: List[Tuple[Workload, str]] = list(extra_fb_entries)
+    for (qi, pos), i in plan.head_of.items():
+        wl = lowered.heads[i]
+        cq_name = lowered.cq_names[i]
+        st = int(status[qi, pos])
+        kk = int(adm_k[qi, pos, 0])
+        if st == 2 and kk >= 0:
+            admitted.append(
+                (wl, cq_name, _admitted_flavors(lowered, i, adm_k[qi, pos]),
+                 int(adm_cycle[qi, pos]))
+            )
+        elif st == 0:
+            # still pending at max_cycles: not a decision
+            extra_fallback.append((wl, cq_name))
+        else:
+            parked.append((wl, cq_name))
+    admitted.sort(key=lambda t: t[3])
+    from kueue_tpu_torch.core.preemption import (
+        IN_CLUSTER_QUEUE,
+        IN_COHORT_RECLAIM_WHILE_BORROWING,
+        IN_COHORT_RECLAMATION,
+    )
+    from kueue_tpu_torch.ops.drain_kernel import NO_BWC_THRESHOLD
+
+    def _evictor_entry(qi: int, cyc: int):
+        """(workload, priority) of queue qi's evicting entry at cycle
+        cyc: its next admission at/after cyc (a preempting head charges
+        usage at the eviction cycle and admits at a later one); falls
+        back to the queue's first never-admitted entry when the head
+        lost every later re-check and parked."""
+        best = None
+        first_unadmitted = None
+        for pos in range(int(plan.queues_np["qlen"][qi])):
+            i = plan.head_of.get((qi, pos))
+            if i is None:
+                continue
+            if int(status[qi, pos]) == 2:
+                ac = int(adm_cycle[qi, pos])
+                if ac >= cyc and (best is None or ac < best[0]):
+                    best = (ac, i, pos)
+            elif first_unadmitted is None:
+                first_unadmitted = (i, pos)
+        if best is not None:
+            i, pos = best[1], best[2]
+        elif first_unadmitted is not None:
+            i, pos = first_unadmitted
+        else:
+            return None, 0
+        return (
+            lowered.heads[i],
+            int(plan.queues_np["priority"][qi, pos]),
+        )
+
+    preempted: List[Tuple[Workload, str, int]] = []
+    evictions: List[DrainEviction] = []
+    for s in seg_root:
+        for slot in range(len(slot_meta.get(s, []))):
+            if not evicted[s, slot]:
+                continue
+            cyc = int(evict_cycle[s, slot])
+            ws = victim_of.get((s, slot))
+            if ws is not None:
+                victim_wl = ws.workload
+                victim_cq = row_names[int(sowner[s, slot])]
+            else:
+                qi, pos = int(sslot_q[s, slot]), int(sslot_l[s, slot])
+                i = plan.head_of.get((qi, pos))
+                if i is None:
+                    continue
+                victim_wl = lowered.heads[i]
+                victim_cq = lowered.cq_names[i]
+            preempted.append((victim_wl, victim_cq, cyc))
+            qi_by = int(evict_by[s, slot])
+            by_cq = by_wl = None
+            reason = IN_CLUSTER_QUEUE
+            if 0 <= qi_by < len(plan.cq_order):
+                by_cq = plan.cq_order[qi_by]
+                by_wl, by_prio = _evictor_entry(qi_by, cyc)
+                if int(cq_rows[qi_by]) != int(sowner[s, slot]):
+                    # the ladder's threshold rule (preemption.go:353-357):
+                    # below min(evictor priority, maxPriorityThreshold+1)
+                    # the reclaim rode borrowWithinCohort
+                    thr = min(by_prio, int(bwc_thr1[qi_by]), NO_BWC_THRESHOLD)
+                    if bwc[qi_by] and int(sprio[s, slot]) < thr:
+                        reason = IN_COHORT_RECLAIM_WHILE_BORROWING
+                    else:
+                        reason = IN_COHORT_RECLAMATION
+            evictions.append(
+                DrainEviction(
+                    victim=victim_wl, victim_cq=victim_cq, cycle=cyc,
+                    by_cq=by_cq, by_workload=by_wl, reason=reason,
+                )
+            )
+    order = sorted(range(len(preempted)), key=lambda ix: preempted[ix][2])
+    preempted = [preempted[ix] for ix in order]
+    evictions = [evictions[ix] for ix in order]
+    fb = [
+        (lowered.heads[i], lowered.cq_names[i]) for i in plan.fallback
+    ] + extra_fallback
+    return PreemptDrainOutcome(
+        admitted=admitted,
+        parked=parked,
+        fallback=fb,
+        cycles=cycles,
+        truncated=truncated,
+        preempted=preempted,
+        evictions=evictions,
+    )
+
+
 def classify_drain_scope(
     snapshot: Snapshot,
     pending: Sequence[Tuple[Workload, str]],
@@ -374,10 +1125,15 @@ def run_drain_for_scope(
     device=None,
 ):
     """Dispatch the drain a classify_drain_scope kind names: the one
-    place the kind-to-drain mapping lives. The preempt, fair-preempt
-    and TAS drains are not ported yet (NotImplementedError)."""
-    if kind in ("fair_preempt", "preempt", "tas"):
+    place the kind-to-drain mapping lives. The fair-preempt (ROADMAP
+    A6b) and TAS (A7) drains are not ported yet (NotImplementedError)."""
+    if kind in ("fair_preempt", "tas"):
         raise NotImplementedError(f"the {kind} drain is not ported yet")
+    if kind == "preempt":
+        return run_drain_preempt(
+            snapshot, pending, flavors, timestamp_fn=timestamp_fn, mesh=mesh,
+            policy=policy, device=device,
+        )
     return run_drain(
         snapshot, pending, flavors, timestamp_fn=timestamp_fn, mesh=mesh,
         fair_sharing=kind == "fair", policy=policy, now=now, device=device,

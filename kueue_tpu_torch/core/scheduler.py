@@ -14,13 +14,20 @@ accelerates nomination for large head counts while this module remains
 the decision authority.
 
 Port of kueue_tpu/core/scheduler.py. The cycle's device work runs on
-``device`` (the card unless the caller names the CPU). Not ported yet,
-and refused at construction with NotImplementedError: fair sharing
-(the fair_sharing_iterator and the DRS kernels, ROADMAP A6), a
-non-default admission policy (A1) and the batched device victim search
-(``use_preempt_solver=True``, core/preempt_batch, A6). The default
-``use_preempt_solver=None`` runs the host Preemptor loop, so every
-entry's ``victim_search`` reads "host".
+``device`` (the card unless the caller names the CPU): the cycle solve
+and, for preempt-mode heads, the batched victim search
+(core/preempt_batch, kernel B8). ``use_preempt_solver=True`` batches
+every cycle's deferred heads; the default ``None`` batches a cycle that
+defers ``preempt_solver_threshold`` or more heads while the measured
+device time beats the host Preemptor's (its first probe always
+batches), as the JAX package does; ``False`` searches on the host as
+each head is assigned. Each preempting entry's ``victim_search`` reads
+"device" or "host" accordingly. A ``KernelError`` from the batched
+search propagates; any other exception degrades that cycle's search to
+the host loop, as in the JAX package. Not ported yet, and refused at
+construction with NotImplementedError: fair sharing (the
+fair_sharing_iterator and the DRS kernels, ROADMAP A6b) and a
+non-default admission policy (A1).
 """
 
 from __future__ import annotations
@@ -243,23 +250,20 @@ class Scheduler:
         if fair_sharing:
             raise NotImplementedError(
                 "fair sharing (fair_sharing_iterator, kernels B7/B1') is not "
-                "ported yet (ROADMAP A6)"
+                "ported yet (ROADMAP A6b)"
             )
         if policy is not None and not policy.is_default:
             raise NotImplementedError(
                 "a non-default admission policy is not ported yet (ROADMAP A1)"
             )
-        if use_preempt_solver is True:
-            raise NotImplementedError(
-                "the batched device victim search (core/preempt_batch, kernels "
-                "B8/B9) is not ported yet (ROADMAP A6); use_preempt_solver=None "
-                "runs the host Preemptor"
-            )
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and use_solver is not False:
+        if self.device.type == "cuda":
             # build and load the cycle's kernels now: a card without a
             # working toolchain raises here, not mid-cycle
-            _build.load(_build.CYCLE_KERNELS)
+            if use_solver is not False:
+                _build.load(_build.CYCLE_KERNELS)
+            if use_preempt_solver is not False:
+                _build.load(_build.PREEMPT_CYCLE_KERNELS)
         self.queues = queues
         self.cache = cache
         # One authoritative priority-class store: heap head ordering
@@ -284,10 +288,10 @@ class Scheduler:
         # heads), True = always, False = never (host-only oracle path).
         self.use_solver = use_solver
         self.solver_threshold = solver_threshold
-        # Victim search for preempt-mode heads: None = deferred to one
-        # host Preemptor pass per cycle, False = searched as each head is
-        # assigned (both host; True, the batched device search, is
-        # refused above).
+        # Batched victim search for preempt-mode heads (kernel B8): None
+        # = auto (batched when a cycle defers >= preempt_solver_threshold
+        # heads and the device estimate wins), True = always, False =
+        # never (host Preemptor, searched as each head is assigned).
         self.use_preempt_solver = use_preempt_solver
         self.preempt_solver_threshold = preempt_solver_threshold
         self.transform_config = transform_config
@@ -340,6 +344,8 @@ class Scheduler:
         # permanently lock the gate onto a slow device).
         self._host_assign_ema: Optional[float] = None  # s/head
         self._device_dispatch_est = _LatencyEstimate()  # s/dispatch
+        self._host_victim_ema: Optional[float] = None  # s/deferred head
+        self._device_victim_est = _LatencyEstimate()  # s/batch
         # device-resident quota tensors for the interactive dispatch:
         # per cycle only changed usage rows + the heads batch transfer
         # (core/solver.ResidentCycleState)
@@ -760,6 +766,7 @@ class Scheduler:
 
     # cold-start guesses until the first real measurement lands
     _HOST_ASSIGN_DEFAULT = 1e-4  # s/head, host flavor loop
+    _HOST_VICTIM_DEFAULT = 4e-3  # s/head, host victim search
 
     def _solver_enabled(self, n_assignable: int) -> bool:
         if self.use_solver is False or n_assignable == 0:
@@ -777,6 +784,18 @@ class Scheduler:
         if host_est >= device_est:
             return True
         self._device_dispatch_est.erode()  # stale-estimate re-probe
+        return False
+
+    def _victim_device_worthwhile(self, n_deferred: int) -> bool:
+        device_est = self._device_victim_est.value
+        if device_est is None:
+            return True  # probe once
+        host_est = n_deferred * (
+            self._host_victim_ema or self._HOST_VICTIM_DEFAULT
+        )
+        if host_est >= device_est:
+            return True
+        self._device_victim_est.erode()
         return False
 
     def _make_assigner(self, snapshot: Snapshot) -> FlavorAssigner:
@@ -798,9 +817,10 @@ class Scheduler:
     ) -> None:
         """Assign flavors; preempt-mode entries are parked in
         ``deferred`` (when given) so the whole cycle's victim searches
-        run in one pass after the cycle's assignments
-        (_resolve_deferred). All searches run against the cycle-start
-        snapshot either way, so deferral cannot change decisions."""
+        run in ONE batched launch (_resolve_deferred) instead of a
+        sequential simulate/undo loop per head. All searches run
+        against the cycle-start snapshot either way, so deferral cannot
+        change decisions."""
         if deferred is not None and self.use_preempt_solver is not False:
             full = assigner.assign(e.workload, e.cq_name)
             if full.representative_mode() == Mode.PREEMPT:
@@ -822,25 +842,59 @@ class Scheduler:
     def _resolve_deferred(
         self, assigner: FlavorAssigner, deferred: List[Entry], snapshot: Snapshot
     ) -> None:
-        """Victim search for every deferred preempt-mode entry: the host
-        Preemptor, one head after another, against the cycle-start
-        snapshot (the path the reference takes below its batching
-        threshold; the batched device search is not ported yet)."""
-        all_targets = []
-        for e in deferred:
+        """Victim search for every deferred preempt-mode entry: one
+        launch of kernel B8 for the whole batch above the threshold
+        (core/preempt_batch), the host Preemptor one head after another
+        otherwise, both against the cycle-start snapshot."""
+        if not deferred:
+            return
+        batch_on = self.use_preempt_solver is True or (
+            self.use_preempt_solver is None
+            and len(deferred) >= self.preempt_solver_threshold
+            and self._victim_device_worthwhile(len(deferred))
+        )
+        t0 = _time.perf_counter()
+        if batch_on:
+            from kueue_tpu_torch.core.preempt_batch import batched_get_targets
+
             try:
-                all_targets.append(
-                    self.preemptor.get_targets(
-                        e.workload, e.cq_name, e.assignment, snapshot
-                    )
+                all_targets = batched_get_targets(
+                    snapshot,
+                    [(e.workload, e.cq_name, e.assignment) for e in deferred],
+                    self.preemptor,
+                    device=self.device,
                 )
-            except Exception as exc:  # noqa: BLE001 — per-head guard
-                self._contain_head_failure(e, exc)
-                all_targets.append([])
+                dt = _time.perf_counter() - t0
+                self._device_victim_est.observe(dt)
+                self._cycle_device_s += dt
+            except KernelError:
+                raise  # a kernel that cannot run is not contained (core/guard.py)
+            except Exception:  # noqa: BLE001 — any other failure of the
+                # batched search degrades to the host loop, never the cycle
+                batch_on = False
+                t0 = _time.perf_counter()
+        if not batch_on:
+            all_targets = []
+            for e in deferred:
+                try:
+                    all_targets.append(
+                        self.preemptor.get_targets(
+                            e.workload, e.cq_name, e.assignment, snapshot
+                        )
+                    )
+                except Exception as exc:  # noqa: BLE001 — per-head guard
+                    self._contain_head_failure(e, exc)
+                    all_targets.append([])
+            per_head = (_time.perf_counter() - t0) / len(deferred)
+            self._host_victim_ema = (
+                per_head
+                if self._host_victim_ema is None
+                else 0.8 * self._host_victim_ema + 0.2 * per_head
+            )
         for e, targets in zip(deferred, all_targets):
             if e.assignment is None:
                 continue  # contained above: strike message already set
-            e.victim_search = "host"
+            e.victim_search = "device" if batch_on else "host"
             try:
                 if targets:
                     e.preemption_targets = targets

@@ -1,19 +1,22 @@
 // Shared argument layout of the drain kernels (drain_nominate.cu,
 // drain_phase2.cu, drain_queue_motion.cu, megaloop_boundary.cu,
-// drain_fair_phase2.cu).
+// drain_fair_phase2.cu, drain_preempt_search.cu,
+// drain_preempt_phase2.cu, drain_preempt_motion.cu).
 //
 // Each C entry point takes the same two arrays, built once per drain
 // by kueue_tpu_torch/ops/drain_kernel.py (DrainContext.kernel_args):
 //   ints: Q L P K C G N FR D n_segments n_steps n_seg max_cycles
-//         chunk_cycles max_rounds n_res prio_tie
+//         chunk_cycles max_rounds n_res prio_tie V Cv M search_width
 //   ptrs: 17 DrainQueues fields, 7 tree tensors, 12 DrainState
 //         fields, 12 CycleBuffers fields, seg_offsets, seg_members,
-//         8 megaloop round-log fields, 6 fair-drain fields
+//         8 megaloop round-log fields, 6 fair-drain fields, 33
+//         preempt-drain fields
 // in the order of the structs below, and returns cudaGetLastError()
 // (cudaErrorInvalidValue when the array lengths do not match).
 // max_rounds is 0 outside the megaloop, whose round-log pointers are
-// then NULL; the fair pointers are NULL outside the fair drain.
-// Booleans are torch.bool tensors: one byte, 0 or 1.
+// then NULL; the fair pointers are NULL outside the fair drain, the
+// preempt pointers (and V Cv M search_width) outside the preempt
+// drain. Booleans are torch.bool tensors: one byte, 0 or 1.
 
 #pragma once
 
@@ -95,6 +98,45 @@ struct Fair {                 // the fair drain's inputs and scratch
   uint8_t* flags;             // [Q] scratch
 };
 
+struct Preempt {                 // the preempt drain (n_segments pools)
+  // SegVictims
+  const long long* sprio;        // [S,V]
+  const long long* sts;          // [S,V]
+  const int* sowner;             // [S,V] owner tree row (-1 pad)
+  const int* sowner_local;       // [S,V]
+  const int* seg_nodes;          // [S,M]
+  const int* lpaths;             // [S,M,D+1]
+  const int* hlocal;             // [Q]
+  const int* perm;               // [Q,V]
+  const int* entry_slot;         // [Q,L]
+  const uint8_t* same_enabled;   // [Q]
+  const uint8_t* same_prio_ok;
+  const uint8_t* reclaim_enabled;
+  const uint8_t* only_lower;
+  const uint8_t* bwc;
+  const long long* bwc_thr1;     // [Q]
+  // PreemptState
+  int* status;                   // [Q,L]
+  int* pcells;                   // [S,V,Cv]
+  long long* pqty;               // [S,V,Cv]
+  uint8_t* pvalid;               // [S,V]
+  uint8_t* vevicted;             // [S,V]
+  int* evict_cycle;              // [S,V]
+  int* evict_by;                 // [S,V]
+  uint8_t* ovf;                  // [1]
+  // PreemptBuffers
+  uint8_t* need_pre;             // [Q,P*C]
+  uint8_t* elig_same;            // [Q,V]
+  uint8_t* veto;                 // [Q,FR]
+  uint8_t* targets;              // [Q,V]
+  uint8_t* psuccess;             // [Q]
+  uint8_t* untrusted;            // [Q]
+  uint8_t* preempt_ok;           // [Q]
+  long long* leaf;               // [N,FR]
+  uint8_t* ev_now;               // [S,V]
+  int* ev_by;                    // [S,V]
+};
+
 struct Buffers {
   long long* usage;   // [N,FR]
   long long* avail;   // [N,FR]
@@ -114,6 +156,7 @@ struct Args {
   int Q, L, P, K, C, G, N, FR, D;
   int n_segments, n_steps, n_seg, max_cycles;
   int chunk_cycles, max_rounds, n_res, prio_tie;
+  int V, Cv, M, search_width;
   Queues q;
   Tree t;
   State s;
@@ -122,10 +165,11 @@ struct Args {
   const int* seg_members;
   Rounds r;
   Fair f;
+  Preempt p;
 };
 
-constexpr int kNumInts = 17;
-constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6;
+constexpr int kNumInts = 21;
+constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33;
 
 // Fills `a` from the two arrays; false when their lengths do not match.
 inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args* a) {
@@ -136,6 +180,7 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->max_cycles = ints[12];
   a->chunk_cycles = ints[13]; a->max_rounds = ints[14];
   a->n_res = ints[15]; a->prio_tie = ints[16];
+  a->V = ints[17]; a->Cv = ints[18]; a->M = ints[19]; a->search_width = ints[20];
   int i = 0;
   a->q.cq_rows = (const int*)p[i++];
   a->q.seg_id = (const int*)p[i++];
@@ -201,6 +246,39 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->f.res_of_fr = (const int*)p[i++];
   a->f.chain = (long long*)p[i++];
   a->f.flags = (uint8_t*)p[i++];
+  a->p.sprio = (const long long*)p[i++];
+  a->p.sts = (const long long*)p[i++];
+  a->p.sowner = (const int*)p[i++];
+  a->p.sowner_local = (const int*)p[i++];
+  a->p.seg_nodes = (const int*)p[i++];
+  a->p.lpaths = (const int*)p[i++];
+  a->p.hlocal = (const int*)p[i++];
+  a->p.perm = (const int*)p[i++];
+  a->p.entry_slot = (const int*)p[i++];
+  a->p.same_enabled = (const uint8_t*)p[i++];
+  a->p.same_prio_ok = (const uint8_t*)p[i++];
+  a->p.reclaim_enabled = (const uint8_t*)p[i++];
+  a->p.only_lower = (const uint8_t*)p[i++];
+  a->p.bwc = (const uint8_t*)p[i++];
+  a->p.bwc_thr1 = (const long long*)p[i++];
+  a->p.status = (int*)p[i++];
+  a->p.pcells = (int*)p[i++];
+  a->p.pqty = (long long*)p[i++];
+  a->p.pvalid = (uint8_t*)p[i++];
+  a->p.vevicted = (uint8_t*)p[i++];
+  a->p.evict_cycle = (int*)p[i++];
+  a->p.evict_by = (int*)p[i++];
+  a->p.ovf = (uint8_t*)p[i++];
+  a->p.need_pre = (uint8_t*)p[i++];
+  a->p.elig_same = (uint8_t*)p[i++];
+  a->p.veto = (uint8_t*)p[i++];
+  a->p.targets = (uint8_t*)p[i++];
+  a->p.psuccess = (uint8_t*)p[i++];
+  a->p.untrusted = (uint8_t*)p[i++];
+  a->p.preempt_ok = (uint8_t*)p[i++];
+  a->p.leaf = (long long*)p[i++];
+  a->p.ev_now = (uint8_t*)p[i++];
+  a->p.ev_by = (int*)p[i++];
   return true;
 }
 

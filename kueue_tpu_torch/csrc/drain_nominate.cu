@@ -24,6 +24,16 @@
 // acceptable at this size. It also clears the cycle's `admitted`
 // flags for drain_phase2. A set `done` flag makes the launch a no-op.
 // A queue the megaloop retired (`alive` 0) nominates nothing.
+//
+// In the preempt drain (its pointers set) it also carries the reclaim
+// oracle of kueue_tpu/ops/drain_kernel.py:255-300 and
+// ops/assign_kernel.py:186-187: the thread first marks its head's
+// eligible same-CQ victims over the segment's live pool
+// (preemption.go:480-524's priority rule, kept for
+// drain_preempt_search) and the cells they use (its row of `veto`); a
+// vetoed cell cannot be upgraded to RECLAIM, and borrowWithinCohort
+// (`bwc`) lets the preempt mode cover requests above nominal. It also
+// writes the merged cells needing preemption (`need_pre`).
 
 #include "drain_common.cuh"
 
@@ -39,6 +49,12 @@ __global__ void nominate(Args a) {
   const int P = a.P, K = a.K, C = a.C, G = a.G, FR = a.FR, PC = a.P * a.C;
   a.b.admitted[q] = 0;
   const bool active = a.s.cursor[q] < a.q.qlen[q] && a.s.alive[q];
+  uint8_t* veto = a.p.veto ? a.p.veto + (size_t)q * FR : nullptr;
+  if (veto) {
+    for (int f = 0; f < FR; ++f) veto[f] = 0;
+    for (int v = 0; v < a.V; ++v) a.p.elig_same[(size_t)q * a.V + v] = 0;
+    for (int i = 0; i < PC; ++i) a.p.need_pre[(size_t)q * PC + i] = 0;
+  }
   if (!active) {
     a.b.is_fit[q] = 0;
     a.b.is_pre[q] = 0;
@@ -59,6 +75,26 @@ __global__ void nominate(Args a) {
   const bool has_cohort = a.t.parent[cq] >= 0;
   const int npod = a.q.n_podsets[q * a.L + cur];
   const bool ffb = a.q.ffb[q], ffp = a.q.ffp[q];
+  const bool pwb = a.p.bwc && a.p.bwc[q];
+  if (veto) {
+    const int sq = max(a.q.seg_id[q], 0);
+    const long long prio = a.q.priority[(size_t)q * a.L + cur];
+    const long long ts = a.q.timestamp[(size_t)q * a.L + cur];
+    for (int v = 0; v < a.V; ++v) {
+      const size_t x = (size_t)sq * a.V + v;
+      const long long sp = a.p.sprio[x];
+      const bool eligible =
+          a.p.pvalid[x] && !a.p.vevicted[x] && a.p.sowner[x] >= 0 &&
+          a.p.sowner_local[x] == a.p.hlocal[q] && a.p.same_enabled[q] &&
+          (sp < prio || (a.p.same_prio_ok[q] && sp == prio && ts < a.p.sts[x]));
+      if (!eligible) continue;
+      a.p.elig_same[(size_t)q * a.V + v] = 1;
+      for (int cv = 0; cv < a.Cv; ++cv) {
+        const int cell = a.p.pcells[x * a.Cv + cv];
+        if (cell >= 0) veto[cell] = 1;
+      }
+    }
+  }
 
   // assignment_usage of earlier podsets as (cell, qty) pairs
   int acc_cell[kMaxPC];
@@ -66,6 +102,7 @@ __global__ void nominate(Args a) {
   int nacc = 0;
   int mcells[kMaxPC];
   long long mqty[kMaxPC];
+  bool mneed[kMaxPC];
 
   bool processed = true, head_borrow = false, pending = false;
   int head_mode = 3;
@@ -96,15 +133,17 @@ __global__ void nominate(Args a) {
             if (acc_cell[j] == cell) infl += acc_qty[j];
         }
         const uint32_t bit = 1u << c;
+        const bool vetoed = veto && cell >= 0 && veto[cell];
         if (!(cell >= 0 && infl > 0)) {  // pad / zero cells are permissive
-          fm |= bit; pm |= bit; rm |= bit;
+          fm |= bit; pm |= bit;
+          if (!vetoed) rm |= bit;
           continue;
         }
         const size_t x = (size_t)cq * FR + cell;
         const long long nom = a.t.nominal[x], loc = a.s.local[x];
         if (a.b.avail[x] >= infl) fm |= bit;
-        if (infl <= a.t.potential[x] && infl <= nom) pm |= bit;
-        if (loc + infl <= nom) rm |= bit;
+        if (infl <= a.t.potential[x] && (infl <= nom || pwb)) pm |= bit;
+        if (loc + infl <= nom && !vetoed) rm |= bit;
         if (loc + infl > a.t.subtree[x] && has_cohort) bm |= bit;
       }
       fitm[k] = fm; potm[k] = pm; recm[k] = rm; borm[k] = bm;
@@ -195,6 +234,8 @@ __global__ void nominate(Args a) {
       const long long qv = cell >= 0 ? qty_p[rs * C + c] : 0;
       mcells[p * C + c] = cell;
       mqty[p * C + c] = qv;
+      // the choice's cells that did not fit: its frs_need_preemption
+      mneed[p * C + c] = cell >= 0 && qv > 0 && !(fitm[rs] & (1u << c));
       if (p < P - 1 && cell >= 0) {
         acc_cell[nacc] = cell;
         acc_qty[nacc] = qv;
@@ -215,19 +256,23 @@ __global__ void nominate(Args a) {
   for (int i = 0; i < PC; ++i) {
     int cell = mcells[i];
     long long qv = mqty[i];
+    bool need = mneed[i];
     if (P > 1 && cell >= 0) {
       bool first = true;
       long long sum = 0;
       for (int j = 0; j < PC; ++j) {
         if (mcells[j] != cell) continue;
         sum += mqty[j];
+        need = need || mneed[j];
         if (j < i) first = false;
       }
       cell = first ? cell : -1;
       qv = first ? sum : 0;
+      need = need && first;
     }
     a.b.cells_eff[q * PC + i] = cell;
     a.b.qty_eff[q * PC + i] = qv;
+    if (veto) a.p.need_pre[(size_t)q * PC + i] = need;
   }
   const bool is_pre = head_mode == 1 || head_mode == 2;
   a.b.is_fit[q] = head_mode == 3;

@@ -4,9 +4,12 @@
 snapshot's fields and a plan's per-queue tensors, as plain dicts of
 numpy arrays (whichever package produced them) — and returns this
 package's ``QuotaTree``, ``DrainQueues``, leaf usage and ancestor paths
-on a device; ``fair_inputs`` adds the fair drain's ``FairInputs``;
-``heads_batch`` does the same for the cycle solver's ``HeadsBatch``. The parity tests feed the same arrays to both packages
-through it; nothing here imports the JAX package.
+on a device; ``fair_inputs`` adds the fair drain's ``FairInputs``,
+``seg_victims`` the preempt drain's candidate pools (``SegVictims``);
+``heads_batch`` does the same for the cycle solver's ``HeadsBatch``,
+``preempt_problem`` for the batched victim search's
+``PreemptProblem``. The parity tests feed the same arrays to both
+packages through it; nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import numpy as np
 
 from kueue_tpu_torch._torch import resolve_device, to_device, torch
 from kueue_tpu_torch.ops.assign_kernel import HeadsBatch, build_paths
-from kueue_tpu_torch.ops.drain_kernel import DrainQueues, FairInputs
+from kueue_tpu_torch.ops.drain_kernel import DrainQueues, FairInputs, SegVictims
+from kueue_tpu_torch.ops.preempt_kernel import PreemptProblem
 from kueue_tpu_torch.ops.quota import QuotaTree
 
 # DrainQueues field -> numpy dtype of the plan tensors
@@ -52,6 +56,28 @@ HEADS_DTYPES = {
     "timestamp": np.int64,
     "no_reclaim": np.bool_,
     "score": np.int64,
+}
+
+
+# SegVictims field -> numpy dtype
+VICTIM_DTYPES = {
+    "scells": np.int32, "sqty": np.int64, "sprio": np.int64, "sts": np.int64,
+    "svalid0": np.bool_, "sowner": np.int32, "sowner_local": np.int32,
+    "sslot_q": np.int32, "sslot_l": np.int32, "seg_nodes": np.int32,
+    "lpaths": np.int32, "hlocal": np.int32, "perm": np.int32, "entry_slot": np.int32,
+    "same_enabled": np.bool_, "same_prio_ok": np.bool_, "reclaim_enabled": np.bool_,
+    "only_lower": np.bool_, "bwc": np.bool_, "bwc_thr1": np.int64,
+}
+
+
+# PreemptProblem field -> numpy dtype
+PROBLEM_DTYPES = {
+    "paths": np.int32, "usage0": np.int64, "leaf0": np.int64, "nominal": np.int64,
+    "subtree_q": np.int64, "guaranteed": np.int64, "borrow_lim": np.int64,
+    "hrow": np.int32, "need_qty": np.int64, "need_pre": np.bool_,
+    "allow_borrow": np.bool_, "has_thr": np.bool_, "thr": np.int64, "crow": np.int32,
+    "cqty": np.int64, "cvalid": np.bool_, "csame": np.bool_, "cprio": np.int64,
+    "row_valid": np.bool_,
 }
 
 
@@ -120,4 +146,22 @@ def heads_batch(batch: Mapping[str, np.ndarray], device=None) -> HeadsBatch:
     return HeadsBatch(**{
         name: None if batch.get(name) is None else _on(batch[name], dtype, dev)
         for name, dtype in HEADS_DTYPES.items()
+    })
+
+
+def seg_victims(victims_np: Mapping[str, np.ndarray], device=None) -> SegVictims:
+    """SegVictims from a preempt drain's lowered pools (``victims_np``,
+    the ``_lower_victim_pools`` arrays of either package)."""
+    dev = resolve_device(device)
+    return SegVictims(**{
+        name: _on(victims_np[name], dtype, dev) for name, dtype in VICTIM_DTYPES.items()
+    })
+
+
+def preempt_problem(arrays: Mapping[str, np.ndarray], device=None) -> PreemptProblem:
+    """PreemptProblem from ``lower_preemption``'s arrays (padded rows
+    included) of either package."""
+    dev = resolve_device(device)
+    return PreemptProblem(**{
+        name: _on(arrays[name], dtype, dev) for name, dtype in PROBLEM_DTYPES.items()
     })

@@ -1,11 +1,12 @@
-"""Multi-cycle admission drain: the plain and the fair-sharing bulk
-drains on the card.
+"""Multi-cycle admission drain: the plain, the fair-sharing and the
+classic-preemption bulk drains on the card.
 
-Port of ``solve_drain`` and ``solve_drain_fair`` of
-kueue_tpu/ops/drain_kernel.py (here ``solve_drain`` with ``fair``).
-Per-CQ pending queues are dense tensors; each cycle reproduces the
-reference's semantics (pkg/scheduler/scheduler.go:176-310) for
-preemption-free drains:
+Port of ``solve_drain``, ``solve_drain_fair`` and
+``solve_drain_preempt`` of kueue_tpu/ops/drain_kernel.py (here
+``solve_drain`` with ``fair``, and ``solve_drain_preempt``, at the end
+of this module). Per-CQ pending queues are dense tensors; each cycle
+reproduces the reference's semantics (pkg/scheduler/scheduler.go:176-310)
+for preemption-free drains:
 
 - heads: each CQ's queue front (one head per CQ per cycle);
 - nomination: the per-group flavor walk against cycle-start usage,
@@ -38,6 +39,12 @@ The state carries ``alive`` and ``cap`` for the megaloop
 (ops/megaloop_kernel.py), whose round boundary retires stuck queues and
 rewrites the retry budgets; in the plain and fair drains they stay all
 ones and the plan's ``retry_cap``.
+
+The preempt drain keeps the same nomination (with the reclaim oracle's
+inputs) and replaces phase 2 and the motion by three kernels over a
+``PreemptState`` (entry status, the live candidate pools, the eviction
+record) and ``PreemptBuffers``: the victim search, its step scan and
+its cycle end (kernels 6-8).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from kueue_tpu_torch.ops.assign_kernel import (
     cell_masks,
     segmented_rank,
 )
+from kueue_tpu_torch.ops.preempt_kernel import PreemptProblem, solve_preempt
 from kueue_tpu_torch.ops.quota import (
     DRS_MAX,
     NO_LIMIT,
@@ -65,6 +73,7 @@ from kueue_tpu_torch.ops.quota import (
     potential_available_all,
     subtree_quota,
     usage_tree,
+    usage_tree_plain,
 )
 
 # Widest shapes the CUDA kernels take (per-thread arrays are static):
@@ -72,6 +81,8 @@ from kueue_tpu_torch.ops.quota import (
 MAX_K, MAX_C, MAX_G, MAX_P = 16, 8, 8, 4
 # resources the fair drain's kernel takes (its per-thread borrowed sums)
 MAX_R = 16
+# the preempt drain's pointers in the kernels' argument layout
+PREEMPT_PTRS = 15 + 8 + 10
 
 
 class DrainQueues(NamedTuple):
@@ -214,7 +225,7 @@ class CycleBuffers:
         )
 
     def clone(self) -> "CycleBuffers":
-        return CycleBuffers(**{f.name: getattr(self, f.name).clone() for f in fields(self)})
+        return type(self)(**{f.name: getattr(self, f.name).clone() for f in fields(self)})
 
 
 def _done(state: DrainState) -> bool:
@@ -312,12 +323,23 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
     head_cq = torch.where(active, queues.cq_rows, -1)
     g_start = state.g_start
 
+    veto = pwb = None
+    if ctx.preempt is not None:
+        # the preempt drain's reclaim oracle: a cell carrying an
+        # eligible same-CQ victim cannot be upgraded to RECLAIM, and
+        # borrowWithinCohort lets the preempt mode cover requests above
+        # nominal (canPreemptWhileBorrowing)
+        elig, veto = _elig_same_and_veto(ctx, state, active, cur)
+        buf.elig_same.copy_(elig)
+        buf.veto.copy_(veto)
+        pwb = ctx.preempt.victims.bwc
+
     accum = torch.zeros((q, n_fr), dtype=I64, device=dev)
     processed = torch.ones(q, dtype=BOOL, device=dev)
     head_mode = torch.full((q,), 3, dtype=I32, device=dev)
     head_borrow = torch.zeros(q, dtype=BOOL, device=dev)
     pending = torch.zeros(q, dtype=BOOL, device=dev)
-    rep_list, nstart_list, cells_list, qty_list = [], [], [], []
+    rep_list, nstart_list, cells_list, qty_list, need_list = [], [], [], [], []
     npod = queues.n_podsets[q_idx, cur]
     garange = torch.arange(g, device=dev)
 
@@ -332,8 +354,11 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
             infl = qty_p + torch.where((cells_p >= 0) & (qty_p > 0), accum_at, 0)
         fit_cells, pot_cells, reclaim_cells, borrow_cells, _ = cell_masks(
             tree, ctx.subtree, ctx.guaranteed, local, head_cq, cells_p, infl,
-            avail=buf.avail, potential=ctx.potential,
+            avail=buf.avail, potential=ctx.potential, pwb=pwb,
         )
+        if veto is not None:
+            on_victim = veto[q_idx[:, None, None], cells_p.clamp_min(0).long()] & (cells_p >= 0)
+            reclaim_cells = reclaim_cells & ~on_victim
         gid_p = queues.gidx[q_idx, cur, p]  # [Q,K,G]
         gl_p = queues.glast[q_idx, cur, p]
         cg_p = queues.cgrp[q_idx, cur, p]
@@ -355,6 +380,9 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
         qty_rep = torch.gather(qty_p, 1, rep_safe)[:, 0]
         cells_rep = torch.where(use_p[:, None] & (cells_rep >= 0), cells_rep, -1)
         qty_rep = torch.where(cells_rep >= 0, qty_rep, 0)
+        # cells of the choice that did not fit: its frs_need_preemption
+        fit_rep = torch.gather(fit_cells, 1, rep_safe)[:, 0]
+        need_list.append((cells_rep >= 0) & (qty_rep > 0) & ~fit_rep)
         if p < pmax - 1:
             # assignment_usage grows for fit AND preempt choices alike
             accum.index_put_(
@@ -376,15 +404,20 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
 
     mcells = torch.cat(cells_list, dim=1)  # [Q,P*C]
     mqty = torch.cat(qty_list, dim=1)
+    mneed = torch.cat(need_list, dim=1)
     if pmax > 1:
         # merge duplicate cells: sum onto the first occurrence, zero the
-        # rest (a single candidate's cells are distinct by construction)
+        # rest (a single candidate's cells are distinct by construction);
+        # the need is the union over the podsets
         pos = torch.arange(pmax * c, device=dev)
         same = (mcells[:, None, :] == mcells[:, :, None]) & (mcells >= 0)[:, None, :]
         summed = torch.where(same, mqty[:, None, :], 0).sum(dim=2)
         first = ~(same & (pos[None, None, :] < pos[None, :, None])).any(dim=2)
+        mneed = (same & mneed[:, None, :]).any(dim=2) & first
         mqty = torch.where(first & (mcells >= 0), summed, 0)
         mcells = torch.where(first, mcells, -1)
+    if ctx.preempt is not None:
+        buf.need_pre.copy_(mneed)
 
     is_fit = active & (head_mode == 3)
     is_pre = active & (head_mode >= 1) & (head_mode < 3)
@@ -397,6 +430,21 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
     buf.cells_eff.copy_(mcells)
     buf.qty_eff.copy_(mqty)
     buf.admitted.zero_()
+
+
+def _charge_paths(usage, guaranteed, path, ccells, delta, max_depth: int) -> None:
+    """Bubble each row's per-cell ``delta`` up its ``path`` on the usage
+    tree, in place (rows are distinct root cohorts: disjoint paths)."""
+    for d in range(max_depth + 1):
+        node = path[:, d].clamp_min(0).long()[:, None].expand_as(ccells)
+        node_valid = (path[:, d] >= 0)[:, None]
+        old = usage[node, ccells]
+        gg = guaranteed[node, ccells]
+        new = old + delta
+        usage.index_put_((node, ccells), torch.where(node_valid, delta, 0), accumulate=True)
+        delta = torch.where(
+            node_valid, (new - gg).clamp_min(0) - (old - gg).clamp_min(0), delta
+        )
 
 
 def drain_phase2_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
@@ -467,18 +515,7 @@ def drain_phase2_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers) 
             qty_,
             torch.where(cell_valid & reserve[:, None], reserve_qty, 0),
         )
-        for d in range(0, max_depth + 1):
-            node = path[:, d].clamp_min(0).long()[:, None].expand_as(ccells)
-            node_valid = (path[:, d] >= 0)[:, None]
-            old = usage[node, ccells]
-            gg = guaranteed[node, ccells]
-            new = old + delta
-            usage.index_put_(
-                (node, ccells), torch.where(node_valid, delta, 0), accumulate=True
-            )
-            over_old = (old - gg).clamp_min(0)
-            over_new = (new - gg).clamp_min(0)
-            delta = torch.where(node_valid, over_new - over_old, delta)
+        _charge_paths(usage, guaranteed, path, ccells, delta, max_depth)
         admit_sn[s] = admit
 
     flat_idx = mat.reshape(-1)
@@ -573,6 +610,93 @@ class FairInputs:
     flags: Optional[torch.Tensor] = None  # uint8[Q] kernel scratch
 
 
+class SegVictims(NamedTuple):
+    """Per-root-cohort (segment) candidate pools and per-queue search
+    configuration of the preempt drain (the JAX ``SegVictims``).
+
+    S segments, V pool slots per segment, Cv cells per victim, M local
+    nodes per segment (its ClusterQueues, interior cohorts and root),
+    D+1 path length, Q queues, L entries per queue.
+
+    Pool slots come in two parts. Part A: workloads admitted in the
+    snapshot, static. Part B: one slot per pending entry of the segment,
+    invalid until the drain admits the entry; then the cycle fills it
+    with the admitted cells and quantities, so the entry is a live
+    reclaim candidate from the next cycle on (the host cycle loop sees
+    drain-admitted workloads in its snapshot the same way;
+    preemption.go:480-524).
+
+    scells/sqty: int32/int64[S,V,Cv] the slot's global cells and usage
+            (-1 pads; part B -1 until filled).
+    sprio/sts: int64[S,V] priority and queue-order timestamp.
+    svalid0: bool[S,V] slot live at drain start (part A).
+    sowner: int32[S,V] owner ClusterQueue's tree row (-1 pad).
+    sowner_local: int32[S,V] owner's segment-local node id.
+    sslot_q/sslot_l: int32[S,V] part B: the (queue, position) of the
+            slot's entry (-1 for part A).
+    seg_nodes: int32[S,M] global rows of the segment's nodes (-1 pad).
+    lpaths: int32[S,M,D+1] each local node's ancestor path in local ids.
+    hlocal: int32[Q] each queue's ClusterQueue as a local node id.
+    perm: int32[Q,V] the queue's candidate order over its segment's
+            slots (preemption.go:591-618).
+    entry_slot: int32[Q,L] part-B slot of each entry (-1 none).
+    same_enabled: bool[Q] withinClusterQueue != Never.
+    same_prio_ok: bool[Q] withinClusterQueue == LowerOrNewerEqualPriority.
+    reclaim_enabled: bool[Q] reclaimWithinCohort != Never (with cohort).
+    only_lower: bool[Q] reclaimWithinCohort != Any.
+    bwc: bool[Q] borrowWithinCohort.policy != Never.
+    bwc_thr1: int64[Q] maxPriorityThreshold + 1 (NO_BWC_THRESHOLD when
+            unset); the threshold is min(head priority, bwc_thr1)
+            (preemption.go:194-204).
+    """
+
+    scells: torch.Tensor
+    sqty: torch.Tensor
+    sprio: torch.Tensor
+    sts: torch.Tensor
+    svalid0: torch.Tensor
+    sowner: torch.Tensor
+    sowner_local: torch.Tensor
+    sslot_q: torch.Tensor
+    sslot_l: torch.Tensor
+    seg_nodes: torch.Tensor
+    lpaths: torch.Tensor
+    hlocal: torch.Tensor
+    perm: torch.Tensor
+    entry_slot: torch.Tensor
+    same_enabled: torch.Tensor
+    same_prio_ok: torch.Tensor
+    reclaim_enabled: torch.Tensor
+    only_lower: torch.Tensor
+    bwc: torch.Tensor
+    bwc_thr1: torch.Tensor
+
+
+# SegVictims fields indexed per queue (the [Q, ...] axis)
+SEG_VICTIM_Q_FIELDS = (
+    "hlocal", "perm", "entry_slot", "same_enabled", "same_prio_ok",
+    "reclaim_enabled", "only_lower", "bwc", "bwc_thr1",
+)
+
+# bwc_thr1 sentinel meaning "no maxPriorityThreshold configured"
+NO_BWC_THRESHOLD = 1 << 60
+
+# widest shapes the preempt drain's kernels take: a victim's cells, the
+# candidate window, a segment's nodes
+MAX_CV = 32
+MAX_SEARCH_WIDTH = 512
+MAX_M = 64
+
+
+@dataclass
+class PreemptInputs:
+    """The preempt drain's extra inputs (``solve_drain_preempt``): the
+    segment candidate pools and the candidate window of one search."""
+
+    victims: SegVictims
+    search_width: int
+
+
 @dataclass
 class DrainContext:
     """What stays fixed for one drain: the tree and its derived
@@ -594,6 +718,7 @@ class DrainContext:
     chunk_cycles: int = 0  # megaloop only: cycles per round
     max_rounds: int = 0  # megaloop only; 0 for the plain and fair drains
     fair: Optional[FairInputs] = None
+    preempt: Optional[PreemptInputs] = None
     _args: Optional[tuple] = None  # (state, buf, ints, ptrs)
 
     @classmethod
@@ -619,8 +744,10 @@ class DrainContext:
     def kernel_args(self, kernel: str, state: DrainState, buf: CycleBuffers):
         """(ints, ptrs) ctypes arrays in csrc/drain_common.cuh order,
         every tensor checked; cached for the last (state, buf). The
-        megaloop's round log (a MegaloopState's extra fields) and the
-        fair inputs are NULL where the drain has none."""
+        megaloop's round log (a MegaloopState's extra fields), the fair
+        inputs and the preempt drain's pools, state and buffers (a
+        PreemptState and PreemptBuffers) are NULL where the drain has
+        none."""
         cached = self._args
         if cached is not None and cached[0] is state and cached[1] is buf:
             return cached[2], cached[3]
@@ -727,6 +854,62 @@ class DrainContext:
         else:
             spec += [(name, None, None, None) for name in (
                 "depth_of", "weight", "lendable", "res_of_fr", "chain", "flags")]
+        pre = self.preempt
+        v = cv = m = width = 0
+        if pre is not None:
+            vic = pre.victims
+            s_dim, v, cv = vic.scells.shape
+            m = vic.seg_nodes.shape[1]
+            width = pre.search_width
+            if (cv > MAX_CV or width > MAX_SEARCH_WIDTH or m > MAX_M or pmax * c > 32
+                    or s_dim != self.n_segments):
+                raise _build.KernelInputError(
+                    f"{kernel}: the preempt drain takes Cv<={MAX_CV} victim cells, "
+                    f"search_width<={MAX_SEARCH_WIDTH}, M<={MAX_M} segment nodes, P*C<=32 "
+                    f"and one pool per segment; got Cv={cv}, search_width={width}, M={m}, "
+                    f"P*C={pmax * c}, {s_dim} pools for {self.n_segments} segments"
+                )
+            sv, svc = (s_dim, v), (s_dim, v, cv)
+            spec += [
+                # SegVictims (the kernels read the live pool from the state)
+                ("sprio", vic.sprio, I64, sv),
+                ("sts", vic.sts, I64, sv),
+                ("sowner", vic.sowner, I32, sv),
+                ("sowner_local", vic.sowner_local, I32, sv),
+                ("seg_nodes", vic.seg_nodes, I32, (s_dim, m)),
+                ("lpaths", vic.lpaths, I32, (s_dim, m, d1)),
+                ("hlocal", vic.hlocal, I32, (q,)),
+                ("perm", vic.perm, I32, (q, v)),
+                ("entry_slot", vic.entry_slot, I32, (q, l)),
+                ("same_enabled", vic.same_enabled, BOOL, (q,)),
+                ("same_prio_ok", vic.same_prio_ok, BOOL, (q,)),
+                ("reclaim_enabled", vic.reclaim_enabled, BOOL, (q,)),
+                ("only_lower", vic.only_lower, BOOL, (q,)),
+                ("bwc", vic.bwc, BOOL, (q,)),
+                ("bwc_thr1", vic.bwc_thr1, I64, (q,)),
+                # PreemptState
+                ("status", state.status, I32, (q, l)),
+                ("pcells", state.pcells, I32, svc),
+                ("pqty", state.pqty, I64, svc),
+                ("pvalid", state.pvalid, BOOL, sv),
+                ("vevicted", state.vevicted, BOOL, sv),
+                ("evict_cycle", state.evict_cycle, I32, sv),
+                ("evict_by", state.evict_by, I32, sv),
+                ("ovf", state.ovf, BOOL, (1,)),
+                # PreemptBuffers
+                ("need_pre", buf.need_pre, BOOL, (q, pmax * c)),
+                ("elig_same", buf.elig_same, BOOL, (q, v)),
+                ("veto", buf.veto, BOOL, (q, fr)),
+                ("targets", buf.targets, BOOL, (q, v)),
+                ("psuccess", buf.psuccess, BOOL, (q,)),
+                ("untrusted", buf.untrusted, BOOL, (q,)),
+                ("preempt_ok", buf.preempt_ok, BOOL, (q,)),
+                ("leaf", buf.leaf, I64, (n, fr)),
+                ("ev_now", buf.ev_now, BOOL, sv),
+                ("ev_by", buf.ev_by, I32, sv),
+            ]
+        else:
+            spec += [(name, None, None, None) for name in range(PREEMPT_PTRS)]
         ptrs = [_build.ptr(kernel, name, t, dt, sh) for name, t, dt, sh in spec]
         ints = [
             q, l, pmax, k, c, g, n, fr, tree.max_depth,
@@ -734,6 +917,7 @@ class DrainContext:
             self.chunk_cycles, rr,
             fair.n_res if fair is not None else 0,
             int(bool(fair.prio_tie)) if fair is not None else 0,
+            v, cv, m, width,
         ]
         c_ints = (ctypes.c_int * len(ints))(*ints)
         c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -953,16 +1137,7 @@ def drain_fair_phase2_plain(ctx: DrainContext, state: DrainState, buf: CycleBuff
             torch.where(cell_valid & reserve[:, None], reserve_qty, 0),
         )
         # winners are one per root cohort: their paths are disjoint
-        for d in range(max_depth + 1):
-            node = paths_q[:, d].clamp_min(0).long()[:, None].expand_as(cells_c)
-            node_valid = (paths_q[:, d] >= 0)[:, None]
-            old = usage[node, cells_c]
-            gg = guaranteed[node, cells_c]
-            new = old + delta
-            usage.index_put_((node, cells_c), torch.where(node_valid, delta, 0), accumulate=True)
-            delta = torch.where(
-                node_valid, (new - gg).clamp_min(0) - (old - gg).clamp_min(0), delta
-            )
+        _charge_paths(usage, guaranteed, paths_q, cells_c, delta, max_depth)
         remaining = remaining & ~win
         admitted = admitted | admit
     # leaf usage adds for admissions only: reservations die with the cycle
@@ -1088,4 +1263,587 @@ def _solve_drain_packed(
     return _pack_drain(solve_drain(
         tree, local_usage, queues, paths, n_segments, n_steps, max_cycles,
         seg_id=seg_id, fair=fair,
+    ))
+
+
+# ---- the preempt drain (kernels drain_preempt_*) ---------------------------
+
+
+class PreemptDrainResult(NamedTuple):
+    """status: int32[Q,L] final entry state (0 pending, 1 parked, 2
+    admitted); admitted_k / admitted_cycle as DrainResult; evicted:
+    bool[S,V] the pool slot was preempted (part-A snapshot victims and
+    part-B drain-admitted entries); evicted_cycle: int32[S,V];
+    evicted_by: int32[S,V] the evicting queue (-1 where not evicted):
+    the overlap guard and the live mask let one head at most evict a
+    slot, so the attribution is exact; stuck: bool[Q]; cycles;
+    local_usage; overflowed: bool — some head's eligible candidates
+    overflowed the ``search_width`` window and its search missed; while
+    it is False every truncated search was exact, so the decisions equal
+    any wider window's (the panel ladder's escalation trigger)."""
+
+    status: torch.Tensor
+    admitted_k: torch.Tensor
+    admitted_cycle: torch.Tensor
+    evicted: torch.Tensor
+    evicted_cycle: torch.Tensor
+    evicted_by: torch.Tensor
+    stuck: torch.Tensor
+    cycles: torch.Tensor
+    local_usage: torch.Tensor
+    overflowed: torch.Tensor
+
+
+@dataclass
+class PreemptState(DrainState):
+    """The preempt drain's loop state: DrainState (whose ``cursor`` is
+    each queue's head, its first pending entry, kept by the motion
+    kernel), the entries' status, the live candidate pools (part-B slots
+    fill as entries are admitted), the eviction record and the overflow
+    flag."""
+
+    status: torch.Tensor = None  # int32[Q,L] 0 pending, 1 parked, 2 admitted
+    pcells: torch.Tensor = None  # int32[S,V,Cv]
+    pqty: torch.Tensor = None  # int64[S,V,Cv]
+    pvalid: torch.Tensor = None  # bool[S,V]
+    vevicted: torch.Tensor = None  # bool[S,V]
+    evict_cycle: torch.Tensor = None  # int32[S,V]
+    evict_by: torch.Tensor = None  # int32[S,V]
+    ovf: torch.Tensor = None  # bool[1]
+
+    @classmethod
+    def initial_preempt(cls, local_usage, queues: DrainQueues, max_cycles: int,
+                        victims: SegVictims):
+        base = DrainState.initial(local_usage, queues, max_cycles)
+        q, l = queues.priority.shape
+        dev = local_usage.device
+        return cls(
+            **{f.name: getattr(base, f.name) for f in fields(base)},
+            status=torch.zeros((q, l), dtype=I32, device=dev),
+            pcells=victims.scells.clone(),
+            pqty=victims.sqty.clone(),
+            pvalid=victims.svalid0.clone(),
+            vevicted=torch.zeros_like(victims.svalid0),
+            evict_cycle=torch.full(victims.svalid0.shape, -1, dtype=I32, device=dev),
+            evict_by=torch.full(victims.svalid0.shape, -1, dtype=I32, device=dev),
+            ovf=torch.zeros(1, dtype=BOOL, device=dev),
+        )
+
+
+@dataclass
+class PreemptBuffers(CycleBuffers):
+    """CycleBuffers plus the preempt cycle's intermediates."""
+
+    need_pre: torch.Tensor = None  # bool[Q,P*C] merged cells needing preemption
+    elig_same: torch.Tensor = None  # bool[Q,V] eligible same-CQ victims
+    veto: torch.Tensor = None  # bool[Q,FR] cells with an eligible same-CQ victim
+    targets: torch.Tensor = None  # bool[Q,V] the search's victims, slot space
+    psuccess: torch.Tensor = None  # bool[Q] the search found a trusted set
+    untrusted: torch.Tensor = None  # bool[Q] inconclusive truncated search
+    preempt_ok: torch.Tensor = None  # bool[Q] preempted this cycle
+    leaf: torch.Tensor = None  # int64[N,FR] phase 2's in-cycle leaf usage
+    ev_now: torch.Tensor = None  # bool[S,V] evicted this cycle
+    ev_by: torch.Tensor = None  # int32[S,V] by which queue (-1)
+
+    @classmethod
+    def empty_preempt(cls, local_usage, queues: DrainQueues, victims: SegVictims):
+        base = CycleBuffers.empty(local_usage, queues)
+        q, _, pmax, _, c = queues.cells.shape
+        s_dim, v, _ = victims.scells.shape
+        dev = local_usage.device
+        return cls(
+            **{f.name: getattr(base, f.name) for f in fields(base)},
+            need_pre=torch.zeros((q, pmax * c), dtype=BOOL, device=dev),
+            elig_same=torch.zeros((q, v), dtype=BOOL, device=dev),
+            veto=torch.zeros((q, local_usage.shape[1]), dtype=BOOL, device=dev),
+            targets=torch.zeros((q, v), dtype=BOOL, device=dev),
+            psuccess=torch.zeros(q, dtype=BOOL, device=dev),
+            untrusted=torch.zeros(q, dtype=BOOL, device=dev),
+            preempt_ok=torch.zeros(q, dtype=BOOL, device=dev),
+            # rows of no segment never change in the drain: phase 2
+            # refreshes only its segments' rows from the leaf usage
+            leaf=local_usage.clone(),
+            ev_now=torch.zeros((s_dim, v), dtype=BOOL, device=dev),
+            ev_by=torch.full((s_dim, v), -1, dtype=I32, device=dev),
+        )
+
+
+def _elig_same_and_veto(ctx: DrainContext, state: PreemptState, active, cur):
+    """Same-CQ victim eligibility (preemption.go:480-524's priority rule)
+    of every queue head over its segment's live pool, and the dense
+    veto of the reclaim oracle: the cells those victims use. Zero for
+    inactive queues. Returns (bool[Q,V], bool[Q,FR])."""
+    vic = ctx.preempt.victims
+    queues = ctx.queues
+    q = queues.qlen.shape[0]
+    n_fr = state.local.shape[1]
+    q_idx = torch.arange(q, device=state.local.device)
+    prio = queues.priority[q_idx, cur]
+    ts = queues.timestamp[q_idx, cur]
+    sq = queues.seg_id.clamp_min(0).long()
+    live_q = (state.pvalid & ~state.vevicted)[sq]
+    sprio_q = vic.sprio[sq]
+    same_q = (vic.sowner[sq] >= 0) & (vic.sowner_local[sq] == vic.hlocal[:, None])
+    lower = sprio_q < prio[:, None]
+    newer_eq = vic.same_prio_ok[:, None] & (sprio_q == prio[:, None]) & (ts[:, None] < vic.sts[sq])
+    elig = live_q & same_q & vic.same_enabled[:, None] & (lower | newer_eq) & active[:, None]
+    vcells = state.pcells[sq]  # [Q,V,Cv]
+    at = torch.where((vcells >= 0) & elig[:, :, None], vcells, n_fr).reshape(q, -1).long()
+    veto = torch.zeros((q, n_fr + 1), dtype=BOOL, device=elig.device)
+    veto.scatter_(1, at, True)
+    return elig, veto[:, :n_fr]
+
+
+def _compact_candidates(cand_ord, width: int):
+    """The True positions of ``cand_ord`` (bool[Q,V], in candidate
+    order) packed into the first ``width`` slots (the JAX
+    ``_compact_candidates``). Returns (comp int[Q,width] of ord indices,
+    -1 pads; overflow bool[Q]). minimalPreemptions stops at the first
+    fitting prefix, so truncation is exact whenever the search succeeds
+    in the window or fails without overflow."""
+    qn, v = cand_ord.shape
+    rank = torch.cumsum(cand_ord.to(I64), dim=1) - 1
+    dest = torch.where(cand_ord & (rank < width), rank, width)
+    src = torch.arange(v, device=cand_ord.device).expand(qn, v)
+    comp = torch.full((qn, width + 1), -1, dtype=I64, device=cand_ord.device)
+    comp.scatter_(1, dest, src)
+    overflow = (cand_ord & (rank >= width)).any(dim=1)
+    return comp[:, :width], overflow
+
+
+def drain_preempt_search_plain(ctx: DrainContext, state: PreemptState,
+                               buf: PreemptBuffers) -> None:
+    """Every preempt-mode head's victim search over its segment's pool
+    (the JAX ``solve_drain_preempt`` cycle, :1866-1987): candidate
+    eligibility, the strategy ladder (preemption.go:144-191) with its
+    cases and two attempts, the compaction in candidate order to
+    ``search_width``, both minimalPreemptions attempts on the segment's
+    local panels (``solve_preempt``, the search B8 runs), and the
+    trust of a truncated search. Writes the targets in slot space,
+    psuccess and untrusted; sets the state's overflow flag."""
+    if _done(state):
+        return
+    tree, queues, pre = ctx.tree, ctx.queues, ctx.preempt
+    vic, width = pre.victims, pre.search_width
+    q, l = queues.priority.shape
+    v = vic.perm.shape[1]
+    dev = state.local.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    prio = queues.priority[q_idx, cur]
+    sq = queues.seg_id.clamp_min(0).long()
+    cells_eff, qty_eff, need_pre = buf.cells_eff, buf.qty_eff, buf.need_pre
+    cell_need = (cells_eff >= 0) & (qty_eff > 0)
+    cells_c = cells_eff.clamp_min(0).long()
+
+    live_q = (state.pvalid & ~state.vevicted)[sq]  # [Q,V]
+    sprio_q = vic.sprio[sq]
+    olocal_q = vic.sowner_local[sq].clamp_min(0).long()
+    slot_ok = vic.sowner[sq] >= 0
+    same_q = slot_ok & (vic.sowner_local[sq] == vic.hlocal[:, None])
+    lower = sprio_q < prio[:, None]
+
+    # segment-local panels at this cycle's head cells
+    rows = vic.seg_nodes.clamp_min(0).long()[sq][:, :, None]  # [Q,M,1]
+    cc = cells_c[:, None, :]
+    u0_sub = buf.usage[rows, cc]
+    lf0_sub = state.local[rows, cc]
+    nom_sub = tree.nominal[rows, cc]
+    # victim usage at the head cells
+    pcells_q = state.pcells[sq]  # [Q,V,Cv]
+    match = (pcells_q[:, :, :, None] == cells_c[:, None, None, :]) & (pcells_q >= 0)[..., None]
+    vq_at = torch.where(match, state.pqty[sq][..., None], 0).sum(dim=2)  # [Q,V,C']
+
+    # candidate eligibility (preemption.go:480-524): a candidate uses a
+    # cell needing preemption; other-CQ candidates need their CQ to
+    # borrow at cycle start in such a cell
+    uses = ((vq_at * need_pre[:, None, :].to(I64)) > 0).any(dim=2)
+    borrow_by_local = ((lf0_sub > nom_sub) & need_pre[:, None, :]).any(dim=2)  # [Q,M]
+    owner_borrow0 = torch.gather(borrow_by_local, 1, olocal_q)
+    oth_prio_ok = ~vic.only_lower[:, None] | lower
+    elig_other = (live_q & ~same_q & slot_ok & vic.reclaim_enabled[:, None]
+                  & oth_prio_ok & owner_borrow0)
+    elig = uses & (buf.elig_same | elig_other)
+
+    # the strategy ladder (preemption.go:144-191)
+    hl = vic.hlocal.clamp_min(0).long()
+    under_nominal = torch.where(need_pre, lf0_sub[q_idx, hl] < nom_sub[q_idx, hl], True).all(dim=1)
+    other_exists = (elig & ~same_q).any(dim=1)
+    thr = torch.minimum(prio, vic.bwc_thr1)
+    case_a = ~other_exists
+    case_b = other_exists & vic.bwc
+    case_c = other_exists & ~vic.bwc & under_nominal
+    cand1 = torch.where(
+        case_b[:, None],
+        elig & (same_q | (sprio_q < thr[:, None]) | under_nominal[:, None]),
+        torch.where((case_a | case_c)[:, None], elig, elig & same_q),
+    )
+    cand2 = elig & same_q  # a failed reclaim-without-borrowing attempt falls back here
+    run2 = case_c
+    enabled1 = active & buf.is_pre & (vic.same_enabled | vic.reclaim_enabled)
+
+    perm = vic.perm.long()
+    panels = dict(
+        paths=vic.lpaths[sq], usage0=u0_sub, leaf0=lf0_sub, nominal=nom_sub,
+        subtree_q=ctx.subtree[rows, cc], guaranteed=ctx.guaranteed[rows, cc],
+        borrow_lim=tree.borrowing_limit[rows, cc], hrow=vic.hlocal,
+        need_qty=torch.where(cell_need, qty_eff, 0), need_pre=need_pre,
+    )
+
+    def attempt(cand, enabled, allow_borrow, thr_on):
+        comp, over = _compact_candidates(torch.gather(cand, 1, perm), width)
+        slot = torch.gather(perm, 1, comp.clamp_min(0))  # [Q,width]
+        problem = PreemptProblem(
+            **panels, allow_borrow=allow_borrow, has_thr=thr_on, thr=thr,
+            crow=torch.gather(olocal_q, 1, slot),
+            cqty=vq_at[q_idx[:, None], slot], cvalid=comp >= 0,
+            csame=torch.gather(same_q, 1, slot), cprio=torch.gather(sprio_q, 1, slot),
+            row_valid=enabled,
+        )
+        r = solve_preempt(problem, tree.max_depth, width)
+        # step space -> slot space
+        hit = (comp >= 0) & r.targets & r.fits[:, None]
+        out = torch.zeros((q, v + 1), dtype=I32, device=dev)
+        out.scatter_add_(1, torch.where(hit, slot, v), hit.to(I32))
+        return out[:, :v] > 0, r.fits, over
+
+    t1, found1, over1 = attempt(cand1, enabled1, ~case_c, case_b)
+    t2, found2, over2 = attempt(
+        cand2, enabled1 & run2, torch.ones_like(run2), torch.zeros_like(run2)
+    )
+    # an attempt-1 overflow-and-miss is inconclusive whatever attempt 2
+    # finds: the untruncated ladder might have succeeded at attempt 1
+    untrusted = enabled1 & ((over1 & ~found1) | (~found1 & run2 & over2 & ~found2))
+    buf.targets.copy_(torch.where(found1[:, None], t1, t2))
+    buf.psuccess.copy_(buf.is_pre & ~untrusted & (found1 | found2))
+    buf.untrusted.copy_(untrusted)
+    buf.preempt_ok.zero_()
+    state.ovf.copy_(state.ovf | untrusted.any())
+
+
+def drain_preempt_phase2_plain(ctx: DrainContext, state: PreemptState,
+                               buf: PreemptBuffers) -> None:
+    """The preempt cycle's step scan (the JAX ``solve_drain_preempt``,
+    :1988-2166): entries in (borrowing, -priority, timestamp) order per
+    root segment; a head whose targets overlap an earlier eviction of
+    the cycle is skipped; a preempting head removes its victims at
+    their owner rows, re-checks its fit, and reverts the removals when
+    it no longer fits; admitted and preempting heads charge their usage,
+    blocked no-reclaim heads reserve. The usage tree is rebuilt from the
+    leaf rows after any removal or revert, as the JAX code does. Writes
+    the in-cycle leaf usage, this cycle's evictions and the admitted
+    and preempt_ok flags; ``state.local`` is left to the motion."""
+    if _done(state):
+        return
+    tree, queues, vic = ctx.tree, ctx.queues, ctx.preempt.victims
+    subtree, guaranteed = ctx.subtree, ctx.guaranteed
+    n_segments, n_steps, max_depth = ctx.n_segments, ctx.n_steps, tree.max_depth
+    q, l = queues.priority.shape
+    dev = buf.usage.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    is_fit, is_pre, head_borrow = buf.is_fit, buf.is_pre, buf.head_borrow
+    cells_eff, qty_eff = buf.cells_eff, buf.qty_eff
+    nofit = ~(is_fit | is_pre)
+    prio = queues.priority[q_idx, cur]
+    ts = queues.timestamp[q_idx, cur]
+    order = _lexsort((ts, -prio, head_borrow.to(I64), nofit.to(I64)))
+    seg = queues.seg_id.clamp_min(0)[order]
+    valid_sorted = active[order] & (queues.seg_id[order] >= 0) & ~nofit[order]
+    rank = segmented_rank(seg, valid_sorted)
+    rank_scatter = torch.where(valid_sorted, rank, n_steps)
+    keep = (rank_scatter < n_steps) & (seg < n_segments)
+    mat = torch.full((n_steps, n_segments), -1, dtype=I32, device=dev)
+    mat[rank_scatter[keep].long(), seg[keep].long()] = order[keep].to(I32)
+
+    cq = queues.cq_rows.clamp_min(0).long()
+    sq_all = queues.seg_id.clamp_min(0).long()
+    cell_need = (cells_eff >= 0) & (qty_eff > 0)
+    leaf = state.local.clone()
+    usage = buf.usage  # == usage_tree(leaf) throughout
+    s_dim, v = buf.ev_now.shape
+    ev_now = torch.zeros((s_dim, v), dtype=BOOL, device=dev)
+    ev_by = torch.full((s_dim, v), -1, dtype=I32, device=dev)
+    admitted = torch.zeros(q, dtype=BOOL, device=dev)
+    preempt_ok = torch.zeros(q, dtype=BOOL, device=dev)
+    for s in range(n_steps):
+        idx = mat[s]
+        if not bool((idx >= 0).any()):
+            continue
+        h = idx[idx >= 0].long()  # one head per live segment
+        cqs = cq[h]
+        path = ctx.paths[cqs]
+        cells_, qty_ = cells_eff[h], qty_eff[h]
+        ccells = cells_.clamp_min(0).long()
+        cell_valid = cell_need[h]
+        sq_h = sq_all[h]
+        htarg = buf.targets[h]  # [G,V]
+        # overlapping-preemption-targets guard: an earlier head this
+        # cycle already evicted one of our victims -> skip
+        overlap = (htarg & ev_now[sq_h]).any(dim=1)
+        do_pre = buf.psuccess[h] & ~overlap
+        # remove the victims at their OWNER leaf rows
+        pc_h = state.pcells[sq_h]  # [G,V,Cv]
+        rm_mask = htarg & do_pre[:, None]
+        rm_qty = torch.where(rm_mask[:, :, None] & (pc_h >= 0), state.pqty[sq_h], 0)
+        rows_b = vic.sowner[sq_h].clamp_min(0).long()[:, :, None].expand_as(pc_h).reshape(-1)
+        cols_b = pc_h.clamp_min(0).long().reshape(-1)
+        leaf.index_put_((rows_b, cols_b), -rm_qty.reshape(-1), accumulate=True)
+        if bool(rm_mask.any()):
+            usage.copy_(usage_tree_plain(tree, guaranteed, leaf))
+        avail = _avail_along_path(
+            path, cells_, usage, subtree, guaranteed, tree.borrowing_limit, max_depth
+        )
+        fits = torch.where(cell_valid, avail >= qty_, True).all(dim=1)
+        admit = is_fit[h] & fits
+        pre_ok = do_pre & fits
+        # revert failed preempters' removals
+        revert = do_pre & ~fits
+        leaf.index_put_(
+            (rows_b, cols_b), torch.where(revert[:, None, None], rm_qty, 0).reshape(-1),
+            accumulate=True,
+        )
+        reserve = is_pre[h] & ~buf.psuccess[h] & queues.no_reclaim[h]
+        nominal_c = tree.nominal[cqs[:, None], ccells]
+        bl_c = tree.borrowing_limit[cqs[:, None], ccells]
+        leaf_usage_c = leaf[cqs[:, None], ccells]
+        borrow_cap = torch.where(
+            bl_c < NO_LIMIT, torch.minimum(qty_, nominal_c + bl_c - leaf_usage_c), qty_
+        )
+        nominal_cap = torch.minimum(qty_, nominal_c - leaf_usage_c).clamp_min(0)
+        reserve_qty = torch.where(head_borrow[h][:, None], borrow_cap, nominal_cap)
+        # charge admitted heads and successful preempters (AddUsage runs
+        # for both, scheduler.go:211-292); reserve for blocked ones
+        delta = torch.where(
+            cell_valid & (admit | pre_ok)[:, None],
+            qty_,
+            torch.where(cell_valid & reserve[:, None], reserve_qty, 0),
+        )
+        leaf.index_put_((cqs[:, None].expand_as(ccells), ccells), delta, accumulate=True)
+        if bool(revert.any()):
+            usage.copy_(usage_tree_plain(tree, guaranteed, leaf))
+        else:
+            _charge_paths(usage, guaranteed, path, ccells, delta, max_depth)
+        evicts = htarg & pre_ok[:, None]
+        ev_now[sq_h] = ev_now[sq_h] | evicts
+        ev_by[sq_h] = torch.maximum(ev_by[sq_h], torch.where(evicts, h[:, None].to(I32), -1))
+        admitted[h] = admit
+        preempt_ok[h] = pre_ok
+    buf.leaf.copy_(leaf)
+    buf.ev_now.copy_(ev_now)
+    buf.ev_by.copy_(ev_by)
+    buf.admitted.copy_(admitted)
+    buf.preempt_ok.copy_(preempt_ok)
+
+
+def drain_preempt_motion_plain(ctx: DrainContext, state: PreemptState,
+                               buf: PreemptBuffers) -> None:
+    """The preempt cycle's end (the JAX ``solve_drain_preempt``,
+    :2168-2287): admitted heads charge their leaf usage, each evicted
+    victim releases its full usage at its owner row, admitted entries
+    fill their part-B pool slot; then the queue motion with the preempt
+    rules (heads skipped after a successful search stay pending,
+    untrusted searches freeze their queue, the stagnation guard, an
+    eviction in a root cohort reactivates its parked entries), the next
+    heads, the cycle counter and the ``done`` flag."""
+    if _done(state):
+        return
+    queues, vic = ctx.queues, ctx.preempt.victims
+    q, l = queues.priority.shape
+    dev = state.cursor.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    is_fit, pend, admitted = buf.is_fit, buf.pend, buf.admitted
+    preempt_ok, psuccess = buf.preempt_ok, buf.psuccess
+    cells_eff, qty_eff = buf.cells_eff, buf.qty_eff
+    cell_need = (cells_eff >= 0) & (qty_eff > 0)
+    cq = queues.cq_rows.clamp_min(0).long()
+    sq = queues.seg_id.clamp_min(0).long()
+    cycle = state.cycle
+
+    # leaf usage: admissions, then evictions at the owner rows
+    state.local.index_put_(
+        (cq[:, None].expand_as(cells_eff), cells_eff.clamp_min(0).long()),
+        torch.where(cell_need & admitted[:, None], qty_eff, 0),
+        accumulate=True,
+    )
+    newly = buf.ev_now
+    pcells = state.pcells
+    ev_qty = torch.where(newly[:, :, None] & (pcells >= 0), state.pqty, 0)
+    owner = vic.sowner.clamp_min(0).long()[:, :, None].expand_as(pcells)
+    state.local.index_put_(
+        (owner.reshape(-1), pcells.clamp_min(0).long().reshape(-1)), -ev_qty.reshape(-1),
+        accumulate=True,
+    )
+    state.vevicted.copy_(state.vevicted | newly)
+    state.evict_cycle.copy_(torch.where(newly, cycle, state.evict_cycle))
+    state.evict_by.copy_(torch.where(newly, buf.ev_by, state.evict_by))
+    # admitted entries fill their part-B slot: live candidates from now on
+    slot_w = vic.entry_slot[q_idx, cur]
+    fill = admitted & active & (slot_w >= 0)
+    if bool(fill.any()):
+        fq = torch.nonzero(fill).flatten()
+        pad = pcells.shape[2] - cells_eff.shape[1]
+        fs, fl = sq[fq], slot_w[fq].long()
+        pcells[fs, fl] = torch.cat(
+            [cells_eff[fq], torch.full((fq.numel(), pad), -1, dtype=I32, device=dev)], dim=1
+        )
+        state.pqty[fs, fl] = torch.cat(
+            [qty_eff[fq], torch.zeros((fq.numel(), pad), dtype=I64, device=dev)], dim=1
+        )
+        state.pvalid[fs, fl] = True
+
+    # queue motion. Park only NOT_NOMINATED outcomes (NoFit, or a search
+    # that found no victims); heads skipped after a successful search
+    # (the fits re-check or the overlap guard) requeue and stay pending
+    retries = state.retries
+    pre_skipped = psuccess & ~preempt_ok
+    undecided = active & ~is_fit & ~preempt_ok & ~pre_skipped
+    stuck = state.stuck | buf.untrusted
+    stuck = stuck | (undecided & pend & (retries >= state.cap))
+    retrying = undecided & pend & ~stuck
+    new_status = torch.where(admitted, 2, torch.where(undecided & ~pend, 1, 0)).to(I32)
+    head_advanced = active & (new_status != 0)
+    stuck = stuck & ~head_advanced
+    retries = torch.where(
+        head_advanced | ~active, 0, torch.where(retrying, retries + 1, retries)
+    ).to(I32)
+    any_prog = head_advanced.any() | newly.any()
+    no_prog = torch.where(any_prog, 0, state.no_prog + 1).to(I32)
+    stuck = stuck | ((no_prog >= 2 * state.cap.max()) & active & ~head_advanced)
+    wrote = admitted & active
+    state.adm_k[q_idx, cur] = torch.where(wrote[:, None], buf.rep_k, state.adm_k[q_idx, cur])
+    state.adm_cycle[q_idx, cur] = torch.where(wrote, cycle, state.adm_cycle[q_idx, cur])
+    status = state.status
+    status[q_idx, cur] = torch.where(active, new_status, status[q_idx, cur])
+    # an eviction in a root cohort reactivates its parked entries
+    released = newly.any(dim=1)[sq] & (queues.seg_id >= 0)
+    status.copy_(torch.where(released[:, None] & (status == 1), 0, status))
+    lost = active & is_fit & ~admitted
+    walk_reset = admitted | (active & ~is_fit & ~retrying) | preempt_ok
+    g_start = torch.where(
+        walk_reset[:, None, None],
+        0,
+        torch.where((lost | retrying)[:, None, None], buf.walk_next, state.g_start),
+    ).to(I32)
+    pos = torch.arange(l, device=dev, dtype=I32)
+    cursor = torch.where(status == 0, pos, l).amin(dim=1).to(I32)  # the next heads
+    cycle = state.cycle + 1
+    state.retries.copy_(retries)
+    state.stuck.copy_(stuck)
+    state.no_prog.copy_(no_prog)
+    state.g_start.copy_(g_start)
+    state.cursor.copy_(cursor)
+    state.cycle.copy_(cycle)
+    go = ((cursor < queues.qlen) & ~stuck).any() & (cycle < ctx.max_cycles)
+    state.done.copy_((~go).to(I32).reshape(1))
+
+
+def drain_preempt_search(ctx: DrainContext, state: PreemptState, buf: PreemptBuffers) -> None:
+    """Kernel 6: every preempt-mode head's strategy ladder (one warp per
+    queue, one lane per cell)."""
+    if not state.local.is_cuda:
+        return drain_preempt_search_plain(ctx, state, buf)
+    _launch("drain_preempt_search", ctx, state, buf)
+
+
+def drain_preempt_phase2(ctx: DrainContext, state: PreemptState, buf: PreemptBuffers) -> None:
+    """Kernel 7: the preempt cycle's step scan (one block per root
+    segment)."""
+    if not state.local.is_cuda:
+        return drain_preempt_phase2_plain(ctx, state, buf)
+    _launch("drain_preempt_phase2", ctx, state, buf)
+
+
+def drain_preempt_motion(ctx: DrainContext, state: PreemptState, buf: PreemptBuffers) -> None:
+    """Kernel 8: cycle-end usage, pool fill, queue motion and the done
+    flag (one block striding over the slots and the queues)."""
+    if not state.local.is_cuda:
+        return drain_preempt_motion_plain(ctx, state, buf)
+    _launch("drain_preempt_motion", ctx, state, buf)
+
+
+def drain_preempt_cycle(ctx: DrainContext, state: PreemptState, buf: PreemptBuffers) -> None:
+    """ONE preempt drain cycle: seven launches on the card (quota_tree
+    twice, drain_nominate with the reclaim oracle, the search, phase 2,
+    the motion), or their plain versions on the CPU."""
+    usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
+    available_all(
+        ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
+    )
+    drain_nominate(ctx, state, buf)
+    drain_preempt_search(ctx, state, buf)
+    drain_preempt_phase2(ctx, state, buf)
+    drain_preempt_motion(ctx, state, buf)
+
+
+def solve_drain_preempt(
+    tree: QuotaTree,
+    local_usage: torch.Tensor,  # int64[N, FR]
+    queues: DrainQueues,
+    victims: SegVictims,
+    paths: torch.Tensor,  # int32[N, D+1]
+    n_segments: int,
+    n_steps: int,
+    max_cycles: int,
+    search_width: int = 32,
+    seg_id=None,  # host copy of queues.seg_id
+) -> PreemptDrainResult:
+    """Multi-cycle drain with classic preemption (the JAX
+    ``solve_drain_preempt``): within-ClusterQueue preemption and
+    cross-CQ cohort reclamation, each cycle's searches against the
+    cycle-start usage, the entry-order scan with evictions and fits
+    re-checks, and the cycle-end pool refill and queue motion. Each
+    entry is pending (0), parked (1) or admitted (2); each queue's head
+    is its first pending entry. A head whose eligible candidates
+    overflow ``search_width`` and whose search misses freezes its queue
+    and sets ``overflowed``."""
+    ctx = DrainContext.build(
+        tree, queues, paths, n_segments, n_steps, max_cycles, seg_id=seg_id,
+        preempt=PreemptInputs(victims=victims, search_width=int(search_width)),
+    )
+    state = PreemptState.initial_preempt(local_usage, queues, max_cycles, victims)
+    buf = PreemptBuffers.empty_preempt(local_usage, queues, victims)
+    run_cycles(ctx, state, buf, drain_preempt_cycle, max_cycles)
+    return PreemptDrainResult(
+        status=state.status,
+        admitted_k=state.adm_k,
+        admitted_cycle=state.adm_cycle,
+        evicted=state.vevicted,
+        evicted_cycle=state.evict_cycle,
+        evicted_by=state.evict_by,
+        stuck=state.stuck,
+        cycles=state.cycle,
+        local_usage=state.local,
+        overflowed=state.ovf,
+    )
+
+
+def _pack_drain_preempt(r: PreemptDrainResult) -> torch.Tensor:
+    """The JAX ``_solve_drain_preempt_packed`` layout (int32): status,
+    admitted_k, admitted_cycle, evicted, evicted_cycle, evicted_by,
+    stuck, overflowed, cycles."""
+    return torch.cat([
+        r.status.reshape(-1),
+        r.admitted_k.reshape(-1),
+        r.admitted_cycle.reshape(-1),
+        r.evicted.to(I32).reshape(-1),
+        r.evicted_cycle.reshape(-1),
+        r.evicted_by.reshape(-1),
+        r.stuck.to(I32),
+        r.overflowed.to(I32).reshape(1),
+        r.cycles.reshape(1),
+    ])
+
+
+def _solve_drain_preempt_packed(
+    tree, local_usage, queues, victims, paths, n_segments: int, n_steps: int,
+    max_cycles: int, search_width: int, seg_id=None,
+) -> torch.Tensor:
+    return _pack_drain_preempt(solve_drain_preempt(
+        tree, local_usage, queues, victims, paths, n_segments, n_steps, max_cycles,
+        search_width, seg_id=seg_id,
     ))

@@ -18,6 +18,11 @@ the tests can build the same cluster in both packages.
 ``fair_spec(seed)`` adds fairSharing weights to ``mixed_spec``'s
 ClusterQueues for the fair drain ("fair_weight", as
 tests/test_solver_path.build_env names it).
+``preempt_spec(seed)`` turns ``mixed_spec`` into a preemption case for
+the preempt drain: every ClusterQueue's withinClusterQueue,
+reclaimWithinCohort and borrowWithinCohort policies, and admitted
+low-priority victims ("victims", in tests/test_drain.py's tuple form),
+which ``build_cache`` admits.
 ``build_scheduler(spec)`` builds the interactive cycle over a spec: the
 cache, a QueueManager with one LocalQueue ``lq-<cq>`` per ClusterQueue
 holding the spec's workloads, and a ``Scheduler`` with the host
@@ -169,6 +174,38 @@ def cycle_spec(seed: int, workloads_per_cq: int = 10) -> dict:
     return spec
 
 
+def preempt_spec(seed: int, victims_per_cq: int = 3, workloads_per_cq: int = 5) -> dict:
+    """``mixed_spec``'s depth-3 forest (multi-podset workloads, two
+    resource groups, limits) as a preemption case: each ClusterQueue
+    preempts within itself (LowerPriority or LowerOrNewerEqualPriority)
+    or not, reclaims within its cohort (Any, LowerPriority or Never) and
+    may borrow within it (LowerPriority, maxPriorityThreshold 10 or
+    none), and holds ``victims_per_cq`` admitted workloads of priority
+    0-20 on one of its cpu/memory flavors."""
+    rng = np.random.default_rng(seed + 2000)
+    spec = mixed_spec(seed, workloads_per_cq=workloads_per_cq)
+    within = ("LOWER_PRIORITY", "LOWER_OR_NEWER_EQUAL_PRIORITY", "NEVER")
+    reclaim = ("ANY", "LOWER_PRIORITY", "NEVER")
+    victims = []
+    t = 0.0
+    for cq in spec["cqs"]:
+        cq["within"] = within[int(rng.integers(0, 3))]
+        cq["reclaim"] = reclaim[int(rng.integers(0, 3))]
+        if rng.random() < 0.4:
+            cq["bwc"] = 10 if rng.random() < 0.5 else None  # maxPriorityThreshold
+        flavors = cq["groups"][0]["flavors"]
+        for v in range(victims_per_cq):
+            t += 1.0
+            f = flavors[int(rng.integers(0, len(flavors)))][0]
+            victims.append((
+                f"victim-{cq['name']}-{v}", cq["name"], {"cpu": f, "memory": f},
+                {"cpu": _quota(rng, 1, 5), "memory": _quota(rng, 1, 8, "Gi")},
+                int(rng.integers(0, 3)) * 10, t,
+            ))
+    spec["victims"] = victims
+    return spec
+
+
 def fair_spec(seed: int, workloads_per_cq: int = 6) -> dict:
     """``mixed_spec``'s depth-3 cohort forest with fairSharing weights on
     its ClusterQueues (0, 500, 1000 or 2000), for the fair drain: its
@@ -186,9 +223,13 @@ def fair_spec(seed: int, workloads_per_cq: int = 6) -> dict:
 
 def build_cache(spec: dict):
     """(Cache, pending) of this package for a spec; ``pending`` is in
-    per-CQ heap order (priority desc, timestamp asc)."""
+    per-CQ heap order (priority desc, timestamp asc). The spec's
+    "victims" are admitted."""
     from kueue_tpu_torch.core.cache import Cache
+    from kueue_tpu_torch.core.workload_info import make_admission
     from kueue_tpu_torch.models import (
+        BorrowWithinCohort,
+        BorrowWithinCohortPolicy,
         ClusterQueue,
         Cohort,
         FairSharing,
@@ -201,6 +242,7 @@ def build_cache(spec: dict):
         ResourceFlavor,
         ResourceGroup,
         Workload,
+        WorkloadConditionType,
     )
     from kueue_tpu_torch.models.workload import PodSet
 
@@ -233,9 +275,16 @@ def build_cache(spec: dict):
                 when_can_preempt=FlavorFungibilityPolicy[wp],
             )
         if cq.get("reclaim") is not None or cq.get("within") is not None:
+            bwc = BorrowWithinCohort()
+            if "bwc" in cq:
+                bwc = BorrowWithinCohort(
+                    policy=BorrowWithinCohortPolicy.LOWER_PRIORITY,
+                    max_priority_threshold=cq["bwc"],
+                )
             kwargs["preemption"] = Preemption(
                 within_cluster_queue=PreemptionPolicy[cq.get("within", "NEVER")],
                 reclaim_within_cohort=ReclaimWithinCohortPolicy[cq.get("reclaim", "NEVER")],
+                borrow_within_cohort=bwc,
             )
         if cq.get("preemption") is not None:
             kwargs["preemption"] = cq["preemption"]  # a models.Preemption
@@ -250,6 +299,18 @@ def build_cache(spec: dict):
                 **kwargs,
             )
         )
+    for name, cq_name, flavor, qty, prio, t in spec.get("victims", []):
+        requests = qty if isinstance(qty, dict) else {"cpu": qty}
+        flavors = flavor if isinstance(flavor, dict) else {"cpu": flavor}
+        wl = Workload(
+            namespace="ns", name=name, queue_name=f"lq-{cq_name}", priority=prio,
+            creation_time=t, pod_sets=(PodSet.build("main", 1, requests),),
+        )
+        wl.admission = make_admission(cq_name, {"main": flavors}, wl)
+        wl.set_condition(
+            WorkloadConditionType.QUOTA_RESERVED, True, reason="QuotaReserved", now=t,
+        )
+        cache.add_or_update_workload(wl)
     pending: List[Tuple[object, str]] = []
     for w in spec["workloads"]:
         wl = Workload(

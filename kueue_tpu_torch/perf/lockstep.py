@@ -1,15 +1,19 @@
 """Hold every kernel to its plain version, step by step.
 
-- The drains: ``lockstep`` (the plain drain), ``lockstep_megaloop``
+- The drains: ``lockstep`` (the plain drain; the fair drain with
+  ``fair``: its tournament in place of phase 2), ``lockstep_megaloop``
   (the K-round megaloop: the plain cycle and the round boundary) and
-  ``lockstep_fair`` (the fair drain: its tournament in place of phase
-  2) run a drain on the kernels and, before every kernel step, copy the
-  state; the plain version of that step runs on the copy, and the two
-  results must be equal in every field (int64, tolerance 0).
+  ``lockstep_preempt`` (the preempt drain: nomination with the reclaim
+  oracle, the victim search, its phase 2 and motion) run a drain on the
+  kernels and, before every kernel step, copy the state; the plain
+  version of that step runs on the copy, and the two results must be
+  equal in every field (int64, tolerance 0).
 - The interactive cycle: inside ``cycle_kernels_through(check)``, every
   cycle dispatch of the port's Scheduler (core/solver.dispatch_lowered)
   and every resident row scatter run launch by launch through
-  ``check(name, kernel, plain)``; ``Lockstep`` is the check that runs
+  ``check(name, kernel, plain)``, and inside
+  ``preempt_search_through(check)`` every batched victim search
+  (core/preempt_batch, kernel B8); ``Lockstep`` is the check that runs
   the plain version on the same inputs (copies of what the kernel
   writes in place) and compares.
 
@@ -31,6 +35,7 @@ from kueue_tpu_torch.ops import _build
 from kueue_tpu_torch.ops import assign_kernel as ak
 from kueue_tpu_torch.ops import drain_kernel as dk
 from kueue_tpu_torch.ops import megaloop_kernel as ml
+from kueue_tpu_torch.ops import preempt_kernel as pk
 from kueue_tpu_torch.ops import quota, resident
 
 
@@ -78,9 +83,15 @@ FAIR_STEPS = tuple(
     for step in STEPS
     for name in (step[0],)
 )
+PREEMPT_STEPS = STEPS[:3] + (
+    ("drain_preempt_search", dk.drain_preempt_search, dk.drain_preempt_search_plain),
+    ("drain_preempt_phase2", dk.drain_preempt_phase2, dk.drain_preempt_phase2_plain),
+    ("drain_preempt_motion", dk.drain_preempt_motion, dk.drain_preempt_motion_plain),
+)
 DRAIN_KERNELS = _build.DRAIN_KERNELS
 MEGALOOP_KERNELS = _build.MEGALOOP_KERNELS
 FAIR_KERNELS = _build.FAIR_KERNELS
+PREEMPT_KERNELS = _build.PREEMPT_KERNELS
 
 
 def max_abs_diff(a, b, skip=()) -> int:
@@ -195,9 +206,34 @@ def lockstep_megaloop(
     return ctx, state, cycles
 
 
+def lockstep_preempt(
+    tree, local, queues, victims, paths, n_segments, n_steps, max_cycles, search_width,
+    errs: Dict[str, int], label: str = "",
+    plain_ms: Optional[Dict[str, List[float]]] = None,
+    stop_after: Optional[int] = None,
+):
+    """``lockstep`` for the preempt drain at one ``search_width``: every
+    cycle's seven launches, each against its plain version (which
+    rebuilds the usage tree after removals as the JAX code does, where
+    the phase-2 kernel bubbles). Returns (ctx, final PreemptState,
+    cycles)."""
+    _check_quota(tree, errs, label)
+    ctx = dk.DrainContext.build(
+        tree, queues, paths, n_segments, n_steps, max_cycles,
+        preempt=dk.PreemptInputs(victims=victims, search_width=int(search_width)),
+    )
+    state = dk.PreemptState.initial_preempt(local, queues, max_cycles, victims)
+    buf = dk.PreemptBuffers.empty_preempt(local, queues, victims)
+    cycles = run_lockstep(
+        ctx, state, buf, PREEMPT_STEPS, max_cycles, errs, label, plain_ms, stop_after
+    )
+    return ctx, state, cycles
+
+
 # ---- the interactive cycle ----------------------------------------------
 
 CYCLE_KERNELS = _build.CYCLE_KERNELS
+PREEMPT_CYCLE_KERNELS = _build.PREEMPT_CYCLE_KERNELS
 
 # check(kernel name, kernel thunk, plain thunk) -> the kernel's result
 Check = Callable[[str, Callable, Callable], object]
@@ -283,6 +319,28 @@ def cycle_kernels_through(check: Check):
         yield
     finally:
         solver.solve_cycle_segmented_packed, solver.scatter_rows = saved
+
+
+@contextlib.contextmanager
+def preempt_search_through(check: Check):
+    """While active, the cycle's batched victim search (kernel B8,
+    ``ops.preempt_kernel.solve_preempt_packed`` as core/preempt_batch
+    calls it) runs through ``check`` against the plain ``solve_preempt``
+    on the same problem."""
+    saved = pk.solve_preempt_packed
+
+    def search(p, depth, n_cand):
+        return check(
+            "preempt_search",
+            lambda: saved(p, depth, n_cand),
+            lambda: pk._pack(pk.solve_preempt(p, depth, n_cand)),
+        )
+
+    pk.solve_preempt_packed = search
+    try:
+        yield
+    finally:
+        pk.solve_preempt_packed = saved
 
 
 def _tensors(out):

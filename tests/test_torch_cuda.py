@@ -352,3 +352,179 @@ def test_fair_drain_raises_when_its_kernel_does_not_build(cuda, monkeypatch, tmp
     with pytest.raises(_build.KernelError, match="drain_fair_phase2"):
         run_drain(take_snapshot(cache), pending, cache.flavors, fair_sharing=True,
                   device="cuda")
+
+
+# ---- classic preemption: the batched victim search and the preempt drain -
+
+
+def _contended_cut(n_cq):
+    from kueue_tpu_torch.perf import contended
+
+    return contended.build_contended(np.random.default_rng(contended.SEED), n_cq=n_cq)
+
+
+def _b8_problem(env, dev):
+    """kernel B8's problem for the preempt-mode heads of a contended cut,
+    as core/preempt_batch lowers it (padded rows included)."""
+    from kueue_tpu_torch.core.flavor_assigner import FlavorAssigner, Mode
+    from kueue_tpu_torch.core.preempt_batch import _pad_rows, lower_preemption
+    from kueue_tpu_torch.core.preemption import Preemptor
+    from kueue_tpu_torch.core.solver import _bucket
+
+    snap = take_snapshot(env.cache)
+    assigner = FlavorAssigner(snap, env.cache.flavors)
+    items = [(wl, cq, a) for wl, cq in env.pending for a in [assigner.assign(wl, cq)]
+             if a.representative_mode() == Mode.PREEMPT]
+    lowered = lower_preemption(snap, items, Preemptor(FakeClock(0.0)))
+    arrays = _pad_rows(lowered.arrays, _bucket(len(lowered.attempts), minimum=8))
+    return interop.preempt_problem(arrays, dev), lowered
+
+
+@pytest.mark.parametrize("n_cq", [20, 100])
+def test_preempt_search_bit_exact(cuda, n_cq):
+    from kueue_tpu_torch.ops import preempt_kernel as pk
+
+    p, lowered = _b8_problem(_contended_cut(n_cq), cuda)
+    _build.reset_launches()
+    got = pk.solve_preempt_packed(p, lowered.depth, lowered.n_cand)
+    want = pk._pack(pk.solve_preempt(p, lowered.depth, lowered.n_cand))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _build.launch_counts()["preempt_search"] == 1
+    assert int(got[-p.hrow.shape[0]:].sum()) > 0  # some attempt found victims
+
+
+def test_preempt_search_refuses_wide_cells(cuda):
+    from kueue_tpu_torch.ops import preempt_kernel as pk
+    from kueue_tpu_torch.ops.quota import NO_LIMIT
+
+    p, lowered = _b8_problem(_contended_cut(20), cuda)
+    extra = pk.MAX_CELLS + 1 - p.usage0.shape[2]
+
+    def widen(t, fill=0):
+        pad = torch.full(t.shape[:-1] + (extra,), fill, dtype=t.dtype, device=t.device)
+        return torch.cat([t, pad], dim=-1)
+
+    wide = p._replace(
+        **{k: widen(getattr(p, k)) for k in ("usage0", "leaf0", "nominal", "subtree_q",
+                                             "guaranteed", "need_qty", "need_pre", "cqty")},
+        borrow_lim=widen(p.borrow_lim, NO_LIMIT),
+    )
+    with pytest.raises(_build.KernelInputError, match="Cu<="):
+        pk.solve_preempt_packed(wide, lowered.depth, lowered.n_cand)
+
+
+def _preempt_case(cache, pending, dev, ts=None):
+    snap = take_snapshot(cache)
+    return pd.preempt_drain_inputs(snap, pending, cache.flavors, dev, timestamp_fn=ts)
+
+
+@pytest.mark.parametrize("case,width", [
+    ("spec-2", 32), ("spec-6", 32), ("contended-40", 64), ("contended-40", 8),
+])
+def test_preempt_drain_kernels_bit_exact_every_cycle(cuda, case, width):
+    """Every launch of the preempt cycle (the usage tree, nomination with
+    the reclaim oracle, the search, phase 2, the motion) against its
+    plain version at every cycle; width 8 overflows the contended
+    cut's candidate lists."""
+    from kueue_tpu_torch.perf.lockstep import PREEMPT_KERNELS, lockstep_preempt
+
+    kind, n = case.split("-")
+    if kind == "spec":
+        cache, pending = build_cache(cases.preempt_spec(int(n)))
+        ts = None
+    else:
+        env = _contended_cut(int(n))
+        cache, pending, ts = env.cache, env.pending, env.ts_fn
+    plan, _, tree, paths, local, queues, victims = _preempt_case(cache, pending, cuda, ts)
+    errs = {}
+    _, state, cycles = lockstep_preempt(
+        tree, local, queues, victims, paths, plan.n_segments, plan.n_steps,
+        plan.max_cycles, width, errs, label=case,
+    )
+    assert cycles > 0 and bool(state.vevicted.any())
+    assert set(errs) == set(PREEMPT_KERNELS) and not any(errs.values())
+    assert bool(state.ovf.item()) == (width == 8)
+
+
+def test_preempt_drain_refuses_a_wide_window(cuda):
+    cache, pending = build_cache(cases.preempt_spec(2))
+    plan, _, tree, paths, local, queues, victims = _preempt_case(cache, pending, cuda)
+    with pytest.raises(_build.KernelInputError, match="search_width"):
+        dk.solve_drain_preempt(tree, local, queues, victims, paths, plan.n_segments,
+                               plan.n_steps, plan.max_cycles, search_width=1024)
+
+
+def _preempt_view(out):
+    return (_view(out), sorted((e.victim.name, e.cycle, e.by_cq, e.reason)
+                               for e in out.evictions))
+
+
+@pytest.mark.parametrize("case", ["spec-2", "spec-6", "contended-40"])
+def test_preempt_drain_on_card_matches_cpu(cuda, case):
+    from kueue_tpu_torch.perf.lockstep import PREEMPT_KERNELS
+
+    kind, n = case.split("-")
+    if kind == "spec":
+        cache, pending = build_cache(cases.preempt_spec(int(n)))
+        kw = {}
+    else:
+        env = _contended_cut(int(n))
+        cache, pending, kw = env.cache, env.pending, {"timestamp_fn": env.ts_fn}
+    _build.reset_launches()
+    on_card = pd.run_drain_preempt(take_snapshot(cache), pending, cache.flavors,
+                                   search_width=64, panel_widths=(8, 64), device="cuda", **kw)
+    counts = _build.launch_counts()
+    on_cpu = pd.run_drain_preempt(take_snapshot(cache), pending, cache.flavors,
+                                  search_width=64, panel_widths=(8, 64), device="cpu", **kw)
+    assert _preempt_view(on_card) == _preempt_view(on_cpu)
+    assert all(counts[name] > 0 for name in PREEMPT_KERNELS)
+    assert counts["drain_phase2"] == 0 and counts["drain_queue_motion"] == 0
+
+
+def test_nominate_without_pools_still_bit_exact_at_the_headline(cuda):
+    """The extended drain_nominate with NULL pool pointers (the plain
+    drain) against its plain version on the headline's first cycles."""
+    rng = np.random.default_rng(headline.HEADLINE_SEED)
+    cache = headline.build_cluster(rng)
+    pending = headline.build_backlog(rng)
+    _, plan, tree, paths, local, queues, _ = _drain_case(
+        cache, pending, cuda, max_cells=headline.HEADLINE_MAX_CELLS)
+    errs = {}
+    lockstep(tree, local, queues, paths, plan.n_segments, plan.n_steps, plan.max_cycles,
+             errs, label="headline plain", stop_after=4)
+    assert set(errs) == set(DRAIN_KERNELS) and not any(errs.values())
+
+
+def test_scheduler_batched_search_on_card_matches_cpu(cuda):
+    from kueue_tpu_torch.perf import contended
+    from kueue_tpu_torch.perf.lockstep import preempt_search_through
+
+    def run(dev, check=None):
+        env = _contended_cut(40)
+        sched = contended.build_scheduler(env, use_preempt_solver=True, device=dev)
+        if check is None:
+            return contended.run_cycles(sched, env, 6)
+        with preempt_search_through(check), cycle_kernels_through(check):
+            return contended.run_cycles(sched, env, 6)
+
+    errs = {}
+    check = Lockstep(errs, label="contended cut")
+    _build.reset_launches()
+    on_card = run("cuda", check)
+    counts = _build.launch_counts()
+    assert on_card == run("cpu")
+    assert check.failures == [] and not any(errs.values())
+    assert counts["preempt_search"] > 0 and check.launches["preempt_search"] > 0
+    assert all(r["victim_search"] == ["device"] for r in on_card if r["preempting"])
+
+
+def test_preempt_paths_raise_when_a_kernel_does_not_build(cuda, monkeypatch, tmp_path):
+    from kueue_tpu_torch.perf import contended
+
+    cache, pending = build_cache(cases.preempt_spec(2))
+    _broken(monkeypatch, tmp_path, "drain_preempt_phase2")
+    with pytest.raises(_build.KernelError, match="drain_preempt_phase2"):
+        pd.run_drain_preempt(take_snapshot(cache), pending, cache.flavors, device="cuda")
+    with pytest.raises(_build.KernelError):
+        contended.build_scheduler(_contended_cut(20), use_preempt_solver=True, device="cuda")

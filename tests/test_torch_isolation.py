@@ -81,6 +81,11 @@ assert fair.admitted and fair.cycles > 0
 from kueue_tpu_torch.perf.cases import build_scheduler, cycle_spec
 sched, _, _ = build_scheduler(cycle_spec(0, workloads_per_cq=2), device="cpu")
 assert sched.schedule().admitted
+from kueue_tpu_torch.core.drain import run_drain_preempt
+from kueue_tpu_torch.perf.cases import preempt_spec
+pcache, ppending = build_cache(preempt_spec(2))
+pre = run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors, device="cpu")
+assert pre.admitted and pre.preempted
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "kueue_tpu")
             and sys.modules[m] is not None]
 print("OK", len(mods), out.cycles, len(out.admitted))
@@ -132,6 +137,8 @@ def test_run_drain_without_device_raises_without_cuda(monkeypatch):
         launch_drain_megaloop(snap, pending, flavors)
     with pytest.raises(RuntimeError, match="CUDA"):
         ResidentEncoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_drain_for_scope("preempt", snap, pending, flavors)
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):
@@ -149,8 +156,8 @@ def test_resolve_device_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_drain_scopes_raise():
-    """The preempt, fair-preempt and TAS drains and mesh sharding are
-    not ported: they raise, and no launch/fetch split is offered for a
+    """The fair-preempt and TAS drains and mesh sharding are not
+    ported: they raise, and no launch/fetch split is offered for a
     scope other than the plain one (None, as the reference returns)."""
     from kueue_tpu_torch.core.drain import (
         launch_drain,
@@ -158,15 +165,16 @@ def test_unported_drain_scopes_raise():
         launch_drain_megaloop,
         run_drain,
         run_drain_for_scope,
+        run_drain_preempt,
     )
 
     snap, pending, flavors = _small_drain_inputs()
-    for kind in ("preempt", "fair_preempt", "tas"):
+    for kind in ("fair_preempt", "tas"):
         with pytest.raises(NotImplementedError):
             run_drain_for_scope(kind, snap, pending, flavors, device="cpu")
     for kind in ("preempt", "fair_preempt", "tas", "fair"):
         assert launch_drain_for_scope(kind, snap, pending, flavors, device="cpu") is None
-    for fn in (run_drain, launch_drain, launch_drain_megaloop):
+    for fn in (run_drain, launch_drain, launch_drain_megaloop, run_drain_preempt):
         with pytest.raises(NotImplementedError):
             fn(snap, pending, flavors, mesh=object(), device="cpu")
 

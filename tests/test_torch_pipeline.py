@@ -119,6 +119,24 @@ def test_speculation_contract_matches_jax():
 
 def test_unported_scopes_are_refused():
     _, _, _, psnap, ppending, pcache, _ = _both(mixed_spec(1, workloads_per_cq=2))
-    for kind in ("preempt", "fair_preempt", "tas"):
+    for kind in ("fair_preempt", "tas"):
         with pytest.raises(NotImplementedError, match=kind):
             pd.run_drain_for_scope(kind, psnap, ppending, pcache.flavors, device="cpu")
+
+
+def test_preempt_scope_runs_and_matches_jax():
+    """The "preempt" kind routes to run_drain_preempt in both packages:
+    the same decisions on a depth-3, multi-podset backlog whose
+    reclaimWithinCohort=Any queues are preempt-capable."""
+    from tests.test_torch_preempt_drain import view
+
+    jsnap, jpending, jcache, psnap, ppending, pcache, ts = _both(
+        mixed_spec(1, workloads_per_cq=2)
+    )
+    kind, _ = pd.classify_drain_scope(psnap, ppending, None, False)
+    assert kind == "preempt"
+    jo = jd.run_drain_for_scope(kind, jsnap, jpending, jcache.flavors, timestamp_fn=ts)
+    po = pd.run_drain_for_scope(kind, psnap, ppending, pcache.flavors, timestamp_fn=ts,
+                                device="cpu")
+    assert view(po) == view(jo)
+    assert po.admitted

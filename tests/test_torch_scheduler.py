@@ -26,8 +26,12 @@ from kueue_tpu.core.queue_manager import queue_order_timestamp as jax_ts
 from kueue_tpu.core.snapshot import take_snapshot as jax_take_snapshot
 from kueue_tpu.core.solver import lower_heads as jax_lower_heads
 from kueue_tpu.models import FlavorFungibility, FlavorFungibilityPolicy
-from kueue_tpu.models.cluster_queue import Preemption
-from kueue_tpu.models.constants import PreemptionPolicy, ReclaimWithinCohortPolicy
+from kueue_tpu.models.cluster_queue import BorrowWithinCohort, Preemption
+from kueue_tpu.models.constants import (
+    BorrowWithinCohortPolicy,
+    PreemptionPolicy,
+    ReclaimWithinCohortPolicy,
+)
 from kueue_tpu_torch.core.guard import results_match, solve_lowered_host
 from kueue_tpu_torch.core.queue_manager import queue_order_timestamp
 from kueue_tpu_torch.core.snapshot import take_snapshot
@@ -39,14 +43,20 @@ from tests.test_solver_path import build_env, drain_and_trace, random_spec
 
 
 def port_spec(spec):
-    """A test_solver_path spec with its JAX Preemption objects as the
-    policy names perf.cases.build_cache reads."""
+    """A test_solver_path / test_drain spec with its JAX model objects
+    (Preemption, FlavorFungibility) as the names perf.cases.build_cache
+    reads."""
     out = copy.deepcopy({k: v for k, v in spec.items()})
     for cq in out["cqs"]:
         p = cq.pop("preemption", None)
         if p is not None:
             cq["within"] = p.within_cluster_queue.name
             cq["reclaim"] = p.reclaim_within_cohort.name
+            if p.borrow_within_cohort.policy != BorrowWithinCohortPolicy.NEVER:
+                cq["bwc"] = p.borrow_within_cohort.max_priority_threshold
+        f = cq.get("fungibility")
+        if f is not None and not isinstance(f, tuple):
+            cq["fungibility"] = (f.when_can_borrow.name, f.when_can_preempt.name)
     return out
 
 
@@ -62,10 +72,17 @@ def jax_spec(spec):
                 when_can_preempt=FlavorFungibilityPolicy[f[1]],
             )
         within, reclaim = cq.pop("within", None), cq.pop("reclaim", None)
+        bwc = BorrowWithinCohort()
+        if "bwc" in cq:
+            bwc = BorrowWithinCohort(
+                policy=BorrowWithinCohortPolicy.LOWER_PRIORITY,
+                max_priority_threshold=cq.pop("bwc"),
+            )
         if within is not None or reclaim is not None:
             cq["preemption"] = Preemption(
                 within_cluster_queue=PreemptionPolicy[within or "NEVER"],
                 reclaim_within_cohort=ReclaimWithinCohortPolicy[reclaim or "NEVER"],
+                borrow_within_cohort=bwc,
             )
     return out
 
@@ -120,14 +137,28 @@ class TestSchedulerParity:
         assert sched._resident_state.delta_rows > 0  # the scatter path ran
 
     def test_victim_search_is_host(self):
+        """With the default use_preempt_solver=None, a cycle that defers
+        fewer preempt-mode heads than preempt_solver_threshold searches
+        them on the host, and the first cycle that defers more batches
+        them on the device (the gate's first probe always passes), in
+        both packages alike. The threshold is lowered to 2 because this
+        spec defers one to three heads a cycle."""
         spec = random_spec(15, with_preemption=True)
+        jsched, jmgr, jcache, _ = build_env(spec, use_solver=False)
         _, (sched, mgr, cache) = both_envs(spec)
-        seen = []
-        sched.cycle_observers.append(
-            lambda res: seen.extend(e.victim_search for e in res.preempting)
-        )
-        drain_and_trace(sched, mgr, cache)
-        assert seen and set(seen) == {"host"}
+        seen = {}
+        for name, s in (("jax", jsched), ("port", sched)):
+            s.preempt_solver_threshold = 2
+            seen[name] = []
+            s.cycle_observers.append(lambda res, out=seen[name]: out.append(
+                [e.victim_search for e in res.admitted + res.preempting + res.requeued
+                 if e.victim_search]))
+        assert drain_and_trace(sched, mgr, cache) == drain_and_trace(jsched, jmgr, jcache)
+        port, jax = seen["port"], seen["jax"]
+        first = next(i for i, c in enumerate(jax) if len(c) >= 2)
+        assert port[:first + 1] == jax[:first + 1]
+        assert all(c == ["host"] * len(c) for c in port[:first])
+        assert any(port[:first]) and port[first] == ["device"] * len(port[first])
 
 
 def test_cycle_lockstep_harness_on_cpu():
@@ -264,7 +295,6 @@ class TestRefusals:
 
     @pytest.mark.parametrize("kwargs", [
         {"fair_sharing": True},
-        {"use_preempt_solver": True},
     ])
     def test_unported_branches_raise(self, kwargs):
         from kueue_tpu_torch.core.scheduler import Scheduler
@@ -272,6 +302,30 @@ class TestRefusals:
         _, mgr, cache = self._env()
         with pytest.raises(NotImplementedError):
             Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu", **kwargs)
+
+    def test_fair_victim_search_raises(self):
+        """The batched search takes the classic ladder; the fair-sharing
+        victim tournament (kernel B9) is not ported yet."""
+        from kueue_tpu_torch.core.flavor_assigner import FlavorAssigner, Mode
+        from kueue_tpu_torch.core.preempt_batch import batched_get_targets
+        from kueue_tpu_torch.core.preemption import Preemptor
+        from kueue_tpu_torch.utils.clock import FakeClock
+
+        from kueue_tpu_torch.perf import contended
+
+        env = contended.build_contended(np.random.default_rng(contended.SEED), n_cq=20)
+        snapshot = take_snapshot(env.cache)
+        assigner = FlavorAssigner(snapshot, env.cache.flavors)
+        items = [
+            (wl, cq, a) for wl, cq in env.pending
+            for a in [assigner.assign(wl, cq)]
+            if a.representative_mode() == Mode.PREEMPT
+        ]
+        assert items
+        with pytest.raises(NotImplementedError, match="A6b"):
+            batched_get_targets(
+                snapshot, items, Preemptor(FakeClock(), enable_fair_sharing=True), device="cpu"
+            )
 
     def test_non_default_policy_raises(self):
         from kueue_tpu_torch.core.scheduler import Scheduler
