@@ -3,13 +3,15 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without them, or without the package beside
-it, it exits non-zero and prints no result. It drives six paths: the
+it, it exits non-zero and prints no result. It drives eight paths: the
 plain bulk drain (phases 2-3), the K-round megaloop (phase 4), the
 fair-sharing drain (phase 5), the interactive admission cycle (phase
-6), the cycle with the batched victim search (phase 7) and the drain
-with classic preemption (phase 8).
+6), the cycle with the batched victim search (phase 7), the drain with
+classic preemption (phase 8), the fair cycle with the batched fair
+victim search (phase 9) and the drain with fair-sharing preemption
+(phase 10).
 
-1. Prints the card's name and power limit, builds the 13 kernels from
+1. Prints the card's name and power limit, builds the 16 kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
    the build seconds and each kernel's registers and spills.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
@@ -112,7 +114,45 @@ with classic preemption (phase 8).
       fetch);
    d. every launch of both tiers timed alone, bytes bound from each
       cycle's own data.
-9. Prints the 13 kernels' JSON line, the card line, and as the last
+9. The fair cycle over fair-preempt-1k (perf/fairpreempt.py: bench.py's
+   fair-preempt cluster at 1000 ClusterQueues in cohorts of 6, 1500
+   borrowing victims, 4000 queued, each cycle's victims evicted before
+   the next):
+   a. lockstep: every launch of the cycle's kernels and of kernel B9
+      (fair_search, the batched fair victim tournament) held to its
+      plain version on the same inputs, over the first 8 cycles;
+   b. the main path: Scheduler(fair_sharing=True, use_solver=True,
+      use_preempt_solver=True, device="cuda"), counters reset before;
+      asserts FAIR_PREEMPT_CYCLE_EXPECT, the lockstep's records, every
+      preempting head searched on the card, the path's kernels launched;
+   c. on to quiescence (bench.py's loop), every B9 launch timed alone
+      with its bytes bound: the admitted and evicted sets equal the
+      fair-preempt drain's;
+   d. B9 on bench.py's fair stage (FAIR_SEARCH_EXPECT) and at the
+      lowering's caps (S=64 nodes, Cu=32 cells), bit-exact and timed;
+   e. the two-tier B9 schedule against one full-width launch on the
+      quiescence run's batches and on bench.py's fair batch: host wall
+      and device time of each, the same decisions.
+10. The drain with fair-sharing preemption:
+   a. lockstep: every launch of its cycle (quota_tree twice,
+      drain_nominate with the reclaim oracle, drain_fair_preempt_search,
+      drain_fair_preempt_phase2, drain_preempt_motion with the fair-panel
+      fill) held to its plain version at every cycle of fair-preempt-1k,
+      of the depth-3 weighted perf.cases.fair_preempt_spec(1) and of the
+      drain at the panel caps (perf/fairpreempt.build_fair_wide: M=64
+      nodes, depth 3, Cu=64 cells over two resources);
+   b. the main path: run_drain_fair_preempt(device="cuda"), counters
+      reset before; asserts FAIR_PREEMPT_EXPECT and every kernel
+      launched; bench.py's 60-CQ stage gives FAIR_PREEMPT_SMALL_EXPECT;
+      the small case on the card equals the CPU; the drain at the panel
+      caps gives FAIR_WIDE_EXPECT with every kernel launched (counters
+      reset before it too);
+   c. the entry point's wall (median of 3), its host lowering and
+      upload, and the solve (inputs on the card, one fetch);
+   d. every launch timed alone, bytes bound from each cycle's data, at
+      fair-preempt-1k (the kernels' line) and at the panel caps (each
+      kernel's ``at_panel_caps``).
+11. Prints the 16 kernels' JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 No phase is caught and passed over: any failure exits non-zero.
@@ -137,6 +177,8 @@ SMALL_CYCLE_SEED = 0  # cycle_spec seed: reservations, preemption, scatters
 SMALL_CYCLES = 24  # its preempting heads re-nominate until then (no evictions)
 STEADY_CYCLES = 40  # the headline run goes on to here: from cycle 24 on, each
 # cycle changes at most N/4 usage rows, so the resident buffer takes row deltas
+SMALL_FAIR_PREEMPT_SEED = 1  # fair_preempt_spec seed: depth 3, weights 0-2000
+SMALL_FAIR_PREEMPT_CYCLES = 32  # its decisions end by cycle 13; stalled heads then spin
 SMALL_PREEMPT_SEED = 6  # preempt_spec seed: depth 3, three podsets, 65 cycles,
 # within-CQ preemption and cross-CQ reclamation, a stuck queue
 
@@ -154,6 +196,9 @@ SOURCES = {
     "drain_preempt_search": "kueue_tpu_torch/csrc/drain_preempt_search.cu",
     "drain_preempt_phase2": "kueue_tpu_torch/csrc/drain_preempt_phase2.cu",
     "drain_preempt_motion": "kueue_tpu_torch/csrc/drain_preempt_motion.cu",
+    "fair_search": "kueue_tpu_torch/csrc/fair_search.cu",
+    "drain_fair_preempt_search": "kueue_tpu_torch/csrc/drain_fair_preempt_search.cu",
+    "drain_fair_preempt_phase2": "kueue_tpu_torch/csrc/drain_fair_preempt_phase2.cu",
 }
 REPLACES = {
     "quota_tree": "kueue_tpu/ops/quota.py:93",
@@ -169,6 +214,9 @@ REPLACES = {
     "drain_preempt_search": "kueue_tpu/ops/drain_kernel.py:1644",
     "drain_preempt_phase2": "kueue_tpu/ops/drain_kernel.py:1745",
     "drain_preempt_motion": "kueue_tpu/ops/drain_kernel.py:1745",
+    "fair_search": "kueue_tpu/ops/fair_preempt_kernel.py:430",
+    "drain_fair_preempt_search": "kueue_tpu/ops/drain_kernel.py:2359",
+    "drain_fair_preempt_phase2": "kueue_tpu/ops/drain_kernel.py:2359",
 }
 
 
@@ -1519,6 +1567,537 @@ def contended_drain_path(dev) -> dict:
             "plan_ms": plan_ms, "solve_ms": solves, "cycles": cyc, "panels": panels}
 
 
+# ---- fair-sharing preemption: the fair cycle and the fair-preempt drain ----
+
+
+def b9_bytes(p, n_cand: int, n_res: int) -> int:
+    """Bytes one fair_search launch must move, from its problem's own
+    data (padding rows, cells and candidates excluded): per head row its
+    real local rows' paths, node tables (weight, parent, depth, flags)
+    and four [rows, cells] panels (usage, subtree, guaranteed, borrowing
+    limit), the head's row, request and buckets, each real candidate's
+    row, flag and usage at the real cells; out, a target flag per real
+    candidate and the row's fit."""
+    paths = p.paths.cpu().numpy()
+    cells = (p.res_of < n_res - 1).sum(dim=1).cpu().numpy()  # the rest are the inert pads
+    cands = p.cvalid[:, :n_cand].sum(dim=1).cpu().numpy()
+    rows = (paths[:, :, 0] >= 0).sum(axis=1)
+    d1 = paths.shape[2]
+    live = p.row_valid.cpu().numpy()
+    b = (rows * d1 * 4 + rows * 19 + 4 * rows * cells * 8 + 4 + cells * 12 + 1
+         + cands * (5 + cells * 8) + cands * 4 + 4)
+    return int(b[live].sum())
+
+
+@contextlib.contextmanager
+def timed_fair_search(timer, spans):
+    """kernel B9, each launch through ``timer`` with its bytes, and the
+    host wall of each cycle's batched fair search (lowering, launches,
+    fetch, decode) in ``spans['victim_search']``."""
+    from kueue_tpu_torch.core import preempt_batch
+    from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
+
+    saved, saved_bgt = fpk.solve_fair_packed, preempt_batch.batched_fair_get_targets
+
+    def search(p, depth, n_cand, n_local, n_res, strategy1, has_second):
+        out = timer("fair_search",
+                    lambda: saved(p, depth, n_cand, n_local, n_res, strategy1, has_second), None)
+        timer.add_bytes({"fair_search": [b9_bytes(p, n_cand, n_res)]})
+        return out
+
+    def bgt(*a, **k):
+        t0 = time.perf_counter()
+        out = saved_bgt(*a, **k)
+        spans.setdefault("victim_search", []).append(time.perf_counter() - t0)
+        return out
+
+    fpk.solve_fair_packed, preempt_batch.batched_fair_get_targets = search, bgt
+    try:
+        yield
+    finally:
+        fpk.solve_fair_packed, preempt_batch.batched_fair_get_targets = saved, saved_bgt
+
+
+def b9_batch(build, seed, dev, timer, plain):
+    """B9 on one batched search lowered from ``build`` (perf/fairpreempt):
+    every panel tier held to plain solve_fair, then timed alone. Returns
+    (max_abs_err, launches, the lowered (arrays, meta), the batch's
+    summary on cuda)."""
+    import torch
+
+    from kueue_tpu_torch.core import preempt_batch as pb
+    from kueue_tpu_torch.interop import fair_problem
+    from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
+    from kueue_tpu_torch.perf import fairpreempt as fp
+
+    snap, items, pre = build(np.random.default_rng(seed))
+    arrays, meta = pb.lower_fair_preemption(snap, items, pre)
+    err = n = 0
+    for _, v_dim, padded in pb.fair_tiers(arrays, meta):
+        p = fair_problem(padded, dev)
+        kw = dict(depth=meta["depth"], n_cand=v_dim, n_local=meta["s"], n_res=meta["r"],
+                  strategy1=meta["strategy1"], has_second=meta["has_second"])
+        got = fpk.solve_fair_packed(p, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fpk._pack(fpk.solve_fair(p, **kw))
+        torch.cuda.synchronize()
+        plain.setdefault("fair_search", []).append((time.perf_counter() - t0) * 1e3)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        timer("fair_search", lambda: fpk.solve_fair_packed(p, **kw), None)
+        timer.add_bytes({"fair_search": [b9_bytes(p, v_dim, meta["r"])]})
+        n += 1
+    res = pb.batched_fair_get_targets(snap, items, pre, device=dev)
+    return err, n, (arrays, meta), fp.search_summary(items, res, meta)
+
+
+def b9_tier_schedules(batches, dev, reps: int = 3) -> dict:
+    """batched_fair_get_targets' two-tier B9 schedule (a narrow and, when
+    a pool overflows it, a full-width launch, each with its own upload
+    and fetch) against one full-width launch, on the same lowered
+    batches ``[(arrays, meta)]``: the host wall of each schedule (tier
+    split, upload, launch, fetch) and the device time of its launches,
+    the median of ``reps`` runs a batch, summed over the batches. Fails
+    unless both give every head the same targets and fit."""
+    import torch
+
+    from kueue_tpu_torch.core import preempt_batch as pb
+    from kueue_tpu_torch.core.solver import _bucket
+    from kueue_tpu_torch.interop import fair_problem
+    from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
+
+    def one_tier(arrays, meta):
+        w = arrays["row_valid"].shape[0]
+        return [(list(range(w)), meta["v"], pb._pad_rows(arrays, _bucket(w, minimum=8)))]
+
+    def run(arrays, meta, split):
+        t0 = time.perf_counter()
+        decided, events = {}, []
+        for rows, v_dim, padded in split(arrays, meta):
+            w_pad = padded["row_valid"].shape[0]
+            p = fair_problem(padded, dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fpk.solve_fair_packed(p, meta["depth"], v_dim, meta["s"], meta["r"],
+                                        meta["strategy1"], meta["has_second"])
+            end.record()
+            flat = out.cpu().numpy()
+            events.append((start, end))
+            tmask = flat[: w_pad * v_dim].reshape(w_pad, v_dim)
+            for out_i, a_i in enumerate(rows):
+                n_c = len(meta["rows"][a_i]["cands"])
+                decided[a_i] = (tuple(tmask[out_i, :n_c]), bool(flat[w_pad * v_dim + out_i]))
+        wall = time.perf_counter() - t0
+        return decided, 1e3 * wall, sum(s_.elapsed_time(e_) for s_, e_ in events), len(events)
+
+    totals = {"two_tier": [0.0, 0.0, 0], "one_tier": [0.0, 0.0, 0]}
+    for arrays, meta in batches:
+        for label, split in (("two_tier", pb.fair_tiers), ("one_tier", one_tier)):
+            runs = [run(arrays, meta, split) for _ in range(reps)]
+            if label == "two_tier":
+                want = runs[0][0]
+            elif runs[0][0] != want:
+                fail("one full-width B9 launch decided differently from the two tiers")
+            totals[label][0] += float(np.median([r[1] for r in runs]))
+            totals[label][1] += float(np.median([r[2] for r in runs]))
+            totals[label][2] += runs[0][3]
+    return {k: {"wall_ms": v[0], "device_ms": v[1], "launches": v[2]} for k, v in totals.items()}
+
+
+def fair_cycle_path(dev) -> dict:
+    """Phase 9: the fair cycle over fair-preempt-1k (module docstring)."""
+    import torch
+
+    from kueue_tpu_torch.core import preempt_batch as pb
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.perf import contended, fairpreempt as fp
+    from kueue_tpu_torch.perf.lockstep import (
+        Lockstep,
+        cycle_kernels_through,
+        fair_search_through,
+    )
+
+    path_kernels = ("quota_tree", "cycle_phase1", "cycle_phase2", "fair_search")
+
+    def fresh():
+        env = fp.build_fair_preempt(fp.N_CQ)
+        sched = fp.build_scheduler(env, use_solver=True, use_preempt_solver=True, device=dev)
+        return sched, env
+
+    # 9a. every launch of the cycle's kernels and of B9 in lockstep
+    errs, plain = {}, {}
+    t0 = time.perf_counter()
+    check = Lockstep(errs, label="fair cycles", plain_ms=plain)
+    sched, env = fresh()
+    with cycle_kernels_through(check), fair_search_through(check):
+        lock_records = contended.run_cycles(sched, env, fp.CYCLE_CYCLES)
+    if check.failures:
+        fail(f"fair cycle lockstep: {check.failures}")
+    if not set(path_kernels) <= set(check.launches):
+        fail(f"the fair cycles checked only {sorted(check.launches)}")
+    print(f"{stamp()} fair cycle lockstep: {len(lock_records)} cycles, launches checked "
+          f"{json.dumps(check.launches)}, every one bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # 9b. the main path: the fair Scheduler on cuda, batched fair search
+    _build.reset_launches()
+    sched, env = fresh()
+    walls = []
+    records = []
+    for _ in range(fp.CYCLE_CYCLES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records += contended.run_cycles(sched, env, 1)
+        walls.append(time.perf_counter() - t0)
+    launches = _build.launch_counts()
+    traces = list(sched.last_traces)[-fp.CYCLE_CYCLES:]
+    summary = contended.cycle_summary(records)
+    print(f"{stamp()} fair Scheduler on cuda (fair_sharing, use_preempt_solver=True): "
+          f"{json.dumps(summary)}; launches {json.dumps(launches)}")
+    if summary != fp.FAIR_PREEMPT_CYCLE_EXPECT:
+        fail(f"fair cycles {summary} != expected {fp.FAIR_PREEMPT_CYCLE_EXPECT}")
+    if records != lock_records:
+        fail("the fair cycles on cuda differ from their lockstep run")
+    if any(r["victim_search"] != ["device"] for r in records if r["preempting"]):
+        fail("a preempting head of the fair cycles was not searched on the card")
+    for name in path_kernels:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the fair cycles")
+    cyc_ms = {
+        "total": 1e3 * float(np.mean(walls)),
+        "snapshot": 1e3 * float(np.mean([t.spans["snapshot"] for t in traces])),
+        "nominate": 1e3 * float(np.mean([t.spans["nominate"] for t in traces])),
+        "admit": 1e3 * float(np.mean([t.spans["admit"] for t in traces])),
+    }
+
+    # 9c. on to quiescence, every B9 launch timed alone: the admitted and
+    # evicted sets equal the fair-preempt drain's
+    timer, spans = TimedLaunches(), {}
+    admitted = {a[0] for r in records for a in r["admitted"]}
+    evicted = {t[0] for r in records for p_ in r["preempting"] for t in p_[2]}
+    batches, real_lower = [], pb.lower_fair_preemption
+
+    def capture(*a, **k):
+        out = real_lower(*a, **k)
+        if out[0] is not None:
+            batches.append(out)
+        return out
+
+    pb.lower_fair_preemption = capture
+    t0 = time.perf_counter()
+    try:
+        with timed_fair_search(timer, spans):
+            more_adm, more_ev, calls = fp.run_to_quiescence(sched, env)
+    finally:
+        pb.lower_fair_preemption = real_lower
+    admitted |= more_adm
+    evicted |= more_ev
+    quiesce_s = time.perf_counter() - t0
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+
+    denv = fp.build_fair_preempt(fp.N_CQ)
+    out = pd.run_drain_fair_preempt(take_snapshot(denv.cache), denv.pending, denv.cache.flavors,
+                                    timestamp_fn=denv.ts_fn, device=dev)
+    if (admitted, evicted) != fp.drain_sets(out):
+        fail("the fair cycles run to quiescence differ from the fair-preempt drain's sets")
+    print(f"{stamp()} fair cycles to quiescence: {fp.CYCLE_CYCLES + calls} schedule() calls, "
+          f"{len(admitted)} admitted, {len(evicted)} evicted, equal to the drain's sets "
+          f"({quiesce_s:.1f} s for the last {calls})")
+
+    # 9d. the direct B9 batch at bench.py's fair shape, and at the caps
+    berr, bn, bbatch, bsum = b9_batch(fp.build_fair_search, fp.SEARCH_SEED, dev, timer, plain)
+    if bsum != fp.FAIR_SEARCH_EXPECT or berr:
+        fail(f"the fair search batch on cuda {bsum} (err {berr}) != {fp.FAIR_SEARCH_EXPECT}")
+    cerr, cn, (_, cmeta), csum = b9_batch(fp.build_fair_cap, 0, dev, timer, plain)
+    if (cmeta["s"], cmeta["cu"]) != (64, 32) or cerr or not csum["with_victims"]:
+        fail(f"the cap-shape fair search: S={cmeta['s']} Cu={cmeta['cu']} err {cerr}")
+    errs["fair_search"] = max(errs.get("fair_search", 0), berr, cerr)
+    print(f"{stamp()} B9 batches on cuda: bench.py's fair stage {json.dumps(bsum)} "
+          f"(FAIR_SEARCH_EXPECT); caps S={cmeta['s']} Cu={cmeta['cu']} V={cmeta['v']} "
+          f"R={cmeta['r']}: {csum['with_victims']} of {csum['heads']} heads find victims; "
+          f"both bit-exact")
+
+    # 9e. timing: B9's launches alone (the quiescence run's, then the two
+    # batches'), the fair cycle's wall split
+    main_n = len(timer.dev_ms["fair_search"]) - bn - cn
+    t_main = {k: v[:main_n] for k, v in timer.dev_ms.items()}
+    timing = {"fair_search": timing_of(timer, "fair_search", plain)}
+    main_ms = float(np.mean(t_main["fair_search"]))
+    main_bytes = float(np.mean(timer.nbytes["fair_search"][:main_n]))
+    timing["fair_search"].update(ms=main_ms, bytes=main_bytes,
+                                 bound_ms=main_bytes / HBM_BYTES_PER_S * 1e3, timed=main_n)
+    bench_ms = timer.dev_ms["fair_search"][main_n:main_n + bn]
+    cap_ms = timer.dev_ms["fair_search"][main_n + bn:]
+    t = timing["fair_search"]
+    print(f"{stamp()} fair cycle wall, mean of {fp.CYCLE_CYCLES} cycles: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in cyc_ms.items())
+          + f"; victim_search {1e3 * float(np.mean(spans['victim_search'])):.2f} ms/cycle "
+          f"over the quiescence run (lowering, B9 and decoding; within nominate)")
+    print(f"kernel fair_search [fair cycles to quiescence, {t['timed']} launches]: "
+          f"{t['ms'] * 1e3:.2f} us/launch on the device, plain {t['plain_ms']:.3f} ms/call, "
+          f"bound {t['bound_ms'] * 1e3:.4f} us ({t['bytes']:.0f} B); bench.py's fair batch "
+          f"{float(np.mean(bench_ms)) * 1e3:.2f} us, caps {float(np.mean(cap_ms)) * 1e3:.2f} us; "
+          f"main-path launches {launches['fair_search']}, max_abs_err {errs['fair_search']}")
+    tiers = {"fair-preempt-1k": b9_tier_schedules(batches, dev),
+             "bench_fair": b9_tier_schedules([bbatch], dev)}
+    for label, t in tiers.items():
+        print(f"{stamp()} B9 schedules [{label}, {len(batches) if label != 'bench_fair' else 1} "
+              f"batches, median of 3 each, summed]: two tiers "
+              f"{t['two_tier']['launches']} launches, {t['two_tier']['wall_ms']:.3f} ms host "
+              f"wall (split, upload, launch, fetch), {t['two_tier']['device_ms']:.3f} ms on the "
+              f"device; one full-width tier {t['one_tier']['launches']} launches, "
+              f"{t['one_tier']['wall_ms']:.3f} ms wall, {t['one_tier']['device_ms']:.3f} ms on "
+              f"the device; same decisions")
+    return {"errs": errs, "timing": timing, "launches": launches, "cycle_ms": cyc_ms,
+            "tiers": tiers,
+            "summary": summary, "quiescence_calls": fp.CYCLE_CYCLES + calls,
+            "bench_batch_us": 1e3 * float(np.mean(bench_ms)),
+            "cap_batch_us": 1e3 * float(np.mean(cap_ms))}
+
+
+def fair_preempt_cycle_bytes(ctx, state_before, buf, state_after) -> dict:
+    """Bytes each launch of one fair-preempt drain cycle must move, from
+    the cycle's own data, as ``preempt_cycle_bytes`` counts them: the
+    usage tree, nomination and motion as there (the motion plus each
+    filled slot's fair-panel row); the search per searching queue over
+    its segment's panels at the active cell universe; phase 2 over its
+    participants' paths and the victims it moves. Pads cost nothing;
+    reads shared by the heads of one segment count once."""
+    base = preempt_cycle_bytes(ctx, state_before, buf, state_after)
+    vic, pan = ctx.preempt.victims, ctx.fair_preempt.panels
+    qs = ctx.queues
+    q, l, p, k, c = qs.cells.shape
+    n, fr = ctx.tree.nominal.shape
+    d1 = ctx.tree.max_depth + 1
+    n_res = ctx.fair.n_res
+    owner = vic.sowner.cpu().numpy()
+    seg_nodes = vic.seg_nodes.cpu().numpy()
+    sq = np.maximum(qs.seg_id.cpu().numpy(), 0)
+    v_real = (owner >= 0).sum(axis=1)
+    m_real = (seg_nodes >= 0).sum(axis=1)
+    cu_real = (pan.seg_cells.cpu().numpy() >= 0).sum(axis=1)
+    pcells = state_before["pcells"]
+    cells_real = (pcells >= 0).sum(axis=2)
+    cursor, qlen = state_before["cursor"], qs.qlen.cpu().numpy()
+    active = cursor < qlen
+    is_fit = buf.is_fit.cpu().numpy()
+    is_pre = buf.is_pre.cpu().numpy()
+    ce = buf.cells_eff.cpu().numpy()
+    qe = buf.qty_eff.cpu().numpy()
+    ce = np.where(qe > 0, ce, -1)
+    head_cells = (ce >= 0).sum(axis=1)
+    rows = qs.cq_rows.cpu().numpy()
+    paths = ctx.paths.cpu().numpy()
+    psuccess = buf.psuccess.cpu().numpy()
+    targets = buf.targets.cpu().numpy()
+    ev_now = buf.ev_now.cpu().numpy()
+    admitted = buf.admitted.cpu().numpy()
+
+    # the search: every queue's flags and targets row; per searching
+    # queue its head cells, priority, config, eligibility and order; per
+    # segment with a searching head its four panels over the universe,
+    # its node tables and paths, its pool and the pool's panel rows
+    enabled = np.nonzero(active & is_pre)[0]
+    search = q * (12 + 3) + int(v_real[sq].sum())
+    segs = set()
+    for i in enabled:
+        segs.add(int(sq[i]))
+        search += head_cells[i] * 13 + 30 + int(v_real[sq[i]]) * 9
+    for s_ in segs:
+        m, cu = int(m_real[s_]), int(cu_real[s_])
+        search += m * (cu * 4 * 8 + 18 + d1 * 4) + cu * 8
+        search += int(v_real[s_]) * (18 + cu * 8) + int(cells_real[s_].sum()) * 12
+
+    # phase 2: the segments' leaf rows copied, the eviction record
+    # reset; per participant its keys, cells, path and targets; per
+    # distinct node on a participant's path its FR usage and subtree
+    # (the chains), guaranteed, limits, lendable and tree fields; the
+    # victims moved for the fit checks; the decisions written
+    part = np.nonzero(active & (is_fit | is_pre) & (rows >= 0))[0]
+    phase2 = int(m_real.sum()) * fr * 16 + int(v_real.sum()) * 5
+    phase2 += sum(40 + head_cells[i] * 12 + d1 * 4 + int(psuccess[i]) * int(v_real[sq[i]])
+                  for i in part)
+    nodes = np.unique(paths[rows[part]][paths[rows[part]] >= 0]) if len(part) else []
+    phase2 += len(nodes) * (fr * 36 + n_res * 8 + 16)
+    moved = {(int(s_), int(v)) for s_, v in zip(*np.nonzero(ev_now))}
+    moved |= {(int(sq[i]), int(v)) for i in part if psuccess[i]
+              for v in np.nonzero(targets[i])[0]}
+    phase2 += sum(4 + int(cells_real[s_, v]) * 12 for s_, v in moved)
+    phase2 += len(part) * 2 + int(ev_now.sum()) * 5
+
+    motion = base["drain_preempt_motion"][0]
+    for i in np.nonzero(admitted)[0]:
+        motion += int(cu_real[sq[i]]) * 12
+    return {
+        "quota_tree": base["quota_tree"], "drain_nominate": base["drain_nominate"],
+        "drain_fair_preempt_search": [search], "drain_fair_preempt_phase2": [phase2],
+        "drain_preempt_motion": [motion],
+    }
+
+
+def fair_preempt_drain_path(dev) -> dict:
+    """Phase 10: the fair-preempt drain over fair-preempt-1k, bench.py's
+    60-CQ stage and a small depth-3 case (module docstring)."""
+    import torch
+
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.perf import cases, fairpreempt as fp
+    from kueue_tpu_torch.perf.lockstep import (
+        FAIR_PREEMPT_KERNELS,
+        FAIR_PREEMPT_STEPS,
+        lockstep_fair_preempt,
+    )
+
+    env = fp.build_fair_preempt(fp.N_CQ)
+
+    def inputs(e=env, **kw):
+        return pd.fair_preempt_drain_inputs(take_snapshot(e.cache), e.pending, e.cache.flavors,
+                                            dev, timestamp_fn=e.ts_fn, **kw)
+
+    def drain_args(inp):
+        plan, _, tree, paths, local, queues, victims, panels, fair = inp
+        return (tree, local, queues, victims, panels, paths, fair, plan.n_segments,
+                plan.n_steps, plan.max_cycles, 0, True)
+
+    # 10a. lockstep at every cycle of fair-preempt-1k and of the small case
+    errs, plain = {}, {}
+    inp = inputs()
+    t0 = time.perf_counter()
+    _, state, cyc = lockstep_fair_preempt(*drain_args(inp), errs, label="fair-preempt-1k",
+                                          plain_ms=plain)
+    if cyc != fp.FAIR_PREEMPT_EXPECT["cycles"]:
+        fail(f"fair-preempt-1k lockstep ran {cyc} cycles")
+    print(f"{stamp()} fair-preempt drain lockstep: {cyc} cycles, "
+          f"{int(state.vevicted.sum())} evictions; every launch of {sorted(errs)} bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)")
+    spec = cases.fair_preempt_spec(SMALL_FAIR_PREEMPT_SEED)
+    s_cache, s_pending = cases.build_cache(spec)
+    s_inp = pd.fair_preempt_drain_inputs(take_snapshot(s_cache), s_pending, s_cache.flavors, dev,
+                                         max_cycles=SMALL_FAIR_PREEMPT_CYCLES)
+    _, s_state, s_cyc = lockstep_fair_preempt(*drain_args(s_inp), errs, label="fair-preempt small")
+    shape = tuple(s_inp[0].queues_np["cells"].shape)
+    if s_inp[2].max_depth != 3 or not bool(s_state.vevicted.any()):
+        fail(f"the small fair-preempt case lost its coverage: cells {shape}")
+    print(f"{stamp()} fair-preempt lockstep small case (fair_preempt_spec("
+          f"{SMALL_FAIR_PREEMPT_SEED}), {SMALL_FAIR_PREEMPT_CYCLES} cycles): cells {shape} "
+          f"D={s_inp[2].max_depth} M={s_inp[6].seg_nodes.shape[1]} "
+          f"Cu={s_inp[7].seg_cells.shape[1]}, {int(s_state.vevicted.sum())} evictions, bit-exact")
+    wenv = fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED))
+    w_inp = inputs(wenv)
+    w_plain = {}
+    t0 = time.perf_counter()
+    _, w_state, w_cyc = lockstep_fair_preempt(*drain_args(w_inp), errs, label="fair-preempt wide",
+                                              plain_ms=w_plain)
+    w_shape = (f"Q={w_inp[0].queues_np['cells'].shape[0]} D={w_inp[2].max_depth} "
+               f"M={w_inp[6].seg_nodes.shape[1]} Cu={w_inp[7].seg_cells.shape[1]} "
+               f"V={w_inp[6].sowner.shape[1]} R={w_inp[8].n_res}")
+    if w_cyc != fp.FAIR_WIDE_EXPECT["cycles"]:
+        fail(f"the wide fair-preempt lockstep ran {w_cyc} cycles")
+    print(f"{stamp()} fair-preempt lockstep at the panel caps (build_fair_wide, {w_shape}): "
+          f"{w_cyc} cycles, {int(w_state.vevicted.sum())} evictions, bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # 10b. the main path: run_drain_fair_preempt on cuda
+    _build.reset_launches()
+    out = pd.run_drain_fair_preempt(take_snapshot(env.cache), env.pending, env.cache.flavors,
+                                    timestamp_fn=env.ts_fn, device=dev)
+    launches = _build.launch_counts()
+    summary = fp.drain_summary(out)
+    print(f"{stamp()} run_drain_fair_preempt on cuda: {json.dumps(summary)}; "
+          f"launches {json.dumps(launches)}")
+    if summary != fp.FAIR_PREEMPT_EXPECT:
+        fail(f"fair-preempt drain {summary} != expected {fp.FAIR_PREEMPT_EXPECT}")
+    for name in FAIR_PREEMPT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the fair-preempt drain")
+    senv = fp.build_fair_preempt(fp.SMALL_N_CQ)
+    small = pd.run_drain_fair_preempt(take_snapshot(senv.cache), senv.pending,
+                                      senv.cache.flavors, timestamp_fn=senv.ts_fn, device=dev)
+    if fp.drain_summary(small) != fp.FAIR_PREEMPT_SMALL_EXPECT:
+        fail(f"bench.py's 60-CQ stage on cuda {fp.drain_summary(small)}")
+    spec_runs = [pd.run_drain_fair_preempt(take_snapshot(s_cache), s_pending, s_cache.flavors,
+                                           max_cycles=SMALL_FAIR_PREEMPT_CYCLES, device=d)
+                 for d in (dev, "cpu")]
+    if round_view_preempt(spec_runs[0]) != round_view_preempt(spec_runs[1]):
+        fail("the small fair-preempt case on cuda differs from the CPU")
+    print(f"{stamp()} bench.py's 60-CQ stage on cuda gives FAIR_PREEMPT_SMALL_EXPECT; the "
+          f"small case on cuda equals the CPU ({len(spec_runs[0].admitted)} admitted, "
+          f"{len(spec_runs[0].preempted)} evicted)")
+    _build.reset_launches()
+    wide = pd.run_drain_fair_preempt(take_snapshot(wenv.cache), wenv.pending, wenv.cache.flavors,
+                                     timestamp_fn=wenv.ts_fn, device=dev)
+    w_launches = _build.launch_counts()
+    w_summary = fp.drain_summary(wide)
+    print(f"{stamp()} run_drain_fair_preempt on cuda at the panel caps: {json.dumps(w_summary)}; "
+          f"launches {json.dumps(w_launches)}")
+    if w_summary != fp.FAIR_WIDE_EXPECT:
+        fail(f"the wide fair-preempt drain {w_summary} != expected {fp.FAIR_WIDE_EXPECT}")
+    for name in FAIR_PREEMPT_KERNELS:
+        if w_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the wide fair-preempt drain")
+
+    # 10c. walls: the entry point, its host lowering, the solve
+    walls, plans, solves = [], [], []
+    for _ in range(3):
+        snap = take_snapshot(env.cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd.run_drain_fair_preempt(snap, env.pending, env.cache.flavors, timestamp_fn=env.ts_fn,
+                                  device=dev)
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        inputs()
+        torch.cuda.synchronize()
+        plans.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dk._solve_drain_fair_preempt_packed(*drain_args(inp),
+                                            seg_id=inp[0].queues_np["seg_id"]).cpu()
+        solves.append(time.perf_counter() - t0)
+    cyc = summary["cycles"]
+    wall_ms, plan_ms = 1e3 * float(np.median(walls)), 1e3 * float(np.median(plans))
+    solve_ms = 1e3 * float(np.median(solves))
+    print(f"{stamp()} fair-preempt drain wall (run_drain_fair_preempt, median of 3): "
+          f"{wall_ms:.1f} ms = {wall_ms / cyc:.3f} ms/cycle over {cyc} cycles; host lowering "
+          f"and upload {plan_ms:.1f} ms; solve (inputs on the card, one fetch) {solve_ms:.2f} ms")
+
+    # 10d. every launch timed alone, bytes from each cycle: fair-preempt-1k
+    # (the kernels' line) and the drain at the panel caps
+    def timed(inp, plain_ms, label, main_launches):
+        plan, _, tree, paths, local, queues, victims, panels, fair = inp
+        ctx = dk.fair_preempt_context(tree, queues, victims, panels, paths, fair,
+                                      plan.n_segments, plan.n_steps, plan.max_cycles, 0, True)
+        state = dk.FairPreemptState.initial_fair(local, queues, plan.max_cycles, victims, panels)
+        buf = dk.PreemptBuffers.empty_preempt(local, queues, victims)
+        timer = TimedLaunches()
+        while not state.done.item():
+            before = {"cursor": state.cursor.cpu().numpy(), "pcells": state.pcells.cpu().numpy()}
+            for name, kern, _ in FAIR_PREEMPT_STEPS:
+                timer(name, lambda: kern(ctx, state, buf), None)
+            timer.add_bytes(fair_preempt_cycle_bytes(ctx, before, buf, state))
+        timing = {name: timing_of(timer, name, plain_ms) for name in FAIR_PREEMPT_KERNELS}
+        print(f"{stamp()} timed fair-preempt drain [{label}]: "
+              f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "
+              f"alone, {timer.uncovered} uncovered")
+        for name, t in timing.items():
+            print(f"kernel {name} [fair-preempt drain, {label}]: mean over {t['timed']} "
+                  f"launches: {t['ms'] * 1e3:.2f} us/launch on the device "
+                  f"({t['device_ms_total']:.3f} ms in all), {t['host_ms'] * 1e3:.2f} us/call to "
+                  f"enqueue, plain {t['plain_ms']:.3f} ms/call, bound {t['bound_ms'] * 1e3:.4f} us "
+                  f"({t['bytes']:.0f} B); main-path launches {main_launches[name]}, "
+                  f"max_abs_err {errs[name]}")
+        return timing
+
+    timing = timed(inp, plain, "fair-preempt-1k", launches)
+    w_timing = timed(w_inp, w_plain, f"panel caps, {w_shape}", w_launches)
+    return {"errs": errs, "timing": timing, "launches": launches, "wall_ms": wall_ms,
+            "plan_ms": plan_ms, "solve_ms": solve_ms, "cycles": cyc,
+            "wide_timing": w_timing, "wide_launches": w_launches, "wide_shape": w_shape}
+
+
 def round_view_preempt(out):
     return (sorted((wl.name, repr(sorted(f.items())), c) for wl, _, f, c in out.admitted),
             sorted(wl.name for wl, _ in out.parked), sorted(wl.name for wl, _ in out.fallback),
@@ -1721,11 +2300,17 @@ def main() -> int:
     pcyc = contended_cycle_path(dev)
     pdrain = contended_drain_path(dev)
 
-    # 9. result lines
+    # 9. the fair cycle; 10. the fair-preempt drain
+    fcyc = fair_cycle_path(dev)
+    fdrain = fair_preempt_drain_path(dev)
+
+    # 11. result lines
     by_path = {
         "drain": drain_launches, "megaloop": mega["launches"], "fair": fairr["launches"],
         "cycle_headline": cycle_launches, "cycle_small": small_launches,
         "contended_cycle": pcyc["launches"], "contended_drain": pdrain["launches"],
+        "fair_cycle": fcyc["launches"], "fair_preempt_drain": fdrain["launches"],
+        "fair_preempt_wide": fdrain["wide_launches"],
     }
     kernels = []
     for name in _build.KERNELS:
@@ -1739,6 +2324,10 @@ def main() -> int:
             t, lib = pcyc["timing"][name], None
         elif name.startswith("drain_preempt_"):
             t, lib = pdrain["timing"][name], None
+        elif name == "fair_search":
+            t, lib = fcyc["timing"][name], None
+        elif name.startswith("drain_fair_preempt_"):
+            t, lib = fdrain["timing"][name], None
         else:
             t, lib = ctiming[name], library.get(name)
         entry = {
@@ -1749,7 +2338,8 @@ def main() -> int:
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {k: c[name] for k, c in by_path.items()},
             "max_abs_err": max(r.get(name, 0) for r in (errs, cerrs, mega["errs"], fairr["errs"],
-                                                         pcyc["errs"], pdrain["errs"])),
+                                                         pcyc["errs"], pdrain["errs"],
+                                                         fcyc["errs"], fdrain["errs"])),
             "ms": t["ms"],
             "device_ms_total": t["device_ms_total"],
             "host_ms": t["host_ms"],
@@ -1758,11 +2348,18 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": lib,
         }
-        for label, res in (("megaloop", mega), ("fair", fairr), ("contended_drain", pdrain)):
-            if name in res["timing"] and name in DRAIN_KERNELS:
+        for label, res in (("megaloop", mega), ("fair", fairr), ("contended_drain", pdrain),
+                           ("fair_preempt_drain", fdrain)):
+            if name in res["timing"] and (name in DRAIN_KERNELS
+                                          or name == "drain_preempt_motion" and res is fdrain):
                 entry.setdefault("ms_by_path", {})[label] = res["timing"][name]["ms"]
+        if name in fdrain["wide_timing"]:
+            w = fdrain["wide_timing"][name]
+            entry["at_panel_caps"] = {"shape": fdrain["wide_shape"], "ms": w["ms"],
+                                      "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+                                      "launches": fdrain["wide_launches"][name]}
         kernels.append(entry)
-    if len(kernels) != 13:
+    if len(kernels) != 16:
         fail(f"{len(kernels)} kernels in the result line")
     print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
@@ -1777,7 +2374,16 @@ def main() -> int:
                       "contended_drain_plan_ms": pdrain["plan_ms"],
                       "contended_drain_solve_ms": pdrain["solve_ms"],
                       "contended_drain_cycles": pdrain["cycles"],
-                      "contended_panels": pdrain["panels"]}))
+                      "contended_panels": pdrain["panels"],
+                      "fair_cycle_ms": fcyc["cycle_ms"],
+                      "fair_quiescence_calls": fcyc["quiescence_calls"],
+                      "fair_search_bench_us": fcyc["bench_batch_us"],
+                      "fair_search_cap_us": fcyc["cap_batch_us"],
+                      "fair_search_tiers": fcyc["tiers"],
+                      "fair_preempt_drain_wall_ms": fdrain["wall_ms"],
+                      "fair_preempt_drain_plan_ms": fdrain["plan_ms"],
+                      "fair_preempt_drain_solve_ms": fdrain["solve_ms"],
+                      "fair_preempt_drain_cycles": fdrain["cycles"]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -14,11 +14,13 @@ Ported: the plain drain (``plan_drain``, ``run_drain``,
 (``launch_drain_megaloop`` and its ``MegaloopLaunch``, with the numpy
 host twin ``run_drain_megaloop_host``), the drain with classic
 preemption (``run_drain_preempt``, its candidate-pool lowering and the
-``PanelTuner`` ladder of search widths), and the scope routing
+``PanelTuner`` ladder of search widths), the drain with fair-sharing
+order and fair-sharing preemption (``run_drain_fair_preempt``, the same
+pools plus each segment's fair panels), and the scope routing
 (``classify_drain_scope``, ``run_drain_for_scope``,
-``launch_drain_for_scope``). The fair-preempt and TAS drains, mesh
-sharding and non-default admission policies are not ported yet and
-raise NotImplementedError.
+``launch_drain_for_scope``). The TAS drain, mesh sharding and
+non-default admission policies are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -368,6 +370,9 @@ def _lower_victim_pools(
     max_victims: int,
     max_victim_cells: int,
     max_cycles: Optional[int],
+    # fn(s, members, seg_queues_s) -> bool: extra scope veto, given the
+    # segment id, its member CQ rows and its queue-index list
+    extra_segment_bad=None,
 ) -> _VictimLowering:
     """Build the SegVictims arrays + metadata for a preemption drain
     and set plan.max_cycles. Mutates plan (drops ineligible queues).
@@ -470,6 +475,8 @@ def _lower_victim_pools(
             if bad:
                 break
         n_b = sum(int(qlen[qi]) for qi in seg_queues[s]) if dynamic[s] else 0
+        if extra_segment_bad is not None and not bad:
+            bad = bool(extra_segment_bad(s, members, seg_queues[s]))
         if bad or len(entries) + n_b > max_victims:
             bad_segments.append(s)
             pool_of[s] = []
@@ -913,9 +920,11 @@ def _preempt_outcome(
     low: _VictimLowering,
     flat: np.ndarray,
     queues_np: dict,
+    fair: bool = False,
 ) -> PreemptDrainOutcome:
     """Unpack a PreemptDrainResult flat vector and map decisions back
-    to workloads."""
+    to workloads (shared by the classic and fair preemption drains;
+    ``fair`` switches the Preempted-condition reason rules)."""
     lowered = plan.lowered
     s_dim, v_cap = low.s_dim, low.v_cap
     slot_meta, victim_of = low.slot_meta, low.victim_of
@@ -973,6 +982,7 @@ def _preempt_outcome(
             parked.append((wl, cq_name))
     admitted.sort(key=lambda t: t[3])
     from kueue_tpu_torch.core.preemption import (
+        IN_COHORT_FAIR_SHARING,
         IN_CLUSTER_QUEUE,
         IN_COHORT_RECLAIM_WHILE_BORROWING,
         IN_COHORT_RECLAMATION,
@@ -1034,14 +1044,20 @@ def _preempt_outcome(
                 by_cq = plan.cq_order[qi_by]
                 by_wl, by_prio = _evictor_entry(qi_by, cyc)
                 if int(cq_rows[qi_by]) != int(sowner[s, slot]):
-                    # the ladder's threshold rule (preemption.go:353-357):
-                    # below min(evictor priority, maxPriorityThreshold+1)
-                    # the reclaim rode borrowWithinCohort
-                    thr = min(by_prio, int(bwc_thr1[qi_by]), NO_BWC_THRESHOLD)
-                    if bwc[qi_by] and int(sprio[s, slot]) < thr:
-                        reason = IN_COHORT_RECLAIM_WHILE_BORROWING
+                    if fair:
+                        # fair tournament victims from another CQ
+                        # (preemption.py _fair_preemptions)
+                        reason = IN_COHORT_FAIR_SHARING
                     else:
-                        reason = IN_COHORT_RECLAMATION
+                        # the ladder's threshold rule
+                        # (preemption.go:353-357): below min(evictor
+                        # priority, maxPriorityThreshold+1) the reclaim
+                        # rode borrowWithinCohort
+                        thr = min(by_prio, int(bwc_thr1[qi_by]), NO_BWC_THRESHOLD)
+                        if bwc[qi_by] and int(sprio[s, slot]) < thr:
+                            reason = IN_COHORT_RECLAIM_WHILE_BORROWING
+                        else:
+                            reason = IN_COHORT_RECLAMATION
             evictions.append(
                 DrainEviction(
                     victim=victim_wl, victim_cq=victim_cq, cycle=cyc,
@@ -1063,6 +1079,184 @@ def _preempt_outcome(
         preempted=preempted,
         evictions=evictions,
     )
+
+
+def fair_preempt_drain_inputs(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    dev,
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    max_victims: int = 512,
+    max_victim_cells: int = 4,
+    max_fair_cells: int = 64,
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    now: Optional[float] = None,
+):
+    """The fair-preempt drain's plan, pool lowering and device inputs,
+    as ``run_drain_fair_preempt`` makes them: (plan, lowering, tree,
+    paths, leaf usage, DrainQueues, SegVictims, FairSegPanels,
+    FairInputs) on ``dev``.
+
+    The candidate pools are the classic preemption drain's (fair
+    sharing shares _find_candidates and the candidate ordering,
+    preemption.go:480-524, :591-618); on top of them each segment gets
+    LOCAL fair panels over its ACTIVE cell universe (every
+    flavor-resource with quota or usage anywhere in the root cohort plus
+    every queued entry's candidate cells: DRS aggregates over all of
+    them, fair_sharing.go:49-104). A segment whose universe exceeds
+    ``max_fair_cells`` routes its preempt-capable queues to fallback,
+    like the batched search's MAX_FAIR_CELLS cap."""
+    from kueue_tpu_torch.interop import fair_seg_panels, seg_victims
+
+    plan = plan_drain(
+        snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+        now=now or 0.0,
+    )
+    parent_arr = snapshot.flat.parent
+    n_cq = snapshot.flat.n_cq
+    n_res = len(snapshot.resource_names)
+    res_of_fr = snapshot.resource_index.astype(np.int32)
+    universe_of: Dict[int, np.ndarray] = {}
+    qlen_np = plan.queues_np["qlen"]
+
+    def seg_universe_bad(s: int, members, seg_queues_s) -> bool:
+        """The segment's active cell universe; veto the segment (its
+        searching queues go to fallback) when it exceeds the panel cap."""
+        nodes = set()
+        for r in members:
+            cur = int(r)
+            while cur >= 0:
+                nodes.add(cur)
+                cur = int(parent_arr[cur])
+        rows = np.asarray(sorted(nodes), dtype=np.int64)
+        active = (snapshot.nominal[rows] > 0).any(axis=0) | (
+            snapshot.local_usage[rows] > 0
+        ).any(axis=0)
+        for qi in seg_queues_s:
+            cells_q = plan.queues_np["cells"][qi, : int(qlen_np[qi])]
+            cs = cells_q[cells_q >= 0]
+            if cs.size:
+                active[np.unique(cs)] = True
+        universe_of[s] = np.flatnonzero(active).astype(np.int32)
+        return len(universe_of[s]) > max_fair_cells
+
+    low = _lower_victim_pools(
+        snapshot, plan, timestamp_fn, now, max_victims, max_victim_cells, max_cycles,
+        extra_segment_bad=seg_universe_bad,
+    )
+    s_dim, v_cap, m_dim = low.s_dim, low.v_cap, low.m_dim
+
+    # ---- fair panels ----
+    good = {s: u for s, u in universe_of.items() if len(u) <= max_fair_cells}
+    cu = _bucket(max((len(u) for u in good.values()), default=1), minimum=2)
+    seg_cells = np.full((s_dim, cu), -1, dtype=np.int32)
+    parent_local = np.full((s_dim, m_dim), -1, dtype=np.int32)
+    depth_local = np.zeros((s_dim, m_dim), dtype=np.int32)
+    is_cq_local = np.zeros((s_dim, m_dim), dtype=bool)
+    node_valid = np.zeros((s_dim, m_dim), dtype=bool)
+    weight_local = np.full((s_dim, m_dim), 1000, dtype=np.int64)
+    res_of_cell = np.full((s_dim, cu), n_res, dtype=np.int32)
+    svqty_cu = np.zeros((s_dim, v_cap, cu), dtype=np.int64)
+
+    fair = fair_inputs(snapshot, snapshot.flat.max_depth, dev)
+    depth_of = fair.depth_of.cpu().numpy()
+    victims_by_seg: Dict[int, List[Tuple[int, object]]] = {}
+    for (ss, slot), ws in low.victim_of.items():
+        victims_by_seg.setdefault(ss, []).append((slot, ws))
+    for s, local_id in low.local_ids.items():
+        u = good.get(s)
+        if u is None:
+            continue  # vetoed segment: panels stay inert
+        seg_cells[s, : len(u)] = u
+        res_of_cell[s, : len(u)] = res_of_fr[u]
+        root_depth = min(int(depth_of[g]) for g in local_id)
+        for gnode, li in local_id.items():
+            node_valid[s, li] = True
+            is_cq_local[s, li] = gnode < n_cq
+            parent_local[s, li] = local_id.get(int(parent_arr[gnode]), -1)
+            weight_local[s, li] = int(snapshot.weight_milli[gnode])
+            depth_local[s, li] = int(depth_of[gnode]) - root_depth
+        cell_pos = {int(j): ci for ci, j in enumerate(u)}
+        for slot, ws in victims_by_seg.get(s, ()):
+            for j in np.flatnonzero(ws.usage_vec):
+                ci = cell_pos.get(int(j))
+                if ci is None:  # usage cells are in the universe by construction
+                    raise AssertionError(f"victim cell {j} outside segment {s} universe")
+                svqty_cu[s, slot, ci] = int(ws.usage_vec[j])
+
+    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev)
+    panels = fair_seg_panels(dict(
+        seg_cells=seg_cells, parent_local=parent_local, depth_local=depth_local,
+        is_cq_local=is_cq_local, node_valid=node_valid, weight_local=weight_local,
+        res_of_cell=res_of_cell, svqty_cu=svqty_cu,
+    ), dev)
+    return (plan, low, tree, paths, usage_in, queues, seg_victims(low.victims_np, dev),
+            panels, fair)
+
+
+def run_drain_fair_preempt(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    max_victims: int = 512,
+    max_victim_cells: int = 4,
+    max_fair_cells: int = 64,
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    now: Optional[float] = None,
+    policy=None,
+    fs_strategies: Optional[Sequence[str]] = None,
+    mesh=None,
+    device=None,
+) -> PreemptDrainOutcome:
+    """Multi-cycle drain with fair-sharing admission order AND
+    fair-sharing preemption, the fair-cohort configuration, on the card
+    with one fetch (ops/drain_kernel.solve_drain_fair_preempt; inputs as
+    ``fair_preempt_drain_inputs`` says). ``fs_strategies`` defaults to
+    the Preemptor's [LessThanOrEqualToFinalShare, LessThanInitialShare].
+    Victim attribution reasons are InClusterQueue / InCohortFairSharing
+    (preemption.py _fair_preemptions). The caller applies the reported
+    admissions and evictions in cycle order; this function only decides.
+
+    Runs on the card: ``device`` defaults to ``cuda`` and raises where
+    there is none; ``device="cpu"`` runs the plain torch versions. Mesh
+    sharding (ROADMAP A11) and a non-default admission policy (A1)
+    raise NotImplementedError."""
+    from kueue_tpu_torch._torch import resolve_device
+    from kueue_tpu_torch.core.preemption import (
+        LESS_THAN_INITIAL_SHARE,
+        LESS_THAN_OR_EQUAL_TO_FINAL_SHARE,
+    )
+    from kueue_tpu_torch.ops.drain_kernel import _solve_drain_fair_preempt_packed
+
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded drains are not ported yet (ROADMAP A11)")
+    if policy is not None and not policy.is_default:
+        raise NotImplementedError(
+            "admission policies (PREMA victim costs, kueue_tpu/policy) are not ported "
+            "yet (ROADMAP A1)"
+        )
+    plan, low, tree, paths, usage_in, queues, victims, panels, fair = (
+        fair_preempt_drain_inputs(
+            snapshot, pending, flavors, resolve_device(device), max_candidates, max_cells,
+            max_victims, max_victim_cells, max_fair_cells, timestamp_fn, max_cycles, now,
+        )
+    )
+    strategies = list(
+        fs_strategies or [LESS_THAN_OR_EQUAL_TO_FINAL_SHARE, LESS_THAN_INITIAL_SHARE]
+    )
+    flat = _solve_drain_fair_preempt_packed(
+        tree, usage_in, queues, victims, panels, paths, fair,
+        n_segments=plan.n_segments, n_steps=plan.n_steps, max_cycles=plan.max_cycles,
+        strategy1=0 if strategies[0] == LESS_THAN_OR_EQUAL_TO_FINAL_SHARE else 1,
+        has_second=len(strategies) > 1, seg_id=plan.queues_np["seg_id"],
+    ).cpu().numpy()  # the single fetch
+    return _preempt_outcome(plan, low, flat, plan.queues_np, fair=True)
 
 
 def classify_drain_scope(
@@ -1118,6 +1312,7 @@ def run_drain_for_scope(
     snapshot: Snapshot,
     pending: Sequence[Tuple[Workload, str]],
     flavors: Dict[str, ResourceFlavor],
+    fs_strategies=None,
     timestamp_fn=None,
     mesh=None,
     policy=None,
@@ -1125,10 +1320,17 @@ def run_drain_for_scope(
     device=None,
 ):
     """Dispatch the drain a classify_drain_scope kind names: the one
-    place the kind-to-drain mapping lives. The fair-preempt (ROADMAP
-    A6b) and TAS (A7) drains are not ported yet (NotImplementedError)."""
-    if kind in ("fair_preempt", "tas"):
+    place the kind-to-drain mapping lives. ``fs_strategies`` (the
+    preemptor's fairSharing.preemptionStrategies) goes to the
+    fair-preempt drain. The TAS drain (ROADMAP A7) is not ported yet
+    (NotImplementedError)."""
+    if kind == "tas":
         raise NotImplementedError(f"the {kind} drain is not ported yet")
+    if kind == "fair_preempt":
+        return run_drain_fair_preempt(
+            snapshot, pending, flavors, timestamp_fn=timestamp_fn,
+            fs_strategies=fs_strategies, mesh=mesh, policy=policy, device=device,
+        )
     if kind == "preempt":
         return run_drain_preempt(
             snapshot, pending, flavors, timestamp_fn=timestamp_fn, mesh=mesh,

@@ -1,5 +1,6 @@
-"""Host glue for the batched preemption kernel (ops/preempt_kernel.py,
-kernel B8); port of the classic half of kueue_tpu/core/preempt_batch.py.
+"""Host glue for the batched preemption kernels (ops/preempt_kernel.py,
+kernel B8, and ops/fair_preempt_kernel.py, kernel B9); port of
+kueue_tpu/core/preempt_batch.py.
 
 Lowers every preempt-mode head of a cycle into local-subtree problems
 and resolves ALL victim searches in one launch on the card. The host
@@ -23,8 +24,13 @@ Exactness notes:
   for them (the reference's semantics, not a failover: a kernel that
   cannot run raises).
 
-Fair-sharing preemption (``batched_fair_get_targets``, kernel B9) is not
-ported yet (ROADMAP A6b).
+A fair-sharing preemptor routes to ``batched_fair_get_targets``: each
+head lowers to its root cohort's subtree over the subtree's active cell
+universe (``lower_fair_preemption``), and kernel B9 runs the fair
+victim tournament for every head in one launch, on a narrow and (for
+the few heads with deep pools) a full-width candidate panel. Heads
+beyond the panel caps (MAX_CANDIDATES candidates, MAX_FAIR_NODES nodes,
+MAX_FAIR_CELLS cells) are searched by the host Preemptor.
 """
 
 from __future__ import annotations
@@ -39,9 +45,15 @@ from kueue_tpu_torch.core.flavor_assigner import AssignmentResult
 from kueue_tpu_torch.core.scheduler import PreemptionTarget
 from kueue_tpu_torch.core.snapshot import Snapshot, WorkloadSnapshot
 from kueue_tpu_torch.core.solver import _bucket
+from kueue_tpu_torch.ops._build import KernelError
 # padding caps, kernel B8's limits: above them the host Preemptor
 # searches the head
 from kueue_tpu_torch.ops.preempt_kernel import MAX_CANDIDATES, MAX_CELLS
+
+# the fair lowering's caps (the JAX package's): above them the host
+# Preemptor searches the head
+MAX_FAIR_CELLS = 32
+MAX_FAIR_NODES = 64
 
 
 @dataclass
@@ -279,6 +291,24 @@ def _pad_rows(arrays: dict, w_pad: int) -> dict:
     return out
 
 
+def _fetch(dev, kernel: str, launch) -> np.ndarray:
+    """``launch()`` (the upload, the kernel and its packed result) fetched
+    to the host. A kernel's fault on the card surfaces as a torch error
+    at the first sync after it, here: it is raised as a KernelError,
+    which the Scheduler does not contain, so a failing kernel never
+    moves a cycle's search to the host Preemptor."""
+    import torch
+
+    try:
+        return launch().cpu().numpy()
+    except KernelError:
+        raise
+    except RuntimeError as exc:  # torch.AcceleratorError is one
+        if dev.type == "cuda" or isinstance(exc, torch.AcceleratorError):
+            raise KernelError(f"kernel {kernel} failed on {dev}: {exc}") from exc
+        raise
+
+
 def _reason_for(ws: WorkloadSnapshot, cq_name: str, thr: Optional[int]) -> str:
     from kueue_tpu_torch.core.preemption import (
         IN_CLUSTER_QUEUE,
@@ -293,6 +323,252 @@ def _reason_for(ws: WorkloadSnapshot, cq_name: str, thr: Optional[int]) -> str:
     return IN_COHORT_RECLAMATION
 
 
+# ---- fair sharing (ops/fair_preempt_kernel.py, kernel B9) ----
+
+
+def _bubble_np(paths, local_row, cells_qty, usage, guaranteed):
+    """numpy addUsage bubble on a local panel (resource_node.go:123-144)."""
+    path = paths[local_row]
+    delta = cells_qty.copy()
+    for node in path:
+        if node < 0:
+            break
+        old = usage[node].copy()
+        usage[node] += delta
+        delta = np.maximum(0, usage[node] - guaranteed[node]) - np.maximum(
+            0, old - guaranteed[node]
+        )
+        if not delta.any():
+            break
+    return usage
+
+
+def lower_fair_preemption(
+    snapshot: Snapshot,
+    items: Sequence[Tuple[Workload, str, AssignmentResult]],
+    preemptor,
+):
+    """Lower fair-sharing heads into FairProblem panels. Returns
+    (problem_arrays|None, meta) where meta carries per-head candidate
+    lists and the fallback indices."""
+    from kueue_tpu_torch.core.preemption import LESS_THAN_OR_EQUAL_TO_FINAL_SHARE
+    from kueue_tpu_torch.ops.assign_kernel import build_roots
+    from kueue_tpu_torch.ops.quota import NO_LIMIT
+
+    parent = snapshot.flat.parent
+    roots = build_roots(parent)
+    max_depth = snapshot.flat.max_depth
+    n_cq = snapshot.flat.n_cq
+    subtrees: Dict[int, _SubtreeIndex] = {}
+
+    rows_meta: List[dict] = []
+    fallback: List[int] = []
+    empty: List[int] = []
+    for idx, item in enumerate(items):
+        ctx, candidates = _head_candidates(snapshot, item, preemptor)
+        if not candidates:
+            empty.append(idx)
+            continue
+        if len(candidates) > MAX_CANDIDATES:
+            fallback.append(idx)
+            continue
+        root = int(roots[ctx.cq_row])
+        sub = subtrees.get(root)
+        if sub is None:
+            rows = np.flatnonzero(roots == root)
+            sub = _SubtreeIndex(rows, parent, max_depth)
+            subtrees[root] = sub
+        if len(sub.rows) > MAX_FAIR_NODES:
+            fallback.append(idx)
+            continue
+        # the ACTIVE cell universe of the whole subtree: DRS aggregates
+        # over every cell carrying quota or usage, not just head cells
+        panel_rows = sub.rows
+        active = (
+            (snapshot.nominal[panel_rows] > 0).any(axis=0)
+            | (snapshot.local_usage[panel_rows] > 0).any(axis=0)
+            | (ctx.usage_vec > 0)
+        )
+        cells = [int(j) for j in np.flatnonzero(active)]
+        if len(cells) > MAX_FAIR_CELLS:
+            fallback.append(idx)
+            continue
+        rows_meta.append(
+            {"idx": idx, "ctx": ctx, "cands": candidates, "cells": cells, "sub": sub}
+        )
+
+    meta = {"rows": rows_meta, "fallback": fallback, "empty": empty}
+    if not rows_meta:
+        return None, meta
+
+    w = len(rows_meta)
+    s = _bucket(max(len(m["sub"].rows) for m in rows_meta), minimum=2)
+    cu = _bucket(max(len(m["cells"]) for m in rows_meta), minimum=2)
+    v = _bucket(max(len(m["cands"]) for m in rows_meta), minimum=2)
+    d1 = max_depth + 1
+    res_names = sorted(
+        {snapshot.fr_list[j].resource for m in rows_meta for j in m["cells"]}
+    )
+    r = max(len(res_names) + 1, 2)  # +1 inert bucket for padded cells
+    res_id = {name: i for i, name in enumerate(res_names)}
+
+    usage_global = snapshot.usage()
+    depth_global = snapshot.flat.depth
+
+    arrays = dict(
+        paths=np.full((w, s, d1), -1, dtype=np.int32),
+        usage0=np.zeros((w, s, cu), dtype=np.int64),
+        subtree_q=np.zeros((w, s, cu), dtype=np.int64),
+        guaranteed=np.zeros((w, s, cu), dtype=np.int64),
+        borrow_lim=np.full((w, s, cu), NO_LIMIT, dtype=np.int64),
+        weight=np.full((w, s), 1000, dtype=np.int64),
+        parent_loc=np.full((w, s), -1, dtype=np.int32),
+        depth_s=np.zeros((w, s), dtype=np.int32),
+        is_cq=np.zeros((w, s), dtype=bool),
+        svalid=np.zeros((w, s), dtype=bool),
+        anc_of_head=np.zeros((w, s), dtype=bool),
+        hrow=np.zeros(w, dtype=np.int32),
+        need_qty=np.zeros((w, cu), dtype=np.int64),
+        res_of=np.full((w, cu), r - 1, dtype=np.int32),  # pad: inert bucket
+        crow=np.zeros((w, v), dtype=np.int32),
+        cqty=np.zeros((w, v, cu), dtype=np.int64),
+        cvalid=np.zeros((w, v), dtype=bool),
+        row_valid=np.ones(w, dtype=bool),
+    )
+
+    for a_i, m in enumerate(rows_meta):
+        ctx, sub, cells = m["ctx"], m["sub"], m["cells"]
+        ns, nc = len(sub.rows), len(cells)
+        ix = np.ix_(sub.rows, cells)
+        arrays["paths"][a_i, :ns] = sub.paths
+        arrays["usage0"][a_i, :ns, :nc] = usage_global[ix]
+        arrays["subtree_q"][a_i, :ns, :nc] = snapshot.subtree[ix]
+        arrays["guaranteed"][a_i, :ns, :nc] = snapshot.guaranteed[ix]
+        arrays["borrow_lim"][a_i, :ns, :nc] = snapshot.borrowing_limit[ix]
+        arrays["weight"][a_i, :ns] = snapshot.weight_milli[sub.rows]
+        root_depth = int(depth_global[sub.rows].min())
+        for i, grow in enumerate(sub.rows):
+            gp = int(parent[grow])
+            arrays["parent_loc"][a_i, i] = sub.local.get(gp, -1)
+            arrays["depth_s"][a_i, i] = int(depth_global[grow]) - root_depth
+            arrays["is_cq"][a_i, i] = grow < n_cq
+        arrays["svalid"][a_i, :ns] = True
+        for anc in snapshot.path_to_root(ctx.cq_row):
+            li = sub.local.get(int(anc))
+            if li is not None:
+                arrays["anc_of_head"][a_i, li] = True
+        hrow_l = sub.local[ctx.cq_row]
+        arrays["hrow"][a_i] = hrow_l
+        arrays["need_qty"][a_i, :nc] = ctx.usage_vec[cells]
+        for ci, j in enumerate(cells):
+            arrays["res_of"][a_i, ci] = res_id[snapshot.fr_list[j].resource]
+        # the head's usage is part of the simulated state
+        # (preemption.go:394-395 AddUsage before DRS)
+        _bubble_np(
+            arrays["paths"][a_i], hrow_l, arrays["need_qty"][a_i],
+            arrays["usage0"][a_i], arrays["guaranteed"][a_i],
+        )
+        for vi, ws in enumerate(m["cands"]):
+            arrays["crow"][a_i, vi] = sub.local[ws.cq_row]
+            arrays["cqty"][a_i, vi, :nc] = ws.usage_vec[cells]
+            arrays["cvalid"][a_i, vi] = True
+
+    strategy1 = (
+        0 if preemptor.fs_strategies[0] == LESS_THAN_OR_EQUAL_TO_FINAL_SHARE else 1
+    )
+    meta.update(
+        arrays=arrays, s=s, cu=cu, v=v, r=r, depth=max_depth,
+        strategy1=strategy1, has_second=len(preemptor.fs_strategies) > 1,
+    )
+    return arrays, meta
+
+
+def fair_tiers(arrays: dict, meta: dict):
+    """The two-tier candidate-panel schedule of ``batched_fair_get_targets``:
+    ``[(rows, v_dim, padded row arrays)]`` for the narrow tier and, when
+    some head's pool overflows it, the full-width tier (heads whose
+    whole pool fits the bucketed-median panel solve at the narrow width,
+    exact by membership: a head never sees a truncated view of its own
+    pool)."""
+    from kueue_tpu_torch.ops.fair_preempt_kernel import split_panel_rows
+
+    counts = [len(m["cands"]) for m in meta["rows"]]
+    v_narrow, narrow_rows, wide_rows = split_panel_rows(counts, meta["v"], _bucket)
+    tiers = []
+    for rows, v_dim in ((narrow_rows, v_narrow), (wide_rows, meta["v"])):
+        if not rows:
+            continue
+        sub = {
+            k: (
+                x[rows][:, :v_dim]
+                if k in ("crow", "cvalid")
+                else x[rows][:, :v_dim, :]
+                if k == "cqty"
+                else x[rows]
+            )
+            for k, x in arrays.items()
+        }
+        tiers.append((rows, v_dim, _pad_rows(sub, _bucket(len(rows), minimum=8))))
+    return tiers
+
+
+def batched_fair_get_targets(
+    snapshot: Snapshot,
+    items: Sequence[Tuple[Workload, str, AssignmentResult]],
+    preemptor,
+    device=None,
+) -> List[List[PreemptionTarget]]:
+    """Fair-sharing victim sets for every preempt-mode head, one launch
+    of kernel B9 per panel tier on ``device`` (the card unless the
+    caller names the CPU, where the plain version runs); heads beyond
+    the lowering's caps are searched by the host Preemptor. Parity:
+    tests/test_torch_fair_preempt.py."""
+    from kueue_tpu_torch._torch import resolve_device
+    from kueue_tpu_torch.core.preemption import IN_CLUSTER_QUEUE, IN_COHORT_FAIR_SHARING
+    from kueue_tpu_torch.interop import fair_problem
+    from kueue_tpu_torch.ops.fair_preempt_kernel import solve_fair_packed
+
+    dev = resolve_device(device)
+    results: List[List[PreemptionTarget]] = [[] for _ in items]
+    arrays, meta = lower_fair_preemption(snapshot, items, preemptor)
+    for idx in meta["fallback"]:
+        wl, cq_name, assignment = items[idx]
+        results[idx] = preemptor.get_targets(wl, cq_name, assignment, snapshot)
+    if arrays is None:
+        return results
+
+    targets_of = {}
+    fits_of = {}
+    for rows, v_dim, padded in fair_tiers(arrays, meta):
+        w_pad = padded["row_valid"].shape[0]
+        flat = _fetch(dev, "fair_search", lambda: solve_fair_packed(
+            fair_problem(padded, dev), depth=meta["depth"], n_cand=v_dim,
+            n_local=meta["s"], n_res=meta["r"], strategy1=meta["strategy1"],
+            has_second=meta["has_second"],
+        ))  # one fetch per tier
+        tmask = flat[: w_pad * v_dim].reshape(w_pad, v_dim)
+        fits = flat[w_pad * v_dim:].astype(bool)
+        for out_i, a_i in enumerate(rows):
+            targets_of[a_i] = tmask[out_i]
+            fits_of[a_i] = bool(fits[out_i])
+
+    for a_i, m in enumerate(meta["rows"]):
+        if not fits_of.get(a_i, False):
+            continue
+        idx = m["idx"]
+        cq_name = items[idx][1]
+        tmask = targets_of[a_i]
+        results[idx] = [
+            PreemptionTarget(
+                workload=ws,
+                reason=IN_CLUSTER_QUEUE if ws.cq_name == cq_name else IN_COHORT_FAIR_SHARING,
+            )
+            for vi, ws in enumerate(m["cands"])
+            if vi < len(tmask) and tmask[vi]
+        ]
+    return results
+
+
 def batched_get_targets(
     snapshot: Snapshot,
     items: Sequence[Tuple[Workload, str, AssignmentResult]],
@@ -301,19 +577,17 @@ def batched_get_targets(
 ) -> List[List[PreemptionTarget]]:
     """Victim sets for every preempt-mode head, one launch of kernel B8
     on ``device`` (the card unless the caller names the CPU, where the
-    plain version runs). Heads beyond the padding caps are searched by
-    the host Preemptor. Decision parity with preemptor.get_targets and
-    with the JAX package is asserted in tests/test_torch_preempt.py.
-    A fair-sharing preemptor is not ported yet (NotImplementedError)."""
+    plain version runs); a fair-sharing preemptor goes to
+    ``batched_fair_get_targets`` (kernel B9). Heads beyond the padding
+    caps are searched by the host Preemptor. Decision parity with
+    preemptor.get_targets and with the JAX package is asserted in
+    tests/test_torch_preempt.py and tests/test_torch_fair_preempt.py."""
     from kueue_tpu_torch._torch import resolve_device
     from kueue_tpu_torch.interop import preempt_problem
     from kueue_tpu_torch.ops.preempt_kernel import solve_preempt_packed
 
     if preemptor.enable_fair_sharing:
-        raise NotImplementedError(
-            "fair-sharing victim search (batched_fair_get_targets, kernel B9) is not "
-            "ported yet (ROADMAP A6b)"
-        )
+        return batched_fair_get_targets(snapshot, items, preemptor, device=device)
     dev = resolve_device(device)
 
     results: List[List[PreemptionTarget]] = [[] for _ in items]
@@ -328,10 +602,9 @@ def batched_get_targets(
     w = arrays["row_valid"].shape[0]
     w_pad = _bucket(w, minimum=8)
     arrays = _pad_rows(arrays, w_pad)
-    problem = preempt_problem(arrays, dev)
-    flat = solve_preempt_packed(
-        problem, depth=lowered.depth, n_cand=lowered.n_cand
-    ).cpu().numpy()  # one fetch
+    flat = _fetch(dev, "preempt_search", lambda: solve_preempt_packed(
+        preempt_problem(arrays, dev), depth=lowered.depth, n_cand=lowered.n_cand
+    ))  # one fetch
     targets_mask = flat[: w_pad * lowered.n_cand].reshape(w_pad, lowered.n_cand)
     fits = flat[w_pad * lowered.n_cand :].astype(bool)
 

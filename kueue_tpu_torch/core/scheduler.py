@@ -22,12 +22,17 @@ defers ``preempt_solver_threshold`` or more heads while the measured
 device time beats the host Preemptor's (its first probe always
 batches), as the JAX package does; ``False`` searches on the host as
 each head is assigned. Each preempting entry's ``victim_search`` reads
-"device" or "host" accordingly. A ``KernelError`` from the batched
-search propagates; any other exception degrades that cycle's search to
-the host loop, as in the JAX package. Not ported yet, and refused at
-construction with NotImplementedError: fair sharing (the
-fair_sharing_iterator and the DRS kernels, ROADMAP A6b) and a
-non-default admission policy (A1).
+"device" or "host" accordingly. With ``fair_sharing=True`` admissions
+pop in the lazy fair-sharing tournament order
+(core/fair_sharing_iterator), the usage re-check keeps the reference's
+remove/revert shape, and a fair-sharing Preemptor's deferred heads are
+searched by kernel B9 (the fair victim tournament). A ``KernelError``
+from the batched search propagates, and so does a fault of B8 or B9 on
+the card, which surfaces at the search's fetch and is raised there as
+one; any other exception (of the host lowering) degrades that cycle's
+search to the host loop, as in the JAX package. Not ported
+yet, and refused at construction with NotImplementedError: a
+non-default admission policy (ROADMAP A1).
 """
 
 from __future__ import annotations
@@ -247,11 +252,6 @@ class Scheduler:
     ):
         from kueue_tpu_torch._torch import resolve_device
 
-        if fair_sharing:
-            raise NotImplementedError(
-                "fair sharing (fair_sharing_iterator, kernels B7/B1') is not "
-                "ported yet (ROADMAP A6b)"
-            )
         if policy is not None and not policy.is_default:
             raise NotImplementedError(
                 "a non-default admission policy is not ported yet (ROADMAP A1)"
@@ -263,7 +263,7 @@ class Scheduler:
             if use_solver is not False:
                 _build.load(_build.CYCLE_KERNELS)
             if use_preempt_solver is not False:
-                _build.load(_build.PREEMPT_CYCLE_KERNELS)
+                _build.load(_build.PREEMPT_CYCLE_KERNELS + _build.FAIR_CYCLE_KERNELS)
         self.queues = queues
         self.cache = cache
         # One authoritative priority-class store: heap head ordering
@@ -274,6 +274,7 @@ class Scheduler:
             queues.priority_classes = cache.priority_classes
         self.clock = clock
         self.preemptor = preemptor or Preemptor()
+        self.fair_sharing = fair_sharing
         self.partial_admission = partial_admission
         # durable-write hook; returning False simulates API failure
         self.apply_admission = apply_admission or (lambda wl: True)
@@ -422,10 +423,13 @@ class Scheduler:
         # observationally identical for every later fits() since those
         # remove the same set again). removed_acc reconstructs the
         # pre-removal rows for resourcesToReserve, which the reference
-        # evaluates WITH preempted workloads still present. (The
-        # reference keeps the remove/revert shape for its fair-sharing
-        # iterator, which the port refuses at construction.)
-        removed_acc = np.zeros_like(snapshot.local_usage)
+        # evaluates WITH preempted workloads still present. The fair-
+        # sharing iterator reads snapshot usage between pops, so that
+        # path keeps the reference's remove/revert shape.
+        incremental = not self.fair_sharing
+        removed_acc: Optional[np.ndarray] = (
+            np.zeros_like(snapshot.local_usage) if incremental else None
+        )
         for e in ordered:
             if e.assignment is None:
                 continue
@@ -460,11 +464,17 @@ class Scheduler:
 
             usage_vec = snapshot.vector_of(e.assignment.usage)
             own_removed: List[WorkloadSnapshot] = []
-            for t in e.preemption_targets:
-                ws = snapshot.remove_workload(t.workload.workload.key)
-                if ws is not None:
-                    own_removed.append(ws)
-            if not snapshot.fits(e.cq_name, usage_vec):
+            if incremental:
+                for t in e.preemption_targets:
+                    ws = snapshot.remove_workload(t.workload.workload.key)
+                    if ws is not None:
+                        own_removed.append(ws)
+                fits_now = snapshot.fits(e.cq_name, usage_vec)
+            else:
+                fits_now = self._fits_after_removals(
+                    snapshot, e, usage_vec, preempted_keys
+                )
+            if not fits_now:
                 for ws in own_removed:
                     snapshot.add_workload(ws)
                 e.status = EntryStatus.SKIPPED
@@ -502,8 +512,9 @@ class Scheduler:
 
             for t in e.preemption_targets:
                 preempted_keys[t.workload.workload.key] = t.workload
-            for ws in own_removed:
-                removed_acc[ws.cq_row] += ws.usage_vec
+            if removed_acc is not None:
+                for ws in own_removed:
+                    removed_acc[ws.cq_row] += ws.usage_vec
             snapshot.add_usage(e.cq_name, usage_vec)
 
             if mode == Mode.PREEMPT:
@@ -802,6 +813,7 @@ class Scheduler:
         return FlavorAssigner(
             snapshot,
             self.cache.flavors,
+            enable_fair_sharing=self.fair_sharing,
             reclaim_oracle=functools.partial(self._reclaim_oracle, snapshot),
             tas_check=self.tas_check,
             transform=self.transform_config,
@@ -1044,11 +1056,14 @@ class Scheduler:
 
         # Pure cycle: nothing host-side can mutate usage, so the device
         # scan's admitted flags ARE the cycle outcome.
-        pure = all(
-            to_assign[i].assignment is not None
-            and to_assign[i].assignment.representative_mode() == Mode.NO_FIT
-            and not to_assign[i].preemption_targets
-            for i in host_idx
+        pure = (
+            not self.fair_sharing
+            and all(
+                to_assign[i].assignment is not None
+                and to_assign[i].assignment.representative_mode() == Mode.NO_FIT
+                and not to_assign[i].preemption_targets
+                for i in host_idx
+            )
         )
         if not pure:
             return None
@@ -1267,7 +1282,26 @@ class Scheduler:
 
     # ---- ordering (scheduler.go:561-642) ----
     def _iterate(self, entries: List[Entry], snapshot: Snapshot):
+        if self.fair_sharing:
+            from kueue_tpu_torch.core.fair_sharing_iterator import fair_sharing_iter
+
+            # lazy: each pop re-evaluates DRS against the snapshot as
+            # mutated by admissions earlier in this cycle
+            return fair_sharing_iter(entries, snapshot, self._fair_tie_key)
         return sorted(entries, key=self._entry_sort_key)
+
+    def _fair_tie_key(self, e: "Entry"):
+        """Non-DRS tournament tiebreak (fair_sharing_iterator.go less()):
+        priority desc behind PrioritySortingWithinCohort, then FIFO."""
+        from kueue_tpu_torch.features import enabled
+
+        parts = []
+        if enabled("PrioritySortingWithinCohort"):
+            parts.append(-priority_of(e.workload, self.cache.priority_classes))
+        parts.append(
+            int(queue_order_timestamp(e.workload, self.queues._ts_policy) * 1e9)
+        )
+        return tuple(parts)
 
     def _entry_sort_key(self, e: Entry):
         borrows = e.assignment.borrowing if e.assignment else False
@@ -1277,12 +1311,33 @@ class Scheduler:
         ts = int(queue_order_timestamp(e.workload, self.queues._ts_policy) * 1e9)
         return (1 if borrows else 0, -prio, ts)
 
+    # ---- usage re-check (scheduler.go:380-388) ----
+    def _fits_after_removals(
+        self,
+        snapshot: Snapshot,
+        e: Entry,
+        usage_vec: np.ndarray,
+        preempted: Dict[str, WorkloadSnapshot],
+    ) -> bool:
+        removed: List[WorkloadSnapshot] = []
+        for ws in list(preempted.values()):
+            if snapshot.remove_workload(ws.workload.key) is not None:
+                removed.append(ws)
+        for t in e.preemption_targets:
+            ws = snapshot.remove_workload(t.workload.workload.key)
+            if ws is not None:
+                removed.append(ws)
+        ok = snapshot.fits(e.cq_name, usage_vec)
+        for ws in removed:
+            snapshot.add_workload(ws)
+        return ok
+
     # ---- capacity reservation on blocked preemption (scheduler.go:391-416) ----
     def _reserve_vector(
         self,
         e: Entry,
         snapshot: Snapshot,
-        removed_acc: np.ndarray,
+        removed_acc: Optional[np.ndarray] = None,
     ) -> np.ndarray:
         usage_vec = snapshot.vector_of(e.assignment.usage)
         r = snapshot.row(e.cq_name)
@@ -1294,7 +1349,9 @@ class Scheduler:
         # the reference evaluates reservation with this cycle's
         # preempted workloads still counted in usage; under incremental
         # removal removed_acc restores that view
-        local = snapshot.local_usage[r] + removed_acc[r]
+        local = snapshot.local_usage[r]
+        if removed_acc is not None:
+            local = local + removed_acc[r]
         for j in range(len(usage_vec)):
             u = int(usage_vec[j])
             if u == 0:

@@ -1,22 +1,25 @@
 // Shared argument layout of the drain kernels (drain_nominate.cu,
 // drain_phase2.cu, drain_queue_motion.cu, megaloop_boundary.cu,
 // drain_fair_phase2.cu, drain_preempt_search.cu,
-// drain_preempt_phase2.cu, drain_preempt_motion.cu).
+// drain_preempt_phase2.cu, drain_preempt_motion.cu,
+// drain_fair_preempt_search.cu, drain_fair_preempt_phase2.cu).
 //
 // Each C entry point takes the same two arrays, built once per drain
 // by kueue_tpu_torch/ops/drain_kernel.py (DrainContext.kernel_args):
 //   ints: Q L P K C G N FR D n_segments n_steps n_seg max_cycles
 //         chunk_cycles max_rounds n_res prio_tie V Cv M search_width
+//         Cu strategy1 has_second
 //   ptrs: 17 DrainQueues fields, 7 tree tensors, 12 DrainState
 //         fields, 12 CycleBuffers fields, seg_offsets, seg_members,
 //         8 megaloop round-log fields, 6 fair-drain fields, 33
-//         preempt-drain fields
+//         preempt-drain fields, 8 fair-preempt-drain fields
 // in the order of the structs below, and returns cudaGetLastError()
 // (cudaErrorInvalidValue when the array lengths do not match).
 // max_rounds is 0 outside the megaloop, whose round-log pointers are
 // then NULL; the fair pointers are NULL outside the fair drain, the
 // preempt pointers (and V Cv M search_width) outside the preempt
-// drain. Booleans are torch.bool tensors: one byte, 0 or 1.
+// drains, the fair-preempt pointers (and Cu strategy1 has_second)
+// outside the fair-preempt drain. Booleans are torch.bool tensors: one byte, 0 or 1.
 
 #pragma once
 
@@ -137,6 +140,17 @@ struct Preempt {                 // the preempt drain (n_segments pools)
   int* ev_by;                    // [S,V]
 };
 
+struct FairPreempt {             // the fair-preempt drain's panels
+  const int* seg_cells;          // [S,Cu] global cell ids (-1 pads)
+  const int* parent_local;       // [S,M]
+  const int* depth_local;        // [S,M]
+  const uint8_t* is_cq_local;    // [S,M]
+  const uint8_t* node_valid;     // [S,M]
+  const long long* weight_local; // [S,M]
+  const int* res_of_cell;        // [S,Cu]
+  long long* pq_cu;              // [S,V,Cu] state: pool usage at panel cells
+};
+
 struct Buffers {
   long long* usage;   // [N,FR]
   long long* avail;   // [N,FR]
@@ -157,6 +171,7 @@ struct Args {
   int n_segments, n_steps, n_seg, max_cycles;
   int chunk_cycles, max_rounds, n_res, prio_tie;
   int V, Cv, M, search_width;
+  int Cu, strategy1, has_second;
   Queues q;
   Tree t;
   State s;
@@ -166,10 +181,11 @@ struct Args {
   Rounds r;
   Fair f;
   Preempt p;
+  FairPreempt fp;
 };
 
-constexpr int kNumInts = 21;
-constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33;
+constexpr int kNumInts = 24;
+constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8;
 
 // Fills `a` from the two arrays; false when their lengths do not match.
 inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args* a) {
@@ -181,6 +197,7 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->chunk_cycles = ints[13]; a->max_rounds = ints[14];
   a->n_res = ints[15]; a->prio_tie = ints[16];
   a->V = ints[17]; a->Cv = ints[18]; a->M = ints[19]; a->search_width = ints[20];
+  a->Cu = ints[21]; a->strategy1 = ints[22]; a->has_second = ints[23];
   int i = 0;
   a->q.cq_rows = (const int*)p[i++];
   a->q.seg_id = (const int*)p[i++];
@@ -279,6 +296,14 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->p.leaf = (long long*)p[i++];
   a->p.ev_now = (uint8_t*)p[i++];
   a->p.ev_by = (int*)p[i++];
+  a->fp.seg_cells = (const int*)p[i++];
+  a->fp.parent_local = (const int*)p[i++];
+  a->fp.depth_local = (const int*)p[i++];
+  a->fp.is_cq_local = (const uint8_t*)p[i++];
+  a->fp.node_valid = (const uint8_t*)p[i++];
+  a->fp.weight_local = (const long long*)p[i++];
+  a->fp.res_of_cell = (const int*)p[i++];
+  a->fp.pq_cu = (long long*)p[i++];
   return true;
 }
 

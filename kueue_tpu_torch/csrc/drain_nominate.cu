@@ -75,7 +75,10 @@ __global__ void nominate(Args a) {
   const bool has_cohort = a.t.parent[cq] >= 0;
   const int npod = a.q.n_podsets[q * a.L + cur];
   const bool ffb = a.q.ffb[q], ffp = a.q.ffp[q];
-  const bool pwb = a.p.bwc && a.p.bwc[q];
+  // canPreemptWhileBorrowing: borrowWithinCohort, and in the
+  // fair-preempt drain also reclaimWithinCohort
+  // (kueue_tpu/ops/drain_kernel.py:2426)
+  const bool pwb = a.p.bwc && (a.p.bwc[q] || (a.fp.pq_cu && a.p.reclaim_enabled[q]));
   if (veto) {
     const int sq = max(a.q.seg_id[q], 0);
     const long long prio = a.q.priority[(size_t)q * a.L + cur];

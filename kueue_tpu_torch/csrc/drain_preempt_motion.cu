@@ -7,7 +7,10 @@
 //     evicted this cycle releases its full usage at its owner row; the
 //     eviction is recorded (cycle, evicting queue);
 //   - an admitted entry fills its part-B pool slot with its cells, a
-//     live reclaim candidate from the next cycle on;
+//     live reclaim candidate from the next cycle on; in the fair-preempt
+//     drain (its `pq_cu` pointer set, NULL in the classic drain) also
+//     the slot's row of the fair panels, its usage at the segment's
+//     panel cells (solve_drain_fair_preempt, :2744-2770);
 //   - queue motion: admitted heads leave (status 2); NoFit heads and
 //     searches that found no victims park (1) unless a flavor walk
 //     left a pending cursor; heads skipped after a successful search
@@ -91,6 +94,20 @@ __global__ void motion(Args a) {
         a.p.pqty[x * Cv + cv] = cv < PC ? a.b.qty_eff[(size_t)q * PC + cv] : 0;
       }
       a.p.pvalid[x] = 1;
+      if (a.fp.pq_cu) {
+        // the fair panels' view of the slot: the head's request at its
+        // segment's panel cells
+        const int* seg_cells = a.fp.seg_cells + (size_t)max(a.q.seg_id[q], 0) * a.Cu;
+        for (int c = 0; c < a.Cu; ++c) {
+          long long sum = 0;
+          for (int i = 0; seg_cells[c] >= 0 && i < PC; ++i) {
+            const int cell = a.b.cells_eff[(size_t)q * PC + i];
+            const long long qv = a.b.qty_eff[(size_t)q * PC + i];
+            if (cell >= 0 && qv > 0 && cell == seg_cells[c]) sum += qv;
+          }
+          a.fp.pq_cu[x * a.Cu + c] = sum;
+        }
+      }
     }
     const bool pre_skipped = a.p.psuccess[q] && !preempt_ok;
     const bool undecided = active && !is_fit && !preempt_ok && !pre_skipped;

@@ -38,7 +38,7 @@
 // latency, not bytes (chip_smoke.py counts each launch's bytes from
 // its data). A set `done` flag makes the launch a no-op.
 
-#include "drain_common.cuh"
+#include "drain_pool.cuh"
 #include "quota_path.cuh"
 
 namespace drain {
@@ -64,26 +64,7 @@ __device__ __forceinline__ bool nominated(const Args& a, int x) {
   return a.b.is_fit[x] || a.b.is_pre[x];
 }
 
-// add sign x a victim's usage at its owner's leaf row and bubble each
-// cell's change up the owner's path (one thread)
-__device__ void move_victim(const Args& a, size_t slot, long long sign) {
-  const int owner = max(a.p.sowner[slot], 0);
-  const int* path = a.t.paths + (size_t)owner * (a.D + 1);
-  for (int cv = 0; cv < a.Cv; ++cv) {
-    const int cell = a.p.pcells[slot * a.Cv + cv];
-    if (cell < 0) continue;
-    long long delta = sign * a.p.pqty[slot * a.Cv + cv];
-    a.p.leaf[(size_t)owner * a.FR + cell] += delta;
-    for (int d = 0; d <= a.D; ++d) {
-      const int node = path[d];
-      if (node < 0) continue;
-      const size_t x = (size_t)node * a.FR + cell;
-      const long long old = a.b.usage[x], g = a.t.guaranteed[x];
-      a.b.usage[x] = old + delta;
-      delta = max(0LL, old + delta - g) - max(0LL, old - g);
-    }
-  }
-}
+using pool::move_victim;
 
 __global__ void phase2(Args a) {
   const int s = blockIdx.x;

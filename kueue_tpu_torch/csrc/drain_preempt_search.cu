@@ -31,24 +31,14 @@
 // launch's bytes from its data). A set `done` flag makes the launch a
 // no-op.
 
-#include "drain_common.cuh"
+#include "drain_pool.cuh"
 #include "preempt_local.cuh"
 
 namespace drain {
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-
-// a victim's usage at one cell
-__device__ __forceinline__ long long victim_qty(const Args& a, size_t slot, int cell) {
-  long long sum = 0;
-  for (int cv = 0; cv < a.Cv; ++cv) {
-    const size_t y = slot * a.Cv + cv;
-    const int vc = a.p.pcells[y];
-    if (vc >= 0 && vc == cell) sum += a.p.pqty[y];
-  }
-  return sum;
-}
+using pool::victim_qty;
 
 struct PoolCand {
   const Args* a;
@@ -137,10 +127,7 @@ __global__ void search(Args a) {
   __syncwarp();
   // other-CQ candidates: their owner borrows at cycle start in a cell
   // needing preemption
-  for (int m = 0; m < M; ++m) {
-    const bool b = __any_sync(kFull, npre && lf[m * PC + c] > nom[m * PC + c]);
-    if (c == 0) borrow_by_local[m] = b;
-  }
+  pool::owner_borrowing(a, sq, c, cc, npre, borrow_by_local);
   const int hl = max(a.p.hlocal[q], 0);
   const bool under_nominal =
       __all_sync(kFull, !npre || lf[hl * PC + c] < nom[hl * PC + c]);
@@ -149,19 +136,9 @@ __global__ void search(Args a) {
   // candidate eligibility, lanes over the pool's slots
   bool other = false;
   for (int v = c; v < V; v += 32) {
-    const size_t x = (size_t)sq * V + v;
-    const bool slot_ok = a.p.sowner[x] >= 0;
-    const int ol = a.p.sowner_local[x];
-    const bool same_q = slot_ok && ol == a.p.hlocal[q];
-    const bool live = a.p.pvalid[x] && !a.p.vevicted[x];
-    const bool lower = a.p.sprio[x] < prio;
-    bool uses = false;
-    for (int i = 0; i < PC; ++i) {
-      if (npre_s[i] && victim_qty(a, x, cells_s[i]) > 0) uses = true;
-    }
-    const bool elig_other = live && !same_q && slot_ok && a.p.reclaim_enabled[q] &&
-                            (!a.p.only_lower[q] || lower) && borrow_by_local[max(ol, 0)];
-    const bool elig = uses && (a.p.elig_same[(size_t)q * V + v] || elig_other);
+    bool same_q;
+    const bool elig =
+        pool::pool_eligible(a, q, sq, v, prio, PC, cells_s, npre_s, borrow_by_local, &same_q);
     flags[v] = elig;
     same[v] = same_q;
     other = other || (elig && !same_q);

@@ -8,7 +8,9 @@ on a device; ``fair_inputs`` adds the fair drain's ``FairInputs``,
 ``seg_victims`` the preempt drain's candidate pools (``SegVictims``);
 ``heads_batch`` does the same for the cycle solver's ``HeadsBatch``,
 ``preempt_problem`` for the batched victim search's
-``PreemptProblem``. The parity tests feed the same arrays to both
+``PreemptProblem``, ``fair_problem`` for the fair victim search's
+``FairProblem`` and ``fair_seg_panels`` for the fair-preempt drain's
+``FairSegPanels``. The parity tests feed the same arrays to both
 packages through it; nothing here imports the JAX package.
 """
 
@@ -20,7 +22,13 @@ import numpy as np
 
 from kueue_tpu_torch._torch import resolve_device, to_device, torch
 from kueue_tpu_torch.ops.assign_kernel import HeadsBatch, build_paths
-from kueue_tpu_torch.ops.drain_kernel import DrainQueues, FairInputs, SegVictims
+from kueue_tpu_torch.ops.drain_kernel import (
+    DrainQueues,
+    FairInputs,
+    FairSegPanels,
+    SegVictims,
+)
+from kueue_tpu_torch.ops.fair_preempt_kernel import FairProblem
 from kueue_tpu_torch.ops.preempt_kernel import PreemptProblem
 from kueue_tpu_torch.ops.quota import QuotaTree
 
@@ -78,6 +86,24 @@ PROBLEM_DTYPES = {
     "allow_borrow": np.bool_, "has_thr": np.bool_, "thr": np.int64, "crow": np.int32,
     "cqty": np.int64, "cvalid": np.bool_, "csame": np.bool_, "cprio": np.int64,
     "row_valid": np.bool_,
+}
+
+
+# FairProblem field -> numpy dtype
+FAIR_PROBLEM_DTYPES = {
+    "paths": np.int32, "usage0": np.int64, "subtree_q": np.int64, "guaranteed": np.int64,
+    "borrow_lim": np.int64, "weight": np.int64, "parent_loc": np.int32,
+    "depth_s": np.int32, "is_cq": np.bool_, "svalid": np.bool_, "anc_of_head": np.bool_,
+    "hrow": np.int32, "need_qty": np.int64, "res_of": np.int32, "crow": np.int32,
+    "cqty": np.int64, "cvalid": np.bool_, "row_valid": np.bool_,
+}
+
+
+# FairSegPanels field -> numpy dtype
+FAIR_PANEL_DTYPES = {
+    "seg_cells": np.int32, "parent_local": np.int32, "depth_local": np.int32,
+    "is_cq_local": np.bool_, "node_valid": np.bool_, "weight_local": np.int64,
+    "res_of_cell": np.int32, "svqty_cu": np.int64,
 }
 
 
@@ -164,4 +190,22 @@ def preempt_problem(arrays: Mapping[str, np.ndarray], device=None) -> PreemptPro
     dev = resolve_device(device)
     return PreemptProblem(**{
         name: _on(arrays[name], dtype, dev) for name, dtype in PROBLEM_DTYPES.items()
+    })
+
+
+def fair_problem(arrays: Mapping[str, np.ndarray], device=None) -> FairProblem:
+    """FairProblem from ``lower_fair_preemption``'s arrays (padded rows
+    included) of either package."""
+    dev = resolve_device(device)
+    return FairProblem(**{
+        name: _on(arrays[name], dtype, dev) for name, dtype in FAIR_PROBLEM_DTYPES.items()
+    })
+
+
+def fair_seg_panels(panels: Mapping[str, np.ndarray], device=None) -> FairSegPanels:
+    """FairSegPanels from a fair-preempt drain's lowered panels of
+    either package."""
+    dev = resolve_device(device)
+    return FairSegPanels(**{
+        name: _on(panels[name], dtype, dev) for name, dtype in FAIR_PANEL_DTYPES.items()
     })

@@ -1,10 +1,10 @@
-"""Multi-cycle admission drain: the plain, the fair-sharing and the
-classic-preemption bulk drains on the card.
+"""Multi-cycle admission drain: the plain, the fair-sharing, the
+classic-preemption and the fair-preemption bulk drains on the card.
 
-Port of ``solve_drain``, ``solve_drain_fair`` and
-``solve_drain_preempt`` of kueue_tpu/ops/drain_kernel.py (here
-``solve_drain`` with ``fair``, and ``solve_drain_preempt``, at the end
-of this module). Per-CQ pending queues are dense tensors; each cycle
+Port of ``solve_drain``, ``solve_drain_fair``, ``solve_drain_preempt``
+and ``solve_drain_fair_preempt`` of kueue_tpu/ops/drain_kernel.py (here
+``solve_drain`` with ``fair``, then ``solve_drain_preempt`` and
+``solve_drain_fair_preempt`` at the end of this module). Per-CQ pending queues are dense tensors; each cycle
 reproduces the reference's semantics (pkg/scheduler/scheduler.go:176-310)
 for preemption-free drains:
 
@@ -44,13 +44,19 @@ The preempt drain keeps the same nomination (with the reclaim oracle's
 inputs) and replaces phase 2 and the motion by three kernels over a
 ``PreemptState`` (entry status, the live candidate pools, the eviction
 record) and ``PreemptBuffers``: the victim search, its step scan and
-its cycle end (kernels 6-8).
+its cycle end (kernels 6-8). The fair-preempt drain keeps that
+nomination and cycle end (the motion also fills each admitted entry's
+row of the fair panels, ``FairPreemptState.pq_cu``) and runs the fair
+victim tournament on each segment's fair panels and the fair
+admission tournament with the preempt dispositions in between
+(kernels B11a and B11b).
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, fields
+from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 
@@ -64,7 +70,8 @@ from kueue_tpu_torch.ops.assign_kernel import (
     cell_masks,
     segmented_rank,
 )
-from kueue_tpu_torch.ops.preempt_kernel import PreemptProblem, solve_preempt
+from kueue_tpu_torch.ops.fair_preempt_kernel import FairProblem, solve_fair
+from kueue_tpu_torch.ops.preempt_kernel import PreemptProblem, _bubble_local, solve_preempt
 from kueue_tpu_torch.ops.quota import (
     DRS_MAX,
     NO_LIMIT,
@@ -81,8 +88,10 @@ from kueue_tpu_torch.ops.quota import (
 MAX_K, MAX_C, MAX_G, MAX_P = 16, 8, 8, 4
 # resources the fair drain's kernel takes (its per-thread borrowed sums)
 MAX_R = 16
-# the preempt drain's pointers in the kernels' argument layout
+# the preempt drain's and the fair-preempt drain's pointers in the
+# kernels' argument layout
 PREEMPT_PTRS = 15 + 8 + 10
+FAIR_PREEMPT_PTRS = 8
 
 
 class DrainQueues(NamedTuple):
@@ -332,7 +341,10 @@ def drain_nominate_plain(ctx: DrainContext, state: DrainState, buf: CycleBuffers
         elig, veto = _elig_same_and_veto(ctx, state, active, cur)
         buf.elig_same.copy_(elig)
         buf.veto.copy_(veto)
-        pwb = ctx.preempt.victims.bwc
+        # canPreemptWhileBorrowing: borrowWithinCohort, and in the
+        # fair-preempt drain also reclaimWithinCohort
+        vic = ctx.preempt.victims
+        pwb = vic.bwc if ctx.fair_preempt is None else vic.bwc | vic.reclaim_enabled
 
     accum = torch.zeros((q, n_fr), dtype=I64, device=dev)
     processed = torch.ones(q, dtype=BOOL, device=dev)
@@ -672,6 +684,37 @@ class SegVictims(NamedTuple):
     bwc_thr1: torch.Tensor
 
 
+class FairSegPanels(NamedTuple):
+    """Per-root-cohort local panels of the fair-preempt drain's victim
+    tournament (the JAX ``FairSegPanels``; shapes shared with
+    SegVictims). S segments, M local nodes, Cu panel cells (the
+    segment's ACTIVE cell universe: every flavor-resource with quota or
+    usage anywhere in the root cohort, plus every queued entry's
+    candidate cells; DRS aggregates over all of them,
+    fair_sharing.go:49-104), V pool slots.
+
+    seg_cells:    int32[S,Cu] global cell ids (-1 pads).
+    parent_local: int32[S,M] local parent (-1 root / pads).
+    depth_local:  int32[S,M] local depth (segment root 0).
+    is_cq_local, node_valid: bool[S,M].
+    weight_local: int64[S,M] fairSharing weight (milli) per node.
+    res_of_cell:  int32[S,Cu] panel cell -> resource bucket; pads point
+                  at the inert extra bucket (n_res).
+    svqty_cu:     int64[S,V,Cu] pool-slot usage at panel cell positions
+                  (part A static; part B zero until the drain admits the
+                  entry and fills the slot).
+    """
+
+    seg_cells: torch.Tensor
+    parent_local: torch.Tensor
+    depth_local: torch.Tensor
+    is_cq_local: torch.Tensor
+    node_valid: torch.Tensor
+    weight_local: torch.Tensor
+    res_of_cell: torch.Tensor
+    svqty_cu: torch.Tensor
+
+
 # SegVictims fields indexed per queue (the [Q, ...] axis)
 SEG_VICTIM_Q_FIELDS = (
     "hlocal", "perm", "entry_slot", "same_enabled", "same_prio_ok",
@@ -686,6 +729,11 @@ NO_BWC_THRESHOLD = 1 << 60
 MAX_CV = 32
 MAX_SEARCH_WIDTH = 512
 MAX_M = 64
+# widest fair panels the fair-preempt drain's kernels take
+# (csrc/fair_local.cuh): panel cells (resource buckets one more) and
+# segment nodes
+MAX_FAIR_CU = 64
+MAX_FAIR_M = 64
 
 
 @dataclass
@@ -695,6 +743,17 @@ class PreemptInputs:
 
     victims: SegVictims
     search_width: int
+
+
+@dataclass
+class FairPreemptInputs:
+    """The fair-preempt drain's extra inputs
+    (``solve_drain_fair_preempt``): the segments' fair panels and the
+    strategy stack."""
+
+    panels: FairSegPanels
+    strategy1: int
+    has_second: bool
 
 
 @dataclass
@@ -719,6 +778,7 @@ class DrainContext:
     max_rounds: int = 0  # megaloop only; 0 for the plain and fair drains
     fair: Optional[FairInputs] = None
     preempt: Optional[PreemptInputs] = None
+    fair_preempt: Optional[FairPreemptInputs] = None
     _args: Optional[tuple] = None  # (state, buf, ints, ptrs)
 
     @classmethod
@@ -910,6 +970,32 @@ class DrainContext:
             ]
         else:
             spec += [(name, None, None, None) for name in range(PREEMPT_PTRS)]
+        fp = self.fair_preempt
+        cu = strategy1 = has_second = 0
+        if fp is not None:
+            pan = fp.panels
+            s_dim = pan.seg_cells.shape[0]
+            cu = pan.seg_cells.shape[1]
+            strategy1, has_second = int(fp.strategy1), int(bool(fp.has_second))
+            if fair is None or pre is None or cu > MAX_FAIR_CU or m > MAX_FAIR_M:
+                raise _build.KernelInputError(
+                    f"{kernel}: the fair-preempt drain needs the fair and preempt inputs and "
+                    f"takes Cu<={MAX_FAIR_CU} panel cells and M<={MAX_FAIR_M} segment nodes; "
+                    f"got Cu={cu}, M={m}"
+                )
+            sm = (s_dim, m)
+            spec += [
+                ("seg_cells", pan.seg_cells, I32, (s_dim, cu)),
+                ("parent_local", pan.parent_local, I32, sm),
+                ("depth_local", pan.depth_local, I32, sm),
+                ("is_cq_local", pan.is_cq_local, BOOL, sm),
+                ("node_valid", pan.node_valid, BOOL, sm),
+                ("weight_local", pan.weight_local, I64, sm),
+                ("res_of_cell", pan.res_of_cell, I32, (s_dim, cu)),
+                ("pq_cu", state.pq_cu, I64, (s_dim, v, cu)),
+            ]
+        else:
+            spec += [(name, None, None, None) for name in range(FAIR_PREEMPT_PTRS)]
         ptrs = [_build.ptr(kernel, name, t, dt, sh) for name, t, dt, sh in spec]
         ints = [
             q, l, pmax, k, c, g, n, fr, tree.max_depth,
@@ -918,6 +1004,7 @@ class DrainContext:
             fair.n_res if fair is not None else 0,
             int(bool(fair.prio_tie)) if fair is not None else 0,
             v, cv, m, width,
+            cu, strategy1, has_second,
         ]
         c_ints = (ctypes.c_int * len(ints))(*ints)
         c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -1411,6 +1498,49 @@ def _compact_candidates(cand_ord, width: int):
     return comp[:, :width], overflow
 
 
+def _pool_eligibility(ctx: DrainContext, state: PreemptState, buf: PreemptBuffers, prio,
+                      cells_c) -> SimpleNamespace:
+    """Candidate eligibility of every queue head over its segment's live
+    pool (preemption.go:480-524, shared by the classic and the fair
+    searches): a candidate uses a cell needing preemption; a same-CQ one
+    passes the nomination's priority rule (``buf.elig_same``); an
+    other-CQ one needs reclaimWithinCohort, its priority rule, and its
+    ClusterQueue borrowing at cycle start in such a cell. Also returns
+    the segment-local panels at the head cells it reads."""
+    tree, queues, vic = ctx.tree, ctx.queues, ctx.preempt.victims
+    need_pre = buf.need_pre
+    sq = queues.seg_id.clamp_min(0).long()
+    live_q = (state.pvalid & ~state.vevicted)[sq]  # [Q,V]
+    sprio_q = vic.sprio[sq]
+    olocal_q = vic.sowner_local[sq].clamp_min(0).long()
+    slot_ok = vic.sowner[sq] >= 0
+    same_q = slot_ok & (vic.sowner_local[sq] == vic.hlocal[:, None])
+    lower = sprio_q < prio[:, None]
+
+    # segment-local panels at this cycle's head cells
+    rows = vic.seg_nodes.clamp_min(0).long()[sq][:, :, None]  # [Q,M,1]
+    cc = cells_c[:, None, :]
+    u0_sub = buf.usage[rows, cc]
+    lf0_sub = state.local[rows, cc]
+    nom_sub = tree.nominal[rows, cc]
+    # victim usage at the head cells
+    pcells_q = state.pcells[sq]  # [Q,V,Cv]
+    match = (pcells_q[:, :, :, None] == cells_c[:, None, None, :]) & (pcells_q >= 0)[..., None]
+    vq_at = torch.where(match, state.pqty[sq][..., None], 0).sum(dim=2)  # [Q,V,C']
+
+    uses = ((vq_at * need_pre[:, None, :].to(I64)) > 0).any(dim=2)
+    borrow_by_local = ((lf0_sub > nom_sub) & need_pre[:, None, :]).any(dim=2)  # [Q,M]
+    owner_borrow0 = torch.gather(borrow_by_local, 1, olocal_q)
+    oth_prio_ok = ~vic.only_lower[:, None] | lower
+    elig_other = (live_q & ~same_q & slot_ok & vic.reclaim_enabled[:, None]
+                  & oth_prio_ok & owner_borrow0)
+    elig = uses & (buf.elig_same | elig_other)
+    return SimpleNamespace(
+        live_q=live_q, sprio_q=sprio_q, olocal_q=olocal_q, same_q=same_q, rows=rows, cc=cc,
+        u0_sub=u0_sub, lf0_sub=lf0_sub, nom_sub=nom_sub, vq_at=vq_at, elig=elig,
+    )
+
+
 def drain_preempt_search_plain(ctx: DrainContext, state: PreemptState,
                                buf: PreemptBuffers) -> None:
     """Every preempt-mode head's victim search over its segment's pool
@@ -1437,34 +1567,11 @@ def drain_preempt_search_plain(ctx: DrainContext, state: PreemptState,
     cell_need = (cells_eff >= 0) & (qty_eff > 0)
     cells_c = cells_eff.clamp_min(0).long()
 
-    live_q = (state.pvalid & ~state.vevicted)[sq]  # [Q,V]
-    sprio_q = vic.sprio[sq]
-    olocal_q = vic.sowner_local[sq].clamp_min(0).long()
-    slot_ok = vic.sowner[sq] >= 0
-    same_q = slot_ok & (vic.sowner_local[sq] == vic.hlocal[:, None])
-    lower = sprio_q < prio[:, None]
-
-    # segment-local panels at this cycle's head cells
-    rows = vic.seg_nodes.clamp_min(0).long()[sq][:, :, None]  # [Q,M,1]
-    cc = cells_c[:, None, :]
-    u0_sub = buf.usage[rows, cc]
-    lf0_sub = state.local[rows, cc]
-    nom_sub = tree.nominal[rows, cc]
-    # victim usage at the head cells
-    pcells_q = state.pcells[sq]  # [Q,V,Cv]
-    match = (pcells_q[:, :, :, None] == cells_c[:, None, None, :]) & (pcells_q >= 0)[..., None]
-    vq_at = torch.where(match, state.pqty[sq][..., None], 0).sum(dim=2)  # [Q,V,C']
-
-    # candidate eligibility (preemption.go:480-524): a candidate uses a
-    # cell needing preemption; other-CQ candidates need their CQ to
-    # borrow at cycle start in such a cell
-    uses = ((vq_at * need_pre[:, None, :].to(I64)) > 0).any(dim=2)
-    borrow_by_local = ((lf0_sub > nom_sub) & need_pre[:, None, :]).any(dim=2)  # [Q,M]
-    owner_borrow0 = torch.gather(borrow_by_local, 1, olocal_q)
-    oth_prio_ok = ~vic.only_lower[:, None] | lower
-    elig_other = (live_q & ~same_q & slot_ok & vic.reclaim_enabled[:, None]
-                  & oth_prio_ok & owner_borrow0)
-    elig = uses & (buf.elig_same | elig_other)
+    pool = _pool_eligibility(ctx, state, buf, prio, cells_c)
+    live_q, sprio_q, olocal_q = pool.live_q, pool.sprio_q, pool.olocal_q
+    same_q, rows, cc = pool.same_q, pool.rows, pool.cc
+    u0_sub, lf0_sub, nom_sub = pool.u0_sub, pool.lf0_sub, pool.nom_sub
+    vq_at, elig = pool.vq_at, pool.elig
 
     # the strategy ladder (preemption.go:144-191)
     hl = vic.hlocal.clamp_min(0).long()
@@ -1641,9 +1748,10 @@ def drain_preempt_phase2_plain(ctx: DrainContext, state: PreemptState,
 def drain_preempt_motion_plain(ctx: DrainContext, state: PreemptState,
                                buf: PreemptBuffers) -> None:
     """The preempt cycle's end (the JAX ``solve_drain_preempt``,
-    :2168-2287): admitted heads charge their leaf usage, each evicted
-    victim releases its full usage at its owner row, admitted entries
-    fill their part-B pool slot; then the queue motion with the preempt
+    :2168-2287; ``solve_drain_fair_preempt``, :2716-2842, which also
+    fills the slot's fair-panel row ``pq_cu``): admitted heads charge
+    their leaf usage, each evicted victim releases its full usage at its
+    owner row, admitted entries fill their part-B pool slot; then the queue motion with the preempt
     rules (heads skipped after a successful search stay pending,
     untrusted searches freeze their queue, the stagnation guard, an
     eviction in a root cohort reactivates its parked entries), the next
@@ -1695,6 +1803,9 @@ def drain_preempt_motion_plain(ctx: DrainContext, state: PreemptState,
             [qty_eff[fq], torch.zeros((fq.numel(), pad), dtype=I64, device=dev)], dim=1
         )
         state.pvalid[fs, fl] = True
+        if ctx.fair_preempt is not None:
+            # the fair panels' view of the slot: its usage at panel cells
+            state.pq_cu[fs, fl] = _need_at_panel(ctx, buf)[fq]
 
     # queue motion. Park only NOT_NOMINATED outcomes (NoFit, or a search
     # that found no victims); heads skipped after a successful search
@@ -1846,4 +1957,332 @@ def _solve_drain_preempt_packed(
     return _pack_drain_preempt(solve_drain_preempt(
         tree, local_usage, queues, victims, paths, n_segments, n_steps, max_cycles,
         search_width, seg_id=seg_id,
+    ))
+
+
+# ---- the fair-preempt drain (kernels drain_fair_preempt_*) ----------------
+
+
+@dataclass
+class FairPreemptState(PreemptState):
+    """PreemptState plus the pool's usage at the fair panels' cells."""
+
+    pq_cu: torch.Tensor = None  # int64[S,V,Cu]
+
+    @classmethod
+    def initial_fair(cls, local_usage, queues: DrainQueues, max_cycles: int,
+                     victims: SegVictims, panels: FairSegPanels):
+        base = PreemptState.initial_preempt(local_usage, queues, max_cycles, victims)
+        return cls(**{f.name: getattr(base, f.name) for f in fields(base)},
+                   pq_cu=panels.svqty_cu.clone())
+
+
+def _need_at_panel(ctx: DrainContext, buf: CycleBuffers) -> torch.Tensor:
+    """Each head's request at its segment's panel cells: int64[Q,Cu]."""
+    panels = ctx.fair_preempt.panels
+    sq = ctx.queues.seg_id.clamp_min(0).long()
+    seg_cells = panels.seg_cells[sq]  # [Q,Cu]
+    cell_need = (buf.cells_eff >= 0) & (buf.qty_eff > 0)
+    match = (
+        (buf.cells_eff[:, :, None] == seg_cells[:, None, :])
+        & cell_need[:, :, None]
+        & (seg_cells >= 0)[:, None, :]
+    )  # [Q,C',Cu]
+    return torch.where(match, buf.qty_eff[:, :, None], 0).sum(dim=1)
+
+
+def drain_fair_preempt_search_plain(ctx: DrainContext, state: FairPreemptState,
+                                    buf: PreemptBuffers) -> None:
+    """Every preempt-mode head's fair victim tournament over its
+    segment's pool (the JAX ``solve_drain_fair_preempt`` cycle,
+    :2471-2602): the classic candidate eligibility, the live usage panel
+    over the segment's active cell universe with the head's request
+    bubbled in (preemption.go:394-395), the candidates in the queue's
+    order (``perm``), ``solve_fair`` (the search B9 runs), and the
+    targets scattered back to slot space. Writes targets and psuccess;
+    no search is truncated, so untrusted stays 0."""
+    if _done(state):
+        return
+    tree, queues, vic = ctx.tree, ctx.queues, ctx.preempt.victims
+    fp, n_res = ctx.fair_preempt, ctx.fair.n_res
+    panels = fp.panels
+    q, l = queues.priority.shape
+    v = vic.perm.shape[1]
+    m = vic.seg_nodes.shape[1]
+    dev = state.local.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    prio = queues.priority[q_idx, cur]
+    sq = queues.seg_id.clamp_min(0).long()
+    cells_c = buf.cells_eff.clamp_min(0).long()
+    pool = _pool_eligibility(ctx, state, buf, prio, cells_c)
+    enabled = active & buf.is_pre & (vic.same_enabled | vic.reclaim_enabled)
+
+    seg_cells = panels.seg_cells[sq]  # [Q,Cu]
+    scc = seg_cells.clamp_min(0).long()[:, None, :]
+    lpaths = vic.lpaths[sq]  # [Q,M,D+1]
+    nvalid = panels.node_valid[sq]
+    hpath = lpaths[q_idx, vic.hlocal.clamp_min(0).long()]  # [Q,D+1]
+    anc = (
+        (hpath[:, 1:, None] == torch.arange(m, device=dev)[None, None, :])
+        & (hpath[:, 1:, None] >= 0)
+    ).any(dim=1)  # [Q,M] strict ancestors of the head
+    need_cu = _need_at_panel(ctx, buf)
+    # live panels (pad cells and rows zeroed so the DRS buckets stay inert)
+    pmask = (seg_cells >= 0)[:, None, :] & nvalid[:, :, None]
+    rows = pool.rows
+    pu0 = torch.where(pmask, buf.usage[rows, scc], 0)
+    psub = torch.where(pmask, ctx.subtree[rows, scc], 0)
+    pg = torch.where(pmask, ctx.guaranteed[rows, scc], 0)
+    pbl = torch.where(pmask, tree.borrowing_limit[rows, scc], NO_LIMIT)
+    # the head's usage is part of the simulated state
+    _bubble_local(hpath, need_cu, pu0, pg, tree.max_depth, torch.ones_like(enabled))
+    perm = vic.perm.long()
+    problem = FairProblem(
+        paths=lpaths, usage0=pu0, subtree_q=psub, guaranteed=pg, borrow_lim=pbl,
+        weight=panels.weight_local[sq], parent_loc=panels.parent_local[sq],
+        depth_s=panels.depth_local[sq], is_cq=panels.is_cq_local[sq], svalid=nvalid,
+        anc_of_head=anc, hrow=vic.hlocal, need_qty=need_cu, res_of=panels.res_of_cell[sq],
+        crow=torch.gather(pool.olocal_q, 1, perm).to(I32),
+        cqty=state.pq_cu[sq][q_idx[:, None], perm],
+        cvalid=torch.gather(pool.live_q & pool.elig, 1, perm) & enabled[:, None],
+        row_valid=enabled,
+    )
+    r = solve_fair(problem, tree.max_depth, v, m, n_res + 1, fp.strategy1, fp.has_second)
+    psuccess = enabled & r.fits
+    # candidate order -> slot space
+    hit = r.targets & psuccess[:, None]
+    targets = torch.zeros((q, v), dtype=I32, device=dev)
+    targets.scatter_add_(1, perm, hit.to(I32))
+    buf.targets.copy_(targets > 0)
+    buf.psuccess.copy_(psuccess)
+    buf.untrusted.zero_()
+    buf.preempt_ok.zero_()
+
+
+def drain_fair_preempt_phase2_plain(ctx: DrainContext, state: FairPreemptState,
+                                    buf: PreemptBuffers) -> None:
+    """The fair-preempt cycle's admissions (the JAX
+    ``solve_drain_fair_preempt`` step scan, :2604-2742): each of
+    ``n_steps`` steps pops one head per root cohort through the DRS
+    tournament against the live usage; a popped preempter whose targets
+    overlap an earlier eviction of the cycle is skipped; a popped head
+    is re-checked for fit with EVERY accepted victim of the cycle
+    removed (the host's non-incremental fits-after-removals: the
+    tournament keeps reading usage with the victims present, so the
+    removals live only inside the fit check); admitted heads and
+    successful preempters charge their usage, blocked no-reclaim heads
+    reserve. Writes the in-cycle leaf usage, this cycle's evictions and
+    the admitted and preempt_ok flags; ``state.local`` is left to the
+    motion."""
+    if _done(state):
+        return
+    tree, queues, vic, fair = ctx.tree, ctx.queues, ctx.preempt.victims, ctx.fair
+    subtree, guaranteed = ctx.subtree, ctx.guaranteed
+    max_depth, n_res = tree.max_depth, fair.n_res
+    q, l = queues.priority.shape
+    n_nodes, fr = tree.nominal.shape
+    dev = buf.usage.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    is_fit, is_pre, head_borrow = buf.is_fit, buf.is_pre, buf.head_borrow
+    psuccess, targets = buf.psuccess, buf.targets
+    cells_eff, qty_eff = buf.cells_eff, buf.qty_eff
+    prio = queues.priority[q_idx, cur]
+    ts = queues.timestamp[q_idx, cur]
+    cq = queues.cq_rows.clamp_min(0).long()
+    sq = queues.seg_id.clamp_min(0).long()
+    paths_q = ctx.paths[cq]
+    cells_c = cells_eff.clamp_min(0).long()
+    cell_need = (cells_eff >= 0) & (qty_eff > 0)
+    res_of_q = torch.where(cell_need, fair.res_of_fr[cells_c], n_res)
+    node_rows = torch.arange(n_nodes, device=dev)[:, None].expand(n_nodes, fr)
+    node_res = fair.res_of_fr.long()[None, :].expand(n_nodes, fr)
+    nominal_c = tree.nominal[cq[:, None], cells_c]
+    bl_c = tree.borrowing_limit[cq[:, None], cells_c]
+    pcells, pqty = state.pcells, state.pqty
+    owner = vic.sowner.clamp_min(0).long()[:, :, None].expand_as(pcells).reshape(-1)
+    pc_cols = pcells.clamp_min(0).long().reshape(-1)
+    s_dim, v = buf.ev_now.shape
+
+    usage = buf.usage  # == usage_tree(leaf) throughout
+    leaf = state.local.clone()
+    remaining = active & (is_fit | is_pre) & (queues.cq_rows >= 0)
+    ev_now = torch.zeros((s_dim, v), dtype=BOOL, device=dev)
+    ev_by = torch.full((s_dim, v), -1, dtype=I32, device=dev)
+    admitted = torch.zeros(q, dtype=BOOL, device=dev)
+    preempt_ok = torch.zeros(q, dtype=BOOL, device=dev)
+    for _ in range(ctx.n_steps):
+        if not bool(remaining.any()):
+            break  # later steps have no winner and change nothing
+        bb = torch.zeros((n_nodes, n_res + 1), dtype=I64, device=dev)
+        bb.index_put_((node_rows, node_res), (usage - subtree).clamp_min(0), accumulate=True)
+        chain = _fair_chain(
+            usage, bb[:, :n_res], paths_q, cells_eff, qty_eff, subtree, guaranteed,
+            fair.lendable, fair.weight, tree.parent, res_of_q, n_res, max_depth,
+        )
+        win = _fair_tournament(
+            chain, remaining, paths_q, queues.cq_rows, fair.depth_of, tree.parent,
+            prio, ts, n_nodes, max_depth, fair.prio_tie,
+        )
+        own_t = targets & (win & psuccess)[:, None]  # [Q,V]
+        overlap = (own_t & ev_now[sq]).any(dim=1)
+        do_pre = win & is_pre & psuccess & ~overlap
+        # winners are one per root cohort: their targets land in
+        # distinct segments
+        own_seg = torch.zeros((s_dim + 1, v), dtype=BOOL, device=dev)
+        own_seg[torch.where(do_pre, sq, s_dim)] |= own_t
+        # fits with EVERY accepted victim removed; a winner's path sees
+        # only its own segment's removals
+        rm_all = ev_now | own_seg[:s_dim]
+        rm_qty = torch.where(rm_all[:, :, None] & (pcells >= 0), pqty, 0)
+        leaf_fits = leaf.clone()
+        leaf_fits.index_put_((owner, pc_cols), -rm_qty.reshape(-1), accumulate=True)
+        usage_fits = usage_tree_plain(tree, guaranteed, leaf_fits)
+        avail = _avail_along_path(
+            paths_q, cells_eff, usage_fits, subtree, guaranteed, tree.borrowing_limit, max_depth
+        )
+        cell_valid = cell_need & win[:, None]
+        fits = torch.where(cell_valid, avail >= qty_eff, True).all(dim=1)
+        admit = win & is_fit & fits
+        pre_ok = do_pre & fits
+        reserve = win & is_pre & ~psuccess & queues.no_reclaim
+        leaf_usage_c = leaf[cq[:, None], cells_c]
+        borrow_cap = torch.where(
+            bl_c < NO_LIMIT, torch.minimum(qty_eff, nominal_c + bl_c - leaf_usage_c), qty_eff
+        )
+        nominal_cap = torch.minimum(qty_eff, nominal_c - leaf_usage_c).clamp_min(0)
+        reserve_qty = torch.where(head_borrow[:, None], borrow_cap, nominal_cap)
+        # charge admitted heads and successful preempters (AddUsage runs
+        # for both, scheduler.go:211-292) and reservations; the victims
+        # stay present in the tournament's usage
+        delta = torch.where(
+            cell_valid & (admit | pre_ok)[:, None],
+            qty_eff,
+            torch.where(cell_valid & reserve[:, None], reserve_qty, 0),
+        )
+        leaf.index_put_((cq[:, None].expand_as(cells_c), cells_c), delta, accumulate=True)
+        _charge_paths(usage, guaranteed, paths_q, cells_c, delta, max_depth)
+        evicts = own_t & pre_ok[:, None]
+        commit = torch.zeros((s_dim + 1, v), dtype=BOOL, device=dev)
+        commit[torch.where(pre_ok, sq, s_dim)] |= evicts
+        ev_now = ev_now | commit[:s_dim]
+        by = torch.full((s_dim + 1, v), -1, dtype=I32, device=dev)
+        by[torch.where(pre_ok, sq, s_dim)] = torch.where(evicts, q_idx[:, None].to(I32), -1)
+        ev_by = torch.maximum(ev_by, by[:s_dim])
+        remaining = remaining & ~win
+        admitted = admitted | admit
+        preempt_ok = preempt_ok | pre_ok
+    buf.leaf.copy_(leaf)
+    buf.ev_now.copy_(ev_now)
+    buf.ev_by.copy_(ev_by)
+    buf.admitted.copy_(admitted)
+    buf.preempt_ok.copy_(preempt_ok)
+
+
+def drain_fair_preempt_search(ctx: DrainContext, state: FairPreemptState,
+                              buf: PreemptBuffers) -> None:
+    """Kernel B11a: every preempt-mode head's fair victim tournament
+    (one warp per queue)."""
+    if not state.local.is_cuda:
+        return drain_fair_preempt_search_plain(ctx, state, buf)
+    _launch("drain_fair_preempt_search", ctx, state, buf)
+
+
+def drain_fair_preempt_phase2(ctx: DrainContext, state: FairPreemptState,
+                              buf: PreemptBuffers) -> None:
+    """Kernel B11b: the fair-preempt cycle's admission tournament with
+    its dispositions (one block per root segment)."""
+    if not state.local.is_cuda:
+        return drain_fair_preempt_phase2_plain(ctx, state, buf)
+    _launch("drain_fair_preempt_phase2", ctx, state, buf)
+
+
+def drain_fair_preempt_cycle(ctx: DrainContext, state: FairPreemptState,
+                             buf: PreemptBuffers) -> None:
+    """ONE fair-preempt drain cycle: six launches on the card
+    (quota_tree twice, drain_nominate with the reclaim oracle, the fair
+    search, its phase 2, the preempt motion with the fair-panel fill),
+    or their plain versions on the CPU."""
+    usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
+    available_all(
+        ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
+    )
+    drain_nominate(ctx, state, buf)
+    drain_fair_preempt_search(ctx, state, buf)
+    drain_fair_preempt_phase2(ctx, state, buf)
+    drain_preempt_motion(ctx, state, buf)
+
+
+def fair_preempt_context(tree, queues, victims, panels, paths, fair: FairInputs,
+                         n_segments: int, n_steps: int, max_cycles: int, strategy1: int,
+                         has_second: bool, seg_id=None) -> DrainContext:
+    """The DrainContext of a fair-preempt drain: the fair tournament's
+    inputs, the segment pools and the fair panels."""
+    return DrainContext.build(
+        tree, queues, paths, n_segments, n_steps, max_cycles, seg_id=seg_id, fair=fair,
+        preempt=PreemptInputs(victims=victims, search_width=0),
+        fair_preempt=FairPreemptInputs(
+            panels=panels, strategy1=int(strategy1), has_second=bool(has_second),
+        ),
+    )
+
+
+def solve_drain_fair_preempt(
+    tree: QuotaTree,
+    local_usage: torch.Tensor,  # int64[N, FR]
+    queues: DrainQueues,
+    victims: SegVictims,
+    panels: FairSegPanels,
+    paths: torch.Tensor,  # int32[N, D+1]
+    fair: FairInputs,
+    n_segments: int,
+    n_steps: int,
+    max_cycles: int,
+    strategy1: int,
+    has_second: bool,
+    seg_id=None,  # host copy of queues.seg_id
+) -> PreemptDrainResult:
+    """Multi-cycle drain with fair-sharing admission order AND
+    fair-sharing preemption (the JAX ``solve_drain_fair_preempt``, the
+    fair-cohort configuration of keps/1714-fair-sharing): per cycle the
+    nomination with the reclaim oracle, the fair victim tournament for
+    every preempt-mode head on its segment's live panels (part-A
+    snapshot victims and part-B drain-admitted entries), the admission
+    tournament with its dispositions, and the cycle end of the preempt
+    drain (evictions, part-B fill, queue motion). No search is
+    truncated, so ``overflowed`` stays False."""
+    ctx = fair_preempt_context(
+        tree, queues, victims, panels, paths, fair, n_segments, n_steps, max_cycles,
+        strategy1, has_second, seg_id=seg_id,
+    )
+    state = FairPreemptState.initial_fair(local_usage, queues, max_cycles, victims, panels)
+    buf = PreemptBuffers.empty_preempt(local_usage, queues, victims)
+    run_cycles(ctx, state, buf, drain_fair_preempt_cycle, max_cycles)
+    return PreemptDrainResult(
+        status=state.status,
+        admitted_k=state.adm_k,
+        admitted_cycle=state.adm_cycle,
+        evicted=state.vevicted,
+        evicted_cycle=state.evict_cycle,
+        evicted_by=state.evict_by,
+        stuck=state.stuck,
+        cycles=state.cycle,
+        local_usage=state.local,
+        overflowed=state.ovf,
+    )
+
+
+def _solve_drain_fair_preempt_packed(
+    tree, local_usage, queues, victims, panels, paths, fair: FairInputs, n_segments: int,
+    n_steps: int, max_cycles: int, strategy1: int, has_second: bool, seg_id=None,
+) -> torch.Tensor:
+    """solve_drain_fair_preempt in the JAX
+    ``_solve_drain_fair_preempt_packed`` layout (the preempt drain's),
+    so one decoder serves both preempt scopes."""
+    return _pack_drain_preempt(solve_drain_fair_preempt(
+        tree, local_usage, queues, victims, panels, paths, fair, n_segments, n_steps,
+        max_cycles, strategy1, has_second, seg_id=seg_id,
     ))

@@ -23,6 +23,8 @@ the preempt drain: every ClusterQueue's withinClusterQueue,
 reclaimWithinCohort and borrowWithinCohort policies, and admitted
 low-priority victims ("victims", in tests/test_drain.py's tuple form),
 which ``build_cache`` admits.
+``fair_preempt_spec(seed)`` is ``preempt_spec`` with fairSharing weights
+(0 among them) for the fair-preempt drain and the fair cycle.
 ``build_scheduler(spec)`` builds the interactive cycle over a spec: the
 cache, a QueueManager with one LocalQueue ``lq-<cq>`` per ClusterQueue
 holding the spec's workloads, and a ``Scheduler`` with the host
@@ -221,6 +223,25 @@ def fair_spec(seed: int, workloads_per_cq: int = 6) -> dict:
     return spec
 
 
+def fair_preempt_spec(seed: int, victims_per_cq: int = 3, workloads_per_cq: int = 4) -> dict:
+    """``preempt_spec``'s depth-3 forest (two resources a victim, cpu and
+    memory, multi-podset workloads, every preemption policy, the
+    default flavorFungibility) with
+    fairSharing weights 0, 500, 1000 or 2000 on its ClusterQueues, for
+    the fair-preempt drain and the fair cycle: the victim tournament
+    then walks three cohort levels, and weight 0 ranks a borrowing
+    queue first as a target (DRS_MAX). Both strategy stacks are the
+    caller's choice (``fs_strategies``)."""
+    rng = np.random.default_rng(seed + 3000)
+    spec = preempt_spec(seed, victims_per_cq=victims_per_cq, workloads_per_cq=workloads_per_cq)
+    weights = (0, 500, 1000, 2000)
+    for cq, w in zip(spec["cqs"], rng.permutation(len(spec["cqs"]))):
+        cq["fair_weight"] = weights[int(w) % len(weights)]
+        # the default flavorFungibility: no PendingFlavors retry loops
+        cq.pop("fungibility", None)
+    return spec
+
+
 def build_cache(spec: dict):
     """(Cache, pending) of this package for a spec; ``pending`` is in
     per-CQ heap order (priority desc, timestamp asc). The spec's
@@ -329,10 +350,12 @@ def build_cache(spec: dict):
     return cache, pending
 
 
-def build_scheduler(spec: dict, device=None, use_solver=True, guard=None):
+def build_scheduler(spec: dict, device=None, use_solver=True, guard=None, fair_sharing=False,
+                    use_preempt_solver=None):
     """(Scheduler, QueueManager, Cache) of this package for a spec, the
     workloads queued in spec order; ``device`` is where the cycle solve
-    runs (the card unless "cpu")."""
+    runs (the card unless "cpu"). ``fair_sharing`` turns on the fair
+    admission order and the fair-sharing Preemptor."""
     from kueue_tpu_torch.core.preemption import Preemptor
     from kueue_tpu_torch.core.queue_manager import QueueManager
     from kueue_tpu_torch.core.scheduler import Scheduler
@@ -354,10 +377,12 @@ def build_scheduler(spec: dict, device=None, use_solver=True, guard=None):
         queues=mgr,
         cache=cache,
         clock=clock,
-        preemptor=Preemptor(clock),
+        preemptor=Preemptor(clock, enable_fair_sharing=fair_sharing),
         use_solver=use_solver,
         solver_threshold=1,
+        use_preempt_solver=use_preempt_solver,
         guard=guard,
+        fair_sharing=fair_sharing,
         device=device,
     )
     return sched, mgr, cache

@@ -4,16 +4,20 @@
   ``fair``: its tournament in place of phase 2), ``lockstep_megaloop``
   (the K-round megaloop: the plain cycle and the round boundary) and
   ``lockstep_preempt`` (the preempt drain: nomination with the reclaim
-  oracle, the victim search, its phase 2 and motion) run a drain on the
-  kernels and, before every kernel step, copy the state; the plain
-  version of that step runs on the copy, and the two results must be
-  equal in every field (int64, tolerance 0).
+  oracle, the victim search, its phase 2 and motion) and
+  ``lockstep_fair_preempt`` (the fair-preempt drain: the same with the
+  fair victim tournament and the fair admission tournament) run a
+  drain on the kernels and, before every kernel step, copy the state;
+  the plain version of that step runs on the copy, and the two results
+  must be equal in every field (int64, tolerance 0).
 - The interactive cycle: inside ``cycle_kernels_through(check)``, every
   cycle dispatch of the port's Scheduler (core/solver.dispatch_lowered)
   and every resident row scatter run launch by launch through
   ``check(name, kernel, plain)``, and inside
   ``preempt_search_through(check)`` every batched victim search
-  (core/preempt_batch, kernel B8); ``Lockstep`` is the check that runs
+  (core/preempt_batch, kernel B8), inside ``fair_search_through(check)``
+  every batched fair victim search (kernel B9); ``Lockstep`` is the
+  check that runs
   the plain version on the same inputs (copies of what the kernel
   writes in place) and compares.
 
@@ -34,6 +38,7 @@ from kueue_tpu_torch.core import solver
 from kueue_tpu_torch.ops import _build
 from kueue_tpu_torch.ops import assign_kernel as ak
 from kueue_tpu_torch.ops import drain_kernel as dk
+from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
 from kueue_tpu_torch.ops import megaloop_kernel as ml
 from kueue_tpu_torch.ops import preempt_kernel as pk
 from kueue_tpu_torch.ops import quota, resident
@@ -88,10 +93,18 @@ PREEMPT_STEPS = STEPS[:3] + (
     ("drain_preempt_phase2", dk.drain_preempt_phase2, dk.drain_preempt_phase2_plain),
     ("drain_preempt_motion", dk.drain_preempt_motion, dk.drain_preempt_motion_plain),
 )
+FAIR_PREEMPT_STEPS = STEPS[:3] + (
+    ("drain_fair_preempt_search", dk.drain_fair_preempt_search,
+     dk.drain_fair_preempt_search_plain),
+    ("drain_fair_preempt_phase2", dk.drain_fair_preempt_phase2,
+     dk.drain_fair_preempt_phase2_plain),
+    ("drain_preempt_motion", dk.drain_preempt_motion, dk.drain_preempt_motion_plain),
+)
 DRAIN_KERNELS = _build.DRAIN_KERNELS
 MEGALOOP_KERNELS = _build.MEGALOOP_KERNELS
 FAIR_KERNELS = _build.FAIR_KERNELS
 PREEMPT_KERNELS = _build.PREEMPT_KERNELS
+FAIR_PREEMPT_KERNELS = _build.FAIR_PREEMPT_KERNELS
 
 
 def max_abs_diff(a, b, skip=()) -> int:
@@ -230,10 +243,35 @@ def lockstep_preempt(
     return ctx, state, cycles
 
 
+def lockstep_fair_preempt(
+    tree, local, queues, victims, panels, paths, fair, n_segments, n_steps, max_cycles,
+    strategy1, has_second, errs: Dict[str, int], label: str = "",
+    plain_ms: Optional[Dict[str, List[float]]] = None,
+    stop_after: Optional[int] = None,
+):
+    """``lockstep`` for the fair-preempt drain: every cycle's six
+    launches, each against its plain version (which rebuilds the usage
+    tree for every fit check as the JAX code does, where the phase-2
+    kernel bubbles the removals and puts them back). Returns (ctx, final
+    FairPreemptState, cycles)."""
+    _check_quota(tree, errs, label)
+    ctx = dk.fair_preempt_context(
+        tree, queues, victims, panels, paths, fair, n_segments, n_steps, max_cycles,
+        strategy1, has_second,
+    )
+    state = dk.FairPreemptState.initial_fair(local, queues, max_cycles, victims, panels)
+    buf = dk.PreemptBuffers.empty_preempt(local, queues, victims)
+    cycles = run_lockstep(
+        ctx, state, buf, FAIR_PREEMPT_STEPS, max_cycles, errs, label, plain_ms, stop_after
+    )
+    return ctx, state, cycles
+
+
 # ---- the interactive cycle ----------------------------------------------
 
 CYCLE_KERNELS = _build.CYCLE_KERNELS
 PREEMPT_CYCLE_KERNELS = _build.PREEMPT_CYCLE_KERNELS
+FAIR_CYCLE_KERNELS = _build.FAIR_CYCLE_KERNELS
 
 # check(kernel name, kernel thunk, plain thunk) -> the kernel's result
 Check = Callable[[str, Callable, Callable], object]
@@ -341,6 +379,29 @@ def preempt_search_through(check: Check):
         yield
     finally:
         pk.solve_preempt_packed = saved
+
+
+@contextlib.contextmanager
+def fair_search_through(check: Check):
+    """While active, the cycle's batched fair victim search (kernel B9,
+    ``ops.fair_preempt_kernel.solve_fair_packed`` as core/preempt_batch
+    calls it) runs through ``check`` against the plain ``solve_fair`` on
+    the same problem."""
+    saved = fpk.solve_fair_packed
+
+    def search(p, depth, n_cand, n_local, n_res, strategy1, has_second):
+        args = (p, depth, n_cand, n_local, n_res, strategy1, has_second)
+        return check(
+            "fair_search",
+            lambda: saved(*args),
+            lambda: fpk._pack(fpk.solve_fair(*args)),
+        )
+
+    fpk.solve_fair_packed = search
+    try:
+        yield
+    finally:
+        fpk.solve_fair_packed = saved
 
 
 def _tensors(out):

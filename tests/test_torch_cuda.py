@@ -17,7 +17,20 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   read (CUDA's sync debug mode set to raise);
 - a CUDA tensor launches the kernel (the launch counters rise);
 - a kernel source that does not build makes a Scheduler on the card,
-  the megaloop and the fair drain raise KernelError (no fallback).
+  the megaloop and the fair drain raise KernelError (no fallback);
+- the fair victim search (B9) bit-exact to its plain version at bench.py's
+  fair shape and at the lowering's caps (S=64 nodes, Cu=32 cells), and
+  inside the fair Scheduler's cycles, whose decisions on the card equal
+  those on the CPU;
+- a fair_search build that traps on the card makes the fair
+  Scheduler's schedule() raise KernelError (no host search);
+- every launch of the fair-preempt drain (B11's search and phase 2, the
+  extended drain_preempt_motion) bit-exact to its plain version at
+  every cycle of perf.cases.fair_preempt_spec, bench.py's 60-CQ stage
+  and a drain at the panel caps (build_fair_wide with two root
+  cohorts); the drain on the card equals its CPU run (the classic drain's
+  lockstep above holds the extended motion kernel with its fair pointer
+  NULL).
 
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
@@ -528,3 +541,180 @@ def test_preempt_paths_raise_when_a_kernel_does_not_build(cuda, monkeypatch, tmp
         pd.run_drain_preempt(take_snapshot(cache), pending, cache.flavors, device="cuda")
     with pytest.raises(_build.KernelError):
         contended.build_scheduler(_contended_cut(20), use_preempt_solver=True, device="cuda")
+
+
+# ---- fair-sharing preemption (B9, B11) ------------------------------------
+
+
+def _b9_tiers(snap, items, pre, dev):
+    from kueue_tpu_torch.core.preempt_batch import fair_tiers, lower_fair_preemption
+
+    arrays, meta = lower_fair_preemption(snap, items, pre)
+    return [(interop.fair_problem(padded, dev), v_dim, meta)
+            for _, v_dim, padded in fair_tiers(arrays, meta)]
+
+
+@pytest.mark.parametrize("shape", ["bench", "cap"])
+def test_fair_search_bit_exact(cuda, shape):
+    """B9 against plain solve_fair on the same problem: bench.py's fair
+    stage (S=8, Cu=2, V=32) and the lowering's caps (S=64, Cu=32)."""
+    from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
+    from kueue_tpu_torch.perf import fairpreempt as fp
+
+    build = fp.build_fair_search if shape == "bench" else fp.build_fair_cap
+    seed = fp.SEARCH_SEED if shape == "bench" else 0
+    tiers = _b9_tiers(*build(np.random.default_rng(seed)), cuda)
+    if shape == "cap":
+        assert tiers[0][0].usage0.shape[1:] == (64, 32)
+    _build.reset_launches()
+    found = 0
+    for p, v_dim, meta in tiers:
+        kw = dict(depth=meta["depth"], n_cand=v_dim, n_local=meta["s"], n_res=meta["r"],
+                  strategy1=meta["strategy1"], has_second=meta["has_second"])
+        got = fpk.solve_fair_packed(p, **kw)
+        want = fpk._pack(fpk.solve_fair(p, **kw))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        found += int(got[-p.hrow.shape[0]:].sum())
+    assert _build.launch_counts()["fair_search"] == len(tiers)
+    assert found > 0  # some head found victims
+
+
+def test_fair_search_refuses_wide_panels(cuda):
+    from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
+    from kueue_tpu_torch.perf import fairpreempt as fp
+
+    p, v_dim, meta = _b9_tiers(*fp.build_fair_search(np.random.default_rng(fp.SEARCH_SEED)),
+                               cuda)[0]
+    with pytest.raises(_build.KernelInputError, match="R<="):
+        fpk.solve_fair_packed(p, meta["depth"], v_dim, meta["s"], fpk.MAX_BUCKETS + 1,
+                              meta["strategy1"], meta["has_second"])
+
+
+def _fair_preempt_case(case, dev):
+    from kueue_tpu_torch.perf import fairpreempt as fp
+
+    kind, n = case.split("-")
+    if kind == "spec":
+        cache, pending = build_cache(cases.fair_preempt_spec(int(n)))
+        return cache, pending, {"max_cycles": 32}
+    if kind == "wide":
+        env = fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED), int(n))
+        return env.cache, env.pending, {"timestamp_fn": env.ts_fn}
+    env = fp.build_fair_preempt(int(n))
+    return env.cache, env.pending, {"timestamp_fn": env.ts_fn}
+
+
+@pytest.mark.parametrize("case", ["spec-1", "spec-8", "bench-60", "wide-2"])
+def test_fair_preempt_drain_kernels_bit_exact_every_cycle(cuda, case):
+    from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_KERNELS, lockstep_fair_preempt
+
+    cache, pending, kw = _fair_preempt_case(case, cuda)
+    plan, _, tree, paths, local, queues, victims, panels, fair = pd.fair_preempt_drain_inputs(
+        take_snapshot(cache), pending, cache.flavors, cuda, **kw)
+    errs = {}
+    _, state, cycles = lockstep_fair_preempt(
+        tree, local, queues, victims, panels, paths, fair, plan.n_segments, plan.n_steps,
+        plan.max_cycles, 0, True, errs, label=case)
+    assert cycles > 0 and bool(state.vevicted.any())
+    assert set(errs) == set(FAIR_PREEMPT_KERNELS) and not any(errs.values())
+
+
+@pytest.mark.parametrize("case", ["spec-1", "bench-60"])
+def test_fair_preempt_drain_on_card_matches_cpu(cuda, case):
+    from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_KERNELS
+
+    cache, pending, kw = _fair_preempt_case(case, cuda)
+    _build.reset_launches()
+    on_card = pd.run_drain_fair_preempt(take_snapshot(cache), pending, cache.flavors,
+                                        device="cuda", **kw)
+    counts = _build.launch_counts()
+    on_cpu = pd.run_drain_fair_preempt(take_snapshot(cache), pending, cache.flavors,
+                                       device="cpu", **kw)
+    assert _preempt_view(on_card) == _preempt_view(on_cpu)
+    assert all(counts[name] > 0 for name in FAIR_PREEMPT_KERNELS)
+    assert counts["drain_preempt_search"] == 0 and counts["drain_preempt_phase2"] == 0
+
+
+def test_fair_scheduler_on_card_matches_cpu(cuda):
+    from kueue_tpu_torch.perf import contended, fairpreempt as fp
+    from kueue_tpu_torch.perf.lockstep import fair_search_through
+
+    def run(dev, check=None):
+        env = fp.build_fair_preempt(fp.SMALL_N_CQ)
+        sched = fp.build_scheduler(env, use_solver=True, use_preempt_solver=True, device=dev)
+        if check is None:
+            return contended.run_cycles(sched, env, 6)
+        with fair_search_through(check), cycle_kernels_through(check):
+            return contended.run_cycles(sched, env, 6)
+
+    errs = {}
+    check = Lockstep(errs, label="fair cut")
+    _build.reset_launches()
+    on_card = run("cuda", check)
+    counts = _build.launch_counts()
+    assert on_card == run("cpu")
+    assert check.failures == [] and not any(errs.values())
+    assert counts["fair_search"] > 0 and check.launches["fair_search"] > 0
+    assert all(r["victim_search"] == ["device"] for r in on_card if r["preempting"])
+
+
+def test_fair_preempt_paths_raise_when_a_kernel_does_not_build(cuda, monkeypatch, tmp_path):
+    from kueue_tpu_torch.perf import fairpreempt as fp
+
+    env = fp.build_fair_preempt(12)
+    _broken(monkeypatch, tmp_path, "drain_fair_preempt_search")
+    with pytest.raises(_build.KernelError, match="drain_fair_preempt_search"):
+        pd.run_drain_fair_preempt(take_snapshot(env.cache), env.pending, env.cache.flavors,
+                                  device="cuda")
+    with pytest.raises(_build.KernelError):
+        fp.build_scheduler(env, use_preempt_solver=True, device="cuda")
+
+
+_B9_FAULT_RUN = """
+import pathlib, sys
+from kueue_tpu_torch.ops import _build
+from kueue_tpu_torch.perf import fairpreempt as fp
+
+_build.CSRC = pathlib.Path(sys.argv[1])
+_build.BUILD_DIR = _build.CSRC.parent / "build"
+env = fp.build_fair_preempt(12)
+sched = fp.build_scheduler(env, use_preempt_solver=True, device="cuda")
+host = []
+real = sched.preemptor.get_targets
+sched.preemptor.get_targets = lambda *a, **k: host.append(a) or real(*a, **k)
+try:
+    for _ in range(4):
+        sched.schedule()
+except _build.KernelError as exc:
+    print("KernelError", host == [], exc)
+    sys.exit(0)
+print("no KernelError; host searches", len(host))
+sys.exit(1)
+"""
+
+
+def test_fair_scheduler_raises_when_b9_faults_on_the_card(cuda, tmp_path):
+    """A fair_search build that traps on the card: the fault surfaces at
+    the batched search's fetch and schedule() raises KernelError instead
+    of returning the host Preemptor's decisions. It runs in a process of
+    its own, since a trap leaves that process's CUDA context unusable."""
+    import pathlib
+    import subprocess
+    import sys
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_text(src.read_text())
+    body = (csrc / "fair_search.cu").read_text()
+    entry = "  const int w = blockIdx.x;\n"
+    assert entry in body
+    (csrc / "fair_search.cu").write_text(
+        body.replace(entry, entry + "  if (threadIdx.x == 0) __trap();\n", 1))
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _B9_FAULT_RUN, str(csrc)], cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert run.stdout.startswith("KernelError True"), run.stdout

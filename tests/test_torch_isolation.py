@@ -1,7 +1,8 @@
 """The PyTorch port (kueue_tpu_torch) stands alone.
 
 - it imports and runs its CPU path with jax, flax and kueue_tpu blocked
-  (a plain drain, a megaloop launch, a fair drain, a cycle);
+  (a plain drain, a megaloop launch, a fair drain, a cycle, the preempt
+  and fair-preempt drains, a fair cycle with the batched fair search);
 - no module of the package, nor chip_smoke.py, imports jax, flax or
   kueue_tpu (AST scan);
 - its entry points run on the card: without one, and without an
@@ -86,6 +87,14 @@ from kueue_tpu_torch.perf.cases import preempt_spec
 pcache, ppending = build_cache(preempt_spec(2))
 pre = run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors, device="cpu")
 assert pre.admitted and pre.preempted
+from kueue_tpu_torch.core.drain import run_drain_fair_preempt
+from kueue_tpu_torch.perf import contended, fairpreempt
+fenv = fairpreempt.build_fair_preempt(12)
+fpre = run_drain_fair_preempt(take_snapshot(fenv.cache), fenv.pending, fenv.cache.flavors,
+                              timestamp_fn=fenv.ts_fn, device="cpu")
+assert fpre.admitted and fpre.preempted
+fsched = fairpreempt.build_scheduler(fenv, use_preempt_solver=True, device="cpu")
+assert any(r["preempting"] for r in contended.run_cycles(fsched, fenv, 3))
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "kueue_tpu")
             and sys.modules[m] is not None]
 print("OK", len(mods), out.cycles, len(out.admitted))
@@ -132,6 +141,8 @@ def test_run_drain_without_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         run_drain_for_scope("fair", snap, pending, flavors)
     with pytest.raises(RuntimeError, match="CUDA"):
+        run_drain_for_scope("fair_preempt", snap, pending, flavors)
+    with pytest.raises(RuntimeError, match="CUDA"):
         launch_drain(snap, pending, flavors, max_cycles=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch_drain_megaloop(snap, pending, flavors)
@@ -156,25 +167,28 @@ def test_resolve_device_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_drain_scopes_raise():
-    """The fair-preempt and TAS drains and mesh sharding are not
-    ported: they raise, and no launch/fetch split is offered for a
-    scope other than the plain one (None, as the reference returns)."""
+    """The TAS drain and mesh sharding are not ported: they raise (the
+    fair-preempt drain is, and runs), and no launch/fetch split is
+    offered for a scope other than the plain one (None, as the reference
+    returns)."""
     from kueue_tpu_torch.core.drain import (
         launch_drain,
         launch_drain_for_scope,
         launch_drain_megaloop,
         run_drain,
+        run_drain_fair_preempt,
         run_drain_for_scope,
         run_drain_preempt,
     )
 
     snap, pending, flavors = _small_drain_inputs()
-    for kind in ("fair_preempt", "tas"):
-        with pytest.raises(NotImplementedError):
-            run_drain_for_scope(kind, snap, pending, flavors, device="cpu")
+    with pytest.raises(NotImplementedError):
+        run_drain_for_scope("tas", snap, pending, flavors, device="cpu")
+    assert run_drain_for_scope("fair_preempt", snap, pending, flavors, device="cpu").cycles > 0
     for kind in ("preempt", "fair_preempt", "tas", "fair"):
         assert launch_drain_for_scope(kind, snap, pending, flavors, device="cpu") is None
-    for fn in (run_drain, launch_drain, launch_drain_megaloop, run_drain_preempt):
+    for fn in (run_drain, launch_drain, launch_drain_megaloop, run_drain_preempt,
+               run_drain_fair_preempt):
         with pytest.raises(NotImplementedError):
             fn(snap, pending, flavors, mesh=object(), device="cpu")
 

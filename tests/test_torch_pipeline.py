@@ -8,8 +8,8 @@ kueue_tpu_torch against kueue_tpu's, on the same inputs (exact):
   as the JAX package returns;
 - ``speculative_snapshot``, ``drain_inputs_match``, ``pending_matches``
   and ``outcome_signature``;
-- the refusals: the preempt, fair-preempt and TAS drains raise
-  NotImplementedError.
+- the refusal: the TAS drain raises NotImplementedError; the
+  fair-preempt scope routes to run_drain_fair_preempt.
 """
 
 import numpy as np
@@ -118,10 +118,17 @@ def test_speculation_contract_matches_jax():
 
 
 def test_unported_scopes_are_refused():
+    """The TAS scope is refused; the fair-preempt scope routes to
+    run_drain_fair_preempt."""
+    from tests.test_torch_preempt_drain import view
+
     _, _, _, psnap, ppending, pcache, _ = _both(mixed_spec(1, workloads_per_cq=2))
-    for kind in ("fair_preempt", "tas"):
-        with pytest.raises(NotImplementedError, match=kind):
-            pd.run_drain_for_scope(kind, psnap, ppending, pcache.flavors, device="cpu")
+    with pytest.raises(NotImplementedError, match="tas"):
+        pd.run_drain_for_scope("tas", psnap, ppending, pcache.flavors, device="cpu")
+    routed = pd.run_drain_for_scope("fair_preempt", psnap, ppending, pcache.flavors,
+                                    device="cpu")
+    direct = pd.run_drain_fair_preempt(psnap, ppending, pcache.flavors, device="cpu")
+    assert view(routed) == view(direct)
 
 
 def test_preempt_scope_runs_and_matches_jax():

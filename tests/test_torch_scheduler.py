@@ -161,6 +161,111 @@ class TestSchedulerParity:
         assert any(port[:first]) and port[first] == ["device"] * len(port[first])
 
 
+def _jax_fair(spec):
+    """The JAX Scheduler over a spec (policy names) with fair sharing,
+    the fair-sharing Preemptor and the batched victim search; its host
+    nomination path (use_solver=False, as perf/contended.py explains)."""
+    from types import SimpleNamespace
+
+    from tests.test_drain import build_preempt_env
+
+    sched, mgr, cache, _ = build_preempt_env(jax_spec(spec))
+    sched.fair_sharing = True
+    sched.preemptor.enable_fair_sharing = True
+    sched.use_preempt_solver = True
+    return sched, SimpleNamespace(cache=cache, mgr=mgr)
+
+
+def _port_fair(spec):
+    from types import SimpleNamespace
+
+    sched, mgr, cache = cases.build_scheduler(spec, device="cpu", fair_sharing=True,
+                                              use_preempt_solver=True)
+    return sched, SimpleNamespace(cache=cache, mgr=mgr)
+
+
+class TestFairScheduler:
+    """Scheduler(fair_sharing=True) against the JAX Scheduler, cycle by
+    cycle (admitted with flavors, preempting heads with their targets
+    and reasons, requeued, victim-search path), each cycle's victims
+    evicted before the next: the lazy fair-sharing admission order, the
+    non-incremental fit re-check and the batched fair victim search
+    (kernel B9's plain version)."""
+
+    @pytest.mark.parametrize("spec_fn,seed", [
+        (cases.fair_spec, 2), (cases.fair_spec, 4),
+        (cases.fair_preempt_spec, 1), (cases.fair_preempt_spec, 4),
+    ])
+    def test_small_cases_match_jax(self, spec_fn, seed):
+        from kueue_tpu_torch.perf import contended
+
+        spec = spec_fn(seed)
+        jsched, jenv = _jax_fair(spec)
+        psched, penv = _port_fair(spec)
+        jrec = contended.run_cycles(jsched, jenv, 12)
+        prec = contended.run_cycles(psched, penv, 12)
+        assert prec == jrec
+        assert any(r["admitted"] for r in prec)
+
+    def test_depth3_case_preempts_on_the_batched_search(self):
+        from kueue_tpu_torch.perf import contended
+
+        psched, penv = _port_fair(cases.fair_preempt_spec(4))
+        records = contended.run_cycles(psched, penv, 12)
+        preempting = [r for r in records if r["preempting"]]
+        assert preempting and all(r["victim_search"] == ["device"] for r in preempting)
+
+    def test_bench_cluster_cut_matches_jax(self):
+        """8 cycles of bench.py's 60-ClusterQueue fair-preempt cluster."""
+        from kueue_tpu_torch.perf import contended, fairpreempt as fp
+        from tests.test_torch_fair_preempt_drain import _jax_env
+
+        jenv, penv = _jax_env(fp.SMALL_N_CQ), fp.build_fair_preempt(fp.SMALL_N_CQ)
+        jsched = fp.build_scheduler(jenv, use_solver=False, use_preempt_solver=True)
+        psched = fp.build_scheduler(penv, use_solver=True, use_preempt_solver=True,
+                                    device="cpu")
+        jrec = contended.run_cycles(jsched, jenv, fp.CYCLE_CYCLES)
+        assert contended.run_cycles(psched, penv, fp.CYCLE_CYCLES) == jrec
+
+    def test_quiescence_reaches_the_drain_sets(self):
+        """bench.py's own check at its 60 ClusterQueues: the fair
+        Scheduler run to quiescence, evictions applied between cycles,
+        admits and evicts the sets the fair-preempt drain decides."""
+        from kueue_tpu_torch.core.drain import run_drain_fair_preempt
+        from kueue_tpu_torch.perf import fairpreempt as fp
+
+        env = fp.build_fair_preempt(fp.SMALL_N_CQ)
+        out = run_drain_fair_preempt(take_snapshot(env.cache), env.pending, env.cache.flavors,
+                                     timestamp_fn=env.ts_fn, device="cpu")
+        env = fp.build_fair_preempt(fp.SMALL_N_CQ)
+        sched = fp.build_scheduler(env, use_solver=True, use_preempt_solver=True, device="cpu")
+        admitted, evicted, calls = fp.run_to_quiescence(sched, env)
+        assert (admitted, evicted) == fp.drain_sets(out)
+        assert calls < fp.MAX_CYCLES
+
+    def test_port_cycles_give_the_constant(self):
+        """The first CYCLE_CYCLES cycles at 1000 ClusterQueues on the CPU."""
+        from kueue_tpu_torch.perf import contended, fairpreempt as fp
+
+        env = fp.build_fair_preempt(fp.N_CQ)
+        sched = fp.build_scheduler(env, use_solver=True, use_preempt_solver=True, device="cpu")
+        records = contended.run_cycles(sched, env, fp.CYCLE_CYCLES)
+        assert contended.cycle_summary(records) == fp.FAIR_PREEMPT_CYCLE_EXPECT
+        assert all(r["victim_search"] == ["device"] for r in records if r["preempting"])
+
+    @pytest.mark.slow
+    def test_jax_cycles_give_the_constant(self):
+        """FAIR_PREEMPT_CYCLE_EXPECT is the JAX package's (about a minute
+        on the CPU)."""
+        from kueue_tpu_torch.perf import contended, fairpreempt as fp
+        from tests.test_torch_fair_preempt_drain import _jax_env
+
+        env = _jax_env(fp.N_CQ)
+        sched = fp.build_scheduler(env, use_solver=False, use_preempt_solver=True)
+        records = contended.run_cycles(sched, env, fp.CYCLE_CYCLES)
+        assert contended.cycle_summary(records) == fp.FAIR_PREEMPT_CYCLE_EXPECT
+
+
 def test_cycle_lockstep_harness_on_cpu():
     """perf.lockstep's cycle harness (what chip_smoke.py runs on the card)
     leaves decisions unchanged, checks every launch, and restores the
@@ -283,6 +388,13 @@ def test_queue_pop_order_on_the_headline_backlog():
         assert porder == jorder, name
 
 
+class _Scored:
+    """A non-default admission policy (not ported)."""
+
+    is_default = False
+    name = "scored"
+
+
 class TestRefusals:
     def _env(self):
         return cases.build_scheduler(port_spec(random_spec(0)), device="cpu")
@@ -294,18 +406,24 @@ class TestRefusals:
             cases.build_scheduler(port_spec(random_spec(0)))
 
     @pytest.mark.parametrize("kwargs", [
-        {"fair_sharing": True},
+        {"fair_sharing": True, "policy": _Scored()},
     ])
     def test_unported_branches_raise(self, kwargs):
+        """Fair sharing is ported; a non-default admission policy is
+        still refused with it."""
         from kueue_tpu_torch.core.scheduler import Scheduler
 
         _, mgr, cache = self._env()
         with pytest.raises(NotImplementedError):
             Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu", **kwargs)
+        fair = Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu",
+                         fair_sharing=True)
+        assert fair.fair_sharing
 
     def test_fair_victim_search_raises(self):
-        """The batched search takes the classic ladder; the fair-sharing
-        victim tournament (kernel B9) is not ported yet."""
+        """A fair-sharing preemptor routes to the fair victim tournament
+        (kernel B9): on the CPU when asked, and without a device it
+        raises where there is no card, as every entry point does."""
         from kueue_tpu_torch.core.flavor_assigner import FlavorAssigner, Mode
         from kueue_tpu_torch.core.preempt_batch import batched_get_targets
         from kueue_tpu_torch.core.preemption import Preemptor
@@ -322,10 +440,16 @@ class TestRefusals:
             if a.representative_mode() == Mode.PREEMPT
         ]
         assert items
-        with pytest.raises(NotImplementedError, match="A6b"):
-            batched_get_targets(
-                snapshot, items, Preemptor(FakeClock(), enable_fair_sharing=True), device="cpu"
-            )
+        fair = Preemptor(FakeClock(), enable_fair_sharing=True)
+        found = batched_get_targets(snapshot, items, fair, device="cpu")
+        host = [fair.get_targets(wl, cq, a, snapshot) for wl, cq, a in items]
+        assert [sorted(t.workload.workload.name for t in r) for r in found] == [
+            sorted(t.workload.workload.name for t in r) for r in host
+        ]
+        assert any(found)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                batched_get_targets(snapshot, items, fair)
 
     def test_non_default_policy_raises(self):
         from kueue_tpu_torch.core.scheduler import Scheduler
@@ -416,6 +540,40 @@ class TestKernelErrorsAreNotContained:
         monkeypatch.setattr(solver, "solve_cycle_segmented_packed", faulted)
         with pytest.raises(_build.KernelError, match="illegal memory access"):
             dispatch_lowered(snapshot, lowered, device="cpu")
+
+    @pytest.mark.parametrize("kind", ["classic", "fair"])
+    def test_victim_search_faults_are_not_contained(self, kind, monkeypatch):
+        """A fault of kernel B8 or B9 on the card surfaces as a torch
+        error at the batched search's fetch: it is raised as a
+        KernelError, and the Scheduler does not hand the cycle's search
+        to the host Preemptor."""
+        from kueue_tpu_torch.ops import fair_preempt_kernel, preempt_kernel
+        from kueue_tpu_torch.perf import contended, fairpreempt as fp
+
+        if kind == "fair":
+            env = fp.build_fair_preempt(12)
+            sched = fp.build_scheduler(env, use_preempt_solver=True, device="cpu")
+            module, name = fair_preempt_kernel, "solve_fair_packed"
+        else:
+            env = contended.build_contended(np.random.default_rng(contended.SEED), n_cq=20)
+            sched = contended.build_scheduler(env, use_preempt_solver=True, device="cpu")
+            module, name = preempt_kernel, "solve_preempt_packed"
+        launched = []
+
+        class Faulted:
+            def cpu(self):
+                raise torch.AcceleratorError("CUDA error: an illegal memory access was encountered")
+
+        def launch(*args, **kwargs):
+            launched.append(name)
+            return Faulted()
+
+        host = []
+        monkeypatch.setattr(module, name, launch)
+        monkeypatch.setattr(sched.preemptor, "get_targets", lambda *a, **k: host.append(a))
+        with pytest.raises(_build.KernelError, match="illegal memory access"):
+            sched.schedule()
+        assert launched and host == []
 
     def test_scheduler_on_card_builds_at_construction(self, monkeypatch, tmp_path):
         """Built for cuda, the Scheduler builds and loads its kernels in
