@@ -8,10 +8,11 @@ plain bulk drain (phases 2-3), the K-round megaloop (phase 4), the
 fair-sharing drain (phase 5), the interactive admission cycle (phase
 6), the cycle with the batched victim search (phase 7), the drain with
 classic preemption (phase 8), the fair cycle with the batched fair
-victim search (phase 9) and the drain with fair-sharing preemption
-(phase 10).
+victim search (phase 9), the drain with fair-sharing preemption
+(phase 10) and Topology-Aware Scheduling: the snapshot's pod counting
+and the TAS drain (phase 11).
 
-1. Prints the card's name and power limit, builds the 16 kernels from
+1. Prints the card's name and power limit, builds the 19 kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
    the build seconds and each kernel's registers and spills.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
@@ -152,7 +153,34 @@ victim search (phase 9) and the drain with fair-sharing preemption
    d. every launch timed alone, bytes bound from each cycle's data, at
       fair-preempt-1k (the kernels' line) and at the panel caps (each
       kernel's ``at_panel_caps``).
-11. Prints the 16 kernels' JSON line, the card line, and as the last
+11. Topology-Aware Scheduling (perf/tas.py):
+   a. kernel B12 (tas_leaf_counts: leaf_counts, level_counts) held to
+      its plain versions on tas-placement-1k (bench.py's tas stage
+      topology, 1024 hosts) with a batch of 16 of tas-drain-10k's
+      per-pod requests (assumed usage, a simulate_empty row, a
+      taint-masked leaf set), and on tas-fleet-131k (131,072 hosts)
+      with such a batch of 3 and with the main path's own input (the
+      arguments find_topology_assignments hands leaf_counts, B=1);
+      the 1k batch and the fleet's main-path input each timed alone,
+      index_add_ beside level_counts;
+   b. find_topology_assignments at tas-fleet-131k with the default
+      threshold, counters reset before: B12 launched, the assignment
+      equal to the same call on a device="cpu" snapshot; the host numpy
+      CountIn and B12's (upload, launch, fetch) per podset at both
+      sizes;
+   c. lockstep: every launch of the TAS cycle (quota_tree twice,
+      drain_nominate, drain_tas_place, drain_tas_phase2,
+      drain_queue_motion) held to its plain version at every cycle of
+      tas-drain-10k (bench.py's tas_drain stage, seed 6) and of the
+      two-flavor perf.cases.tas_spec(0);
+   d. the main path: run_drain_tas(device="cuda") and
+      run_drain_for_scope("tas"), counters reset before each: asserts
+      TAS_DRAIN_EXPECT (with its in-line replay of the placements) and
+      every kernel launched; the small case on the card equals the CPU;
+   e. the entry point's wall (median of 3), its host lowering and
+      upload, the solve, and every launch timed alone with its bytes
+      bound from each cycle's data.
+12. Prints the 19 kernels' JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 No phase is caught and passed over: any failure exits non-zero.
@@ -199,6 +227,9 @@ SOURCES = {
     "fair_search": "kueue_tpu_torch/csrc/fair_search.cu",
     "drain_fair_preempt_search": "kueue_tpu_torch/csrc/drain_fair_preempt_search.cu",
     "drain_fair_preempt_phase2": "kueue_tpu_torch/csrc/drain_fair_preempt_phase2.cu",
+    "tas_leaf_counts": "kueue_tpu_torch/csrc/tas_leaf_counts.cu",
+    "drain_tas_place": "kueue_tpu_torch/csrc/drain_tas_place.cu",
+    "drain_tas_phase2": "kueue_tpu_torch/csrc/drain_tas_phase2.cu",
 }
 REPLACES = {
     "quota_tree": "kueue_tpu/ops/quota.py:93",
@@ -217,6 +248,9 @@ REPLACES = {
     "fair_search": "kueue_tpu/ops/fair_preempt_kernel.py:430",
     "drain_fair_preempt_search": "kueue_tpu/ops/drain_kernel.py:2359",
     "drain_fair_preempt_phase2": "kueue_tpu/ops/drain_kernel.py:2359",
+    "tas_leaf_counts": "kueue_tpu/ops/tas_kernel.py:52",
+    "drain_tas_place": "kueue_tpu/ops/drain_kernel.py:689",
+    "drain_tas_phase2": "kueue_tpu/ops/drain_kernel.py:894",
 }
 
 
@@ -2105,6 +2139,371 @@ def round_view_preempt(out):
             out.cycles, out.truncated)
 
 
+# ---- Topology-Aware Scheduling: TAS pod counting and the TAS drain --------
+
+
+def b12_batch(snap, dev, rng, b: int):
+    """A B12 batch on ``snap``'s leaves (both packages' semantics): ``b``
+    per-pod requests drawn from tas-drain-10k's (1-2 cpu, one pod), each
+    row's assumed usage nonzero on a few leaves, one simulate_empty row
+    and one row with a taint-masked leaf set."""
+    from kueue_tpu_torch._torch import to_device
+
+    snap.freeze()
+    n_l, n_r = len(snap._leaf_order), len(snap._resources)
+    r_cpu, r_pods = snap._resources.index("cpu"), snap._resources.index("pods")
+    req = np.zeros((b, n_r), dtype=np.int64)
+    req[:, r_cpu] = rng.integers(1, 3, b) * 1000
+    req[:, r_pods] = 1
+    assumed = np.zeros((b, n_l, n_r), dtype=np.int64)
+    for i in range(b):
+        leaves = rng.integers(0, n_l, 8)
+        assumed[i, leaves, r_cpu] = rng.integers(1, 9, 8) * 1000
+        assumed[i, leaves, r_pods] = rng.integers(1, 9, 8)
+    taint_ok = np.ones((b, n_l), dtype=bool)
+    taint_ok[min(1, b - 1), rng.integers(0, n_l, max(1, n_l // 16))] = False
+    sim = np.zeros(b, dtype=bool)
+    sim[-1] = True
+    return [to_device(a, dev, t) for a, t in ((req, np.int64), (assumed, np.int64),
+                                              (taint_ok, np.bool_), (sim, np.bool_))]
+
+
+def b12_bytes(topo, req, sim, levels: bool) -> int:
+    """Bytes B12 must move on this batch: leaf_counts reads req, the
+    taint and simulate_empty flags, free (read once) of each resource
+    some row requests, usage (read once) of each resource some row
+    without simulate_empty requests, each row's assumed usage of the
+    resources it requests, and writes the counts; level_counts reads
+    the counts and the segment ids and writes every level's totals."""
+    n_l, n_r = topo.free.shape
+    b = req.shape[0]
+    if levels:
+        return b * n_l * 8 + len(topo.n_domains) * n_l * 4 + b * sum(topo.n_domains) * 8
+    asked = req.cpu().numpy() > 0
+    sim = sim.cpu().numpy()
+    free_cols = int(asked.any(axis=0).sum())
+    usage_cols = int(asked[~sim].any(axis=0).sum())
+    return ((free_cols + usage_cols) * n_l * 8 + int(asked.sum()) * n_l * 8
+            + b * n_r * 8 + b * n_l + b + b * n_l * 8)
+
+
+def index_add_ms(topo, counts) -> float:
+    """ms of ``index_add_``, the one PyTorch call computing level_counts'
+    function (the yardstick only): one call a level after a warm one,
+    each timed alone as the kernels are, summed over the levels."""
+    import torch
+
+    timer = TimedLaunches()
+    for d, nd in enumerate(topo.n_domains):
+        seg = topo.seg_ids[d].long()
+        dst = torch.zeros((counts.shape[0], nd), dtype=counts.dtype, device=counts.device)
+        dst.index_add_(1, seg, counts)
+        timer(f"index_add_{d}", lambda: dst.index_add_(1, seg, counts), None)
+    return float(sum(v[0] for v in timer.dev_ms.values()))
+
+
+def tas_cycle_bytes(bd: BoundData, ctx, cursor, buf, tas_before, tas_after) -> dict:
+    """Bytes each TAS cycle kernel must move, from the cycle's own data
+    (``cycle_bytes`` for quota_tree, drain_nominate and the motion; the
+    placement and the global scan counted here)."""
+    base = cycle_bytes(bd, cursor, buf)
+    tas = ctx.tas
+    th = tas.heads
+    lf, rt = tas.topo_free.shape
+    d_t = len(tas.n_domains)
+    nd = th.parent_map.shape[1]
+    active = cursor < bd.qlen
+    t_is = th.t_is.cpu().numpy()
+    heads = active & t_is
+    n_heads = int(heads.sum())
+    q = bd.q
+    # placement: the forest (free and usage of the leaves read once, the
+    # segment ids, the parent map, the leaf flavors), each head's entry
+    # (request, count, level, mode, top, flavor); every queue's cursor,
+    # length, TAS and t_bad flags and the three flags it rewrites, and
+    # its taken row and placement flag written
+    place = (2 * lf * rt * 8 + d_t * lf * 4 + d_t * nd * 4 + lf * 4 + d_t * 4
+             + n_heads * (rt * 8 + 4 * 5)
+             + q * (4 + 4 + 1 + 1 + 3 + 3) + q * (lf * 8 + 1))
+    # the global scan: the quota walk as phase 2 counts it; for each
+    # walked TAS head its taken row and request, the leaves' free
+    # capacity and usage read once; the leaf usage written where an
+    # admitted head charged it; adm_step of the admitted
+    nominated = (buf.is_fit | buf.is_pre).cpu().numpy() & active
+    walked_tas = np.nonzero(nominated & t_is)[0]
+    admitted = buf.admitted.cpu().numpy()
+    changed = int((tas_after != tas_before).any(axis=1).sum())
+    scan = (base["drain_phase2"][0] + len(walked_tas) * (lf * 8 + rt * 8)
+            + 2 * lf * rt * 8 + changed * rt * 8 + int(admitted.sum()) * 4)
+    return {
+        "quota_tree": base["quota_tree"],
+        "drain_nominate": base["drain_nominate"],
+        "drain_tas_place": [place],
+        "drain_tas_phase2": [scan],
+        "drain_queue_motion": base["drain_queue_motion"],
+    }
+
+
+def tas_path(dev) -> dict:
+    """Phase 11: TAS pod counting (B12) at tas-placement-1k and
+    tas-fleet-131k, and the TAS drain (B13) at tas-drain-10k and the
+    small two-flavor case (module docstring)."""
+    import torch
+
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.ops import tas_kernel as tk
+    from kueue_tpu_torch.perf import cases, tas as pt
+    from kueue_tpu_torch.perf.lockstep import (
+        TAS_DRAIN_KERNELS,
+        TAS_STEPS,
+        Lockstep,
+        leaf_counts_step,
+        lockstep_tas,
+    )
+    from kueue_tpu_torch.tas.snapshot import TASFlavorSnapshot
+
+    errs = {}
+    rng = np.random.default_rng(pt.TAS_DRAIN_SEED)
+
+    # 11a. B12 lockstep: tas-placement-1k with a batch of 16 of
+    # tas-drain-10k's per-pod requests; tas-fleet-131k with such a batch
+    # of 3 (a plain row, a taint-masked one, a simulate_empty one) and
+    # with the main path's own input, recorded from a warm call of
+    # find_topology_assignments (11b's counted run comes after). The
+    # 1k batch and the fleet's main-path input are then timed alone,
+    # each entry five times, its plain version three times.
+    t0 = time.perf_counter()
+    flavors = {label: pt.build_placement(shape) for label, shape in
+               (("tas-placement-1k", pt.PLACEMENT_SHAPE), ("tas-fleet-131k", pt.FLEET_SHAPE))}
+    print(f"{stamp()} TAS placement flavors built ({time.perf_counter() - t0:.1f} s)")
+    fc, req = flavors["tas-fleet-131k"]
+    recorded, launch = [], tk.leaf_counts
+
+    def record(topo, *batch):
+        recorded.append((topo, [x.clone() for x in batch]))
+        return launch(topo, *batch)
+
+    tk.leaf_counts = record
+    try:
+        fc.snapshot(dev).find_topology_assignments([req])
+    finally:
+        tk.leaf_counts = launch
+    if len(recorded) != 1:
+        fail(f"find_topology_assignments at tas-fleet-131k called leaf_counts "
+             f"{len(recorded)} times, not once")
+    cases_b12 = []
+    for label, b in (("tas-placement-1k", 16), ("tas-fleet-131k", 3)):
+        fcl, _ = flavors[label]
+        topo = tk.topology_from_snapshot(fcl.snapshot(dev), dev)
+        cases_b12.append((label, topo, b12_batch(fcl.snapshot(dev), dev, rng, b),
+                          label == "tas-placement-1k"))
+    cases_b12.append(("tas-fleet-131k", *recorded[0], True))
+    b12 = {}
+    for label, topo, batch, timed_here in cases_b12:
+        counts, _ = leaf_counts_step(topo, *batch, Lockstep(errs, f"B12 {label}"))
+        shape = (f"L={topo.free.shape[0]} R={topo.free.shape[1]} B={batch[0].shape[0]} "
+                 f"n_domains={topo.n_domains}")
+        if not timed_here:
+            print(f"{stamp()} B12 lockstep at {label} ({shape}, a plain, a taint-masked and a "
+                  f"simulate_empty row): leaf_counts and level_counts bit-exact")
+            continue
+        entries = {
+            "leaf_counts": (lambda: tk.leaf_counts(topo, *batch),
+                            lambda: tk.leaf_counts_plain(topo, *batch),
+                            b12_bytes(topo, batch[0], batch[3], False)),
+            "level_counts": (lambda: tk.level_counts(topo, counts),
+                             lambda: tk.level_counts_plain(topo, counts),
+                             b12_bytes(topo, batch[0], batch[3], True)),
+        }
+        timer, plain_b12 = TimedLaunches(), {}
+        for name, (kern, plain_fn, nbytes) in entries.items():
+            for _ in range(5):
+                timer(name, kern, None)
+                timer.add_bytes({name: [nbytes]})
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                plain_fn()
+                torch.cuda.synchronize()
+                plain_b12.setdefault(name, []).append((time.perf_counter() - t1) * 1e3)
+        b12[label] = {name: timing_of(timer, name, plain_b12) for name in entries}
+        b12[label]["level_counts"]["library_ms"] = index_add_ms(topo, counts)
+        if label == "tas-fleet-131k":
+            shape += ", the main path's input"
+        b12[label]["shape"] = shape
+        print(f"{stamp()} B12 lockstep at {label} ({shape}): leaf_counts and "
+              f"level_counts bit-exact")
+
+    # 11b. B12 through its entry point at the fleet, default threshold
+    if len(fc.nodes) < TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD:
+        fail("tas-fleet-131k lies below the device threshold")
+    cpu_out = fc.snapshot("cpu").find_topology_assignments([req])
+    _build.reset_launches()
+    dev_out = fc.snapshot(dev).find_topology_assignments([req])
+    fleet_launches = _build.launch_counts()
+    for name in _build.TAS_KERNELS:
+        if fleet_launches[name] <= 0:
+            fail(f"find_topology_assignments at tas-fleet-131k did not launch {name}")
+
+    def placed(out):
+        ta = out.assignments["main"]
+        return out.failure_reason, (sorted((d.values, d.count) for d in ta.domains)
+                                    if ta is not None else None)
+
+    if placed(dev_out) != placed(cpu_out) or dev_out.failure_reason:
+        fail(f"tas-fleet-131k on the card differs from the CPU: {dev_out.failure_reason!r}")
+    print(f"{stamp()} find_topology_assignments at tas-fleet-131k on cuda: "
+          f"{len(dev_out.assignments['main'].domains)} domains, equal to the CPU; "
+          f"B12 launches {fleet_launches['tas_leaf_counts']}")
+    crossover = {}
+    saved = TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD
+    try:
+        for label in ("tas-placement-1k", "tas-fleet-131k"):
+            fcl, reql = flavors[label]
+            row = {}
+            for path, threshold in (("host_numpy", 1 << 62), ("b12", 1)):
+                TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD = threshold
+                snap = fcl.snapshot(dev)
+                snap.podset_fit_counts(reql, {})  # warm: freeze, the device view
+                ts = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    snap.podset_fit_counts(reql, {})
+                    ts.append((time.perf_counter() - t1) * 1e3)
+                row[path] = float(np.median(ts))
+            crossover[label] = row
+            print(f"{stamp()} CountIn at {label}: host numpy {row['host_numpy']:.3f} ms, "
+                  f"B12 (upload, launch, fetch) {row['b12']:.3f} ms a podset")
+    finally:
+        TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD = saved
+
+    # 11c. B13 lockstep: tas-drain-10k and the small two-flavor case
+    env = pt.build_tas_drain(np.random.default_rng(pt.TAS_DRAIN_SEED))
+    small = pt.build_tas_env(cases.tas_spec(0))
+
+    def inputs(e):
+        return pd.tas_drain_inputs(take_snapshot(e.cache), e.pending, e.cache.flavors, e.tas,
+                                   dev, timestamp_fn=e.ts_fn)
+
+    inp = inputs(env)
+    plain = {}
+    t0 = time.perf_counter()
+    _, state, cyc = lockstep_tas(*inp.solve_args(), errs, label="tas-drain-10k",
+                                 plain_ms=plain)
+    if cyc != pt.TAS_DRAIN_EXPECT["cycles"]:
+        fail(f"tas-drain-10k lockstep ran {cyc} cycles")
+    shape = (f"Q={inp.plan.queues_np['cells'].shape[0]} L={inp.plan.queues_np['cells'].shape[1]}"
+             f" Lf={inp.topo.free.shape[0]} Rt={inp.topo.free.shape[1]} "
+             f"n_domains={inp.n_domains} n_steps={inp.n_steps}")
+    print(f"{stamp()} TAS drain lockstep at tas-drain-10k ({shape}): {cyc} cycles, "
+          f"{int((state.adm_cycle >= 0).sum())} admitted; every launch of "
+          f"{sorted(TAS_DRAIN_KERNELS)} bit-exact ({time.perf_counter() - t0:.1f} s)")
+    s_inp = inputs(small)
+    _, s_state, s_cyc = lockstep_tas(*s_inp.solve_args(), errs, label="tas small")
+    if len(s_inp.live_flavors) != 2 or not bool(s_inp.theads_np["t_bad"].any()):
+        fail("the small TAS case lost its coverage (two flavors, a t_bad park)")
+    print(f"{stamp()} TAS drain lockstep small case (tas_spec(0), flavors "
+          f"{s_inp.live_flavors}, n_domains={s_inp.n_domains}): {s_cyc} cycles, bit-exact")
+
+    # 11d. the main path: run_drain_tas and run_drain_for_scope on cuda
+    _build.reset_launches()
+    out = pd.run_drain_tas(take_snapshot(env.cache), env.pending, env.cache.flavors, env.tas,
+                           timestamp_fn=env.ts_fn, device=dev)
+    launches = _build.launch_counts()
+    summary = pt.drain_summary(out)
+    print(f"{stamp()} run_drain_tas on cuda: {json.dumps(summary)}; launches "
+          f"{json.dumps(launches)}")
+    if summary != pt.TAS_DRAIN_EXPECT:
+        fail(f"TAS drain {summary} != expected {pt.TAS_DRAIN_EXPECT}")
+    if any(a is None for a in out.assignments):
+        fail("an admitted TAS workload has no topology assignment")
+    for name in TAS_DRAIN_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the TAS drain")
+    snap = take_snapshot(env.cache)
+    kind, pending2 = pd.classify_drain_scope(snap, env.pending, set(env.tas.flavors), False)
+    _build.reset_launches()
+    routed = pd.run_drain_for_scope(kind, snap, pending2, env.cache.flavors, env.tas,
+                                    timestamp_fn=env.ts_fn, device=dev)
+    if kind != "tas" or pt.drain_summary(routed) != summary:
+        fail(f"run_drain_for_scope({kind!r}) gave {pt.drain_summary(routed)}")
+    if any(_build.launch_counts()[name] <= 0 for name in TAS_DRAIN_KERNELS):
+        fail("run_drain_for_scope('tas') did not launch every TAS drain kernel")
+    small_runs = [pd.run_drain_tas(take_snapshot(small.cache), small.pending,
+                                   small.cache.flavors, small.tas, timestamp_fn=small.ts_fn,
+                                   device=d) for d in (dev, "cpu")]
+    if pt.drain_summary(small_runs[0]) != pt.drain_summary(small_runs[1]):
+        fail("the small TAS case on cuda differs from the CPU")
+    print(f"{stamp()} run_drain_for_scope('tas') on cuda equals run_drain_tas; the small case "
+          f"on cuda equals the CPU ({pt.drain_summary(small_runs[0])})")
+
+    # 11e. walls: the entry point (median of 3 after the warm runs above),
+    # its host lowering and upload, the solve (inputs on the card, one fetch)
+    walls, plans, solves = [], [], []
+    for _ in range(3):
+        snap = take_snapshot(env.cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd.run_drain_tas(snap, env.pending, env.cache.flavors, env.tas, timestamp_fn=env.ts_fn,
+                         device=dev)
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        inputs(env)
+        torch.cuda.synchronize()
+        plans.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        dk._solve_drain_tas_packed(*inp.solve_args(),
+                                   seg_id=inp.plan.queues_np["seg_id"]).cpu()
+        solves.append(time.perf_counter() - t0)
+    wall_ms, plan_ms = 1e3 * float(np.median(walls)), 1e3 * float(np.median(plans))
+    solve_ms = 1e3 * float(np.median(solves))
+    print(f"{stamp()} TAS drain wall (run_drain_tas, median of 3): {wall_ms:.1f} ms = "
+          f"{wall_ms / cyc:.3f} ms/cycle over {cyc} cycles; host lowering and upload "
+          f"{plan_ms:.1f} ms; solve (inputs on the card, one fetch) {solve_ms:.2f} ms")
+
+    # every launch of the drain timed alone, bytes from each cycle's data
+    ctx = dk.tas_context(inp.tree, inp.queues, inp.paths, inp.topo.free, inp.topo.seg_ids,
+                         inp.theads, inp.n_domains, inp.n_steps, inp.plan.max_cycles)
+    st = dk.TASState.initial_tas(inp.local, inp.queues, inp.plan.max_cycles, inp.topo.tas_usage)
+    buf = dk.TASBuffers.empty_tas(inp.local, inp.queues, inp.topo.free.shape[0])
+    bd = BoundData(ctx)
+    timer = TimedLaunches()
+    while not st.done.item():
+        cursor = st.cursor.cpu().numpy()
+        tas_before = st.tas_u.cpu().numpy()
+        for name, kern, _ in TAS_STEPS:
+            timer(name, lambda: kern(ctx, st, buf), None)
+        timer.add_bytes(tas_cycle_bytes(bd, ctx, cursor, buf, tas_before, st.tas_u.cpu().numpy()))
+    timing = {name: timing_of(timer, name, plain) for name in TAS_DRAIN_KERNELS}
+    kernel_ms = sum(t["device_ms_total"] for t in timing.values())
+    print(f"{stamp()} timed TAS drain: {json.dumps({k: len(v) for k, v in timer.dev_ms.items()})}"
+          f" launches each timed alone, {timer.uncovered} uncovered; the kernels "
+          f"{kernel_ms:.3f} ms = {100 * kernel_ms / wall_ms:.2f}% of the wall")
+    for name, t in timing.items():
+        print(f"kernel {name} [TAS drain, tas-drain-10k]: mean over {t['timed']} launches: "
+              f"{t['ms'] * 1e3:.2f} us/launch on the device ({t['device_ms_total']:.3f} ms in "
+              f"all), {t['host_ms'] * 1e3:.2f} us/call to enqueue, plain {t['plain_ms']:.3f} "
+              f"ms/call, bound {t['bound_ms'] * 1e3:.4f} us ({t['bytes']:.0f} B); main-path "
+              f"launches {launches[name]}, max_abs_err {errs[name]}")
+    for label, row in b12.items():
+        for name in ("leaf_counts", "level_counts"):
+            t = row[name]
+            lib = t.get("library_ms")
+            print(f"kernel tas_leaf_counts.{name} [{label}, {row['shape']}]: mean over "
+                  f"{t['timed']} launches: {t['ms'] * 1e3:.2f} us/launch on the device, plain "
+                  f"{t['plain_ms']:.3f} ms/call, bound {t['bound_ms'] * 1e3:.4f} us "
+                  f"({t['bytes']:.0f} B)"
+                  + (f", index_add_ {lib * 1e3:.2f} us (every level)" if lib is not None else ""))
+    return {"errs": errs, "timing": timing, "launches": launches, "wall_ms": wall_ms,
+            "plan_ms": plan_ms, "solve_ms": solve_ms, "cycles": cyc, "kernel_ms": kernel_ms,
+            "b12": b12, "fleet_launches": fleet_launches,
+            "crossover": crossover}
+
+
 # ---- main ---------------------------------------------------------------
 
 
@@ -2304,13 +2703,17 @@ def main() -> int:
     fcyc = fair_cycle_path(dev)
     fdrain = fair_preempt_drain_path(dev)
 
-    # 11. result lines
+    # 11. TAS pod counting and the TAS drain
+    tasr = tas_path(dev)
+
+    # 12. result lines
     by_path = {
         "drain": drain_launches, "megaloop": mega["launches"], "fair": fairr["launches"],
         "cycle_headline": cycle_launches, "cycle_small": small_launches,
         "contended_cycle": pcyc["launches"], "contended_drain": pdrain["launches"],
         "fair_cycle": fcyc["launches"], "fair_preempt_drain": fdrain["launches"],
         "fair_preempt_wide": fdrain["wide_launches"],
+        "tas_drain": tasr["launches"], "tas_fleet": tasr["fleet_launches"],
     }
     kernels = []
     for name in _build.KERNELS:
@@ -2328,6 +2731,11 @@ def main() -> int:
             t, lib = fcyc["timing"][name], None
         elif name.startswith("drain_fair_preempt_"):
             t, lib = fdrain["timing"][name], None
+        elif name.startswith("drain_tas_"):
+            t, lib = tasr["timing"][name], None
+        elif name == "tas_leaf_counts":
+            # the main path's entry: leaf_counts at tas-fleet-131k
+            t, lib = tasr["b12"]["tas-fleet-131k"]["leaf_counts"], None
         else:
             t, lib = ctiming[name], library.get(name)
         entry = {
@@ -2339,7 +2747,8 @@ def main() -> int:
             "launches_by_path": {k: c[name] for k, c in by_path.items()},
             "max_abs_err": max(r.get(name, 0) for r in (errs, cerrs, mega["errs"], fairr["errs"],
                                                          pcyc["errs"], pdrain["errs"],
-                                                         fcyc["errs"], fdrain["errs"])),
+                                                         fcyc["errs"], fdrain["errs"],
+                                                         tasr["errs"])),
             "ms": t["ms"],
             "device_ms_total": t["device_ms_total"],
             "host_ms": t["host_ms"],
@@ -2349,7 +2758,7 @@ def main() -> int:
             "library_ms": lib,
         }
         for label, res in (("megaloop", mega), ("fair", fairr), ("contended_drain", pdrain),
-                           ("fair_preempt_drain", fdrain)):
+                           ("fair_preempt_drain", fdrain), ("tas_drain", tasr)):
             if name in res["timing"] and (name in DRAIN_KERNELS
                                           or name == "drain_preempt_motion" and res is fdrain):
                 entry.setdefault("ms_by_path", {})[label] = res["timing"][name]["ms"]
@@ -2358,8 +2767,19 @@ def main() -> int:
             entry["at_panel_caps"] = {"shape": fdrain["wide_shape"], "ms": w["ms"],
                                       "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
                                       "launches": fdrain["wide_launches"][name]}
+        if name == "tas_leaf_counts":
+            entry["entry_points"] = {
+                label: {
+                    entry_name: {k: row[entry_name][k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bytes", "library_ms") if k in
+                        row[entry_name]}
+                    for entry_name in ("leaf_counts", "level_counts")
+                } | {"shape": row["shape"]}
+                for label, row in tasr["b12"].items()
+            }
+            entry["countin_ms"] = tasr["crossover"]
         kernels.append(entry)
-    if len(kernels) != 16:
+    if len(kernels) != 19:
         fail(f"{len(kernels)} kernels in the result line")
     print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
@@ -2383,7 +2803,12 @@ def main() -> int:
                       "fair_preempt_drain_wall_ms": fdrain["wall_ms"],
                       "fair_preempt_drain_plan_ms": fdrain["plan_ms"],
                       "fair_preempt_drain_solve_ms": fdrain["solve_ms"],
-                      "fair_preempt_drain_cycles": fdrain["cycles"]}))
+                      "fair_preempt_drain_cycles": fdrain["cycles"],
+                      "tas_drain_wall_ms": tasr["wall_ms"],
+                      "tas_drain_plan_ms": tasr["plan_ms"],
+                      "tas_drain_solve_ms": tasr["solve_ms"],
+                      "tas_drain_kernels_ms": tasr["kernel_ms"],
+                      "tas_drain_cycles": tasr["cycles"]}))
     print(card)
     print(json.dumps({
         "ok": True,

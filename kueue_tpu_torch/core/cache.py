@@ -74,7 +74,7 @@ class Cache:
         # Optional TAS cache: charged/released alongside quota usage so
         # later entries in a cycle see earlier TAS admissions (the
         # reference's snapshot.AddWorkload updates TAS usage in place).
-        self.tas_cache = None  # kueue_tpu.tas.TASCache
+        self.tas_cache = None  # kueue_tpu_torch.tas.TASCache
 
     # ---- object lifecycle ----
     def add_or_update_cluster_queue(self, cq: ClusterQueue) -> None:

@@ -18,7 +18,10 @@ preemption (``run_drain_preempt``, its candidate-pool lowering and the
 order and fair-sharing preemption (``run_drain_fair_preempt``, the same
 pools plus each segment's fair panels), and the scope routing
 (``classify_drain_scope``, ``run_drain_for_scope``,
-``launch_drain_for_scope``). The TAS drain, mesh sharding and
+``launch_drain_for_scope``), and the drain with Topology-Aware
+Scheduling (``run_drain_tas``: the merged domain forest of every
+in-scope TAS flavor, the placement and its admit-time re-validation in
+kernel B13, and the host replay of the placements). Mesh sharding and
 non-default admission policies are not ported yet and raise
 NotImplementedError.
 """
@@ -1259,6 +1262,513 @@ def run_drain_fair_preempt(
     return _preempt_outcome(plan, low, flat, plan.queues_np, fair=True)
 
 
+# caps keeping the TAS placement exact and its kernel's shared-memory
+# rows bounded: MAX_TAS_COUNT * MAX_TAS_DOMAINS < 2^31 (the reference's
+# i32 prefix in its split; the port's is int64, clamped as there).
+# Gangs above a million pods or merged forests above 2048 leaves route
+# to the host cycle loop.
+MAX_TAS_COUNT = 1 << 20
+MAX_TAS_DOMAINS = 1 << 11
+
+
+def _merge_tas_forests(snaps, union_res, d_global):
+    """Concatenate per-flavor topologies into ONE disjoint domain
+    forest, aligned at the LEAF level.
+
+    A flavor with fewer levels gets structural dummy TOP levels (one
+    domain per missing level, chained) so seg_ids/parent maps stay
+    rectangular; the dummies are semantically unreachable — the kernel
+    clamps the preferred-mode relax-up at each flavor's real top
+    (TASHeads.t_top). Returns (topo_free, tas_usage, seg_ids,
+    n_domains, parent_map, leaf_flavor, leaf_off) on the union resource
+    axis, or None when ``snaps`` is empty."""
+    if not snaps:
+        return None
+    from kueue_tpu_torch.ops.tas_kernel import _level_prefix_index
+
+    n_res = max(len(union_res), 1)
+    u_index = {r: j for j, r in enumerate(union_res)}
+    n_f = len(snaps)
+    idxs_of = []
+    counts = []  # [F][D] domains per flavor per global level
+    for s in snaps:
+        df = len(s.level_keys)
+        idxs = [_level_prefix_index(s, d) for d in range(df)]
+        idxs_of.append(idxs)
+        counts.append([1] * (d_global - df) + [len(ix) for ix in idxs])
+    n_domains = tuple(sum(counts[f][d] for f in range(n_f)) for d in range(d_global))
+    dom_off = [[0] * n_f for _ in range(d_global)]
+    for d in range(d_global):
+        acc = 0
+        for f in range(n_f):
+            dom_off[d][f] = acc
+            acc += counts[f][d]
+    lf_total = sum(len(s._leaf_order) for s in snaps)
+    nd_max = max(n_domains)
+    seg_ids = np.zeros((d_global, lf_total), dtype=np.int32)
+    parent_map = np.zeros((d_global, nd_max), dtype=np.int32)
+    topo_free = np.zeros((lf_total, n_res), dtype=np.int64)
+    tas_usage = np.zeros((lf_total, n_res), dtype=np.int64)
+    leaf_flavor = np.zeros(lf_total, dtype=np.int32)
+    leaf_off: Dict[int, int] = {}
+    off_l = 0
+    for f, s in enumerate(snaps):
+        df = len(s.level_keys)
+        lvl_off = d_global - df
+        nl_f = len(s._leaf_order)
+        idxs = idxs_of[f]
+        leaf_off[f] = off_l
+        leaf_flavor[off_l : off_l + nl_f] = f
+        cols = [u_index[r] for r in s._resources]
+        topo_free[off_l : off_l + nl_f, cols] = s._free
+        tas_usage[off_l : off_l + nl_f, cols] = s._tas_usage
+        for d in range(d_global):
+            dl = d - lvl_off
+            if dl < 0:
+                seg_ids[d, off_l : off_l + nl_f] = dom_off[d][f]
+            else:
+                for i, leaf in enumerate(s._leaf_order):
+                    seg_ids[d, off_l + i] = dom_off[d][f] + idxs[dl][leaf.level_values[: dl + 1]]
+        for d in range(1, d_global):
+            dl = d - lvl_off
+            if dl < 0:
+                parent_map[d, dom_off[d][f]] = dom_off[d - 1][f]
+            elif dl == 0:
+                for idx in idxs[0].values():
+                    parent_map[d, dom_off[d][f] + idx] = dom_off[d - 1][f]
+            else:
+                for p, idx in idxs[dl].items():
+                    parent_map[d, dom_off[d][f] + idx] = (
+                        dom_off[d - 1][f] + idxs[dl - 1][p[:-1]]
+                    )
+        off_l += nl_f
+    return (topo_free, tas_usage, seg_ids, n_domains, parent_map, leaf_flavor, leaf_off)
+
+
+@dataclass
+class TASDrainOutcome(DrainOutcome):
+    # TopologyAssignment per admitted entry, aligned with ``admitted``
+    # (None for non-TAS workloads)
+    assignments: List[object] = field(default_factory=list)
+
+
+@dataclass
+class TASDrainInputs:
+    """A TAS drain's host lowering and its inputs on the device (what
+    ``tas_drain_inputs`` returns and ``run_drain_tas`` solves)."""
+
+    plan: DrainPlan
+    tas_queue: Dict[int, str]  # in-scope queue index -> TAS flavor name
+    snaps: Dict[str, object]  # flavor name -> frozen TASFlavorSnapshot
+    live_flavors: List[str]
+    union_res: List[str]
+    leaf_off: Dict[int, int]
+    extra_fb: List[Tuple[Workload, str]]
+    theads_np: dict
+    n_domains: Tuple[int, ...]
+    n_steps: int
+    # on the device
+    tree: object
+    paths: object
+    local: object
+    queues: object
+    topo: object  # TASTopology of the merged forest
+    theads: object  # TASHeads
+
+    def solve_args(self) -> tuple:
+        """The positional arguments of ops/drain_kernel.solve_drain_tas."""
+        return (self.tree, self.local, self.queues, self.paths, self.topo.free,
+                self.topo.tas_usage, self.topo.seg_ids, self.theads, self.n_domains,
+                self.n_steps, self.plan.max_cycles)
+
+
+def tas_drain_inputs(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    tas_cache,
+    device,
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    policy=None,
+    now: float = 0.0,
+) -> TASDrainInputs:
+    """The TAS drain's host lowering (the JAX ``run_drain_tas`` up to
+    its solve): the plan, the scope rules, the merged domain forest and
+    the per-queue TAS lowering, uploaded to ``device`` with no host
+    sync."""
+    from kueue_tpu_torch._torch import to_device
+    from kueue_tpu_torch.core.workload_info import quota_per_pod
+    from kueue_tpu_torch.interop import drain_queues, tas_heads, tas_topology
+    from kueue_tpu_torch.models.constants import (
+        TOPOLOGY_MODE_PREFERRED,
+        TOPOLOGY_MODE_REQUIRED,
+        TOPOLOGY_MODE_UNCONSTRAINED,
+        PreemptionPolicy,
+        ReclaimWithinCohortPolicy,
+    )
+    from kueue_tpu_torch.resources import PODS
+
+    plan = plan_drain(
+        snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+        allow_tas=True, policy=policy, now=now,
+    )
+    q = max(len(plan.cq_order), 1)
+    nl = plan.queues_np["cells"].shape[1]
+
+    tas_flavor_names = set(tas_cache.flavors)
+    mode_id = {
+        TOPOLOGY_MODE_REQUIRED: 0,
+        TOPOLOGY_MODE_PREFERRED: 1,
+        TOPOLOGY_MODE_UNCONSTRAINED: 2,
+    }
+
+    def cq_flavor_names(cq_name):
+        cq = snapshot.cq_models[cq_name]
+        return {fq.name for rg in cq.resource_groups for fq in rg.flavors}
+
+    # ---- scope: classify queues; EVERY in-scope TAS flavor joins the
+    # merged domain forest (queues segmented by flavor) ----
+    drop: List[int] = []
+    tas_queue: Dict[int, str] = {}  # qi -> tas flavor name
+    t_bad = np.zeros((q, nl), dtype=bool)
+    for qi, cq_name in enumerate(plan.cq_order):
+        prem = snapshot.cq_models[cq_name].preemption
+        names = cq_flavor_names(cq_name)
+        tnames = names & tas_flavor_names
+        if not tnames:
+            # plain quota queue — topology-requesting entries on a
+            # non-TAS flavor are PARKED in kernel at the exact cycle
+            # the host would reject the flavor ("does not support
+            # TopologyAwareScheduling", tas/manager.py check); the
+            # queue itself stays in the drain
+            for pos in range(int(plan.queues_np["qlen"][qi])):
+                i = plan.head_of.get((qi, pos))
+                if i is not None and any(
+                    ps.topology_request is not None for ps in plan.lowered.heads[i].pod_sets
+                ):
+                    t_bad[qi, pos] = True
+            continue
+        capable = prem.within_cluster_queue != PreemptionPolicy.NEVER or (
+            snapshot.has_cohort(cq_name)
+            and prem.reclaim_within_cohort != ReclaimWithinCohortPolicy.NEVER
+        )
+        if capable or len(names) != 1:
+            drop.append(qi)
+            continue
+        tas_queue[qi] = next(iter(tnames))
+
+    # per-flavor snapshots; tainted flavors stay host-side (the kernel
+    # has no toleration filtering), and the merged forest caps its
+    # domain axis (MAX_TAS_DOMAINS: the placement kernel's rows)
+    flavor_names = sorted(set(tas_queue.values()))
+    snaps: Dict[str, object] = {}
+    total_leaves = 0
+    for fname in flavor_names:
+        s = tas_cache.flavors[fname].snapshot(device)
+        s.freeze()
+        over = total_leaves + len(s._leaf_order) > MAX_TAS_DOMAINS
+        if over or any(t for t in s._leaf_taints):
+            for qi in [k for k, v in tas_queue.items() if v == fname]:
+                drop.append(qi)
+                del tas_queue[qi]
+        else:
+            total_leaves += len(s._leaf_order)
+            snaps[fname] = s
+
+    # union resource axis + merged level depth
+    union_res = sorted({r for s in snaps.values() for r in s._resources})
+    n_res_t = max(len(union_res), 1)
+    u_index = {r: j for j, r in enumerate(union_res)}
+    d_global = max((len(s.level_keys) for s in snaps.values()), default=1)
+
+    # per-entry TAS lowering + scope checks
+    t_is = np.zeros(q, dtype=bool)
+    t_req = np.zeros((q, nl, n_res_t), dtype=np.int64)
+    t_count = np.zeros((q, nl), dtype=np.int32)
+    t_level = np.zeros((q, nl), dtype=np.int32)
+    t_mode = np.zeros((q, nl), dtype=np.int32)
+    t_top = np.zeros(q, dtype=np.int32)
+    t_flavor = np.zeros(q, dtype=np.int32)
+    dropped = set(drop)
+    for qi, fname in tas_queue.items():
+        if qi in dropped:
+            continue
+        snap_f = snaps[fname]
+        lvl_off = d_global - len(snap_f.level_keys)
+        r_index_f = set(snap_f._resources)
+        ok = True
+        for pos in range(int(plan.queues_np["qlen"][qi])):
+            i = plan.head_of.get((qi, pos))
+            if i is None:
+                continue
+            wl = plan.lowered.heads[i]
+            if len(wl.pod_sets) != 1:
+                ok = False
+                break
+            ps = wl.pod_sets[0]
+            tr = ps.topology_request
+            if tr is None or tr.mode not in mode_id:
+                ok = False
+                break
+            if tr.mode == TOPOLOGY_MODE_UNCONSTRAINED:
+                lvl_local = len(snap_f.level_keys) - 1  # lowest level
+            elif tr.level in snap_f.level_keys:
+                lvl_local = snap_f.level_keys.index(tr.level)
+            else:
+                ok = False
+                break
+            per_pod = dict(quota_per_pod(ps, None))
+            per_pod[PODS] = per_pod.get(PODS, 0) + 1
+            if any(r not in r_index_f for r in per_pod):
+                ok = False
+                break
+            if int(ps.count) > MAX_TAS_COUNT:
+                ok = False  # keeps the placement's prefix sums exact
+                break
+            for r, v in per_pod.items():
+                t_req[qi, pos, u_index[r]] = int(v)
+            t_count[qi, pos] = int(ps.count)
+            t_level[qi, pos] = lvl_off + lvl_local
+            t_mode[qi, pos] = mode_id[tr.mode]
+        if not ok:
+            drop.append(qi)
+            dropped.add(qi)
+        else:
+            t_is[qi] = True
+            t_top[qi] = d_global - len(snap_f.level_keys)
+
+    # drop out-of-scope queues to the fallback path
+    extra_fb: List[Tuple[Workload, str]] = []
+    for qi in sorted(set(drop)):
+        plan.queues_np["qlen"][qi] = 0
+        plan.queues_np["cq_rows"][qi] = -1
+        plan.queues_np["seg_id"][qi] = -1
+        for pos in range(nl):
+            i = plan.head_of.pop((qi, pos), None)
+            if i is not None:
+                extra_fb.append((plan.lowered.heads[i], plan.lowered.cq_names[i]))
+
+    if max_cycles is not None:
+        plan.max_cycles = max_cycles
+
+    live_flavors = sorted({tas_queue[qi] for qi in tas_queue if qi not in dropped})
+    merged = _merge_tas_forests([snaps[f] for f in live_flavors], union_res, d_global)
+    if merged is not None:
+        (topo_free_np, tas_usage0_np, seg_ids_np, n_domains, parent_map,
+         leaf_flavor_np, leaf_off) = merged
+        # queue flavor ids on the LIVE flavor axis
+        live_idx = {f: i for i, f in enumerate(live_flavors)}
+        for qi, fname in tas_queue.items():
+            if qi not in dropped:
+                t_flavor[qi] = live_idx[fname]
+    else:
+        # no TAS queue in scope: inert 1-leaf topology
+        topo_free_np = np.zeros((1, 1), dtype=np.int64)
+        tas_usage0_np = np.zeros((1, 1), dtype=np.int64)
+        seg_ids_np = np.zeros((1, 1), dtype=np.int32)
+        n_domains = (1,)
+        parent_map = np.zeros((1, 1), dtype=np.int32)
+        leaf_flavor_np = np.zeros(1, dtype=np.int32)
+        leaf_off = {}
+        t_req = t_req[:, :, :1]
+
+    theads_np = dict(
+        t_is=t_is, t_req=t_req, t_count=t_count, t_level=t_level, t_mode=t_mode,
+        t_top=t_top, t_flavor=t_flavor, leaf_flavor=leaf_flavor_np, parent_map=parent_map,
+        t_bad=t_bad,
+    )
+    n_live = int((plan.queues_np["cq_rows"] >= 0).sum())
+    tree, paths, _ = tree_arrays(snapshot, device)
+    return TASDrainInputs(
+        plan=plan, tas_queue={qi: f for qi, f in tas_queue.items() if qi not in dropped},
+        snaps=snaps, live_flavors=live_flavors, union_res=union_res, leaf_off=leaf_off,
+        extra_fb=extra_fb, theads_np=theads_np,
+        n_domains=tuple(int(n) for n in n_domains),
+        n_steps=_bucket(max(n_live, 1), minimum=8),
+        tree=tree, paths=paths,
+        local=to_device(snapshot.local_usage, device, np.int64),
+        queues=drain_queues(plan.queues_np, device),
+        topo=tas_topology(dict(free=topo_free_np, tas_usage=tas_usage0_np, seg_ids=seg_ids_np,
+                               n_domains=n_domains), device),
+        theads=tas_heads(theads_np, device),
+    )
+
+
+def _tas_outcome(inp: TASDrainInputs, flat: np.ndarray) -> TASDrainOutcome:
+    """Decode the packed TAS drain (``_solve_drain_tas_packed``) and
+    replay its placements on the host: per admission cycle against
+    cycle-start state, per FLAVOR, the TopologyAssignments are
+    reconstructed and the final leaf usage must reproduce the kernel's
+    exactly, flavor by flavor."""
+    from kueue_tpu_torch.core.workload_info import quota_per_pod
+    from kueue_tpu_torch.tas.snapshot import TASPodSetRequest, domain_id
+
+    plan = inp.plan
+    queues_np = plan.queues_np
+    nq, nl2, npd = queues_np["cells"].shape[:3]
+    lf_n, n_res_t = inp.topo.free.shape
+    ql, qlp = nq * nl2, nq * nl2 * npd
+    off = 0
+    adm_k = flat[off : off + qlp].reshape((nq, nl2, npd))
+    off += qlp
+    adm_cycle = flat[off : off + ql].reshape((nq, nl2))
+    off += ql
+    adm_step = flat[off : off + ql].reshape((nq, nl2))
+    off += ql
+    cursor = flat[off : off + nq]
+    off += nq
+    stuck_q = flat[off : off + nq].astype(bool)
+    off += nq
+    tas_final = flat[off : off + lf_n * n_res_t].reshape((lf_n, n_res_t))
+    cycles = int(flat[-1])
+    truncated = bool(np.any((cursor < queues_np["qlen"]) & ~stuck_q))
+
+    lowered = plan.lowered
+    admitted: List[Tuple[Workload, str, Dict[str, str], int]] = []
+    adm_meta: List[Tuple[int, int, int]] = []  # (cycle, step, index)
+    parked: List[Tuple[Workload, str]] = []
+    extra_fallback: List[Tuple[Workload, str]] = list(inp.extra_fb)
+    for (qi, pos), i in plan.head_of.items():
+        wl = lowered.heads[i]
+        cq_name = lowered.cq_names[i]
+        if int(adm_k[qi, pos, 0]) >= 0:
+            adm_meta.append((int(adm_cycle[qi, pos]), int(adm_step[qi, pos]), len(admitted)))
+            admitted.append(
+                (wl, cq_name, _admitted_flavors(lowered, i, adm_k[qi, pos]),
+                 int(adm_cycle[qi, pos]))
+            )
+        elif pos >= int(cursor[qi]):
+            extra_fallback.append((wl, cq_name))
+        else:
+            parked.append((wl, cq_name))
+    order = sorted(range(len(admitted)), key=lambda j: adm_meta[j][:2])
+    admitted = [admitted[adm_meta[j][2]] for j in order]
+    adm_meta = [adm_meta[j] for j in order]
+
+    # ---- replay: reconstruct TopologyAssignments per admission cycle
+    # against cycle-start state (the kernel nominates against it too),
+    # per FLAVOR; the final leaf usage must reproduce the kernel's
+    # exactly, flavor by flavor ----
+    assignments: List[object] = [None] * len(admitted)
+    if inp.live_flavors:
+        snaps = inp.snaps
+        u_index = {r: j for j, r in enumerate(inp.union_res)}
+        live_idx = {f: i for i, f in enumerate(inp.live_flavors)}
+        flavor_of_cq = {plan.cq_order[qi]: fname for qi, fname in inp.tas_queue.items()}
+        j = 0
+        while j < len(admitted):
+            cyc = adm_meta[j][0]
+            batch = []
+            while j < len(admitted) and adm_meta[j][0] == cyc:
+                wl, cq_name, _, _ = admitted[j]
+                if wl.pod_sets[0].topology_request is not None and cq_name in flavor_of_cq:
+                    batch.append(j)
+                j += 1
+            placed = []
+            for bj in batch:
+                wl, cq_name = admitted[bj][0], admitted[bj][1]
+                sf = snaps[flavor_of_cq[cq_name]]
+                ps = wl.pod_sets[0]
+                req = TASPodSetRequest(
+                    podset_name=ps.name,
+                    count=ps.count,
+                    single_pod_requests=dict(quota_per_pod(ps, None)),
+                    topology_request=ps.topology_request,
+                    tolerations=tuple(ps.tolerations),
+                )
+                ta, reason = sf.find_topology_assignment(req, {})
+                if reason:  # explicit raise: must survive `python -O`
+                    raise AssertionError(f"TAS drain replay failed for {wl.name}: {reason}")
+                assignments[bj] = ta
+                placed.append((sf, req, ta))
+            for sf, req, ta in placed:  # charge AFTER the batch
+                for dom in ta.domains:
+                    usage = {r: v * dom.count for r, v in req.single_pod_requests.items()}
+                    sf.add_tas_usage(domain_id(dom.values), usage, dom.count)
+        for fname in inp.live_flavors:
+            sf = snaps[fname]
+            sf.freeze()
+            off = inp.leaf_off[live_idx[fname]]
+            nl_f = len(sf._leaf_order)
+            cols = [u_index[r] for r in sf._resources]
+            sub = tas_final[off : off + nl_f][:, cols]
+            if not np.array_equal(sf._tas_usage, sub):
+                bad = np.argwhere(sf._tas_usage != sub)[:8]
+                raise AssertionError(
+                    f"TAS drain replay does not reproduce the kernel's leaf usage for "
+                    f"flavor {fname} — placement parity bug; first diffs (leaf, res): "
+                    + "; ".join(
+                        f"{tuple(ix)}: host={sf._tas_usage[tuple(ix)]} kernel={sub[tuple(ix)]}"
+                        for ix in bad
+                    )
+                )
+
+    fb = [(lowered.heads[i], lowered.cq_names[i]) for i in plan.fallback] + extra_fallback
+    return TASDrainOutcome(
+        admitted=admitted,
+        parked=parked,
+        fallback=fb,
+        cycles=cycles,
+        truncated=truncated,
+        assignments=assignments,
+    )
+
+
+def run_drain_tas(
+    snapshot: Snapshot,
+    pending: Sequence[Tuple[Workload, str]],
+    flavors: Dict[str, ResourceFlavor],
+    tas_cache,
+    max_candidates: int = 8,
+    max_cells: int = 4,
+    timestamp_fn=None,
+    max_cycles: Optional[int] = None,
+    mesh=None,
+    policy=None,
+    now: float = 0.0,
+    device=None,
+) -> TASDrainOutcome:
+    """Multi-cycle drain with Topology-Aware Scheduling heads decided
+    on the card (ops/drain_kernel.solve_drain_tas, kernel B13) — the
+    lowering and upload, one solve and ONE fetch, then a cheap host
+    replay (one placement per ADMITTED workload, grouped per cycle
+    against cycle-start state) that reconstructs the
+    TopologyAssignments and asserts the kernel's final TAS leaf usage
+    is reproduced exactly, flavor by flavor.
+
+    Runs on the card: ``device`` defaults to ``cuda`` and raises where
+    there is none; ``device="cpu"`` runs the plain torch versions.
+
+    Scope: single-podset topology requests in ALL THREE modes —
+    Required, Preferred (level relaxation,
+    tas_flavor_snapshot.go:513-549), Unconstrained — over ANY number of
+    taint-free TAS flavors (queues segmented by flavor, each placing
+    into its own subtree of one merged domain forest); TAS
+    ClusterQueues must be preemption-free and single-flavor, and the
+    default BestFit profile applies. Topology requests on non-TAS
+    ClusterQueues PARK in kernel at the exact cycle the host would
+    reject the flavor. Heads outside the scope route to ``fallback``
+    for the cycle loop. Mesh sharding is not ported
+    (NotImplementedError)."""
+    from kueue_tpu_torch._torch import resolve_device
+    from kueue_tpu_torch.ops.drain_kernel import _solve_drain_tas_packed
+
+    if mesh is not None:
+        raise NotImplementedError("mesh-sharded drains are not ported yet")
+    dev = resolve_device(device)
+    inp = tas_drain_inputs(
+        snapshot, pending, flavors, tas_cache, dev, max_candidates, max_cells,
+        timestamp_fn, max_cycles=max_cycles, policy=policy, now=now,
+    )
+    flat = _solve_drain_tas_packed(
+        *inp.solve_args(), seg_id=inp.plan.queues_np["seg_id"]
+    ).cpu().numpy()  # the single fetch
+    return _tas_outcome(inp, flat)
+
+
 def classify_drain_scope(
     snapshot: Snapshot,
     pending: Sequence[Tuple[Workload, str]],
@@ -1312,6 +1822,7 @@ def run_drain_for_scope(
     snapshot: Snapshot,
     pending: Sequence[Tuple[Workload, str]],
     flavors: Dict[str, ResourceFlavor],
+    tas_cache=None,
     fs_strategies=None,
     timestamp_fn=None,
     mesh=None,
@@ -1322,10 +1833,12 @@ def run_drain_for_scope(
     """Dispatch the drain a classify_drain_scope kind names: the one
     place the kind-to-drain mapping lives. ``fs_strategies`` (the
     preemptor's fairSharing.preemptionStrategies) goes to the
-    fair-preempt drain. The TAS drain (ROADMAP A7) is not ported yet
-    (NotImplementedError)."""
+    fair-preempt drain, ``tas_cache`` (the TASCache) to the TAS drain."""
     if kind == "tas":
-        raise NotImplementedError(f"the {kind} drain is not ported yet")
+        return run_drain_tas(
+            snapshot, pending, flavors, tas_cache, timestamp_fn=timestamp_fn,
+            mesh=mesh, policy=policy, now=now, device=device,
+        )
     if kind == "fair_preempt":
         return run_drain_fair_preempt(
             snapshot, pending, flavors, timestamp_fn=timestamp_fn,

@@ -2,24 +2,27 @@
 // drain_phase2.cu, drain_queue_motion.cu, megaloop_boundary.cu,
 // drain_fair_phase2.cu, drain_preempt_search.cu,
 // drain_preempt_phase2.cu, drain_preempt_motion.cu,
-// drain_fair_preempt_search.cu, drain_fair_preempt_phase2.cu).
+// drain_fair_preempt_search.cu, drain_fair_preempt_phase2.cu,
+// drain_tas_place.cu, drain_tas_phase2.cu).
 //
 // Each C entry point takes the same two arrays, built once per drain
 // by kueue_tpu_torch/ops/drain_kernel.py (DrainContext.kernel_args):
 //   ints: Q L P K C G N FR D n_segments n_steps n_seg max_cycles
 //         chunk_cycles max_rounds n_res prio_tie V Cv M search_width
-//         Cu strategy1 has_second
+//         Cu strategy1 has_second Lf Rt Dt ND
 //   ptrs: 17 DrainQueues fields, 7 tree tensors, 12 DrainState
 //         fields, 12 CycleBuffers fields, seg_offsets, seg_members,
 //         8 megaloop round-log fields, 6 fair-drain fields, 33
-//         preempt-drain fields, 8 fair-preempt-drain fields
+//         preempt-drain fields, 8 fair-preempt-drain fields, 17
+//         TAS-drain fields
 // in the order of the structs below, and returns cudaGetLastError()
 // (cudaErrorInvalidValue when the array lengths do not match).
 // max_rounds is 0 outside the megaloop, whose round-log pointers are
 // then NULL; the fair pointers are NULL outside the fair drain, the
 // preempt pointers (and V Cv M search_width) outside the preempt
 // drains, the fair-preempt pointers (and Cu strategy1 has_second)
-// outside the fair-preempt drain. Booleans are torch.bool tensors: one byte, 0 or 1.
+// outside the fair-preempt drain, the TAS pointers (and Lf Rt Dt ND)
+// outside the TAS drain. Booleans are torch.bool tensors: one byte, 0 or 1.
 
 #pragma once
 
@@ -35,6 +38,9 @@ constexpr int kMaxG = 8;
 constexpr int kMaxP = 4;
 constexpr int kMaxPC = kMaxP * kMaxC;  // merged cells: one warp lane each
 constexpr int kMaxR = 16;  // resources of the fair drain's DRS
+constexpr int kMaxTasND = 2048;   // TAS drain: domains a level
+constexpr int kMaxTasDepth = 16;  // TAS drain: levels of the merged forest
+constexpr int kMaxTasR = 16;      // TAS drain: topology resources
 
 struct Queues {
   const int* cq_rows;
@@ -151,6 +157,26 @@ struct FairPreempt {             // the fair-preempt drain's panels
   long long* pq_cu;              // [S,V,Cu] state: pool usage at panel cells
 };
 
+struct Tas {                     // the TAS drain (merged domain forest)
+  const long long* topo_free;    // [Lf,Rt]
+  const int* seg_ids;            // [Dt,Lf] leaf -> domain at each level
+  const int* n_domains;          // [Dt]
+  const uint8_t* t_is;           // [Q]
+  const long long* t_req;        // [Q,L,Rt] per-pod requests (pods 1)
+  const int* t_count;            // [Q,L]
+  const int* t_level;            // [Q,L]
+  const int* t_mode;             // [Q,L] 0 Required 1 Preferred 2 Unconstrained
+  const int* t_top;              // [Q]
+  const int* t_flavor;           // [Q]
+  const int* leaf_flavor;        // [Lf]
+  const int* parent_map;         // [Dt,ND]
+  const uint8_t* t_bad;          // [Q,L]
+  long long* tas_u;              // [Lf,Rt] state: live TAS leaf usage
+  int* adm_step;                 // [Q,L] state
+  uint8_t* tas_nom_ok;           // [Q] buffers
+  long long* taken0;             // [Q,Lf] buffers
+};
+
 struct Buffers {
   long long* usage;   // [N,FR]
   long long* avail;   // [N,FR]
@@ -172,6 +198,7 @@ struct Args {
   int chunk_cycles, max_rounds, n_res, prio_tie;
   int V, Cv, M, search_width;
   int Cu, strategy1, has_second;
+  int Lf, Rt, Dt, ND;
   Queues q;
   Tree t;
   State s;
@@ -182,10 +209,11 @@ struct Args {
   Fair f;
   Preempt p;
   FairPreempt fp;
+  Tas tas;
 };
 
-constexpr int kNumInts = 24;
-constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8;
+constexpr int kNumInts = 28;
+constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8 + 17;
 
 // Fills `a` from the two arrays; false when their lengths do not match.
 inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args* a) {
@@ -198,6 +226,7 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->n_res = ints[15]; a->prio_tie = ints[16];
   a->V = ints[17]; a->Cv = ints[18]; a->M = ints[19]; a->search_width = ints[20];
   a->Cu = ints[21]; a->strategy1 = ints[22]; a->has_second = ints[23];
+  a->Lf = ints[24]; a->Rt = ints[25]; a->Dt = ints[26]; a->ND = ints[27];
   int i = 0;
   a->q.cq_rows = (const int*)p[i++];
   a->q.seg_id = (const int*)p[i++];
@@ -304,6 +333,23 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->fp.weight_local = (const long long*)p[i++];
   a->fp.res_of_cell = (const int*)p[i++];
   a->fp.pq_cu = (long long*)p[i++];
+  a->tas.topo_free = (const long long*)p[i++];
+  a->tas.seg_ids = (const int*)p[i++];
+  a->tas.n_domains = (const int*)p[i++];
+  a->tas.t_is = (const uint8_t*)p[i++];
+  a->tas.t_req = (const long long*)p[i++];
+  a->tas.t_count = (const int*)p[i++];
+  a->tas.t_level = (const int*)p[i++];
+  a->tas.t_mode = (const int*)p[i++];
+  a->tas.t_top = (const int*)p[i++];
+  a->tas.t_flavor = (const int*)p[i++];
+  a->tas.leaf_flavor = (const int*)p[i++];
+  a->tas.parent_map = (const int*)p[i++];
+  a->tas.t_bad = (const uint8_t*)p[i++];
+  a->tas.tas_u = (long long*)p[i++];
+  a->tas.adm_step = (int*)p[i++];
+  a->tas.tas_nom_ok = (uint8_t*)p[i++];
+  a->tas.taken0 = (long long*)p[i++];
   return true;
 }
 

@@ -10,8 +10,11 @@ on a device; ``fair_inputs`` adds the fair drain's ``FairInputs``,
 ``preempt_problem`` for the batched victim search's
 ``PreemptProblem``, ``fair_problem`` for the fair victim search's
 ``FairProblem`` and ``fair_seg_panels`` for the fair-preempt drain's
-``FairSegPanels``. The parity tests feed the same arrays to both
-packages through it; nothing here imports the JAX package.
+``FairSegPanels``; ``tas_topology`` the dense TAS forest
+(``TASTopology``: free capacity, TAS usage, segment ids) and
+``tas_heads`` the TAS drain's per-queue lowering (``TASHeads``). The
+parity tests feed the same arrays to both packages through it; nothing
+here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ from kueue_tpu_torch.ops.drain_kernel import (
     FairInputs,
     FairSegPanels,
     SegVictims,
+    TASHeads,
 )
 from kueue_tpu_torch.ops.fair_preempt_kernel import FairProblem
 from kueue_tpu_torch.ops.preempt_kernel import PreemptProblem
 from kueue_tpu_torch.ops.quota import QuotaTree
+from kueue_tpu_torch.ops.tas_kernel import TASTopology
 
 # DrainQueues field -> numpy dtype of the plan tensors
 QUEUE_DTYPES = {
@@ -208,4 +213,34 @@ def fair_seg_panels(panels: Mapping[str, np.ndarray], device=None) -> FairSegPan
     dev = resolve_device(device)
     return FairSegPanels(**{
         name: _on(panels[name], dtype, dev) for name, dtype in FAIR_PANEL_DTYPES.items()
+    })
+
+
+# TASHeads field -> numpy dtype
+TAS_HEAD_DTYPES = {
+    "t_is": np.bool_, "t_req": np.int64, "t_count": np.int32, "t_level": np.int32,
+    "t_mode": np.int32, "t_top": np.int32, "t_flavor": np.int32, "leaf_flavor": np.int32,
+    "parent_map": np.int32, "t_bad": np.bool_,
+}
+
+
+def tas_topology(arrays: Mapping[str, object], device=None) -> TASTopology:
+    """TASTopology from ``free`` int64[L, R], ``tas_usage`` int64[L, R],
+    ``seg_ids`` int32[D, L] and ``n_domains`` (a TASFlavorSnapshot's
+    dense view, or a TAS drain's merged forest, of either package)."""
+    dev = resolve_device(device)
+    return TASTopology(
+        free=_on(arrays["free"], np.int64, dev),
+        tas_usage=_on(arrays["tas_usage"], np.int64, dev),
+        seg_ids=_on(arrays["seg_ids"], np.int32, dev),
+        n_domains=tuple(int(n) for n in arrays["n_domains"]),
+    )
+
+
+def tas_heads(arrays: Mapping[str, np.ndarray], device=None) -> TASHeads:
+    """TASHeads from a TAS drain's per-queue lowering (``theads_np`` of
+    either package's run_drain_tas)."""
+    dev = resolve_device(device)
+    return TASHeads(**{
+        name: _on(arrays[name], dtype, dev) for name, dtype in TAS_HEAD_DTYPES.items()
     })

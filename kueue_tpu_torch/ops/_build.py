@@ -45,15 +45,17 @@ KERNELS = (
     "megaloop_boundary", "drain_fair_phase2",
     "preempt_search", "drain_preempt_search", "drain_preempt_phase2", "drain_preempt_motion",
     "fair_search", "drain_fair_preempt_search", "drain_fair_preempt_phase2",
+    "tas_leaf_counts", "drain_tas_place", "drain_tas_phase2",
 )
 # the kernels of each path: the plain drain (ops/drain_kernel.solve_drain),
 # the megaloop (ops/megaloop_kernel.solve_drain_megaloop), the fair drain
 # (ops/drain_kernel.solve_drain with fair=), the preempt drain
 # (ops/drain_kernel.solve_drain_preempt), the fair-preempt drain
 # (ops/drain_kernel.solve_drain_fair_preempt), the interactive cycle
-# (core/solver.dispatch_lowered and the resident row scatter) and the
+# (core/solver.dispatch_lowered and the resident row scatter), the
 # cycle with the batched classic and fair victim searches
-# (core/preempt_batch)
+# (core/preempt_batch), the TAS drain (ops/drain_kernel.solve_drain_tas)
+# and the TAS snapshot's fleet-size pod counting (tas/snapshot.py)
 DRAIN_KERNELS = ("quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion")
 MEGALOOP_KERNELS = DRAIN_KERNELS + ("megaloop_boundary",)
 FAIR_KERNELS = ("quota_tree", "drain_nominate", "drain_fair_phase2", "drain_queue_motion")
@@ -65,6 +67,11 @@ FAIR_PREEMPT_KERNELS = (
     "quota_tree", "drain_nominate", "drain_fair_preempt_search", "drain_fair_preempt_phase2",
     "drain_preempt_motion",
 )
+TAS_DRAIN_KERNELS = (
+    "quota_tree", "drain_nominate", "drain_tas_place", "drain_tas_phase2",
+    "drain_queue_motion",
+)
+TAS_KERNELS = ("tas_leaf_counts",)
 CYCLE_KERNELS = ("quota_tree", "cycle_phase1", "cycle_phase2", "scatter_rows")
 PREEMPT_CYCLE_KERNELS = CYCLE_KERNELS + ("preempt_search",)
 FAIR_CYCLE_KERNELS = CYCLE_KERNELS + ("fair_search",)

@@ -1,10 +1,12 @@
 """Multi-cycle admission drain: the plain, the fair-sharing, the
-classic-preemption and the fair-preemption bulk drains on the card.
+classic-preemption, the fair-preemption and the Topology-Aware
+Scheduling bulk drains on the card.
 
-Port of ``solve_drain``, ``solve_drain_fair``, ``solve_drain_preempt``
-and ``solve_drain_fair_preempt`` of kueue_tpu/ops/drain_kernel.py (here
-``solve_drain`` with ``fair``, then ``solve_drain_preempt`` and
-``solve_drain_fair_preempt`` at the end of this module). Per-CQ pending queues are dense tensors; each cycle
+Port of ``solve_drain``, ``solve_drain_fair``, ``solve_drain_preempt``,
+``solve_drain_fair_preempt`` and ``solve_drain_tas`` of
+kueue_tpu/ops/drain_kernel.py (here ``solve_drain`` with ``fair``, then
+``solve_drain_preempt``, ``solve_drain_fair_preempt`` and
+``solve_drain_tas`` at the end of this module). Per-CQ pending queues are dense tensors; each cycle
 reproduces the reference's semantics (pkg/scheduler/scheduler.go:176-310)
 for preemption-free drains:
 
@@ -49,7 +51,13 @@ nomination and cycle end (the motion also fills each admitted entry's
 row of the fair panels, ``FairPreemptState.pq_cu``) and runs the fair
 victim tournament on each segment's fair panels and the fair
 admission tournament with the preempt dispositions in between
-(kernels B11a and B11b).
+(kernels B11a and B11b). The TAS drain keeps the plain nomination and
+motion over a ``TASState`` (the live TAS leaf usage, each admission's
+step) and ``TASBuffers`` (each queue's nomination placement), and
+replaces phase 2 by the nomination placement of every TAS head against
+the cycle-start leaf usage (kernel B13a, ``drain_tas_place``) and ONE
+global step scan that re-validates and charges the placed leaves
+(kernel B13b, ``drain_tas_phase2``).
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from kueue_tpu_torch.ops.quota import (
     usage_tree,
     usage_tree_plain,
 )
+from kueue_tpu_torch.ops.tas_kernel import _trunc_div
 
 # Widest shapes the CUDA kernels take (per-thread arrays are static):
 # candidates K, cells C, resource groups G, podsets P; P*C <= 32 lanes.
@@ -92,6 +101,7 @@ MAX_R = 16
 # kernels' argument layout
 PREEMPT_PTRS = 15 + 8 + 10
 FAIR_PREEMPT_PTRS = 8
+TAS_PTRS = 13 + 4
 
 
 class DrainQueues(NamedTuple):
@@ -779,6 +789,7 @@ class DrainContext:
     fair: Optional[FairInputs] = None
     preempt: Optional[PreemptInputs] = None
     fair_preempt: Optional[FairPreemptInputs] = None
+    tas: Optional["TASInputs"] = None
     _args: Optional[tuple] = None  # (state, buf, ints, ptrs)
 
     @classmethod
@@ -796,6 +807,9 @@ class DrainContext:
             q = queues.qlen.shape[0]
             fair.chain = torch.zeros((q, tree.max_depth + 1), dtype=I64, device=tree.device)
             fair.flags = torch.zeros(q, dtype=torch.uint8, device=tree.device)
+        tas = extra.get("tas")
+        if tas is not None and tas.nd is None:
+            tas.nd = torch.tensor(tas.n_domains, dtype=I32).to(tree.device)
         return cls(
             tree, subtree, guaranteed, potential, paths, queues, segments,
             n_segments, n_steps, max_cycles, **extra,
@@ -996,6 +1010,42 @@ class DrainContext:
             ]
         else:
             spec += [(name, None, None, None) for name in range(FAIR_PREEMPT_PTRS)]
+        tas = self.tas
+        lf = rt = d_t = nd = 0
+        if tas is not None:
+            th = tas.heads
+            lf, rt = tas.topo_free.shape
+            d_t = len(tas.n_domains)
+            nd = th.parent_map.shape[1]
+            if (nd > MAX_TAS_ND or d_t > MAX_TAS_DEPTH or rt > MAX_TAS_R or pmax * c > 32
+                    or max(tas.n_domains) > nd):
+                raise _build.KernelInputError(
+                    f"{kernel}: the TAS drain takes ND<={MAX_TAS_ND} domains a level, "
+                    f"D<={MAX_TAS_DEPTH} levels, Rt<={MAX_TAS_R} resources and P*C<=32; "
+                    f"got ND={nd}, D={d_t}, Rt={rt}, P*C={pmax * c}"
+                )
+            spec += [
+                ("topo_free", tas.topo_free, I64, (lf, rt)),
+                ("seg_ids", tas.seg_ids, I32, (d_t, lf)),
+                ("n_domains", tas.nd, I32, (d_t,)),
+                ("t_is", th.t_is, BOOL, (q,)),
+                ("t_req", th.t_req, I64, (q, l, rt)),
+                ("t_count", th.t_count, I32, (q, l)),
+                ("t_level", th.t_level, I32, (q, l)),
+                ("t_mode", th.t_mode, I32, (q, l)),
+                ("t_top", th.t_top, I32, (q,)),
+                ("t_flavor", th.t_flavor, I32, (q,)),
+                ("leaf_flavor", th.leaf_flavor, I32, (lf,)),
+                ("parent_map", th.parent_map, I32, (d_t, nd)),
+                ("t_bad", th.t_bad, BOOL, (q, l)),
+                # TASState, TASBuffers
+                ("tas_u", state.tas_u, I64, (lf, rt)),
+                ("adm_step", state.adm_step, I32, (q, l)),
+                ("tas_nom_ok", buf.tas_nom_ok, BOOL, (q,)),
+                ("taken0", buf.taken0, I64, (q, lf)),
+            ]
+        else:
+            spec += [(name, None, None, None) for name in range(TAS_PTRS)]
         ptrs = [_build.ptr(kernel, name, t, dt, sh) for name, t, dt, sh in spec]
         ints = [
             q, l, pmax, k, c, g, n, fr, tree.max_depth,
@@ -1005,6 +1055,7 @@ class DrainContext:
             int(bool(fair.prio_tie)) if fair is not None else 0,
             v, cv, m, width,
             cu, strategy1, has_second,
+            lf, rt, d_t, nd,
         ]
         c_ints = (ctypes.c_int * len(ints))(*ints)
         c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -2286,3 +2337,503 @@ def _solve_drain_fair_preempt_packed(
         tree, local_usage, queues, victims, panels, paths, fair, n_segments, n_steps,
         max_cycles, strategy1, has_second, seg_id=seg_id,
     ))
+
+
+# ---- the TAS drain (kernel B13: drain_tas_place, drain_tas_phase2) ----------
+
+MAX_COUNT_TAS = (1 << 31) - 1
+# the placement kernel's shared-memory rows hold up to this many domains
+# a level (the lowering caps the merged forest at MAX_TAS_DOMAINS
+# leaves, core/drain.py) and this many levels
+MAX_TAS_ND = 2048
+MAX_TAS_DEPTH = 16
+MAX_TAS_R = 16
+
+
+class TASHeads(NamedTuple):
+    """Per-queue TAS lowering for solve_drain_tas over a MERGED domain
+    forest: every in-scope TAS flavor's topology concatenated into one
+    disjoint forest, aligned at the LEAF level (a flavor with fewer
+    levels gets structural dummy top levels so seg_ids/parent chains
+    stay rectangular; dummies are unreachable — ``t_top`` clamps the
+    preferred-mode relax-up at each flavor's real top).
+
+    t_is:    bool[Q]         — the queue's entries are TAS workloads.
+    t_req:   int64[Q, L, Rt] — per-ENTRY per-pod request vector on the
+             UNION topology resource axis (pods slot included as 1).
+    t_count: int32[Q, L]     — gang size per entry.
+    t_level: int32[Q, L]     — requested topology level index in GLOBAL
+             (merged) level space; leaf level for unconstrained mode.
+    t_mode:  int32[Q, L]     — 0 Required, 1 Preferred, 2 Unconstrained
+             (tas_flavor_snapshot.go:513-568 search modes).
+    t_top:   int32[Q]        — the queue's flavor's top level in global
+             space (= D_global - D_flavor); relax-up stops here.
+    t_flavor: int32[Q]       — the queue's flavor index.
+    leaf_flavor: int32[Lf]   — owning flavor per merged-forest leaf
+             (placement masks every other flavor's leaves to state 0).
+    parent_map: int32[D_t, ND] — domain -> parent domain index at the
+             level above (row 0 unused, zero; ordering owned by the
+             merged-forest lowering), ND = max domains/level.
+    t_bad:   bool[Q, L]      — entry requests a topology on a
+             ClusterQueue whose flavor doesn't support TAS: the host
+             rejects the flavor and PARKS the head (tas/manager.py
+             check); forcing NoFit parks it at the same cycle.
+    """
+
+    t_is: torch.Tensor
+    t_req: torch.Tensor
+    t_count: torch.Tensor
+    t_level: torch.Tensor
+    t_mode: torch.Tensor
+    t_top: torch.Tensor
+    t_flavor: torch.Tensor
+    leaf_flavor: torch.Tensor
+    parent_map: torch.Tensor
+    t_bad: torch.Tensor
+
+
+@dataclass
+class TASInputs:
+    """The TAS drain's fixed inputs: the merged forest's free capacity
+    and per-level segment ids, its per-level domain counts (host tuple
+    and device vector) and the per-queue TAS lowering."""
+
+    topo_free: torch.Tensor  # int64[Lf, Rt]
+    seg_ids: torch.Tensor  # int32[D_t, Lf]
+    n_domains: tuple
+    heads: TASHeads
+    nd: Optional[torch.Tensor] = None  # int32[D_t], filled by DrainContext.build
+
+
+class TASDrainResult(NamedTuple):
+    """DrainResult plus TAS outputs: adm_step int32[Q,L] (intra-cycle
+    admission sequence — the host replay orders placements by
+    (admitted_cycle, adm_step)); tas_usage int64[Lf,Rt] final TAS leaf
+    usage (the host replay asserts it reproduces this exactly)."""
+
+    admitted_k: torch.Tensor
+    admitted_cycle: torch.Tensor
+    adm_step: torch.Tensor
+    cursor: torch.Tensor
+    cycles: torch.Tensor
+    local_usage: torch.Tensor
+    tas_usage: torch.Tensor
+    stuck: torch.Tensor
+
+
+@dataclass
+class TASState(DrainState):
+    """The TAS drain's loop state: the plain drain's plus the live TAS
+    leaf usage (it stays on the card across cycles) and each entry's
+    admission step within its cycle."""
+
+    tas_u: Optional[torch.Tensor] = None  # int64[Lf, Rt]
+    adm_step: Optional[torch.Tensor] = None  # int32[Q, L]
+
+    @classmethod
+    def initial_tas(cls, local_usage, queues: DrainQueues, max_cycles: int, tas_usage0):
+        base = DrainState.initial(local_usage, queues, max_cycles)
+        return cls(
+            **{f.name: getattr(base, f.name) for f in fields(base)},
+            tas_u=tas_usage0.clone(),
+            adm_step=torch.full_like(base.adm_cycle, -1),
+        )
+
+
+@dataclass
+class TASBuffers(CycleBuffers):
+    """The TAS cycle's buffers: the plain cycle's plus each queue's
+    nomination placement (feasible, and the pods taken per leaf)."""
+
+    tas_nom_ok: Optional[torch.Tensor] = None  # bool[Q]
+    taken0: Optional[torch.Tensor] = None  # int64[Q, Lf]
+
+    @classmethod
+    def empty_tas(cls, local_usage, queues: DrainQueues, n_leaves: int):
+        base = CycleBuffers.empty(local_usage, queues)
+        q = queues.qlen.shape[0]
+        dev = local_usage.device
+        return cls(
+            **{f.name: getattr(base, f.name) for f in fields(base)},
+            tas_nom_ok=torch.zeros(q, dtype=BOOL, device=dev),
+            taken0=torch.zeros((q, n_leaves), dtype=I64, device=dev),
+        )
+
+
+def _tas_trunc_counts(rem, req):
+    """Per (row, leaf) CountIn against ``rem`` int64[Lf, R] for request
+    rows req int64[B, R]: the truncating quotient's minimum over the
+    requested resources (MAX_COUNT_TAS when none). Returns int64[B, Lf]."""
+    q = _trunc_div(rem[None], req[:, None, :])
+    q = torch.where((req > 0)[:, None, :], q, MAX_COUNT_TAS)
+    return q.amin(dim=-1)
+
+
+def _tas_split(s, child_ok, cnt):
+    """Greedy desc-order fill of ``cnt`` over the masked domains with the
+    BestFit jump (tas_flavor_snapshot.go:468-511), batched over rows:
+    s, child_ok [B, ND], cnt [B]. The prefix runs on values clamped to
+    ``cnt`` (the reference's clamp; in int64 here). Nothing covered
+    makes position 0 take the whole remainder, as the reference's
+    argmax does."""
+    inf = 1 << 62
+    nd = s.shape[1]
+    pos = torch.arange(nd, device=s.device)[None, :]
+    sm = torch.where(child_ok, s, -1)
+    order = torch.sort(-sm, dim=1, stable=True).indices
+    ss = sm.gather(1, order)
+    ss_c = torch.minimum(ss.clamp_min(0), cnt[:, None])
+    prefix = ss_c.cumsum(dim=1) - ss_c
+    remaining = cnt[:, None] - prefix
+    covered = (remaining > 0) & (ss >= remaining)
+    k = covered.to(I64).argmax(dim=1)
+    rem_k = remaining.gather(1, k[:, None]).clamp_min(0)  # [B, 1]
+    fitmask = (pos >= k[:, None]) & (ss >= rem_k) & (rem_k > 0)
+    mval = torch.where(fitmask, ss, inf).amin(dim=1, keepdim=True)
+    jstar = (fitmask & (ss == mval)).to(I64).argmax(dim=1)
+    take = torch.where(pos < k[:, None], ss.clamp_min(0), 0)
+    take.scatter_(1, jstar[:, None], rem_k)
+    out = torch.zeros_like(take).scatter_(1, order, take)
+    return torch.where(child_ok, out, 0)
+
+
+def _tas_fit_and_place(
+    topo_free,  # int64[Lf, Rt]
+    tas_u,  # int64[Lf, Rt] current TAS usage
+    seg_ids,  # int32[D_t, Lf]
+    n_domains,  # tuple per level
+    parent_map,  # int32[D_t, ND]
+    req,  # int64[B, Rt] per-pod requests
+    count,  # int32[B] gang sizes
+    level,  # int32[B] requested level index (global level space)
+    place: bool,
+    mode=None,  # int32[B]: 0 Required, 1 Preferred, 2 Unconstrained
+    top_level=None,  # int32[B]: each flavor's real top level (relax floor)
+    leaf_sel=None,  # bool[B, Lf]: each row's flavor's leaves in the merged forest
+):
+    """Phase-1 counts + the reference's phase-2 greedy (BestFit default
+    profile) for B podsets against the same TAS state
+    (tas_flavor_snapshot.go:394-444,494-621), the JAX
+    ``_tas_fit_and_place`` batched over rows, all three search modes:
+
+    - Required: the requested level must hold ONE fitting domain;
+    - Preferred: relax upward (level-1, ..., the flavor's top) looking
+      for a single fit, then fall back to a multi-domain greedy take at
+      the top level (:443-465);
+    - Unconstrained: single fit at the lowest level, else the
+      multi-domain take AT that level (no upward relaxation).
+
+    Returns (fits bool[B], taken int64[B, Lf]) — ``taken`` is all-zero
+    unless ``place`` and the request fits. ``mode``/``top_level``
+    default to Required at ``level`` with no floor."""
+    b = req.shape[0]
+    n_lf = topo_free.shape[0]
+    d_t = len(n_domains)
+    nd_max = parent_map.shape[1]
+    dev = topo_free.device
+    inf = 1 << 62
+    if mode is None:
+        mode = torch.zeros(b, dtype=I32, device=dev)
+    if top_level is None:
+        top_level = torch.zeros(b, dtype=I32, device=dev)
+    level, mode, top_level = level.long(), mode.long(), top_level.long()
+
+    counts = _tas_trunc_counts(topo_free - tas_u, req).clamp_max(MAX_COUNT_TAS)
+    counts = counts.clamp_min(-(1 << 40))  # keep sums sane
+    if leaf_sel is not None:
+        # other flavors' leaves are invisible: their domains total 0
+        counts = torch.where(leaf_sel, counts, 0)
+
+    # per-level domain totals, padded to ND with -1
+    ar = torch.arange(nd_max, device=dev)
+    states = []
+    for d, nd in enumerate(n_domains):
+        s = torch.zeros((b, nd_max), dtype=I64, device=dev)
+        s.scatter_add_(1, seg_ids[d].long()[None, :].expand(b, n_lf), counts)
+        states.append(torch.where(ar[None, :] < nd, s, -1))
+
+    cnt = count.long()
+    ok_l, idx_l, total_l = [], [], []
+    for d, nd in enumerate(n_domains):
+        s = states[d]
+        valid = (ar < nd)[None, :]
+        fit = valid & (s >= cnt[:, None])
+        mval = torch.where(fit, s, inf).amin(dim=1, keepdim=True)
+        idx_l.append((fit & (s == mval)).to(I64).argmax(dim=1))
+        ok_l.append(fit.any(dim=1))
+        # the multi-domain take walks positive-state domains only (:453)
+        total_l.append(torch.where(valid, s.clamp_min(0), 0).sum(dim=1))
+    ok_vec = torch.stack(ok_l, dim=1)  # [B, D]
+    idx_vec = torch.stack(idx_l, dim=1)
+    total_vec = torch.stack(total_l, dim=1)
+    lvl = torch.arange(d_t, device=dev)[None, :]
+
+    lv_c = level.clamp(0, d_t - 1)[:, None]
+    ok_at_l = ok_vec.gather(1, lv_c)[:, 0]
+    total_at_l = total_vec.gather(1, lv_c)[:, 0]
+    total_at_top = total_vec.gather(1, top_level.clamp(0, d_t - 1)[:, None])[:, 0]
+    # preferred: FIRST single fit walking up from the requested level
+    # (:446-448) = the deepest fitting level in [top_level, level]
+    pref_ok = ok_vec & (lvl <= level[:, None]) & (lvl >= top_level[:, None])
+    pref_found = pref_ok.any(dim=1)
+    pref_level = torch.where(pref_ok, lvl, -1).amax(dim=1)
+
+    is_pref, is_unc = mode == 1, mode == 2
+    fits = torch.where(
+        is_pref,
+        pref_found | (total_at_top >= cnt),
+        torch.where(is_unc, ok_at_l | (total_at_l >= cnt), ok_at_l),
+    )
+    multi = torch.where(is_pref, ~pref_found, is_unc & ~ok_at_l)
+    fit_level = torch.where(is_pref, torch.where(pref_found, pref_level, top_level), level)
+
+    if not place:
+        return fits, torch.zeros((b, n_lf), dtype=I64, device=dev)
+
+    # seed the allocation at the fit level — one best-fit domain capped
+    # at count, or the multi-domain greedy take (:450-465) — then
+    # descend with the pooled greedy split
+    alloc = torch.zeros((b, d_t, nd_max), dtype=I64, device=dev)
+    for d, nd in enumerate(n_domains):
+        single = torch.zeros((b, nd_max), dtype=I64, device=dev)
+        single.scatter_(1, idx_vec[:, d:d + 1], torch.where(fits & ~multi, cnt, 0)[:, None])
+        valid = (ar < nd)[None, :].expand(b, nd_max)
+        seed = torch.where((multi & fits)[:, None], _tas_split(states[d], valid, cnt), single)
+        alloc[:, d] = torch.where((fit_level == d)[:, None], seed, alloc[:, d])
+    for d in range(1, d_t):
+        # children (at level d) of domains picked at level d-1
+        pm = parent_map[d].long().clamp_min(0)
+        picked_above = alloc[:, d - 1][:, pm] > 0
+        child_ok = picked_above & (ar < n_domains[d])[None, :]
+        alloc[:, d] = torch.where(
+            ((fit_level < d) & fits)[:, None], _tas_split(states[d], child_ok, cnt), alloc[:, d]
+        )
+
+    # leaf-level taken counts, gathered through the leaf -> domain ids
+    taken = alloc[:, d_t - 1][:, seg_ids[d_t - 1].long()]
+    return fits, torch.where(fits[:, None], taken, 0)
+
+
+def drain_tas_place_plain(ctx: DrainContext, state: TASState, buf: TASBuffers) -> None:
+    """Nomination placement (the JAX ``solve_drain_tas`` cycle's
+    ``tas_place_v`` and the parks after it): every TAS head (a queue of
+    TAS workloads with entries left) is placed against the CYCLE-START
+    TAS usage; ``tas_nom_ok`` and ``taken0`` hold the result (zeros in
+    the rows of other queues, which no decision reads). A quota-Fit TAS
+    head whose placement fails parks; a topology request on a non-TAS
+    flavor (``t_bad``) parks whatever its mode."""
+    if _done(state):
+        return
+    tas, queues = ctx.tas, ctx.queues
+    th = tas.heads
+    q, l = queues.priority.shape
+    dev = state.cursor.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    tas_head = th.t_is & active
+    nom_ok = torch.zeros(q, dtype=BOOL, device=dev)
+    taken0 = torch.zeros_like(buf.taken0)
+    rows = torch.nonzero(tas_head).flatten()
+    if rows.numel():
+        rc = cur[rows]
+        leaf_sel = th.leaf_flavor[None, :] == th.t_flavor[rows][:, None]
+        fits, taken = _tas_fit_and_place(
+            tas.topo_free, state.tas_u, tas.seg_ids, tas.n_domains, th.parent_map,
+            th.t_req[rows, rc], th.t_count[rows, rc], th.t_level[rows, rc], True,
+            mode=th.t_mode[rows, rc], top_level=th.t_top[rows], leaf_sel=leaf_sel,
+        )
+        nom_ok[rows] = fits
+        taken0[rows] = taken
+    bad = th.t_bad[q_idx, cur] & active
+    parked = (tas_head & buf.is_fit & ~nom_ok) | bad
+    buf.is_fit.copy_(buf.is_fit & ~parked)
+    buf.is_pre.copy_(buf.is_pre & ~bad)
+    buf.pend.copy_(buf.pend & ~parked)  # degrade-to-NoFit clears the cursor
+    buf.tas_nom_ok.copy_(nom_ok)
+    buf.taken0.copy_(taken0)
+
+
+def drain_tas_phase2_plain(ctx: DrainContext, state: TASState, buf: TASBuffers) -> None:
+    """The TAS cycle's ONE global step scan (the JAX ``solve_drain_tas``
+    phase 2): the nominated heads of every queue in the scheduler's entry
+    order (borrowing, priority, FIFO, queue index), ``n_steps`` at most;
+    each re-validates its nominated leaves against the LIVE TAS usage,
+    admits (quota fits and the leaves still hold) or reserves for it as
+    the plain phase 2 does, and an admitted TAS head charges its leaves
+    at once. Mutates ``buf.usage`` and ``state.tas_u``; admissions are
+    added to ``state.local`` and their step recorded in ``adm_step``."""
+    if _done(state):
+        return
+    tree, queues, paths, tas = ctx.tree, ctx.queues, ctx.paths, ctx.tas
+    th = tas.heads
+    subtree, guaranteed = ctx.subtree, ctx.guaranteed
+    max_depth = tree.max_depth
+    q, l = queues.priority.shape
+    dev = buf.usage.device
+    q_idx = torch.arange(q, device=dev)
+    active = (state.cursor < queues.qlen) & state.alive
+    cur = state.cursor.clamp_max(l - 1).long()
+    is_fit, is_pre, head_borrow = buf.is_fit, buf.is_pre, buf.head_borrow
+    cells_eff, qty_eff = buf.cells_eff, buf.qty_eff
+    nofit = ~(is_fit | is_pre)
+
+    prio = queues.priority[q_idx, cur]
+    ts = queues.timestamp[q_idx, cur]
+    order = _lexsort((ts, -prio, head_borrow.to(I64), nofit.to(I64)))
+    valid_sorted = active[order] & (queues.cq_rows[order] >= 0) & ~nofit[order]
+    walk = order[valid_sorted][: ctx.n_steps].tolist()
+
+    usage, tas_u = buf.usage, state.tas_u
+    cq = queues.cq_rows.clamp_min(0).long()
+    t_req = th.t_req[q_idx, cur]  # [Q, Rt]
+    admitted = torch.zeros(q, dtype=BOOL, device=dev)
+    step_of = torch.full((q,), -1, dtype=I32, device=dev)
+    for s, h in enumerate(walk):
+        row = slice(h, h + 1)
+        path = paths[cq[row]]
+        cells_, qty_ = cells_eff[row], qty_eff[row]
+        ccells = cells_.clamp_min(0).long()
+        cell_valid = (cells_ >= 0) & (qty_ > 0)
+        avail = _avail_along_path(
+            path, cells_, usage, subtree, guaranteed, tree.borrowing_limit, max_depth
+        )
+        fits = bool(torch.where(cell_valid, avail >= qty_, True).all())
+        t_ok = True
+        if bool(th.t_is[h]):
+            # admit-time TAS re-validation: every NOMINATED leaf must
+            # still hold its assigned count against LIVE usage
+            taken_h = buf.taken0[h]
+            now = _tas_trunc_counts(tas.topo_free - tas_u, t_req[row])[0]
+            t_ok = bool(((taken_h == 0) | (now >= taken_h)).all())
+        admit = bool(is_fit[h]) and fits and t_ok
+        if admit and bool(th.t_is[h]):
+            tas_u += t_req[h][None, :] * buf.taken0[h][:, None]
+        reserve = bool(is_pre[h]) and bool(queues.no_reclaim[h])
+        nominal_c = tree.nominal[cq[row][:, None], ccells]
+        bl_c = tree.borrowing_limit[cq[row][:, None], ccells]
+        leaf_usage_c = usage[cq[row][:, None], ccells]
+        borrow_cap = torch.where(
+            bl_c < NO_LIMIT, torch.minimum(qty_, nominal_c + bl_c - leaf_usage_c), qty_
+        )
+        nominal_cap = torch.minimum(qty_, nominal_c - leaf_usage_c).clamp_min(0)
+        reserve_qty = borrow_cap if bool(head_borrow[h]) else nominal_cap
+        delta = torch.where(cell_valid & admit, qty_, torch.where(cell_valid & reserve,
+                                                                  reserve_qty, 0))
+        _charge_paths(usage, guaranteed, path, ccells, delta, max_depth)
+        admitted[h] = admit
+        if admit:
+            step_of[h] = s
+
+    cell_valid = (cells_eff >= 0) & (qty_eff > 0)
+    add = torch.where(cell_valid & admitted[:, None], qty_eff, 0)
+    state.local.index_put_(
+        (cq[:, None].expand_as(cells_eff), cells_eff.clamp_min(0).long()), add, accumulate=True
+    )
+    buf.admitted.copy_(admitted)
+    wrote = admitted & active
+    state.adm_step[q_idx, cur] = torch.where(wrote, step_of, state.adm_step[q_idx, cur])
+
+
+def drain_tas_place(ctx: DrainContext, state: TASState, buf: TASBuffers) -> None:
+    """Kernel B13a: nomination placement (one block per queue)."""
+    if not state.local.is_cuda:
+        return drain_tas_place_plain(ctx, state, buf)
+    _launch("drain_tas_place", ctx, state, buf)
+
+
+def drain_tas_phase2(ctx: DrainContext, state: TASState, buf: TASBuffers) -> None:
+    """Kernel B13b: the global step scan (one block)."""
+    if not state.local.is_cuda:
+        return drain_tas_phase2_plain(ctx, state, buf)
+    _launch("drain_tas_phase2", ctx, state, buf)
+
+
+def drain_tas_cycle(ctx: DrainContext, state: TASState, buf: TASBuffers) -> None:
+    """ONE TAS drain cycle: six launches on the card (quota_tree twice,
+    drain_nominate, drain_tas_place, drain_tas_phase2,
+    drain_queue_motion), or their plain versions on the CPU."""
+    usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
+    available_all(
+        ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
+    )
+    drain_nominate(ctx, state, buf)
+    drain_tas_place(ctx, state, buf)
+    drain_tas_phase2(ctx, state, buf)
+    drain_queue_motion(ctx, state, buf)
+
+
+def tas_context(tree, queues, paths, topo_free, seg_ids, theads: TASHeads, n_domains,
+                n_steps: int, max_cycles: int, seg_id=None) -> DrainContext:
+    """The DrainContext of a TAS drain (its phase 2 is one global scan,
+    so the root segments only size the shared argument layout)."""
+    return DrainContext.build(
+        tree, queues, paths, 1, n_steps, max_cycles, seg_id=seg_id,
+        tas=TASInputs(topo_free=topo_free, seg_ids=seg_ids, n_domains=tuple(n_domains),
+                      heads=theads),
+    )
+
+
+def solve_drain_tas(
+    tree: QuotaTree,
+    local_usage: torch.Tensor,  # int64[N, FR]
+    queues: DrainQueues,
+    paths: torch.Tensor,  # int32[N, D+1]
+    topo_free: torch.Tensor,  # int64[Lf, Rt]
+    tas_usage0: torch.Tensor,  # int64[Lf, Rt]
+    seg_ids: torch.Tensor,  # int32[D_t, Lf]
+    theads: TASHeads,
+    n_domains,  # tuple
+    n_steps: int,  # TOTAL sequential steps per cycle (global order)
+    max_cycles: int,
+    seg_id=None,  # host copy of queues.seg_id
+) -> TASDrainResult:
+    """Multi-cycle drain with Topology-Aware Scheduling heads decided
+    IN KERNEL (the JAX ``solve_drain_tas``). A shared topology couples
+    every ClusterQueue using the flavor — across cohorts — so phase 2 is
+    one GLOBAL sequential scan in the scheduler's entry order. Per
+    cycle: the normal quota nomination; each quota-Fit TAS head's
+    placement against CYCLE-START TAS state, which parks infeasible
+    heads (the host's degrade-to-NoFit, tas_flavorassigner.go:31-50);
+    then one head per step in global (borrowing, priority, FIFO) order,
+    TAS heads re-validating their nominated leaves against the LIVE TAS
+    state and charging them at once; then queue motion. The host
+    replays admitted placements in (cycle, step) order and asserts the
+    final leaf usage matches ``tas_usage``."""
+    ctx = tas_context(tree, queues, paths, topo_free, seg_ids, theads, n_domains, n_steps,
+                      max_cycles, seg_id=seg_id)
+    state = TASState.initial_tas(local_usage, queues, max_cycles, tas_usage0)
+    buf = TASBuffers.empty_tas(local_usage, queues, topo_free.shape[0])
+    run_cycles(ctx, state, buf, drain_tas_cycle, max_cycles)
+    return TASDrainResult(
+        admitted_k=state.adm_k,
+        admitted_cycle=state.adm_cycle,
+        adm_step=state.adm_step,
+        cursor=state.cursor,
+        cycles=state.cycle,
+        local_usage=state.local,
+        tas_usage=state.tas_u,
+        stuck=state.stuck,
+    )
+
+
+def _solve_drain_tas_packed(
+    tree, local_usage, queues, paths, topo_free, tas_usage0, seg_ids, theads, n_domains,
+    n_steps: int, max_cycles: int, seg_id=None,
+) -> torch.Tensor:
+    """solve_drain_tas in the JAX ``_solve_drain_tas_packed`` layout
+    (adm_k, adm_cycle, adm_step, cursor, stuck, tas_usage, cycles, all
+    int64), so the host retrieves the whole drain in a single copy."""
+    r = solve_drain_tas(
+        tree, local_usage, queues, paths, topo_free, tas_usage0, seg_ids, theads, n_domains,
+        n_steps, max_cycles, seg_id=seg_id,
+    )
+    return torch.cat([
+        r.admitted_k.reshape(-1).to(I64),
+        r.admitted_cycle.reshape(-1).to(I64),
+        r.adm_step.reshape(-1).to(I64),
+        r.cursor.to(I64),
+        r.stuck.to(I64),
+        r.tas_usage.reshape(-1),
+        r.cycles.reshape(1).to(I64),
+    ])

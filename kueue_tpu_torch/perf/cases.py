@@ -25,6 +25,15 @@ low-priority victims ("victims", in tests/test_drain.py's tuple form),
 which ``build_cache`` admits.
 ``fair_preempt_spec(seed)`` is ``preempt_spec`` with fairSharing weights
 (0 among them) for the fair-preempt drain and the fair cycle.
+``tas_spec(seed)`` is a small Topology-Aware Scheduling case for the TAS
+drain, in perf/tas.build_tas_env's spec form (build it with that): two
+TAS flavors of different depth over disjoint node pools (``tas-a``:
+block/rack/host, ``tas-b``: rack/host), ClusterQueues on each with tight
+cpu quota, gangs in all three topology modes, and a plain quota
+ClusterQueue riding along whose backlog holds plain workloads and one
+topology request on its non-TAS flavor (parked in kernel, ``t_bad``),
+and a second plain queue in its cohort that borrows, so blocked plain
+heads reserve capacity in the TAS drain's global scan.
 ``build_scheduler(spec)`` builds the interactive cycle over a spec: the
 cache, a QueueManager with one LocalQueue ``lq-<cq>`` per ClusterQueue
 holding the spec's workloads, and a ``Scheduler`` with the host
@@ -36,6 +45,8 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+
+from kueue_tpu_torch.perf.tas import BLOCK, HOST, RACK
 
 
 def _quota(rng, lo, hi, unit=""):
@@ -482,4 +493,62 @@ def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
         "seg_id": seg_id,
         "n_segments": len(uniq),
         "n_steps": n_steps,
+    }
+
+
+def tas_spec(seed: int, n_tas_cq: int = 4, workloads_per_cq: int = 5) -> dict:
+    """The small two-flavor TAS case (module docstring): 24 hosts of
+    8 cpu in tas-a (2 blocks x 3 racks x 4), 12 in tas-b (4 racks x 3),
+    even ClusterQueues on tas-a, odd on tas-b, each with 30 cpu; the
+    plain queues ``cq-plain`` (12 cpu) and ``cq-lend`` (4 cpu) in one
+    cohort on the plain flavor."""
+    rng = np.random.default_rng(seed + 81000)
+    nodes = []
+    for b in range(2):
+        for r in range(3):
+            for h in range(4):
+                nodes.append((f"a-{b}-{r}-{h}", {"pool": "a", BLOCK: f"b{b}", RACK: f"b{b}-r{r}",
+                                                 HOST: f"ha-{b}-{r}-{h}"},
+                              {"cpu": 8000, "pods": 32}))
+    for r in range(4):
+        for h in range(3):
+            nodes.append((f"b-{r}-{h}", {"pool": "b", RACK: f"fr{r}", HOST: f"hb-{r}-{h}"},
+                          {"cpu": 8000, "pods": 32}))
+    cqs = [(f"cq-{i}", "tas-a" if i % 2 == 0 else "tas-b", "30") for i in range(n_tas_cq)]
+    # two plain queues sharing a cohort: cq-lend's backlog borrows
+    # cq-plain's idle quota, so cq-plain's later heads are blocked in
+    # preempt mode and reserve (reclaimWithinCohort Never)
+    cqs += [("cq-plain", "plain", "12", "plain-co"), ("cq-lend", "plain", "4", "plain-co")]
+    modes = ("Required", "Preferred", "Unconstrained")
+    workloads = []
+    t = 0.0
+    for i in range(n_tas_cq):
+        levels = [BLOCK, RACK, RACK, HOST] if i % 2 == 0 else [RACK, RACK, HOST]
+        for w in range(workloads_per_cq):
+            t += 1.0
+            workloads.append(dict(
+                name=f"wl-{i}-{w}", cq=f"cq-{i}", count=int(rng.integers(1, 13)),
+                cpu=str(int(rng.integers(1, 4))), mode=modes[int(rng.integers(0, 3))],
+                level=levels[int(rng.integers(0, len(levels)))],
+                prio=int(rng.integers(0, 3)) * 10, t=t,
+            ))
+    for w in range(3):
+        t += 1.0
+        workloads.append(dict(name=f"lend-{w}", cq="cq-lend", count=1, cpu="5", mode=None,
+                              level=None, prio=0, t=t))
+    for w in range(workloads_per_cq):
+        t += 1.0
+        bad = w == 1
+        workloads.append(dict(
+            name=f"plain-{w}", cq="cq-plain", count=int(rng.integers(1, 4)),
+            cpu=str(int(rng.integers(1, 4))), mode="Required" if bad else None,
+            level=RACK if bad else None, prio=int(rng.integers(0, 3)) * 10, t=t,
+        ))
+    return {
+        "topologies": {"deep": (BLOCK, RACK, HOST), "flat": (RACK, HOST)},
+        "flavors": [("tas-a", "deep", {"pool": "a"}), ("tas-b", "flat", {"pool": "b"}),
+                    ("plain", None, {})],
+        "nodes": nodes,
+        "cqs": cqs,
+        "workloads": workloads,
     }

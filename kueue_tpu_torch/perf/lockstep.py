@@ -4,9 +4,11 @@
   ``fair``: its tournament in place of phase 2), ``lockstep_megaloop``
   (the K-round megaloop: the plain cycle and the round boundary) and
   ``lockstep_preempt`` (the preempt drain: nomination with the reclaim
-  oracle, the victim search, its phase 2 and motion) and
+  oracle, the victim search, its phase 2 and motion),
   ``lockstep_fair_preempt`` (the fair-preempt drain: the same with the
-  fair victim tournament and the fair admission tournament) run a
+  fair victim tournament and the fair admission tournament) and
+  ``lockstep_tas`` (the TAS drain: the nomination placement and the
+  global step scan in place of phase 2) run a
   drain on the kernels and, before every kernel step, copy the state;
   the plain version of that step runs on the copy, and the two results
   must be equal in every field (int64, tolerance 0).
@@ -16,7 +18,8 @@
   ``check(name, kernel, plain)``, and inside
   ``preempt_search_through(check)`` every batched victim search
   (core/preempt_batch, kernel B8), inside ``fair_search_through(check)``
-  every batched fair victim search (kernel B9); ``Lockstep`` is the
+  every batched fair victim search (kernel B9); ``leaf_counts_step``
+  puts TAS pod counting (kernel B12) through a check; ``Lockstep`` is the
   check that runs
   the plain version on the same inputs (copies of what the kernel
   writes in place) and compares.
@@ -100,7 +103,13 @@ FAIR_PREEMPT_STEPS = STEPS[:3] + (
      dk.drain_fair_preempt_phase2_plain),
     ("drain_preempt_motion", dk.drain_preempt_motion, dk.drain_preempt_motion_plain),
 )
+TAS_STEPS = STEPS[:3] + (
+    ("drain_tas_place", dk.drain_tas_place, dk.drain_tas_place_plain),
+    ("drain_tas_phase2", dk.drain_tas_phase2, dk.drain_tas_phase2_plain),
+    STEPS[4],
+)
 DRAIN_KERNELS = _build.DRAIN_KERNELS
+TAS_DRAIN_KERNELS = _build.TAS_DRAIN_KERNELS
 MEGALOOP_KERNELS = _build.MEGALOOP_KERNELS
 FAIR_KERNELS = _build.FAIR_KERNELS
 PREEMPT_KERNELS = _build.PREEMPT_KERNELS
@@ -265,6 +274,48 @@ def lockstep_fair_preempt(
         ctx, state, buf, FAIR_PREEMPT_STEPS, max_cycles, errs, label, plain_ms, stop_after
     )
     return ctx, state, cycles
+
+
+def lockstep_tas(
+    tree, local, queues, paths, topo_free, tas_usage0, seg_ids, theads, n_domains, n_steps,
+    max_cycles, errs: Dict[str, int], label: str = "",
+    plain_ms: Optional[Dict[str, List[float]]] = None,
+    stop_after: Optional[int] = None,
+):
+    """``lockstep`` for the TAS drain: every cycle's six launches (the
+    nomination placement and the global step scan in place of phase 2),
+    each against its plain version. Returns (ctx, final TASState,
+    cycles)."""
+    _check_quota(tree, errs, label)
+    ctx = dk.tas_context(tree, queues, paths, topo_free, seg_ids, theads, n_domains, n_steps,
+                         max_cycles)
+    state = dk.TASState.initial_tas(local, queues, max_cycles, tas_usage0)
+    buf = dk.TASBuffers.empty_tas(local, queues, topo_free.shape[0])
+    cycles = run_lockstep(
+        ctx, state, buf, TAS_STEPS, max_cycles, errs, label, plain_ms, stop_after
+    )
+    return ctx, state, cycles
+
+
+# ---- TAS pod counting (kernel B12) -----------------------------------------
+
+
+def leaf_counts_step(topo, req, assumed, taint_ok, simulate_empty, check: "Check"):
+    """B12's two entries on one batch through ``check``: the leaf counts,
+    then the per-level totals over the kernel's counts."""
+    from kueue_tpu_torch.ops import tas_kernel as tk
+
+    counts = check(
+        "tas_leaf_counts",
+        lambda: tk.leaf_counts(topo, req, assumed, taint_ok, simulate_empty),
+        lambda: tk.leaf_counts_plain(topo, req, assumed, taint_ok, simulate_empty),
+    )
+    levels = check(
+        "tas_leaf_counts",
+        lambda: tk.level_counts(topo, counts),
+        lambda: tk.level_counts_plain(topo, counts),
+    )
+    return counts, levels
 
 
 # ---- the interactive cycle ----------------------------------------------

@@ -30,7 +30,15 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   and a drain at the panel caps (build_fair_wide with two root
   cohorts); the drain on the card equals its CPU run (the classic drain's
   lockstep above holds the extended motion kernel with its fair pointer
-  NULL).
+  NULL);
+- every launch of the TAS drain (B13's drain_tas_place and
+  drain_tas_phase2 beside the plain cycle's kernels) bit-exact to its
+  plain version at every cycle of perf.cases.tas_spec and a cut of
+  bench.py's tas_drain stage, the drain on the card equal to its CPU
+  run; B12's two entries (tas_leaf_counts) bit-exact on a batch with
+  assumed usage, simulate_empty and tainted leaves, and the snapshot's
+  device path equal to the CPU; a drain_tas_place that does not build
+  makes the TAS drain raise KernelError.
 
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
@@ -718,3 +726,102 @@ def test_fair_scheduler_raises_when_b9_faults_on_the_card(cuda, tmp_path):
                          capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stdout + run.stderr
     assert run.stdout.startswith("KernelError True"), run.stdout
+
+
+# ---- Topology-Aware Scheduling (B12, B13) ----------------------------------
+
+
+def _tas_inputs(dev, spec):
+    from kueue_tpu_torch.perf import tas as tas_perf
+
+    env = tas_perf.build_tas_env(spec)
+    return env, pd.tas_drain_inputs(take_snapshot(env.cache), env.pending, env.cache.flavors,
+                                    env.tas, dev, timestamp_fn=env.ts_fn)
+
+
+def _tas_specs():
+    from kueue_tpu_torch.perf import tas as tas_perf
+
+    return {
+        "two_flavors": cases.tas_spec(0),
+        "bench_cut": tas_perf.drain_spec(np.random.default_rng(6), 12, 12, shape=(2, 4, 8)),
+    }
+
+
+@pytest.mark.parametrize("case", ["two_flavors", "bench_cut"])
+def test_tas_drain_kernels_bit_exact_every_cycle(cuda, case):
+    """Every launch of the TAS cycle (drain_tas_place and
+    drain_tas_phase2 among them) equal to its plain version at every
+    cycle, and the drain on the card equal to its CPU run."""
+    from kueue_tpu_torch.perf import tas as tas_perf
+    from kueue_tpu_torch.perf.lockstep import TAS_DRAIN_KERNELS, lockstep_tas
+
+    spec = _tas_specs()[case]
+    env, inp = _tas_inputs(cuda, spec)
+    errs = {}
+    _, state, cycles = lockstep_tas(*inp.solve_args(), errs, label=case)
+    assert cycles > 0 and set(errs) == set(TAS_DRAIN_KERNELS)
+    assert all(e == 0 for e in errs.values())
+    assert int((state.adm_cycle >= 0).sum()) > 0
+    outs = []
+    for d in (cuda, "cpu"):
+        e = tas_perf.build_tas_env(spec)
+        _build.reset_launches()
+        outs.append(pd.run_drain_tas(take_snapshot(e.cache), e.pending, e.cache.flavors, e.tas,
+                                     timestamp_fn=e.ts_fn, device=d))
+        if d == cuda:
+            assert all(_build.launch_counts()[k] > 0 for k in TAS_DRAIN_KERNELS)
+    assert tas_perf.drain_summary(outs[0]) == tas_perf.drain_summary(outs[1])
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 8), (4, 8, 64)])
+def test_tas_leaf_counts_bit_exact(cuda, shape):
+    """B12's two entries against their plain versions on a batch with
+    nonzero assumed usage, a simulate_empty row and taint-masked leaves;
+    the snapshot's device path (threshold lowered) equal to the CPU."""
+    from kueue_tpu_torch.ops import tas_kernel as tk
+    from kueue_tpu_torch.perf import tas as tas_perf
+    from kueue_tpu_torch.perf.lockstep import Lockstep, leaf_counts_step
+
+    fc, req = tas_perf.build_placement(shape)
+    snap = fc.snapshot(cuda)
+    snap.freeze()
+    topo = tk.topology_from_snapshot(snap, cuda)
+    n_l, n_r = topo.free.shape
+    rng = np.random.default_rng(sum(shape))
+    b = 16
+    reqs = rng.integers(0, 3000, (b, n_r))
+    assumed = rng.integers(0, 20000, (b, n_l, n_r))
+    taint_ok = rng.random((b, n_l)) < 0.95
+    sim = np.zeros(b, dtype=bool)
+    sim[3] = True
+    errs = {}
+    leaf_counts_step(topo, to_device(reqs, cuda, np.int64), to_device(assumed, cuda, np.int64),
+                     to_device(taint_ok, cuda, np.bool_), to_device(sim, cuda, np.bool_),
+                     Lockstep(errs, f"b12 {shape}"))
+    assert errs == {"tas_leaf_counts": 0}
+    from kueue_tpu_torch.tas.snapshot import TASFlavorSnapshot
+
+    old = TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD
+    TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD = 1
+    try:
+        outs = []
+        for d in (cuda, "cpu"):
+            _build.reset_launches()
+            r = fc.snapshot(d).find_topology_assignments([req])
+            outs.append((r.failure_reason, sorted((x.values, x.count)
+                                                  for x in r.assignments["main"].domains)
+                         if r.assignments["main"] is not None else None))
+            if d == cuda:
+                assert _build.launch_counts()["tas_leaf_counts"] > 0
+        assert outs[0] == outs[1]
+    finally:
+        TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD = old
+
+
+def test_tas_drain_raises_when_a_kernel_does_not_build(cuda, monkeypatch, tmp_path):
+    env, _ = _tas_inputs("cpu", cases.tas_spec(1))
+    _broken(monkeypatch, tmp_path, "drain_tas_place")
+    with pytest.raises(_build.KernelError, match="drain_tas_place"):
+        pd.run_drain_tas(take_snapshot(env.cache), env.pending, env.cache.flavors, env.tas,
+                         timestamp_fn=env.ts_fn, device="cuda")

@@ -2,7 +2,8 @@
 
 - it imports and runs its CPU path with jax, flax and kueue_tpu blocked
   (a plain drain, a megaloop launch, a fair drain, a cycle, the preempt
-  and fair-preempt drains, a fair cycle with the batched fair search);
+  and fair-preempt drains, a fair cycle with the batched fair search,
+  the TAS drain and a TAS placement);
 - no module of the package, nor chip_smoke.py, imports jax, flax or
   kueue_tpu (AST scan);
 - its entry points run on the card: without one, and without an
@@ -47,6 +48,11 @@ def _forbidden_imports(path):
 )
 def test_no_jax_or_reference_import(path):
     assert _forbidden_imports(path) == []
+
+
+def test_scan_covers_every_subpackage():
+    scanned = {p.relative_to(PKG).parts[0] for p in _port_files() if PKG in p.parents}
+    assert {"core", "ops", "perf", "tas", "models"} <= scanned
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):
@@ -95,6 +101,17 @@ fpre = run_drain_fair_preempt(take_snapshot(fenv.cache), fenv.pending, fenv.cach
 assert fpre.admitted and fpre.preempted
 fsched = fairpreempt.build_scheduler(fenv, use_preempt_solver=True, device="cpu")
 assert any(r["preempting"] for r in contended.run_cycles(fsched, fenv, 3))
+from kueue_tpu_torch.core.drain import run_drain_tas
+from kueue_tpu_torch.perf import tas as tas_perf
+from kueue_tpu_torch.perf.cases import tas_spec
+tenv = tas_perf.build_tas_env(tas_spec(0))
+tas_out = run_drain_tas(take_snapshot(tenv.cache), tenv.pending, tenv.cache.flavors, tenv.tas,
+                        timestamp_fn=tenv.ts_fn, device="cpu")
+assert tas_out.admitted and all(a is not None for (w, *_), a in
+                                zip(tas_out.admitted, tas_out.assignments)
+                                if w.pod_sets[0].topology_request is not None)
+fc, req = tas_perf.build_placement((2, 4, 4))
+assert fc.snapshot("cpu").find_topology_assignments([req]).failure_reason
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "kueue_tpu")
             and sys.modules[m] is not None]
 print("OK", len(mods), out.cycles, len(out.admitted))
@@ -150,6 +167,10 @@ def test_run_drain_without_device_raises_without_cuda(monkeypatch):
         ResidentEncoder()
     with pytest.raises(RuntimeError, match="CUDA"):
         run_drain_for_scope("preempt", snap, pending, flavors)
+    from kueue_tpu_torch.tas import TASCache
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_drain_for_scope("tas", snap, pending, flavors, TASCache())
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):
@@ -167,10 +188,9 @@ def test_resolve_device_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_drain_scopes_raise():
-    """The TAS drain and mesh sharding are not ported: they raise (the
-    fair-preempt drain is, and runs), and no launch/fetch split is
-    offered for a scope other than the plain one (None, as the reference
-    returns)."""
+    """Mesh sharding is not ported: it raises (the fair-preempt and TAS
+    drains are, and run), and no launch/fetch split is offered for a
+    scope other than the plain one (None, as the reference returns)."""
     from kueue_tpu_torch.core.drain import (
         launch_drain,
         launch_drain_for_scope,
@@ -181,9 +201,11 @@ def test_unported_drain_scopes_raise():
         run_drain_preempt,
     )
 
+    from kueue_tpu_torch.core.drain import run_drain_tas
+    from kueue_tpu_torch.tas import TASCache
+
     snap, pending, flavors = _small_drain_inputs()
-    with pytest.raises(NotImplementedError):
-        run_drain_for_scope("tas", snap, pending, flavors, device="cpu")
+    assert run_drain_for_scope("tas", snap, pending, flavors, TASCache(), device="cpu").cycles > 0
     assert run_drain_for_scope("fair_preempt", snap, pending, flavors, device="cpu").cycles > 0
     for kind in ("preempt", "fair_preempt", "tas", "fair"):
         assert launch_drain_for_scope(kind, snap, pending, flavors, device="cpu") is None
@@ -191,6 +213,8 @@ def test_unported_drain_scopes_raise():
                run_drain_fair_preempt):
         with pytest.raises(NotImplementedError):
             fn(snap, pending, flavors, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        run_drain_tas(snap, pending, flavors, TASCache(), mesh=object(), device="cpu")
 
 
 def test_wrappers_reject_cpu_tensors_for_kernels():

@@ -118,13 +118,19 @@ def test_speculation_contract_matches_jax():
 
 
 def test_unported_scopes_are_refused():
-    """The TAS scope is refused; the fair-preempt scope routes to
-    run_drain_fair_preempt."""
+    """No scope is refused any more: the TAS scope routes to
+    run_drain_tas (with the TASCache it is given), the fair-preempt
+    scope to run_drain_fair_preempt."""
+    from kueue_tpu_torch.perf import tas as pt
+    from kueue_tpu_torch.tas import TASCache
     from tests.test_torch_preempt_drain import view
 
     _, _, _, psnap, ppending, pcache, _ = _both(mixed_spec(1, workloads_per_cq=2))
-    with pytest.raises(NotImplementedError, match="tas"):
-        pd.run_drain_for_scope("tas", psnap, ppending, pcache.flavors, device="cpu")
+    tas_routed = pd.run_drain_for_scope("tas", psnap, ppending, pcache.flavors, TASCache(),
+                                        device="cpu")
+    tas_direct = pd.run_drain_tas(psnap, ppending, pcache.flavors, TASCache(), device="cpu")
+    assert pt.placements(tas_routed) == pt.placements(tas_direct)
+    assert tas_routed.cycles == tas_direct.cycles > 0
     routed = pd.run_drain_for_scope("fair_preempt", psnap, ppending, pcache.flavors,
                                     device="cpu")
     direct = pd.run_drain_fair_preempt(psnap, ppending, pcache.flavors, device="cpu")
