@@ -3,16 +3,17 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA device and ``nvcc``; without them, or without the package beside
-it, it exits non-zero and prints no result. It drives eight paths: the
+it, it exits non-zero and prints no result. It drives these paths: the
 plain bulk drain (phases 2-3), the K-round megaloop (phase 4), the
 fair-sharing drain (phase 5), the interactive admission cycle (phase
 6), the cycle with the batched victim search (phase 7), the drain with
 classic preemption (phase 8), the fair cycle with the batched fair
 victim search (phase 9), the drain with fair-sharing preemption
-(phase 10) and Topology-Aware Scheduling: the snapshot's pod counting
-and the TAS drain (phase 11).
+(phase 10), Topology-Aware Scheduling: the snapshot's pod counting
+and the TAS drain (phase 11), and the what-if planner's
+scenario-batched solve with the admission policies (phase 12).
 
-1. Prints the card's name and power limit, builds the 19 kernels from
+1. Prints the card's name and power limit, builds the 22 kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
    the build seconds and each kernel's registers and spills.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
@@ -57,12 +58,12 @@ and the TAS drain (phase 11).
    alone with its bytes bound.
 6. The interactive cycle (``Scheduler.schedule``) over the headline
    cluster with the whole 50k backlog queued (1000 heads a cycle): the
-   16 cycles of CYCLE_EXPECT, then on to cycle 40 (steady state: from
+   16 cycles of CYCLE_EXPECT, then on to cycle 30 (steady state: from
    cycle 24 on each cycle changes at most N/4 usage rows, so the
    resident buffer takes row deltas through scatter_rows):
    a. lockstep: every launch of the cycle's kernels (quota_tree,
       cycle_phase1, cycle_phase2, scatter_rows) held to its plain
-      version at every one of the 40 headline cycles and of a small
+      version at every one of the 30 headline cycles and of a small
       seeded cluster run to quiescence (perf.cases.cycle_spec:
       depth-3 cohorts, limits, reservations, host victim search),
       whose decisions must equal the same run on the CPU;
@@ -180,7 +181,32 @@ and the TAS drain (phase 11).
    e. the entry point's wall (median of 3), its host lowering and
       upload, the solve, and every launch timed alone with its bytes
       bound from each cycle's data.
-12. Prints the 19 kernels' JSON line, the card line, and as the last
+12. The planner and the admission policies (perf/planner.py):
+   a. lockstep: the three B14 launches (plan_quota_tree, plan_phase1,
+      plan_phase2) held to their plain versions on seeded random
+      batches (S = 1, 5, 17), on the small depth-3 case with one
+      scenario of every delta kind (priority and policy included; its
+      report on cuda equal to the CPU's), and inside ``Planner.plan``
+      at planner-stage-500 and planner-sweep-50k (the plain steps
+      timed);
+   b. the main path: ``Planner.plan(device="cuda")`` at
+      planner-sweep-50k and planner-stage-500, counters reset before
+      each: asserts PLANNER_SWEEP_EXPECT and PLANNER_STAGE_EXPECT and
+      one B14 call (each of its three kernels launched once, nothing
+      else); planner-stage-500 with verify_host=True;
+   c. policy-48x64: ``run_drain`` under first-fit and under Gavel on
+      cuda and the Gavel plan with its forecast give POLICY_EXPECT
+      (every drain kernel launched); the two drains' walls; four
+      cycles of a Gavel Scheduler on cuda (every cycle launch held to
+      its plain version) equal to the same cycles on the CPU, score
+      breakdowns included;
+   d. times at both planner cells: the plan's wall (median of 3) and
+      its spans (snapshot and lowering, stacking, the device solve with
+      its upload and fetch, decode, ranking), the solve with its inputs
+      on the card, every B14 launch alone with its bytes bound, and
+      bench.py's sequential shape (one cycle solve a scenario on the
+      card: all 128 scenarios at planner-stage-500, 8 at the sweep).
+13. Prints the 22 kernels' JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 No phase is caught and passed over: any failure exits non-zero.
@@ -203,7 +229,7 @@ SMALL_SEED = 7  # mixed_spec seed whose drain freezes PendingFlavors queues
 FAIR_SEED = 4  # fair_spec seed: depth 3, weights 0-2000, 133 cycles
 SMALL_CYCLE_SEED = 0  # cycle_spec seed: reservations, preemption, scatters
 SMALL_CYCLES = 24  # its preempting heads re-nominate until then (no evictions)
-STEADY_CYCLES = 40  # the headline run goes on to here: from cycle 24 on, each
+STEADY_CYCLES = 30  # the headline run goes on to here: from cycle 24 on, each
 # cycle changes at most N/4 usage rows, so the resident buffer takes row deltas
 SMALL_FAIR_PREEMPT_SEED = 1  # fair_preempt_spec seed: depth 3, weights 0-2000
 SMALL_FAIR_PREEMPT_CYCLES = 32  # its decisions end by cycle 13; stalled heads then spin
@@ -230,6 +256,9 @@ SOURCES = {
     "tas_leaf_counts": "kueue_tpu_torch/csrc/tas_leaf_counts.cu",
     "drain_tas_place": "kueue_tpu_torch/csrc/drain_tas_place.cu",
     "drain_tas_phase2": "kueue_tpu_torch/csrc/drain_tas_phase2.cu",
+    "plan_quota_tree": "kueue_tpu_torch/csrc/plan_quota_tree.cu",
+    "plan_phase1": "kueue_tpu_torch/csrc/plan_phase1.cu",
+    "plan_phase2": "kueue_tpu_torch/csrc/plan_phase2.cu",
 }
 REPLACES = {
     "quota_tree": "kueue_tpu/ops/quota.py:93",
@@ -251,6 +280,9 @@ REPLACES = {
     "tas_leaf_counts": "kueue_tpu/ops/tas_kernel.py:52",
     "drain_tas_place": "kueue_tpu/ops/drain_kernel.py:689",
     "drain_tas_phase2": "kueue_tpu/ops/drain_kernel.py:894",
+    "plan_quota_tree": "kueue_tpu/ops/plan_kernel.py:36",
+    "plan_phase1": "kueue_tpu/ops/plan_kernel.py:36",
+    "plan_phase2": "kueue_tpu/ops/plan_kernel.py:36",
 }
 
 
@@ -2504,6 +2536,406 @@ def tas_path(dev) -> dict:
             "crossover": crossover}
 
 
+# ---- the planner and the admission policies (phase 12) --------------------
+
+
+def plan_launch_bytes(inp, phase1, per_head) -> dict:
+    """Bytes each B14 launch must move (each input read once, each
+    output written once), from the solve's own data; the heads' arrays
+    are shared by every scenario and count once, the quota state and
+    the outputs once a scenario; the gathers count distinct (row, cell)
+    pairs."""
+    s, n, fr = inp["nominal_s"].shape
+    d1 = inp["paths"].shape[1]
+    links = 4 * n + d1 * n
+    # in: nominal, lending, borrowing, leaf usage; out: subtree,
+    # guaranteed, usage tree, available, potential, every scenario
+    quota = 9 * s * n * fr * 8 + links
+
+    heads = inp["heads"]
+    cq = heads.cq_row.cpu().numpy()
+    cells = heads.cells.cpu().numpy()
+    qty = heads.qty.cpu().numpy()
+    valid = heads.valid.cpu().numpy()
+    w, k, c = cells.shape
+    live = cq >= 0
+    n_live = int(live.sum())
+    cand = valid & live[:, None]
+    need = (cells >= 0) & (qty > 0) & cand[:, :, None]
+    rows = np.broadcast_to(np.maximum(cq, 0)[:, None, None], cells.shape)
+    pairs = _distinct(rows[need], cells[need], fr)
+    # in, shared: every row's cq_row, a live row's K valid flags, a
+    # candidate's C cell indices and each real cell's quantity, a live
+    # row's parent; a scenario's: a candidate's score, avail, potential,
+    # subtree, local and nominal of each distinct pair needed; out: a
+    # scenario's chosen, borrows, preempt_k of every row
+    phase1_b = (4 * w + k * n_live + int(cand.sum()) * 4 * c
+                + 8 * int((cells[cand] >= 0).sum()) + 4 * len(np.unique(cq[live]))
+                + s * (8 * int(cand.sum()) + pairs * 5 * 8 + w * (4 + k + 4)))
+
+    chosen, _, preempt_k = (t.cpu().numpy() for t in phase1)
+    ph = per_head.cpu().numpy() if hasattr(per_head, "cpu") else per_head
+    paths = inp["paths"].cpu().numpy()
+    seg = np.asarray(inp["seg_id"])
+    n_seg = int(seg.max()) + 1 if (seg >= 0).any() else 0
+    # in, shared: a live head's cq_row, timestamp, seg_id and no_reclaim
+    # (a pad row's cq_row and seg_id), the CSR; per walked (head,
+    # candidate) its C cell indices and real quantities, a walked
+    # head's path; a scenario's: a live head's priority, chosen,
+    # preempt_k and borrow bit, subtree, guaranteed, borrowing_limit and
+    # usage of each path pair, nominal of each leaf pair, usage written
+    # per moved pair; out: the packed [6, W] rows of every scenario
+    phase2_b = 17 * n_live + 8 * (w - n_live) + 4 * (n_seg + 1) + 4 * int((seg >= 0).sum())
+    walked_pairs, walked_heads = set(), set()
+    for si in range(s):
+        eff = np.where(chosen[si] >= 0, chosen[si], preempt_k[si])
+        walked = np.nonzero(live & (eff >= 0))[0]
+        walked_pairs.update(zip(walked.tolist(), eff[walked].tolist()))
+        walked_heads.update(walked.tolist())
+        ce_all = cells[walked, eff[walked]]
+        ce = np.where(qty[walked, eff[walked]] > 0, ce_all, -1)
+        path_rows = paths[cq[walked]]
+        node_rows = np.repeat(path_rows, c, axis=1)
+        node_cells = np.where(node_rows >= 0, np.tile(ce, (1, d1)), -1)
+        moved = (ph[si, 1, walked] > 0) | (ph[si, 3, walked] > 0)
+        mrows = np.repeat(path_rows[moved], c, axis=1)
+        mcells = np.where(mrows >= 0, np.tile(ce[moved], (1, d1)), -1)
+        phase2_b += (17 * n_live + 32 * _distinct(node_rows.reshape(-1),
+                                                    node_cells.reshape(-1), fr)
+                     + 8 * _distinct(np.repeat(cq[walked], c), ce.reshape(-1), fr)
+                     + 8 * _distinct(mrows.reshape(-1), mcells.reshape(-1), fr))
+    wp = np.array(sorted(walked_pairs), dtype=np.int64).reshape(-1, 2)
+    real = int((qty[wp[:, 0], wp[:, 1]] > 0).sum()) if len(wp) else 0
+    phase2_b += len(wp) * 4 * c + 8 * real + len(walked_heads) * 4 * d1 + 48 * s * w
+    return {"plan_quota_tree": [quota], "plan_phase1": [phase1_b], "plan_phase2": [phase2_b]}
+
+
+class PlanCapture:
+    """The B14 inputs of the Planner's last device solve (stacked,
+    uploaded as ``interop.plan_inputs`` makes them), recorded by
+    wrapping ``Planner._device_raws``."""
+
+    def __init__(self):
+        self.inputs, self.steps = None, None
+
+    @contextlib.contextmanager
+    def __call__(self, dev):
+        from kueue_tpu_torch.interop import plan_inputs
+        from kueue_tpu_torch.planner import engine
+
+        saved = engine.Planner._device_raws
+
+        def grab(planner, enc, stacks, batch_np, paths_np, seg_id, n_segments, n_steps, w):
+            names = ("nominal_s", "lending_s", "borrowing_s", "usage_s", "priority_s",
+                     "score_s")
+            arrays = dict(zip(names, stacks), parent=enc.parent, level_mask=enc.level_mask,
+                          heads=batch_np, paths=paths_np, seg_id=seg_id)
+            self.inputs = plan_inputs(arrays, dev)
+            self.steps = dict(n_segments=n_segments, n_steps=n_steps)
+            return saved(planner, enc, stacks, batch_np, paths_np, seg_id, n_segments,
+                         n_steps, w)
+
+        engine.Planner._device_raws = grab
+        try:
+            yield self
+        finally:
+            engine.Planner._device_raws = saved
+
+
+@contextlib.contextmanager
+def timed_plan_spans(spans: dict):
+    """Host wall of each part of ``Planner.plan``, per call: the
+    snapshot, encode, backlog, lowering and packing; stacking the
+    scenarios; the device solve (upload, three launches, the one fetch,
+    the views); the decode; the ranking."""
+    from kueue_tpu_torch.planner import engine
+
+    P = engine.Planner
+    mod_saved = {n: getattr(engine, n) for n in ("take_snapshot", "encode_snapshot",
+                                                  "lower_heads", "pack_heads")}
+    cls_saved = {n: getattr(P, n) for n in ("backlog", "_stack", "_device_raws", "_decode",
+                                             "_rank")}
+    span_of = {"take_snapshot": "snapshot_lowering", "encode_snapshot": "snapshot_lowering",
+               "lower_heads": "snapshot_lowering", "pack_heads": "snapshot_lowering",
+               "backlog": "snapshot_lowering", "_stack": "stacking",
+               "_device_raws": "solve_fetch", "_decode": "decode", "_rank": "ranking"}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            key = span_of[name]
+            spans[key] = spans.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for n, fn in mod_saved.items():
+        setattr(engine, n, timed(n, fn))
+    for n, fn in cls_saved.items():
+        setattr(P, n, timed(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in mod_saved.items():
+            setattr(engine, n, fn)
+        for n, fn in cls_saved.items():
+            setattr(P, n, fn)
+
+
+def _strip_report(report) -> dict:
+    d = report.to_dict()
+    for k in ("durationMs", "sweepMs", "scenariosPerSecond"):
+        d.pop(k)
+    return d
+
+
+def sequential_ms(inp, steps, n: int) -> float:
+    """bench.py's ``sequential_ms``: the first ``n`` scenarios as one
+    call each of the cycle solver (``solve_cycle_segmented_packed``:
+    quota_tree x4, cycle_phase1, cycle_phase2) on the card, inputs on
+    the card, each result fetched; ms a scenario after one warm call."""
+    import torch
+
+    from kueue_tpu_torch.ops import assign_kernel as ak
+    from kueue_tpu_torch.ops.quota import QuotaTree
+
+    def one(si):
+        tree = QuotaTree(inp["parent"], inp["level_mask"], inp["nominal_s"][si],
+                         inp["lending_s"][si], inp["borrowing_s"][si])
+        heads = inp["heads"]._replace(priority=inp["priority_s"][si],
+                                      score=inp["score_s"][si])
+        return ak.solve_cycle_segmented_packed(tree, inp["usage_s"][si], heads, inp["paths"],
+                                               inp["seg_id"], **steps).cpu()
+
+    one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for si in range(n):
+        one(si)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def planner_path(dev) -> dict:
+    """Phase 12a, b and d: kernel B14 in lockstep and through
+    ``Planner.plan`` at planner-sweep-50k and planner-stage-500, and the
+    planner's times."""
+    import torch
+
+    from kueue_tpu_torch import interop
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import plan_kernel as plk
+    from kueue_tpu_torch.perf import cases
+    from kueue_tpu_torch.perf import planner as pp
+    from kueue_tpu_torch.perf.lockstep import (
+        PLAN_KERNELS,
+        Lockstep,
+        plan_kernels_through,
+        plan_solve,
+    )
+
+    errs, plain = {}, {}
+
+    # 12a. lockstep: seeded random batches (S = 1, 5, 17), the small
+    # case with every delta kind (also equal to its plan on the CPU),
+    # planner-stage-500 and planner-sweep-50k (the plain steps timed)
+    for seed, s in ((0, 1), (1, 5), (2, 17)):
+        b = cases.plan_batch(seed, s, w=64, k=8, c=16)
+        plan_solve(**interop.plan_inputs(b, dev), n_segments=b["n_segments"],
+                   n_steps=b["n_steps"], check=Lockstep(errs, label=f"plan_batch {seed}"))
+    reps = []
+    for d in (dev, "cpu"):
+        planner, scens, _, _ = pp.every_kind_case(device=d)
+        with plan_kernels_through(Lockstep(errs, label="every delta kind")):
+            reps.append(planner.plan(scenarios=scens, include_reasons="all",
+                                     verify_host=True))
+    if _strip_report(reps[0]) != _strip_report(reps[1]):
+        fail("the every-kind planner case on cuda differs from the CPU")
+    kinds = {o.name for o in reps[0].scenarios}
+    if (not any(o.reserved for o in reps[0].scenarios)
+            or not any(o.preemption_candidates for o in reps[0].scenarios)):
+        fail("the every-kind planner case lost its coverage (reservations, preempt-mode heads)")
+    print(f"{stamp()} B14 lockstep: plan_batch S=1,5,17 and the every-kind case "
+          f"({reps[0].heads} heads, {len(kinds)} scenarios: {sorted(kinds)}) bit-exact; "
+          f"its report on cuda equals the CPU's")
+
+    stage = pp.build_stage(device=dev)
+    sweep = pp.build_sweep(np.random.default_rng(pp.SWEEP_SEED), device=dev)
+    cells = {}
+    for label, (planner, scens, cache, _), expect in (
+            ("planner-stage-500", stage, pp.PLANNER_STAGE_EXPECT),
+            ("planner-sweep-50k", sweep, pp.PLANNER_SWEEP_EXPECT)):
+        keys = [wl.key for wl, _ in planner.backlog(take_snapshot(cache), "backlog")]
+        t0 = time.perf_counter()
+        cap = PlanCapture()
+        with plan_kernels_through(Lockstep(errs, label=label, plain_ms=plain.setdefault(
+                label, {}))), cap(dev):
+            rep = planner.plan(scenarios=scens, heads_mode="backlog", include_reasons="none")
+        if pp.plan_summary(rep, keys) != expect:
+            fail(f"{label} lockstep plan gave {pp.plan_summary(rep, keys)}")
+        s_, n_, fr_ = cap.inputs["nominal_s"].shape
+        w_, k_, c_ = cap.inputs["heads"].cells.shape
+        cells[label] = dict(planner=planner, scens=scens, keys=keys, cap=cap,
+                            shape=(f"S={s_} W={w_} K={k_} C={c_} N={n_} FR={fr_} "
+                                   f"D={cap.inputs['paths'].shape[1] - 1} "
+                                   f"n_segments={cap.steps['n_segments']} "
+                                   f"n_steps={cap.steps['n_steps']}"))
+        print(f"{stamp()} B14 lockstep at {label} ({cells[label]['shape']}): every launch "
+              f"bit-exact ({time.perf_counter() - t0:.1f} s)")
+
+    # 12b. the main path: Planner.plan on cuda, counters reset before
+    launches = {}
+    for label in ("planner-sweep-50k", "planner-stage-500"):
+        c = cells[label]
+        _build.reset_launches()
+        rep = c["planner"].plan(scenarios=c["scens"], heads_mode="backlog",
+                                include_reasons="none")
+        launches[label] = _build.launch_counts()
+        summary = pp.plan_summary(rep, c["keys"])
+        print(f"{stamp()} Planner.plan at {label} on cuda: {json.dumps(summary)}; launches "
+              f"{json.dumps({n: launches[label][n] for n in PLAN_KERNELS})}")
+        expect = (pp.PLANNER_SWEEP_EXPECT if label == "planner-sweep-50k"
+                  else pp.PLANNER_STAGE_EXPECT)
+        if summary != expect:
+            fail(f"{label} plan {summary} != expected {expect}")
+        if rep.backend != "device" or any(launches[label][n] != 1 for n in PLAN_KERNELS):
+            fail(f"{label} was not one B14 call (three launches) on the card")
+        if sum(launches[label].values()) != len(PLAN_KERNELS):
+            fail(f"{label} launched other kernels: {launches[label]}")
+    c = cells["planner-stage-500"]
+    rep = c["planner"].plan(scenarios=c["scens"], include_reasons="none", verify_host=True)
+    print(f"{stamp()} planner-stage-500 with verify_host=True: the numpy mirror equals the "
+          f"card in all {len(rep.scenarios)} scenarios")
+
+    # 12d. times: the plan's wall and spans (median of 3, warm), the
+    # solve with its inputs on the card, every launch alone, the
+    # sequential shape
+    out = {"errs": errs, "launches": launches, "cells": {}}
+    for label, c in cells.items():
+        walls, span_runs = [], []
+        for _ in range(3):
+            spans = {}
+            torch.cuda.synchronize()
+            with timed_plan_spans(spans):
+                t0 = time.perf_counter()
+                rep = c["planner"].plan(scenarios=c["scens"], heads_mode="backlog",
+                                        include_reasons="none")
+                walls.append(time.perf_counter() - t0)
+            span_runs.append(spans)
+        inp, steps = c["cap"].inputs, c["cap"].steps
+        solves = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plk.solve_scenarios_packed(**inp, **steps).cpu()
+            solves.append(time.perf_counter() - t0)
+        timer = TimedLaunches()
+        captured = {}
+
+        def check(name, kern, plain_fn, _timer=timer):
+            o = _timer(name, kern, None)
+            captured[name] = o
+            return o
+
+        s_, n_, fr_ = inp["nominal_s"].shape
+        for _ in range(3):
+            buf = plan_solve(**inp, **steps, check=check)
+        # the same inputs every time: the bytes once
+        ph, _ = plk.unpack(buf, s_, inp["heads"].cq_row.shape[0], n_, fr_)
+        for _ in range(3):
+            timer.add_bytes(plan_launch_bytes(inp, captured["plan_phase1"], ph))
+        timing = {n: timing_of(timer, n, plain[label]) for n in PLAN_KERNELS}
+        n_seq = s_ - 1 if label == "planner-stage-500" else 8
+        seq = sequential_ms(inp, steps, n_seq)
+        wall = 1e3 * float(np.median(walls))
+        med = {k: 1e3 * float(np.median([r.get(k, 0.0) for r in span_runs]))
+               for k in ("snapshot_lowering", "stacking", "solve_fetch", "decode", "ranking")}
+        solve_ms = 1e3 * float(np.median(solves))
+        out["cells"][label] = {"wall_ms": wall, "spans_ms": med, "solve_ms": solve_ms,
+                               "timing": timing, "sequential_ms_per_scenario": seq,
+                               "batched_ms_per_scenario": solve_ms / s_,
+                               "shape": c["shape"], "sweep_ms": 1e3 * rep.sweep_s}
+        print(f"{stamp()} Planner.plan at {label} (median of 3): {wall:.1f} ms; spans "
+              + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+              + f" ms; the solve with its inputs on the card (three launches, one fetch) "
+              f"{solve_ms:.2f} ms = {solve_ms / s_:.4f} ms a scenario; the sequential shape "
+              f"(one cycle solve a scenario, {n_seq} scenarios) {seq:.3f} ms a scenario")
+        for name, t in timing.items():
+            print(f"kernel {name} [{label}, {c['shape']}]: mean over {t['timed']} launches: "
+                  f"{t['ms'] * 1e3:.2f} us/launch on the device, {t['host_ms'] * 1e3:.2f} "
+                  f"us/call to enqueue, plain {t['plain_ms']:.3f} ms/call, bound "
+                  f"{t['bound_ms'] * 1e3:.4f} us ({t['bytes']:.0f} B); main-path launches "
+                  f"{launches[label][name]}, max_abs_err {errs[name]}")
+    return out
+
+
+def policy_path(dev) -> dict:
+    """Phase 12c: policy-48x64's first-fit and Gavel drains on cuda,
+    the Gavel what-if with its forecast, and a Gavel Scheduler's cycles
+    on the card against the CPU."""
+    import torch
+
+    from kueue_tpu_torch.core.drain import run_drain
+    from kueue_tpu_torch.core.scheduler import Scheduler
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.perf import planner as pp
+    from kueue_tpu_torch.perf.lockstep import DRAIN_KERNELS, Lockstep, cycle_kernels_through
+    from kueue_tpu_torch.policy import resolve_policy
+
+    env = pp.build_policy(np.random.default_rng(pp.POLICY_SEED))
+    gavel = resolve_policy("gavel")
+    got, walls, launches = {}, {}, {}
+    for key, pol in (("first_fit", None), ("gavel", gavel)):
+        _build.reset_launches()
+        out = run_drain(take_snapshot(env.cache), env.pending, env.cache.flavors,
+                        timestamp_fn=env.ts_fn, policy=pol, device=dev)
+        launches[key] = _build.launch_counts()
+        got[key] = pp.drain_summary(out)
+        if any(launches[key][n] <= 0 for n in DRAIN_KERNELS):
+            fail(f"the {key} drain at policy-48x64 did not launch every drain kernel")
+    for key, pol in (("first_fit", None), ("gavel", gavel), ("first_fit", None),
+                     ("gavel", gavel), ("first_fit", None), ("gavel", gavel)):
+        snap = take_snapshot(env.cache)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_drain(snap, env.pending, env.cache.flavors, timestamp_fn=env.ts_fn, policy=pol,
+                  device=dev)
+        walls.setdefault(key, []).append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    report = pp.policy_plan(env, device=dev)
+    forecast_s = time.perf_counter() - t0
+    got.update(pp.forecast_gain(report))
+    print(f"{stamp()} policy-48x64 on cuda: {json.dumps(got)}; the Gavel plan with its "
+          f"forecast {forecast_s:.1f} s")
+    if got != pp.POLICY_EXPECT:
+        fail(f"policy-48x64 {got} != expected {pp.POLICY_EXPECT}")
+    wall = {k: 1e3 * float(np.median(v)) for k, v in walls.items()}
+    print(f"{stamp()} policy-48x64 drain walls (run_drain, median of 3): first-fit "
+          f"{wall['first_fit']:.1f} ms, Gavel {wall['gavel']:.1f} ms")
+
+    traces, errs = [], {}
+    for d in (dev, "cpu"):
+        cenv = pp.build_policy(np.random.default_rng(pp.POLICY_SEED))
+        sched = Scheduler(queues=cenv.mgr, cache=cenv.cache, clock=cenv.clock, use_solver=True,
+                          solver_threshold=1, device=d, policy=gavel)
+        trace = []
+        with cycle_kernels_through(Lockstep(errs, label="Gavel cycle")):
+            for _ in range(4):
+                r = sched.schedule()
+                trace.append((sorted((e.workload.name, repr(sorted(
+                    e.workload.admission.pod_set_assignments[0].flavors.items())))
+                    for e in r.admitted), dict(sched._cycle_scores)))
+        traces.append(trace)
+    if traces[0] != traces[1] or not traces[0][0][0]:
+        fail("the Gavel Scheduler's cycles on cuda differ from the CPU")
+    print(f"{stamp()} Scheduler(policy=gavel) at policy-48x64: 4 cycles on cuda equal the CPU "
+          f"(admitted {[len(t[0]) for t in traces[0]]}, score breakdowns included), every "
+          f"cycle launch bit-exact")
+    return {"errs": errs, "launches": launches, "walls": wall, "forecast_s": forecast_s,
+            "summary": got}
+
+
 # ---- main ---------------------------------------------------------------
 
 
@@ -2706,7 +3138,11 @@ def main() -> int:
     # 11. TAS pod counting and the TAS drain
     tasr = tas_path(dev)
 
-    # 12. result lines
+    # 12. the planner (kernel B14) and the admission policies
+    plan = planner_path(dev)
+    pol = policy_path(dev)
+
+    # 13. result lines
     by_path = {
         "drain": drain_launches, "megaloop": mega["launches"], "fair": fairr["launches"],
         "cycle_headline": cycle_launches, "cycle_small": small_launches,
@@ -2714,6 +3150,10 @@ def main() -> int:
         "fair_cycle": fcyc["launches"], "fair_preempt_drain": fdrain["launches"],
         "fair_preempt_wide": fdrain["wide_launches"],
         "tas_drain": tasr["launches"], "tas_fleet": tasr["fleet_launches"],
+        "planner_sweep": plan["launches"]["planner-sweep-50k"],
+        "planner_stage": plan["launches"]["planner-stage-500"],
+        "policy_first_fit": pol["launches"]["first_fit"],
+        "policy_gavel": pol["launches"]["gavel"],
     }
     kernels = []
     for name in _build.KERNELS:
@@ -2736,6 +3176,9 @@ def main() -> int:
         elif name == "tas_leaf_counts":
             # the main path's entry: leaf_counts at tas-fleet-131k
             t, lib = tasr["b12"]["tas-fleet-131k"]["leaf_counts"], None
+        elif name.startswith("plan_"):
+            # the planner's full-width path: planner-sweep-50k
+            t, lib = plan["cells"]["planner-sweep-50k"]["timing"][name], None
         else:
             t, lib = ctiming[name], library.get(name)
         entry = {
@@ -2748,7 +3191,8 @@ def main() -> int:
             "max_abs_err": max(r.get(name, 0) for r in (errs, cerrs, mega["errs"], fairr["errs"],
                                                          pcyc["errs"], pdrain["errs"],
                                                          fcyc["errs"], fdrain["errs"],
-                                                         tasr["errs"])),
+                                                         tasr["errs"], plan["errs"],
+                                                         pol["errs"])),
             "ms": t["ms"],
             "device_ms_total": t["device_ms_total"],
             "host_ms": t["host_ms"],
@@ -2778,8 +3222,11 @@ def main() -> int:
                 for label, row in tasr["b12"].items()
             }
             entry["countin_ms"] = tasr["crossover"]
+        if name.startswith("plan_"):
+            st = plan["cells"]["planner-stage-500"]["timing"][name]
+            entry["at_planner_stage"] = {k: st[k] for k in ("ms", "plain_ms", "bound_ms")}
         kernels.append(entry)
-    if len(kernels) != 19:
+    if len(kernels) != 22:
         fail(f"{len(kernels)} kernels in the result line")
     print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
@@ -2808,7 +3255,11 @@ def main() -> int:
                       "tas_drain_plan_ms": tasr["plan_ms"],
                       "tas_drain_solve_ms": tasr["solve_ms"],
                       "tas_drain_kernels_ms": tasr["kernel_ms"],
-                      "tas_drain_cycles": tasr["cycles"]}))
+                      "tas_drain_cycles": tasr["cycles"],
+                      "planner": {label: {k: v for k, v in c.items() if k != "timing"}
+                                  for label, c in plan["cells"].items()},
+                      "policy_drain_walls_ms": pol["walls"],
+                      "policy_forecast_s": pol["forecast_s"]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -21,9 +21,11 @@ pools plus each segment's fair panels), and the scope routing
 ``launch_drain_for_scope``), and the drain with Topology-Aware
 Scheduling (``run_drain_tas``: the merged domain forest of every
 in-scope TAS flavor, the placement and its admit-time re-validation in
-kernel B13, and the host replay of the placements). Mesh sharding and
-non-default admission policies are not ported yet and raise
-NotImplementedError.
+kernel B13, and the host replay of the placements). Every drain takes
+an admission ``policy`` (kueue_tpu_torch/policy): ``plan_drain``
+compiles its candidate scores and priority boosts onto the backlog, and
+the preemption drains order victims by its PREMA costs. Mesh sharding
+is not ported yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -107,7 +109,8 @@ def plan_drain(
     timestamp_fn=None,
     max_podsets: int = 4,
     allow_tas: bool = False,
-    policy=None,  # admission policy: only the default (None) is ported
+    policy=None,  # kueue_tpu_torch/policy AdmissionPolicy: compiles the
+    #               per-entry candidate score tensor (zeros = first-fit)
     now: float = 0.0,  # policy clock (deadline boosts)
 ) -> DrainPlan:
     """Lower the backlog and pack it into per-CQ queue tensors.
@@ -118,15 +121,14 @@ def plan_drain(
     """
     from kueue_tpu_torch.ops.assign_kernel import build_roots
 
-    if policy is not None and not policy.is_default:
-        raise NotImplementedError(
-            "admission policies (kueue_tpu/policy) are not ported yet: "
-            "the port's drain is first-fit (all-zero scores)"
-        )
     lowered = lower_heads_multi(
         snapshot, pending, flavors, max_candidates, max_cells, max_podsets,
         timestamp_fn, any_fungibility=True, allow_tas=allow_tas,
     )
+    if policy is not None and not policy.is_default:
+        from kueue_tpu_torch.policy import annotate_multi
+
+        annotate_multi(policy, lowered, now)
     fallback = set(lowered.fallback)
 
     by_cq: Dict[str, List[int]] = {}
@@ -376,11 +378,10 @@ def _lower_victim_pools(
     # fn(s, members, seg_queues_s) -> bool: extra scope veto, given the
     # segment id, its member CQ rows and its queue-index list
     extra_segment_bad=None,
+    policy=None,  # kueue_tpu_torch/policy: PREMA victim-cost adjustments
 ) -> _VictimLowering:
     """Build the SegVictims arrays + metadata for a preemption drain
-    and set plan.max_cycles. Mutates plan (drops ineligible queues).
-    The candidate order is the default policy's: without PREMA victim
-    costs (kueue_tpu/policy is not ported, ROADMAP A1)."""
+    and set plan.max_cycles. Mutates plan (drops ineligible queues)."""
     from kueue_tpu_torch.models.constants import (
         BorrowWithinCohortPolicy,
         PreemptionPolicy,
@@ -549,7 +550,17 @@ def _lower_victim_pools(
     perm = np.tile(np.arange(v_cap, dtype=np.int32), (q, 1))
     entry_slot = np.full((q, nl), -1, dtype=np.int32)
     victim_of: Dict[Tuple[int, int], object] = {}
-    slot_meta: Dict[int, list] = {}  # s -> [(evicted0, owner, prio, rt, uid)]
+    slot_meta: Dict[int, list] = {}  # s -> [(evicted0, owner, prio, rt, uid, adj)]
+    # PREMA-style victim-cost adjustment (kueue_tpu_torch/policy):
+    # inserted into the candidate sort key between the (evicted,
+    # other-CQ) tiers and priority; zero for every victim under the
+    # default policy, so the ordering is byte-identical to the
+    # unadjusted sort
+    def _cost_adjust(wl) -> int:
+        if policy is None or policy.is_default:
+            return 0
+        return int(policy.victim_cost_adjust(wl))
+
 
     if now is None:
         rts = [
@@ -599,6 +610,7 @@ def _lower_victim_pools(
                     int(ws.priority),
                     float(ws.quota_reserved_time),
                     ws.workload.uid,
+                    _cost_adjust(ws.workload),
                 )
             )
             slot += 1
@@ -623,6 +635,7 @@ def _lower_victim_pools(
                             int(plan.queues_np["priority"][qi, pos]),
                             float(now),
                             wl.uid,
+                            _cost_adjust(wl),
                         )
                     )
                     slot += 1
@@ -637,6 +650,7 @@ def _lower_victim_pools(
                 key=lambda j: (
                     0 if meta[j][0] else 1,
                     0 if meta[j][1] != own else 1,
+                    meta[j][5],
                     meta[j][2],
                     -meta[j][3],
                     meta[j][4],
@@ -810,6 +824,7 @@ def preempt_drain_inputs(
     timestamp_fn=None,
     max_cycles: Optional[int] = None,
     now: Optional[float] = None,
+    policy=None,
 ):
     """The preempt drain's plan, pool lowering and device inputs, as
     ``run_drain_preempt`` makes them: (plan, lowering, tree, paths,
@@ -818,10 +833,11 @@ def preempt_drain_inputs(
 
     plan = plan_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
-        now=now or 0.0,
+        policy=policy, now=now or 0.0,
     )
     low = _lower_victim_pools(
         snapshot, plan, timestamp_fn, now, max_victims, max_victim_cells, max_cycles,
+        policy=policy,
     )
     tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev)
     return plan, low, tree, paths, usage_in, queues, seg_victims(low.victims_np, dev)
@@ -873,23 +889,18 @@ def run_drain_preempt(
     ``search_width`` drain's.
 
     Runs on the card: ``device`` defaults to ``cuda`` and raises where
-    there is none; ``device="cpu"`` runs the plain torch versions. Mesh
-    sharding (ROADMAP A11) and a non-default admission policy, whose
-    PREMA victim costs wait for ``policy/`` (A1), raise
+    there is none; ``device="cpu"`` runs the plain torch versions.
+    ``policy`` scores the flavor candidates and, under PREMA, orders
+    the victims by its costs. Mesh sharding (ROADMAP A11) raises
     NotImplementedError."""
     from kueue_tpu_torch._torch import resolve_device
     from kueue_tpu_torch.ops.drain_kernel import _solve_drain_preempt_packed
 
     if mesh is not None:
         raise NotImplementedError("mesh-sharded drains are not ported yet (ROADMAP A11)")
-    if policy is not None and not policy.is_default:
-        raise NotImplementedError(
-            "admission policies (PREMA victim costs, kueue_tpu/policy) are not ported "
-            "yet (ROADMAP A1)"
-        )
     plan, low, tree, paths, usage_in, queues, victims = preempt_drain_inputs(
         snapshot, pending, flavors, resolve_device(device), max_candidates, max_cells,
-        max_victims, max_victim_cells, timestamp_fn, max_cycles, now,
+        max_victims, max_victim_cells, timestamp_fn, max_cycles, now, policy=policy,
     )
     # ---- the two-tier panel ladder (exactness escape hatch): a clean
     # narrow run is provably identical to the exact width's, and an
@@ -1097,6 +1108,7 @@ def fair_preempt_drain_inputs(
     timestamp_fn=None,
     max_cycles: Optional[int] = None,
     now: Optional[float] = None,
+    policy=None,
 ):
     """The fair-preempt drain's plan, pool lowering and device inputs,
     as ``run_drain_fair_preempt`` makes them: (plan, lowering, tree,
@@ -1116,7 +1128,7 @@ def fair_preempt_drain_inputs(
 
     plan = plan_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
-        now=now or 0.0,
+        policy=policy, now=now or 0.0,
     )
     parent_arr = snapshot.flat.parent
     n_cq = snapshot.flat.n_cq
@@ -1148,7 +1160,7 @@ def fair_preempt_drain_inputs(
 
     low = _lower_victim_pools(
         snapshot, plan, timestamp_fn, now, max_victims, max_victim_cells, max_cycles,
-        extra_segment_bad=seg_universe_bad,
+        extra_segment_bad=seg_universe_bad, policy=policy,
     )
     s_dim, v_cap, m_dim = low.s_dim, low.v_cap, low.m_dim
 
@@ -1227,9 +1239,10 @@ def run_drain_fair_preempt(
     admissions and evictions in cycle order; this function only decides.
 
     Runs on the card: ``device`` defaults to ``cuda`` and raises where
-    there is none; ``device="cpu"`` runs the plain torch versions. Mesh
-    sharding (ROADMAP A11) and a non-default admission policy (A1)
-    raise NotImplementedError."""
+    there is none; ``device="cpu"`` runs the plain torch versions.
+    ``policy`` scores the flavor candidates and, under PREMA, orders
+    the victims by its costs. Mesh sharding (ROADMAP A11) raises
+    NotImplementedError."""
     from kueue_tpu_torch._torch import resolve_device
     from kueue_tpu_torch.core.preemption import (
         LESS_THAN_INITIAL_SHARE,
@@ -1239,15 +1252,11 @@ def run_drain_fair_preempt(
 
     if mesh is not None:
         raise NotImplementedError("mesh-sharded drains are not ported yet (ROADMAP A11)")
-    if policy is not None and not policy.is_default:
-        raise NotImplementedError(
-            "admission policies (PREMA victim costs, kueue_tpu/policy) are not ported "
-            "yet (ROADMAP A1)"
-        )
     plan, low, tree, paths, usage_in, queues, victims, panels, fair = (
         fair_preempt_drain_inputs(
             snapshot, pending, flavors, resolve_device(device), max_candidates, max_cells,
             max_victims, max_victim_cells, max_fair_cells, timestamp_fn, max_cycles, now,
+            policy=policy,
         )
     )
     strategies = list(
@@ -2058,8 +2067,9 @@ def run_drain(
     backstop. With ``fair_sharing`` each cycle's admission order is the
     fair-sharing cohort tournament (ops/drain_kernel.solve_drain with
     ``fair``) instead of the (borrowing, priority, FIFO) sort;
-    preempt-capable ClusterQueues route to ``fallback``. Mesh sharding
-    and non-default admission policies are not ported yet and raise
+    preempt-capable ClusterQueues route to ``fallback``. ``policy``
+    (kueue_tpu_torch/policy) scores the flavor candidates and boosts
+    priorities at ``now``. Mesh sharding is not ported yet and raises
     NotImplementedError."""
     return launch_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,

@@ -4,30 +4,38 @@ One definition of the dense array layout the device kernels consume —
 the cohort forest as parent links + level masks, the quota triple and
 leaf usage as int64[N, FR] matrices — so every consumer reads the same
 bytes for the same snapshot. ``encode_snapshot`` is view-based (no
-copies); ``device_arrays`` places the arrays on a torch device.
+copies); ``device_arrays`` places the arrays on a torch device;
+``decode_snapshot`` rebuilds an independent, fully functional
+``Snapshot`` from the arrays (the planner's per-scenario host
+snapshots, ``EncodedSnapshot.with_quota``).
 
-Ported: ``EncodedSnapshot``, ``encode_snapshot``, ``device_arrays``
-and ``ResidentEncoder`` (the drain's device-resident tree, paths and
-leaf usage between launches). ``decode_snapshot`` and
-``EncodedSnapshot.with_quota`` (the planner's) and the admission-policy
-score encoders are not ported yet.
+Also here: ``ResidentEncoder`` (the drain's device-resident tree,
+paths and leaf usage between launches) and the admission-policy score
+encoders (``encode_candidate_scores``, ``_multi``), which compile a
+policy (kueue_tpu_torch/policy) into the int64 score tensors the
+kernels argmax over.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from kueue_tpu_torch.core.hierarchy import FlatHierarchy
 from kueue_tpu_torch.core.snapshot import Snapshot, WorkloadSnapshot
+from kueue_tpu_torch.ops.quota_np import subtree_quota_np
 from kueue_tpu_torch.resources import FlavorResource
 
 __all__ = [
     "EncodedSnapshot",
     "encode_snapshot",
+    "decode_snapshot",
     "device_arrays",
     "ResidentEncoder",
+    "encode_candidate_scores",
+    "encode_candidate_scores_multi",
 ]
 
 
@@ -38,7 +46,8 @@ class EncodedSnapshot:
     Array fields are the device payload (what the kernels consume);
     the name tuples + host-object maps carry exactly enough identity to
     decode back into a ``Snapshot``. Quota/usage arrays are VIEWS of
-    the source snapshot — callers mutating them must copy first.
+    the source snapshot by default — callers mutating them (the planner
+    stacking scenario variants) must copy first (``with_quota``).
     """
 
     cq_names: Tuple[str, ...]
@@ -70,6 +79,29 @@ class EncodedSnapshot:
     def max_depth(self) -> int:
         return self.level_mask.shape[0] - 1
 
+    def with_quota(
+        self,
+        nominal: Optional[np.ndarray] = None,
+        lending_limit: Optional[np.ndarray] = None,
+        borrowing_limit: Optional[np.ndarray] = None,
+        local_usage: Optional[np.ndarray] = None,
+    ) -> "EncodedSnapshot":
+        """A variant sharing structure but carrying replacement quota /
+        usage arrays — how the planner materializes one scenario."""
+        return replace(
+            self,
+            nominal=self.nominal if nominal is None else nominal,
+            lending_limit=(
+                self.lending_limit if lending_limit is None else lending_limit
+            ),
+            borrowing_limit=(
+                self.borrowing_limit if borrowing_limit is None else borrowing_limit
+            ),
+            local_usage=(
+                self.local_usage if local_usage is None else local_usage
+            ),
+        )
+
 
 def encode_snapshot(snapshot: Snapshot) -> EncodedSnapshot:
     """Snapshot -> dense arrays (views; zero-copy)."""
@@ -93,6 +125,71 @@ def encode_snapshot(snapshot: Snapshot) -> EncodedSnapshot:
     )
 
 
+def decode_snapshot(enc: EncodedSnapshot) -> Snapshot:
+    """Arrays -> an independent Snapshot (array fields copied, so the
+    result is safely mutable: the planner's forecast simulation
+    add/remove-usage loops run on decoded scenario snapshots without
+    touching the live state)."""
+    index = {name: i for i, name in enumerate(enc.cq_names)}
+    for j, name in enumerate(enc.cohort_names):
+        index[name] = enc.n_cq + j
+    parent = np.array(enc.parent, dtype=np.int32, copy=True)
+    n = parent.shape[0]
+    depth = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        d, cur = 0, int(parent[i])
+        while cur >= 0:
+            d += 1
+            cur = int(parent[cur])
+        depth[i] = d
+    flat = FlatHierarchy(
+        cq_names=tuple(enc.cq_names),
+        cohort_names=tuple(enc.cohort_names),
+        index=index,
+        parent=parent,
+        depth=depth,
+        max_depth=int(depth.max()) if n else 0,
+        inactive_cqs=(),
+    )
+    nominal = np.array(enc.nominal, dtype=np.int64, copy=True)
+    lend = np.array(enc.lending_limit, dtype=np.int64, copy=True)
+    borrow = np.array(enc.borrowing_limit, dtype=np.int64, copy=True)
+    subtree, guaranteed = subtree_quota_np(
+        parent, flat.level_masks(), nominal, lend
+    )
+    fr_list = tuple(enc.fr_list)
+    fr_index = {fr: j for j, fr in enumerate(fr_list)}
+    resource_names = tuple(sorted({fr.resource for fr in fr_list}))
+    rname_index = {r: i for i, r in enumerate(resource_names)}
+    resource_index = np.array(
+        [rname_index[fr.resource] for fr in fr_list], dtype=np.int32
+    )
+    snap = Snapshot(
+        flat=flat,
+        fr_list=fr_list,
+        fr_index=fr_index,
+        resource_names=resource_names,
+        resource_index=resource_index,
+        nominal=nominal,
+        lending_limit=lend,
+        borrowing_limit=borrow,
+        subtree=subtree,
+        guaranteed=guaranteed,
+        local_usage=np.array(enc.local_usage, dtype=np.int64, copy=True),
+        weight_milli=np.array(enc.weight_milli, dtype=np.int64, copy=True),
+        cq_models=dict(enc.cq_models),
+        inactive_cqs=tuple(enc.inactive_cqs),
+        generations=dict(enc.generations),
+        priority_classes=dict(enc.priority_classes),
+    )
+    # workload registrations WITHOUT re-adding usage: local_usage above
+    # already carries their charge (add_workload would double-count)
+    for key, ws in enc.workloads.items():
+        snap.workloads[key] = ws
+        snap._by_cq.setdefault(ws.cq_name, {})[key] = ws
+    return snap
+
+
 def device_arrays(enc: EncodedSnapshot, device):
     """(QuotaTree, paths, roots): the quota tree and the ancestor paths
     as torch tensors on ``device`` (int64 quotas, int32 links), and the
@@ -113,6 +210,111 @@ def device_arrays(enc: EncodedSnapshot, device):
     )
     paths = to_device(build_paths(enc.parent, enc.max_depth), tree.device)
     return tree, paths, build_roots(enc.parent)
+
+
+# ---- admission-policy score tensors (kueue_tpu_torch/policy) ----
+# The policy subsystem's declarative inputs (per-flavor throughput,
+# deadlines, remaining work — workload labels) enter the device path
+# HERE: compiled once per lowered batch into dense int64 score tensors
+# the scored kernels argmax over. Like the quota codec above, this is
+# the single definition both the cycle dispatch (core/solver.pack_heads)
+# and the bulk drain (core/drain.plan_drain) ship, so device kernels
+# and their numpy mirrors read the SAME bytes for the same policy.
+
+
+def _flavor_sig(flavor_map: dict) -> Tuple[str, ...]:
+    """A candidate's distinct flavor names (one flavor per touched
+    resource group; dict values repeat per resource)."""
+    return tuple(sorted(set(flavor_map.values())))
+
+
+def _template_sigs(flist, n_k: int, sig_cache: dict):
+    """(k, flavor_sig) tuple of a template-shared candidate flavor
+    list — computed ONCE per list identity (lowering shares one list
+    per template, so a 50k-head backlog resolves this O(templates)
+    times). The returned tuple is hashable: score rows cache on IT,
+    not on template identity, so the hundreds of per-CQ templates that
+    enumerate the same flavors share one compiled row."""
+    sigs = sig_cache.get(id(flist))
+    if sigs is None:
+        sigs = sig_cache[id(flist)] = tuple(
+            (k, _flavor_sig(fmap))
+            for k, fmap in enumerate(flist[:n_k])
+            if fmap
+        )
+    return sigs
+
+
+def encode_candidate_scores(
+    policy, heads, candidate_flavors, n_k: int
+) -> np.ndarray:
+    """int64[W, K] candidate scores for a cycle batch.
+
+    ``candidate_flavors[i][k]`` is the lowered {resource: flavor} map
+    (core/solver.Lowered). Candidate flavor signatures memoize per
+    template-shared list identity and scores per (workload labels,
+    flavor set), so compilation is O(templates + distinct pairs), not
+    O(heads x candidates)."""
+    w = len(heads)
+    score = np.zeros((w, n_k), dtype=np.int64)
+    cache: dict = {}
+    sig_cache: dict = {}
+    for i, wl in enumerate(heads):
+        flist = candidate_flavors[i]
+        if not flist:
+            continue
+        labels = getattr(wl, "labels", None)
+        labels_sig = tuple(sorted(labels.items())) if labels else ()
+        for k, fsig in _template_sigs(flist, n_k, sig_cache):
+            key = (labels_sig, fsig)
+            s = cache.get(key)
+            if s is None:
+                s = cache[key] = int(policy.candidate_score(wl, fsig))
+            score[i, k] = s
+    return score
+
+
+def encode_candidate_scores_multi(policy, lowered) -> np.ndarray:
+    """int64[W, P, K] candidate scores for a drain batch
+    (core/solver.MultiLowered): every podset's candidate walk scores
+    independently, exactly like its flavor walk.
+
+    Bulk discipline (the 50k-head drain must not pay a python loop per
+    candidate): heads grouped by (label signature, template flavor
+    list) share ONE computed score row, scattered with fancy indexing —
+    compilation is O(heads) dict appends + O(distinct groups) policy
+    calls."""
+    w, pmax, n_k = lowered.valid.shape
+    score = np.zeros((w, pmax, n_k), dtype=np.int64)
+    sig_cache: dict = {}
+    groups: dict = {}  # (labels_sig, candidate sigs, p) -> [head idx]
+    rep: dict = {}  # group key -> representative workload
+    for i, wl in enumerate(lowered.heads):
+        per_ps = lowered.candidate_flavors[i]
+        if not per_ps:
+            continue
+        labels = getattr(wl, "labels", None)
+        labels_sig = tuple(sorted(labels.items())) if labels else ()
+        for p, flist in enumerate(per_ps[:pmax]):
+            key = (labels_sig, _template_sigs(flist, n_k, sig_cache), p)
+            g = groups.get(key)
+            if g is None:
+                g = groups[key] = []
+                rep[key] = wl
+            g.append(i)
+    row_cache: dict = {}
+    for key, idxs in groups.items():
+        labels_sig, sigs, p = key
+        rkey = (labels_sig, sigs)
+        row = row_cache.get(rkey)
+        if row is None:
+            wl = rep[key]
+            row = np.zeros(n_k, dtype=np.int64)
+            for k, fsig in sigs:
+                row[k] = int(policy.candidate_score(wl, fsig))
+            row_cache[rkey] = row
+        score[np.asarray(idxs, dtype=np.intp), p] = row
+    return score
 
 
 class ResidentEncoder:

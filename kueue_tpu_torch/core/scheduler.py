@@ -30,9 +30,11 @@ searched by kernel B9 (the fair victim tournament). A ``KernelError``
 from the batched search propagates, and so does a fault of B8 or B9 on
 the card, which surfaces at the search's fetch and is raised there as
 one; any other exception (of the host lowering) degrades that cycle's
-search to the host loop, as in the JAX package. Not ported
-yet, and refused at construction with NotImplementedError: a
-non-default admission policy (ROADMAP A1).
+search to the host loop, as in the JAX package. A non-default admission
+``policy`` (kueue_tpu_torch/policy) is compiled onto each cycle's
+lowered batch before dispatch (candidate scores, priority boosts), is
+handed to the FlavorAssigner, and its per-head score breakdown rides
+each decision record (``scores``).
 """
 
 from __future__ import annotations
@@ -247,15 +249,12 @@ class Scheduler:
         guard: Optional[SolverGuard] = None,
         quarantine: Optional[QuarantineList] = None,
         tracer=None,  # tracing.Tracer; None = a private always-on one
-        policy=None,  # admission policy; only None / the default first-fit
+        policy=None,  # kueue_tpu_torch/policy AdmissionPolicy; None/first-fit
+        #               = score-free nomination (bit-for-bit pre-policy)
         device=None,  # torch device of the cycle solve (cuda unless "cpu")
     ):
         from kueue_tpu_torch._torch import resolve_device
 
-        if policy is not None and not policy.is_default:
-            raise NotImplementedError(
-                "a non-default admission policy is not ported yet (ROADMAP A1)"
-            )
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # build and load the cycle's kernels now: a card without a
@@ -296,7 +295,12 @@ class Scheduler:
         self.use_preempt_solver = use_preempt_solver
         self.preempt_solver_threshold = preempt_solver_threshold
         self.transform_config = transform_config
+        # active admission policy (kueue_tpu_torch/policy); the audit
+        # breakdown below explains scored flavor choices per cycle
         self.policy = policy
+        # workload key -> flavor score breakdown of the LAST nomination
+        # (cleared per cycle; consumed by _decision_of)
+        self._cycle_scores: Dict[str, dict] = {}
         # distributed tracing (kueue_tpu_torch/tracing): cycle span trees are
         # buffered per cycle and flushed atomically with the CycleTrace;
         # a bare Scheduler gets its own tracer, ClusterRuntime shares
@@ -361,6 +365,7 @@ class Scheduler:
         result = CycleResult()
         trace = CycleTrace(cycle=self.scheduling_cycle)
         self._cycle_device_s = 0.0
+        self._cycle_scores.clear()
         t0 = _time.perf_counter()
         self.guard.begin_cycle()
 
@@ -746,7 +751,45 @@ class Scheduler:
             flavor_reasons=flavor_reasons,
             preemption=preemption,
             topology=topology,
+            scores=self._cycle_scores.get(e.workload.key),
         )
+
+    def _record_cycle_scores(self, lowered) -> None:
+        """Per-head flavor score breakdown for the audit trail
+        (kueue_tpu_torch/policy): score per candidate flavor set, the
+        highest-scoring set, and the winning margin, so a decision
+        record says WHY a flavor won. The actual assignment (which may
+        differ when the top-scoring flavor doesn't fit) rides the
+        record's ``flavors`` field."""
+        score = lowered.score
+        if score is None:
+            return
+        fallback = set(lowered.fallback)
+        for i, wl in enumerate(lowered.heads):
+            if i in fallback:
+                continue
+            per: Dict[str, int] = {}
+            for k, fmap in enumerate(lowered.candidate_flavors[i]):
+                if not fmap or k >= lowered.valid.shape[1]:
+                    continue
+                if not lowered.valid[i, k]:
+                    continue
+                sig = "+".join(sorted(set(fmap.values())))
+                sc = int(score[i, k])
+                if sig not in per or sc > per[sig]:
+                    per[sig] = sc
+            if not per:
+                continue
+            ranked = sorted(per.items(), key=lambda t: (-t[1], t[0]))
+            margin = (
+                ranked[0][1] - ranked[1][1] if len(ranked) > 1 else ranked[0][1]
+            )
+            self._cycle_scores[wl.key] = {
+                "policy": self.policy.name,
+                "perFlavor": per,
+                "winner": ranked[0][0],
+                "margin": margin,
+            }
 
     # ---- nomination (scheduler.go:344-378) ----
     def _nominate(
@@ -1009,6 +1052,14 @@ class Scheduler:
             # rest (per-head contained)
             self._bisect_lowering_failure(to_assign, snapshot, exc)
             return None
+        if self.policy is not None and not self.policy.is_default:
+            # compile the policy's score tensors onto the batch BEFORE
+            # the guard sees it: the device kernel and the host mirror
+            # both read lowered.score, so divergence checks stay sound
+            from kueue_tpu_torch.policy import annotate_lowered
+
+            annotate_lowered(self.policy, lowered, now=self.clock.now())
+            self._record_cycle_scores(lowered)
         fallback = set(lowered.fallback)
         if len(fallback) == len(to_assign):
             # nothing representable: skip the device dispatch entirely

@@ -47,7 +47,7 @@ class Lowered:
     priority: np.ndarray  # int64[W]
     timestamp: np.ndarray  # int64[W] (ns)
     no_reclaim: np.ndarray  # bool[W] — reserve capacity when blocked
-    # int64[W,K] admission-policy candidate scores (kueue_tpu/policy:
+    # int64[W,K] admission-policy candidate scores (kueue_tpu_torch/policy:
     # annotate_lowered compiles them from workload labels); None = the
     # default first-fit policy (pack_heads ships zeros, the kernel's
     # score-argmax then IS the first-fit argmax)
@@ -654,7 +654,7 @@ class MultiLowered:
     no_reclaim: np.ndarray  # bool[W]
     ffb: np.ndarray  # bool[W]
     ffp: np.ndarray  # bool[W]
-    # int64[W,P,K] admission-policy candidate scores (kueue_tpu/policy:
+    # int64[W,P,K] admission-policy candidate scores (kueue_tpu_torch/policy:
     # annotate_multi); None = default first-fit (plan_drain ships zeros)
     score: Optional[np.ndarray] = None
     # per head per podset: candidate k -> maps (template-shared lists)

@@ -24,6 +24,8 @@
 //      borrow or nominal cap, then the bubble of each node's
 //      over-guaranteed delta up the path. Every lane reads its level
 //      before any lane adds (atomicAdd), as the JAX .at[].add does.
+// Steps 3 and 4 are cycle_body::rank_members and walk_segment
+// (cycle_body.cuh), shared with plan_phase2.cu.
 // `usage` is the cycle's usage tree, built by quota_tree from the leaf
 // rows; the resident leaf buffer is never written here.
 //
@@ -36,12 +38,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "quota_path.cuh"
+#include "cycle_body.cuh"
 
 namespace cycle2 {
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;
 
 struct Args {
@@ -67,14 +68,9 @@ struct Args {
   long long* packed;          // [5,W]
 };
 
-__device__ __forceinline__ int eff_k(const Args& a, int x) {
-  const int c = a.chosen[x];
-  return c >= 0 ? c : a.preempt_k[x];
-}
-
 // (no-fit << 1) | borrowing of the effective candidate
 __device__ __forceinline__ uint8_t head_class(const Args& a, int x) {
-  const int e = eff_k(a, x);
+  const int e = cycle_body::eff_k(a.chosen, a.preempt_k, x);
   if (e < 0) return 2;
   return a.borrows[(size_t)x * a.K + e] ? 1 : 0;
 }
@@ -125,74 +121,19 @@ __global__ void phase2(Args a) {
   if (!seg_block || b >= a.n_segments) return;
   __syncthreads();
 
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int p = spos[i];
-    if (p < 0) continue;
-    atomicAdd(&n_valid, 1);
-    int r = 0;
-    for (int j = 0; j < m; ++j) {
-      const int q = spos[j];
-      r += q >= 0 && q < p;
-    }
-    if (r < a.n_steps) walk[r] = a.seg_members[beg + i];
-  }
+  cycle_body::rank_members(spos, m, a.seg_members + beg, a.n_steps, walk, &n_valid);
   __syncthreads();
   if (threadIdx.x >= 32) return;
 
-  const int lane = threadIdx.x;
-  const int FR = a.FR, D = a.D;
-  const int n_walk = min(n_valid, a.n_steps);
-  for (int r = 0; r < n_walk; ++r) {
-    const int h = walk[r];
-    const int cq = a.cq_row[h];
-    const int* path = a.paths + (size_t)cq * (D + 1);
-    const int e = eff_k(a, h);
-    int cell = -1;
-    long long qv = 0;
-    if (lane < a.C) {
-      const size_t ci = ((size_t)h * a.K + e) * a.C + lane;
-      cell = a.cells[ci];
-      qv = a.qty[ci];
-    }
-    const bool cv = cell >= 0 && qv > 0;
-    bool ok = true;
-    long long cap = 0;
-    if (cv) {
-      ok = quota_path::avail_along_path(path, D, FR, cell, a.subtree, a.guaranteed,
-                                        a.borrowing_limit, a.usage) >= qv;
-      // reservation caps from the leaf row as this step found it
-      const size_t lx = (size_t)cq * FR + cell;
-      const long long nom = a.nominal[lx], bl = a.borrowing_limit[lx];
-      const long long leaf = a.usage[lx];
-      cap = (cls[h] & 1) ? (bl < quota_path::kNoLimit ? min(qv, nom + bl - leaf) : qv)
-                         : max(0LL, min(qv, nom - leaf));
-    }
-    const bool fits = __all_sync(kFull, ok);
-    const bool admit = a.chosen[h] >= 0 && fits;
-    const bool reserve = a.chosen[h] < 0 && a.preempt_k[h] >= 0 && a.no_reclaim[h];
-    long long delta = !cv ? 0 : admit ? qv : reserve ? cap : 0;
-    for (int d = 0; d <= D; ++d) {
-      const int node = path[d];  // the same on every lane
-      if (node < 0) break;
-      const size_t x = (size_t)node * FR + (cv ? cell : 0);
-      long long old = 0, g = 0;
-      if (cv) {
-        old = a.usage[x];
-        g = a.guaranteed[x];
-      }
-      __syncwarp();
-      if (cv && delta != 0) {
-        atomicAdd((unsigned long long*)&a.usage[x], (unsigned long long)delta);
-      }
-      __syncwarp();
-      delta = max(0LL, old + delta - g) - max(0LL, old - g);
-    }
-    if (lane == 0) {
-      out_admitted[h] = admit;
-      out_reserved[h] = reserve;
-    }
-    __syncwarp();
-  }
+  cycle_body::Phase2View v;
+  v.K = a.K; v.C = a.C; v.FR = a.FR; v.D = a.D;
+  v.cq_row = a.cq_row; v.cells = a.cells; v.qty = a.qty; v.no_reclaim = a.no_reclaim;
+  v.chosen = a.chosen; v.preempt_k = a.preempt_k;
+  v.nominal = a.nominal; v.borrowing_limit = a.borrowing_limit;
+  v.subtree = a.subtree; v.guaranteed = a.guaranteed; v.paths = a.paths;
+  v.usage = a.usage; v.out_admitted = out_admitted; v.out_reserved = out_reserved;
+  cycle_body::walk_segment(v, walk, min(n_valid, a.n_steps), threadIdx.x,
+                           [cls](int h) { return (cls[h] & 1) != 0; });
 }
 
 }  // namespace

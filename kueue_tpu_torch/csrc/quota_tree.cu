@@ -17,9 +17,8 @@
 // itself (a few us) bounds it. Design: one block per FR column (a grid
 // stride covers FR > grid), threads stride over the nodes, and a
 // __syncthreads() separates the levels, so the whole recurrence is one
-// launch whatever the depth. Bottom-up sums use 64-bit integer
-// atomicAdd, exact in any order (two's complement wraps identically).
-// All arithmetic is in long long; NO_LIMIT tests are `< (1LL << 60)`.
+// launch whatever the depth. The bodies live in quota_tree_body.cuh,
+// shared with plan_quota_tree.cu.
 // The row-major [N, FR] layout makes a column walk strided; at these
 // sizes that costs nothing measurable and keeps the tensors in the
 // layout the rest of the drain reads.
@@ -30,13 +29,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quota_tree_body.cuh"
+
 namespace {
-
-constexpr long long kNoLimit = 1LL << 60;
-
-__device__ __forceinline__ long long guaranteed_of(long long sub, long long lend) {
-  return lend < kNoLimit ? max(0LL, sub - lend) : 0LL;
-}
 
 __global__ void bottom_up(int mode, const int* __restrict__ parent,
                           const uint8_t* __restrict__ level_mask, int n, int fr,
@@ -44,32 +39,8 @@ __global__ void bottom_up(int mode, const int* __restrict__ parent,
                           const long long* __restrict__ aux, long long* out,
                           long long* out_g, const int* done) {
   if (done != nullptr && *done) return;
-  for (int f = blockIdx.x; f < fr; f += gridDim.x) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      out[(size_t)i * fr + f] = base[(size_t)i * fr + f];
-    }
-    __syncthreads();
-    for (int d = max_depth; d >= 1; --d) {
-      const uint8_t* m = level_mask + (size_t)d * n;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        int p = parent[i];
-        if (!m[i] || p < 0) continue;
-        long long v = out[(size_t)i * fr + f];
-        long long a = aux[(size_t)i * fr + f];
-        long long c = mode == 0 ? v - guaranteed_of(v, a) : max(0LL, v - a);
-        atomicAdd(reinterpret_cast<unsigned long long*>(&out[(size_t)p * fr + f]),
-                  static_cast<unsigned long long>(c));
-      }
-      __syncthreads();
-    }
-    if (mode == 0) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        out_g[(size_t)i * fr + f] =
-            guaranteed_of(out[(size_t)i * fr + f], aux[(size_t)i * fr + f]);
-      }
-    }
-    __syncthreads();
-  }
+  quota_tree_body::bottom_up(mode, parent, level_mask, n, fr, max_depth, base, aux, out,
+                             out_g);
 }
 
 __global__ void top_down(int mode, const int* __restrict__ parent,
@@ -80,39 +51,11 @@ __global__ void top_down(int mode, const int* __restrict__ parent,
                          const long long* __restrict__ usage, long long* out,
                          const int* done) {
   if (done != nullptr && *done) return;
-  for (int f = blockIdx.x; f < fr; f += gridDim.x) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      size_t x = (size_t)i * fr + f;
-      out[x] = mode == 0 ? subtree[x] - usage[x] : subtree[x];
-    }
-    __syncthreads();
-    for (int d = 1; d <= max_depth; ++d) {
-      const uint8_t* m = level_mask + (size_t)d * n;
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        if (!m[i]) continue;
-        int p = max(parent[i], 0);
-        size_t x = (size_t)i * fr + f;
-        long long pv = out[(size_t)p * fr + f];
-        long long s = subtree[x], g = guaranteed[x], bl = borrowing_limit[x];
-        bool has_borrow = bl < kNoLimit;
-        long long v;
-        if (mode == 0) {
-          long long u = usage[x];
-          long long with_max = (s - g) - max(0LL, u - g) + bl;
-          long long clamped = has_borrow ? min(with_max, pv) : pv;
-          v = max(0LL, g - u) + clamped;
-        } else {
-          v = g + pv;
-          if (has_borrow) v = min(s + bl, v);
-        }
-        out[x] = v;
-      }
-      __syncthreads();
-    }
-  }
+  quota_tree_body::top_down(mode, parent, level_mask, n, fr, max_depth, subtree,
+                            guaranteed, borrowing_limit, usage, out);
 }
 
-int grid_for(int fr) { return fr < 132 ? (fr > 0 ? fr : 1) : 132; }
+using quota_tree_body::grid_for;
 
 }  // namespace
 

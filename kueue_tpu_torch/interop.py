@@ -12,9 +12,11 @@ on a device; ``fair_inputs`` adds the fair drain's ``FairInputs``,
 ``FairProblem`` and ``fair_seg_panels`` for the fair-preempt drain's
 ``FairSegPanels``; ``tas_topology`` the dense TAS forest
 (``TASTopology``: free capacity, TAS usage, segment ids) and
-``tas_heads`` the TAS drain's per-queue lowering (``TASHeads``). The
-parity tests feed the same arrays to both packages through it; nothing
-here imports the JAX package.
+``tas_heads`` the TAS drain's per-queue lowering (``TASHeads``);
+``plan_inputs`` the planner's scenario-batched solve (kernel B14) from
+the arrays ``Planner.plan`` stacks. The parity tests feed the same
+arrays to both packages through it; nothing here imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -244,3 +246,34 @@ def tas_heads(arrays: Mapping[str, np.ndarray], device=None) -> TASHeads:
     return TASHeads(**{
         name: _on(arrays[name], dtype, dev) for name, dtype in TAS_HEAD_DTYPES.items()
     })
+
+
+# the planner's stacked arrays (kernel B14) -> numpy dtype
+PLAN_DTYPES = {
+    "parent": np.int32, "level_mask": np.bool_, "nominal_s": np.int64,
+    "lending_s": np.int64, "borrowing_s": np.int64, "usage_s": np.int64,
+    "priority_s": np.int64, "score_s": np.int64, "paths": np.int32,
+}
+
+
+def plan_inputs(arrays: Mapping[str, object], device=None) -> dict:
+    """The keyword inputs of ``ops.plan_kernel.solve_scenarios`` (and
+    its ``_packed`` and ``_plain`` forms, with ``n_segments`` and
+    ``n_steps`` added) from the arrays the planner stacks: ``parent``,
+    ``level_mask``, the five [S, ...] stacks (``nominal_s``,
+    ``lending_s``, ``borrowing_s``, ``usage_s``, ``priority_s``),
+    ``score_s``, ``heads`` (the padded heads batch: a mapping or a named
+    tuple of either package, its ``priority`` and ``score`` unused),
+    ``paths`` and ``seg_id``. Tensors go to ``device``; ``seg_id`` stays
+    a host array (the segments' CSR is built from it on the host)."""
+    dev = resolve_device(device)
+    heads = arrays["heads"]
+    if not isinstance(heads, Mapping):
+        heads = heads._asdict()
+    out = {name: _on(arrays[name], dtype, dev) for name, dtype in PLAN_DTYPES.items()}
+    out["heads"] = heads_batch(
+        {name: heads[name] for name in HEADS_DTYPES if name not in ("priority", "score")},
+        dev,
+    )
+    out["seg_id"] = np.asarray(arrays["seg_id"], dtype=np.int32)
+    return out

@@ -46,6 +46,7 @@ KERNELS = (
     "preempt_search", "drain_preempt_search", "drain_preempt_phase2", "drain_preempt_motion",
     "fair_search", "drain_fair_preempt_search", "drain_fair_preempt_phase2",
     "tas_leaf_counts", "drain_tas_place", "drain_tas_phase2",
+    "plan_quota_tree", "plan_phase1", "plan_phase2",
 )
 # the kernels of each path: the plain drain (ops/drain_kernel.solve_drain),
 # the megaloop (ops/megaloop_kernel.solve_drain_megaloop), the fair drain
@@ -54,8 +55,9 @@ KERNELS = (
 # (ops/drain_kernel.solve_drain_fair_preempt), the interactive cycle
 # (core/solver.dispatch_lowered and the resident row scatter), the
 # cycle with the batched classic and fair victim searches
-# (core/preempt_batch), the TAS drain (ops/drain_kernel.solve_drain_tas)
-# and the TAS snapshot's fleet-size pod counting (tas/snapshot.py)
+# (core/preempt_batch), the TAS drain (ops/drain_kernel.solve_drain_tas),
+# the TAS snapshot's fleet-size pod counting (tas/snapshot.py) and the
+# planner's scenario-batched cycle solve (ops/plan_kernel, kernel B14)
 DRAIN_KERNELS = ("quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion")
 MEGALOOP_KERNELS = DRAIN_KERNELS + ("megaloop_boundary",)
 FAIR_KERNELS = ("quota_tree", "drain_nominate", "drain_fair_phase2", "drain_queue_motion")
@@ -75,6 +77,7 @@ TAS_KERNELS = ("tas_leaf_counts",)
 CYCLE_KERNELS = ("quota_tree", "cycle_phase1", "cycle_phase2", "scatter_rows")
 PREEMPT_CYCLE_KERNELS = CYCLE_KERNELS + ("preempt_search",)
 FAIR_CYCLE_KERNELS = CYCLE_KERNELS + ("fair_search",)
+PLAN_KERNELS = ("plan_quota_tree", "plan_phase1", "plan_phase2")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

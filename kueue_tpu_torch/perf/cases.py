@@ -496,6 +496,57 @@ def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
     }
 
 
+def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, **kw) -> dict:
+    """A random input of the planner's scenario-batched solve (kernel
+    B14), as numpy arrays in ``interop.plan_inputs``' form: scenario 0
+    is ``cycle_batch(seed)`` itself and every other scenario varies a
+    few cells of nominal quota, lending and borrowing limits (NO_LIMIT
+    set and lifted) and leaf usage, some heads' priorities (so the entry
+    order moves) and, in odd scenarios, the candidate scores. Keys:
+    ``parent``, ``level_mask``, the [S, ...] stacks (``nominal_s``,
+    ``lending_s``, ``borrowing_s``, ``usage_s``, ``priority_s``,
+    ``score_s``), ``heads`` (the HeadsBatch fields), ``paths``,
+    ``seg_id``, ``n_segments`` and ``n_steps``."""
+    from kueue_tpu_torch.ops.quota import NO_LIMIT
+
+    b = cycle_batch(seed, drop_steps=drop_steps, **kw)
+    rng = np.random.default_rng(seed + 52000)
+    n, fr = b["nominal"].shape
+    w, k = b["valid"].shape
+    heads = {f: b[f] for f in ("cq_row", "cells", "qty", "valid", "priority", "timestamp",
+                               "no_reclaim", "score")}
+
+    def stack(a):
+        return np.repeat(a[None], s, axis=0)
+
+    nominal_s, usage_s = stack(b["nominal"]), stack(b["local_usage"])
+    lending_s, borrowing_s = stack(b["lending_limit"]), stack(b["borrowing_limit"])
+    priority_s, score_s = stack(b["priority"]), stack(b["score"])
+    for si in range(1, s):
+        cells = rng.random((n, fr)) < 0.2
+        nominal_s[si] = np.where(
+            cells, np.maximum(0, nominal_s[si] + rng.integers(-15, 30, (n, fr))), nominal_s[si]
+        )
+        usage_s[si][cells & (usage_s[si] > 0)] += 3  # leaf rows only
+        for lim in (lending_s, borrowing_s):
+            flip = rng.random((n, fr)) < 0.15
+            lim[si] = np.where(
+                flip, np.where(lim[si] < NO_LIMIT, NO_LIMIT, rng.integers(0, 30, (n, fr))),
+                lim[si],
+            )
+        moved = rng.random(w) < 0.3
+        priority_s[si] = np.where(moved, priority_s[si] + rng.integers(-20, 25, w), priority_s[si])
+        if si % 2:
+            score_s[si] = rng.integers(-3, 4, size=(w, k))
+    return {
+        "parent": b["parent"], "level_mask": b["level_mask"],
+        "nominal_s": nominal_s, "lending_s": lending_s, "borrowing_s": borrowing_s,
+        "usage_s": usage_s, "priority_s": priority_s, "score_s": score_s,
+        "heads": heads, "paths": b["paths"], "seg_id": b["seg_id"],
+        "n_segments": b["n_segments"], "n_steps": b["n_steps"],
+    }
+
+
 def tas_spec(seed: int, n_tas_cq: int = 4, workloads_per_cq: int = 5) -> dict:
     """The small two-flavor TAS case (module docstring): 24 hosts of
     8 cpu in tas-a (2 blocks x 3 racks x 4), 12 in tas-b (4 racks x 3),

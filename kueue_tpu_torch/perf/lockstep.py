@@ -19,8 +19,10 @@
   ``preempt_search_through(check)`` every batched victim search
   (core/preempt_batch, kernel B8), inside ``fair_search_through(check)``
   every batched fair victim search (kernel B9); ``leaf_counts_step``
-  puts TAS pod counting (kernel B12) through a check; ``Lockstep`` is the
-  check that runs
+  puts TAS pod counting (kernel B12) through a check, ``plan_solve``
+  the planner's scenario-batched solve (kernel B14, its three launches)
+  and, inside ``plan_kernels_through(check)``, every ``Planner.plan``
+  solve; ``Lockstep`` is the check that runs
   the plain version on the same inputs (copies of what the kernel
   writes in place) and compares.
 
@@ -43,6 +45,7 @@ from kueue_tpu_torch.ops import assign_kernel as ak
 from kueue_tpu_torch.ops import drain_kernel as dk
 from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
 from kueue_tpu_torch.ops import megaloop_kernel as ml
+from kueue_tpu_torch.ops import plan_kernel as plk
 from kueue_tpu_torch.ops import preempt_kernel as pk
 from kueue_tpu_torch.ops import quota, resident
 
@@ -114,6 +117,7 @@ MEGALOOP_KERNELS = _build.MEGALOOP_KERNELS
 FAIR_KERNELS = _build.FAIR_KERNELS
 PREEMPT_KERNELS = _build.PREEMPT_KERNELS
 FAIR_PREEMPT_KERNELS = _build.FAIR_PREEMPT_KERNELS
+PLAN_KERNELS = _build.PLAN_KERNELS
 
 
 def max_abs_diff(a, b, skip=()) -> int:
@@ -374,6 +378,62 @@ def cycle_solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps, ch
         ),
     )
     return packed
+
+
+def plan_solve(parent, level_mask, nominal_s, lending_s, borrowing_s, usage_s, priority_s,
+               score_s, heads, paths, seg_id, n_segments, n_steps, check):
+    """``ops.plan_kernel.solve_scenarios_packed`` launch by launch
+    (plan_quota_tree, plan_phase1, plan_phase2), each through
+    ``check``; the inputs as ``interop.plan_inputs`` gives them.
+    Returns the packed buffer."""
+    s, n, fr = nominal_s.shape
+    w = heads.cq_row.shape[0]
+    buf = torch.empty(s * plk.PER_HEAD_ROWS * w + s * n * fr, dtype=torch.int64,
+                      device=nominal_s.device)
+    per_head, usage = plk.unpack(buf, s, w, n, fr)
+    tree_args = (parent, level_mask, nominal_s, lending_s, borrowing_s, usage_s)
+    sub, g, usage, avail, pot = check(
+        "plan_quota_tree",
+        lambda: plk.plan_quota_tree(*tree_args, usage_out=usage),
+        lambda: plk.plan_quota_tree_plain(*tree_args),
+    )
+    p1_args = (parent, nominal_s, sub, usage_s, avail, pot, heads, score_s)
+    chosen, borrows, pre = check(
+        "plan_phase1", lambda: plk.plan_phase1(*p1_args), lambda: plk.plan_phase1_plain(*p1_args)
+    )
+    seg_t, segments = plk._seg(seg_id, usage.device)
+    usage_p = usage.clone()  # phase 2 updates the usage trees in place
+    check(
+        "plan_phase2",
+        lambda: (
+            plk.plan_phase2(
+                nominal_s, borrowing_s, sub, g, usage, paths, heads, priority_s, seg_t,
+                segments, n_segments, n_steps, chosen, borrows, pre, out=per_head,
+            ),
+            usage,
+        ),
+        lambda: (
+            plk.plan_phase2_plain(
+                nominal_s, borrowing_s, sub, g, usage_p, paths, heads, priority_s, seg_t,
+                n_segments, n_steps, chosen, borrows, pre,
+            ),
+            usage_p,
+        ),
+    )
+    return buf
+
+
+@contextlib.contextmanager
+def plan_kernels_through(check: Check):
+    """While active, every planner solve (``Planner.plan``'s call of
+    ``ops.plan_kernel.solve_scenarios_packed``) runs launch by launch
+    through ``check``."""
+    saved = plk.solve_scenarios_packed
+    plk.solve_scenarios_packed = lambda *a, **kw: plan_solve(*a, **kw, check=check)
+    try:
+        yield
+    finally:
+        plk.solve_scenarios_packed = saved
 
 
 def scatter_step(usage, idx, rows, check) -> None:

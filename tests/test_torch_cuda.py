@@ -825,3 +825,102 @@ def test_tas_drain_raises_when_a_kernel_does_not_build(cuda, monkeypatch, tmp_pa
     with pytest.raises(_build.KernelError, match="drain_tas_place"):
         pd.run_drain_tas(take_snapshot(env.cache), env.pending, env.cache.flavors, env.tas,
                          timestamp_fn=env.ts_fn, device="cuda")
+
+
+# ---- the planner's scenario-batched solve (kernel B14) --------------------
+
+
+@pytest.mark.parametrize("seed,s,drop", [(0, 1, False), (1, 5, False), (2, 17, False),
+                                         (3, 5, True)])
+def test_plan_kernels_bit_exact_on_random_batches(cuda, seed, s, drop):
+    from kueue_tpu_torch.perf.cases import plan_batch
+    from kueue_tpu_torch.perf.lockstep import PLAN_KERNELS, plan_solve
+
+    b = plan_batch(seed, s, drop_steps=drop, w=64, k=8, c=16)
+    inp = interop.plan_inputs(b, cuda)
+    errs = {}
+    _build.reset_launches()
+    buf = plan_solve(**inp, n_segments=b["n_segments"], n_steps=b["n_steps"],
+                     check=Lockstep(errs, label=f"plan batch {seed}"))
+    torch.cuda.synchronize()
+    assert errs == {name: 0 for name in PLAN_KERNELS}
+    assert all(_build.launch_counts()[name] == 1 for name in PLAN_KERNELS)
+    from kueue_tpu_torch.ops import plan_kernel as plk
+
+    per_head, usage = plk.solve_scenarios_plain(
+        **interop.plan_inputs(b, "cpu"), n_segments=b["n_segments"], n_steps=b["n_steps"])
+    n, fr = b["nominal_s"].shape[1:]
+    ph, u = plk.unpack(buf.cpu(), s, b["heads"]["cq_row"].shape[0], n, fr)
+    assert torch.equal(ph, per_head) and torch.equal(u, usage)
+    assert bool((ph[:, 1] > 0).any())
+
+
+def test_planner_on_card_matches_cpu(cuda):
+    """Planner.plan on the card at a cut of planner-stage-500 with a
+    scenario of every delta kind: one B14 call (its three launches),
+    every launch bit-exact, the report equal to the CPU's."""
+    from kueue_tpu_torch.perf import planner as pp
+    from kueue_tpu_torch.perf.lockstep import PLAN_KERNELS, plan_kernels_through
+    from kueue_tpu_torch.planner.scenarios import (
+        BorrowingLimitDelta,
+        PlanScenario,
+        PolicyDelta,
+        PriorityDelta,
+    )
+
+    reps = []
+    for d in (cuda, "cpu"):
+        planner, sweep, cache, mgr = pp.build_stage(n_cq=12, n_scenarios=12, device=d)
+        sweep += [
+            PlanScenario("prio", (PriorityDelta("ns/pwl-3-9", 100),)),
+            PlanScenario("borrow", (BorrowingLimitDelta("pcq-1", "default", "cpu", 4000),)),
+            PlanScenario("gavel", (PolicyDelta("gavel"),)),
+        ]
+        errs = {}
+        _build.reset_launches()
+        with plan_kernels_through(Lockstep(errs, label="planner")):
+            rep = planner.plan(scenarios=sweep, include_reasons="all", verify_host=True)
+        if d == cuda:
+            assert errs == {name: 0 for name in PLAN_KERNELS}
+            assert all(_build.launch_counts()[name] == 1 for name in PLAN_KERNELS)
+        out = rep.to_dict()
+        for k in ("durationMs", "sweepMs", "scenariosPerSecond"):
+            out.pop(k)
+        reps.append(out)
+    assert reps[0] == reps[1]
+
+
+def test_scored_cycle_on_card_after_the_body_refactor(cuda):
+    """A Gavel-scored Scheduler on the card: every cycle launch (B2 and
+    B3 over cycle_body.cuh) bit-exact, the decisions and score
+    breakdowns equal to the CPU's."""
+    from kueue_tpu_torch.core.scheduler import Scheduler
+    from kueue_tpu_torch.perf import planner as pp
+    from kueue_tpu_torch.policy import resolve_policy
+
+    runs = []
+    for d in (cuda, "cpu"):
+        env = pp.build_policy(np.random.default_rng(pp.POLICY_SEED), n_cq=12, wl_per_cq=12)
+        sched = Scheduler(queues=env.mgr, cache=env.cache, clock=env.clock, use_solver=True,
+                          solver_threshold=1, device=d, policy=resolve_policy("gavel"))
+        errs = {}
+        trace = []
+        with cycle_kernels_through(Lockstep(errs, label="gavel cycle")):
+            for _ in range(5):
+                r = sched.schedule()
+                trace.append((sorted((e.workload.name,
+                                      tuple(e.workload.admission.pod_set_assignments[0]
+                                            .flavors.items())) for e in r.admitted),
+                              dict(sched._cycle_scores)))
+        assert all(e == 0 for e in errs.values())
+        runs.append(trace)
+    assert runs[0] == runs[1] and runs[0][0][0]
+
+
+def test_planner_raises_when_a_plan_kernel_does_not_build(cuda, monkeypatch, tmp_path):
+    from kueue_tpu_torch.perf import planner as pp
+
+    _broken(monkeypatch, tmp_path, "plan_phase2")
+    planner, sweep, _, _ = pp.build_stage(n_cq=4, n_scenarios=2, device=cuda)
+    with pytest.raises(_build.KernelError, match="plan_phase2"):
+        planner.plan(scenarios=sweep)

@@ -245,15 +245,19 @@ def test_unported_options_raise():
     env = fp.build_fair_preempt(12)
     snap = take_snapshot(env.cache)
 
-    class Scored:
-        is_default = False
-
     with pytest.raises(NotImplementedError):
         run_drain_fair_preempt(snap, env.pending, env.cache.flavors, mesh=object(),
                                device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_drain_fair_preempt(snap, env.pending, env.cache.flavors, policy=Scored(),
-                               device="cpu")
+    # a non-default admission policy is ported (tests/test_torch_policy.py
+    # holds PREMA's victim order to the JAX package's); first-fit named
+    # explicitly decides as no policy
+    from kueue_tpu_torch.policy import resolve_policy
+
+    first_fit = run_drain_fair_preempt(snap, env.pending, env.cache.flavors,
+                                       policy=resolve_policy("first-fit"), device="cpu")
+    none = run_drain_fair_preempt(take_snapshot(env.cache), env.pending, env.cache.flavors,
+                                  device="cpu")
+    assert view(first_fit) == view(none)
 
 
 def test_runs_on_the_card_unless_asked():

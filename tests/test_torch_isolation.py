@@ -3,7 +3,8 @@
 - it imports and runs its CPU path with jax, flax and kueue_tpu blocked
   (a plain drain, a megaloop launch, a fair drain, a cycle, the preempt
   and fair-preempt drains, a fair cycle with the batched fair search,
-  the TAS drain and a TAS placement);
+  the TAS drain and a TAS placement, a Gavel drain and a planner sweep
+  with a policy scenario);
 - no module of the package, nor chip_smoke.py, imports jax, flax or
   kueue_tpu (AST scan);
 - its entry points run on the card: without one, and without an
@@ -52,7 +53,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_scan_covers_every_subpackage():
     scanned = {p.relative_to(PKG).parts[0] for p in _port_files() if PKG in p.parents}
-    assert {"core", "ops", "perf", "tas", "models"} <= scanned
+    assert {"core", "ops", "perf", "tas", "models", "policy", "planner"} <= scanned
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):
@@ -112,6 +113,18 @@ assert tas_out.admitted and all(a is not None for (w, *_), a in
                                 if w.pod_sets[0].topology_request is not None)
 fc, req = tas_perf.build_placement((2, 4, 4))
 assert fc.snapshot("cpu").find_topology_assignments([req]).failure_reason
+import numpy as np
+from kueue_tpu_torch.perf import planner as planner_perf
+from kueue_tpu_torch.policy import resolve_policy
+penv = planner_perf.build_policy(np.random.default_rng(21), n_cq=4, wl_per_cq=6)
+gavel = run_drain(take_snapshot(penv.cache), penv.pending, penv.cache.flavors,
+                  timestamp_fn=penv.ts_fn, policy=resolve_policy("gavel"), device="cpu")
+assert gavel.admitted
+planner, sweep, _, _ = planner_perf.build_stage(n_cq=4, n_scenarios=3, device="cpu")
+from kueue_tpu_torch.planner.scenarios import PlanScenario, PolicyDelta
+report = planner.plan(scenarios=sweep + [PlanScenario("gavel", (PolicyDelta("gavel"),))],
+                      include_reasons="all", verify_host=True)
+assert report.launches == 1 and report.recommended
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "kueue_tpu")
             and sys.modules[m] is not None]
 print("OK", len(mods), out.cycles, len(out.admitted))
@@ -171,6 +184,24 @@ def test_run_drain_without_device_raises_without_cuda(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         run_drain_for_scope("tas", snap, pending, flavors, TASCache())
+
+
+def test_planner_without_device_raises_without_cuda(monkeypatch):
+    """The planner solves on the card unless asked for the CPU; its
+    host mirror (use_device=False) needs none."""
+    import torch
+
+    from kueue_tpu_torch.interop import plan_inputs
+    from kueue_tpu_torch.perf import planner as planner_perf
+    from kueue_tpu_torch.perf.cases import plan_batch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    planner, sweep, _, _ = planner_perf.build_stage(n_cq=3, n_scenarios=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        planner.plan(scenarios=sweep)
+    assert planner.plan(scenarios=sweep, use_device=False).backend == "host"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plan_inputs(plan_batch(0, 2))
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):

@@ -233,12 +233,15 @@ def test_run_drain_for_scope_preempt_runs():
 def test_unported_options_raise():
     pcache, ppending = build_cache(port_spec(preempt_spec(0)))
 
-    class Scored:
-        is_default = False
-
     with pytest.raises(NotImplementedError):
         run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors, mesh=object(),
                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors, policy=Scored(),
-                          device="cpu")
+    # a non-default admission policy is ported (tests/test_torch_policy.py
+    # holds PREMA's victim order to the JAX package's); first-fit named
+    # explicitly decides as no policy
+    from kueue_tpu_torch.policy import resolve_policy
+
+    first_fit = run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors,
+                                  policy=resolve_policy("first-fit"), device="cpu")
+    none = run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors, device="cpu")
+    assert view(first_fit) == view(none)

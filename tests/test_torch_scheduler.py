@@ -388,13 +388,6 @@ def test_queue_pop_order_on_the_headline_backlog():
         assert porder == jorder, name
 
 
-class _Scored:
-    """A non-default admission policy (not ported)."""
-
-    is_default = False
-    name = "scored"
-
-
 class TestRefusals:
     def _env(self):
         return cases.build_scheduler(port_spec(random_spec(0)), device="cpu")
@@ -406,19 +399,20 @@ class TestRefusals:
             cases.build_scheduler(port_spec(random_spec(0)))
 
     @pytest.mark.parametrize("kwargs", [
-        {"fair_sharing": True, "policy": _Scored()},
+        {"fair_sharing": True, "policy": "gavel"},
     ])
     def test_unported_branches_raise(self, kwargs):
-        """Fair sharing is ported; a non-default admission policy is
-        still refused with it."""
+        """Fair sharing and admission policies are ported, together too:
+        the fair Scheduler under Gavel runs its cycles."""
         from kueue_tpu_torch.core.scheduler import Scheduler
+        from kueue_tpu_torch.policy import resolve_policy
 
         _, mgr, cache = self._env()
-        with pytest.raises(NotImplementedError):
-            Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu", **kwargs)
-        fair = Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu",
-                         fair_sharing=True)
-        assert fair.fair_sharing
+        kwargs = dict(kwargs, policy=resolve_policy(kwargs["policy"]))
+        fair = Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu", **kwargs)
+        result = fair.schedule()
+        assert fair.fair_sharing and fair.policy.name == "gavel"
+        assert result.admitted
 
     def test_fair_victim_search_raises(self):
         """A fair-sharing preemptor routes to the fair victim tournament
@@ -452,15 +446,19 @@ class TestRefusals:
                 batched_get_targets(snapshot, items, fair)
 
     def test_non_default_policy_raises(self):
+        """Admission policies are ported: the Scheduler takes every one
+        of the closed registry, and a name outside it raises."""
         from kueue_tpu_torch.core.scheduler import Scheduler
-
-        class Scored:
-            is_default = False
-            name = "scored"
+        from kueue_tpu_torch.policy import policy_names, resolve_policy
 
         _, mgr, cache = self._env()
-        with pytest.raises(NotImplementedError):
-            Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu", policy=Scored())
+        for name in policy_names():
+            sched = Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu",
+                              policy=resolve_policy(name))
+            assert sched.policy.name == name
+        with pytest.raises(ValueError, match="unknown admission policy"):
+            Scheduler(queues=mgr, cache=cache, clock=mgr.clock, device="cpu",
+                      policy=resolve_policy("scored"))
 
     def test_mesh_dispatch_raises(self):
         _, mgr, cache = self._env()
