@@ -10,10 +10,12 @@ fair-sharing drain (phase 5), the interactive admission cycle (phase
 classic preemption (phase 8), the fair cycle with the batched fair
 victim search (phase 9), the drain with fair-sharing preemption
 (phase 10), Topology-Aware Scheduling: the snapshot's pod counting
-and the TAS drain (phase 11), and the what-if planner's
-scenario-batched solve with the admission policies (phase 12).
+and the TAS drain (phase 11), the what-if planner's scenario-batched
+solve with the admission policies (phase 12), and the mesh harness:
+the unsegmented cycle through ShardedSolver, the fair-sharing DRS
+reductions and every drain's mesh= path on a one-card mesh (phase 13).
 
-1. Prints the card's name and power limit, builds the 22 kernels from
+1. Prints the card's name and power limit, builds the 24 kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
    the build seconds and each kernel's registers and spills.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
@@ -206,7 +208,39 @@ scenario-batched solve with the admission policies (phase 12).
       on the card, every B14 launch alone with its bytes bound, and
       bench.py's sequential shape (one cycle solve a scenario on the
       card: all 128 scenarios at planner-stage-500, 8 at the sweep).
-13. Prints the 22 kernels' JSON line, the card line, and as the last
+13. The mesh harness (kueue_tpu_torch/parallel, perf/mesh.py) on
+   ``make_mesh(1, device="cuda")``:
+   a. the headline Scheduler's 30 cycles with its dispatch on the mesh
+      (``dispatch_lowered(mesh=)``, counters reset before: CYCLE_EXPECT
+      over the first 16, all 30 equal to phase 6's), each cycle's
+      segmented solve (B3) recorded; the main path of kernel B3'
+      (cycle_global): ``ShardedSolver(mesh)`` on every recorded cycle,
+      counters reset before, its packed rows and usage tree bit-exact
+      to B3's on the same heads and to ``solve_cycle_plain`` on the
+      card; B3' held to its plain version on seeded
+      ``cycle_batch`` problems (reservations, preempt-mode heads,
+      depth 3) and ``entry(device="cuda")``'s;
+   b. kernel B1' (quota_drs: lendable_per_resource and
+      dominant_resource_share) on fair-preempt-1k's snapshot and the
+      headline's after its 30 cycles, with a zero and a seeded nonzero
+      request and weights with zeros: counters reset before, bit-exact
+      to its plain versions, the DRS of every ClusterQueue equal to
+      ``dominant_resource_share_np``;
+   c. every drain with ``mesh=``, counters reset before each:
+      run_drain plain and fair (HEADLINE_EXPECT, FAIR_EXPECT), the
+      megaloop chain (MEGALOOP_EXPECT), run_drain_preempt
+      (CONTENDED_EXPECT, the narrow-panel canary run on the card and
+      certifying), run_drain_fair_preempt (FAIR_PREEMPT_EXPECT),
+      run_drain_tas (TAS_DRAIN_EXPECT) and batched_fair_get_targets
+      (FAIR_SEARCH_EXPECT, one full-width launch); prints the mesh's
+      shape, bucket_stats, placement seconds and the canary's verdicts;
+   d. every B3' launch timed alone with its bytes bound from its own
+      cycle's data and B3's time on the same heads beside it, the plain
+      step loop's time on the card, B1''s launches timed alone, the
+      ShardedSolver wall a cycle (median of 30: phase 1, B3', the
+      fetch) and each mesh drain's wall (median of 3) beside the wall
+      of the same drain without the mesh from its earlier phase.
+14. Prints the 24 kernels' JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 No phase is caught and passed over: any failure exits non-zero.
@@ -259,6 +293,8 @@ SOURCES = {
     "plan_quota_tree": "kueue_tpu_torch/csrc/plan_quota_tree.cu",
     "plan_phase1": "kueue_tpu_torch/csrc/plan_phase1.cu",
     "plan_phase2": "kueue_tpu_torch/csrc/plan_phase2.cu",
+    "cycle_global": "kueue_tpu_torch/csrc/cycle_global.cu",
+    "quota_drs": "kueue_tpu_torch/csrc/quota_drs.cu",
 }
 REPLACES = {
     "quota_tree": "kueue_tpu/ops/quota.py:93",
@@ -283,6 +319,8 @@ REPLACES = {
     "plan_quota_tree": "kueue_tpu/ops/plan_kernel.py:36",
     "plan_phase1": "kueue_tpu/ops/plan_kernel.py:36",
     "plan_phase2": "kueue_tpu/ops/plan_kernel.py:36",
+    "cycle_global": "kueue_tpu/ops/assign_kernel.py:343",
+    "quota_drs": "kueue_tpu/ops/quota.py:175",
 }
 
 
@@ -558,6 +596,56 @@ def cycle_launch_bytes(tree, heads, paths, seg_id, phase1, packed) -> dict:
                 + 8 * int((ce_all >= 0).sum()) + path_pairs * 32 + leaf * 8
                 + written * 8 + 40 * w)
     return {"quota_tree": quota, "cycle_phase1": [phase1_b], "cycle_phase2": [phase2_b]}
+
+
+def sharded_cycle_bytes(tree, heads, paths, phase1, packed) -> int:
+    """Bytes B3' (``cycle_global``) must move on one cycle's data, each
+    input read once and each output written once: per live head its
+    cq_row, priority, timestamp, no_reclaim, chosen, preempt_k and the
+    effective candidate's borrow bit (a pad row: cq_row, chosen and
+    preempt_k); per walked head its C cell indices, the quantity of
+    each real cell and its ancestor path; subtree, guaranteed,
+    borrowing_limit and usage of each distinct (path node, cell) pair,
+    nominal of each leaf pair, the usage written at each pair a moved
+    head touches, and the packed [5, W] rows."""
+    _, fr = tree.nominal.shape
+    d1 = paths.shape[1]
+    cq = heads.cq_row.cpu().numpy()
+    cells = heads.cells.cpu().numpy()
+    qty = heads.qty.cpu().numpy()
+    w, _, c = cells.shape
+    live = cq >= 0
+    n_live = int(live.sum())
+    chosen, _, preempt_k = (t.cpu().numpy() for t in phase1)
+    p = packed.cpu().numpy()
+    eff = np.where(chosen >= 0, chosen, preempt_k)
+    walked = np.nonzero(live & (eff >= 0))[0]
+    ce_all = cells[walked, eff[walked]]
+    qe = qty[walked, eff[walked]]
+    ce = np.where(qe > 0, ce_all, -1)
+    path_rows = paths.cpu().numpy()[cq[walked]]
+    node_rows = np.repeat(path_rows, c, axis=1)
+    node_cells = np.where(node_rows >= 0, np.tile(ce, (1, d1)), -1)
+    path_pairs = _distinct(node_rows.reshape(-1), node_cells.reshape(-1), fr)
+    moved = (p[1, walked] > 0) | (p[3, walked] > 0)
+    mrows = np.repeat(path_rows[moved], c, axis=1)
+    mcells = np.where(mrows >= 0, np.tile(ce[moved], (1, d1)), -1)
+    written = _distinct(mrows.reshape(-1), mcells.reshape(-1), fr)
+    leaf = _distinct(np.repeat(cq[walked], c), ce.reshape(-1), fr)
+    return (30 * n_live + 12 * (w - n_live) + len(walked) * (4 * c + 4 * d1)
+            + 8 * int((ce_all >= 0).sum()) + path_pairs * 32 + leaf * 8 + written * 8
+            + 40 * w)
+
+
+def drs_bytes(n: int, fr: int, d: int, n_res: int, drs: bool) -> int:
+    """Bytes B1' must move: parent, level_mask, subtree, guaranteed,
+    borrowing_limit and resource_index in; lendable [N, R] out, or with
+    ``drs`` the usage and wl_req [N, FR] and weights in and the share
+    and dominant resource out."""
+    base = 4 * n + (d + 1) * n + 24 * n * fr + 4 * fr
+    if drs:
+        return base + 16 * n * fr + 8 * n + 12 * n
+    return base + 8 * n * n_res
 
 
 class TimedLaunches:
@@ -858,6 +946,7 @@ def cycle_path(device) -> dict:
         "errs": cerrs, "timing": ctiming, "library": library,
         "launches": {"cycle_headline": cycle_launches, "cycle_small": small_launches},
         "cycle_ms": cycle_ms, "cycle_max_ms": cycle_max_ms, "solve_dev": solve_dev,
+        "records": lock_records,
     }
 
 
@@ -1630,7 +1719,8 @@ def contended_drain_path(dev) -> dict:
               f"ms/call, bound {t['bound_ms'] * 1e3:.4f} us ({t['bytes']:.0f} B); main-path "
               f"launches {launches[name]}, max_abs_err {errs[name]}")
     return {"errs": errs, "timing": timing, "launches": launches, "wall_ms": wall_ms,
-            "plan_ms": plan_ms, "solve_ms": solves, "cycles": cyc, "panels": panels}
+            "plan_ms": plan_ms, "solve_ms": solves, "cycles": cyc, "panels": panels,
+            "env": env}
 
 
 # ---- fair-sharing preemption: the fair cycle and the fair-preempt drain ----
@@ -2161,7 +2251,8 @@ def fair_preempt_drain_path(dev) -> dict:
     w_timing = timed(w_inp, w_plain, f"panel caps, {w_shape}", w_launches)
     return {"errs": errs, "timing": timing, "launches": launches, "wall_ms": wall_ms,
             "plan_ms": plan_ms, "solve_ms": solve_ms, "cycles": cyc,
-            "wide_timing": w_timing, "wide_launches": w_launches, "wide_shape": w_shape}
+            "wide_timing": w_timing, "wide_launches": w_launches, "wide_shape": w_shape,
+            "env": env}
 
 
 def round_view_preempt(out):
@@ -2533,7 +2624,7 @@ def tas_path(dev) -> dict:
     return {"errs": errs, "timing": timing, "launches": launches, "wall_ms": wall_ms,
             "plan_ms": plan_ms, "solve_ms": solve_ms, "cycles": cyc, "kernel_ms": kernel_ms,
             "b12": b12, "fleet_launches": fleet_launches,
-            "crossover": crossover}
+            "crossover": crossover, "env": env}
 
 
 # ---- the planner and the admission policies (phase 12) --------------------
@@ -2936,6 +3027,380 @@ def policy_path(dev) -> dict:
             "summary": got}
 
 
+# ---- the mesh harness, the unsegmented cycle (B3') and the DRS (B1') ----
+
+
+def drs_path(dev, snaps, errs, timer, plain_ms) -> dict:
+    """13b: kernel B1' on each snapshot of ``snaps`` (label -> snapshot):
+    the main path's launches (lendable, then the DRS with a zero and a
+    seeded nonzero request, under the snapshot's weights and under
+    weights with zeros), each held to its plain version and the DRS of
+    every ClusterQueue to the snapshot's own numpy DRS; every launch
+    timed alone. Returns the main path's launch counts."""
+    import torch
+
+    from kueue_tpu_torch import interop
+    from kueue_tpu_torch.core.solver import tree_arrays
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import quota as q
+
+    cases_ = []
+    for i, (label, snap) in enumerate(snaps.items()):
+        tree, _, _ = tree_arrays(snap, dev)
+        local = tree.nominal.new_tensor(snap.local_usage)
+        n, fr = tree.nominal.shape
+        rng = np.random.default_rng(80 + i)
+        w0 = np.asarray(snap.weight_milli, dtype=np.int64)
+        wz = w0.copy()
+        wz[rng.random(n) < 0.1] = 0
+        req = (rng.integers(0, 4000, (n, fr)) * (rng.random((n, fr)) < 0.2)).astype(np.int64)
+        x = interop.drs_inputs(dict(resource_index=snap.resource_index, weight_milli=w0,
+                                    wl_req=req), dev)
+        variants = [(torch.zeros_like(x["wl_req"]), x["weight_milli"]),
+                    (x["wl_req"], x["weight_milli"]),
+                    (x["wl_req"], torch.tensor(wz, device=dev))]
+        cases_.append((label, snap, tree, local, x["resource_index"],
+                       len(snap.resource_names), variants))
+
+    # the main path: the counters from 0, every entry on the card
+    _build.reset_launches()
+    outs = []
+    for label, snap, tree, local, ri, n_res, variants in cases_:
+        sub, g = q.subtree_quota(tree)
+        usage = q.usage_tree(tree, g, local)
+        lend = q.lendable_per_resource(tree, sub, g, ri, n_res)
+        drs = [q.dominant_resource_share(tree, sub, g, usage, req, w, ri, n_res)
+               for req, w in variants]
+        outs.append((sub, g, usage, lend, drs))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    if launches["quota_drs"] != sum(1 + len(c[6]) for c in cases_):
+        fail(f"B1' launched {launches['quota_drs']} times on its main path")
+
+    report = {}
+    for (label, snap, tree, local, ri, n_res, variants), (sub, g, usage, lend, drs) in zip(
+            cases_, outs):
+        err = 0
+        t0 = time.perf_counter()
+        lp = q.lendable_per_resource_plain(tree, sub, g, ri, n_res)
+        torch.cuda.synchronize()
+        plain_ms.setdefault("quota_drs", []).append((time.perf_counter() - t0) * 1e3)
+        err = max(err, int((lp - lend).abs().max().item()))
+        for (req, w), (d, dom) in zip(variants, drs):
+            t0 = time.perf_counter()
+            pd_, pdom = q.dominant_resource_share_plain(tree, sub, g, usage, req, w, ri, n_res)
+            torch.cuda.synchronize()
+            plain_ms["quota_drs"].append((time.perf_counter() - t0) * 1e3)
+            err = max(err, int((pd_ - d).abs().max().item()),
+                      int((pdom - dom).abs().max().item()))
+        errs["quota_drs"] = max(errs.get("quota_drs", 0), err)
+        if err:
+            fail(f"B1' on {label} differs from its plain version by {err}")
+        n_cq = snap.flat.n_cq
+        host = np.asarray(snap.all_node_drs())[:n_cq]
+        card = drs[0][0].cpu().numpy()[:n_cq]
+        if not np.array_equal(host, card):
+            fail(f"B1' on {label}: the DRS of {int((host != card).sum())} ClusterQueues "
+                 f"differ from dominant_resource_share_np")
+        n, fr = tree.nominal.shape
+        d = tree.max_depth
+        for _ in range(3):
+            timer("quota_drs", lambda: q.lendable_per_resource(tree, sub, g, ri, n_res), None)
+            timer.add_bytes({"quota_drs": [drs_bytes(n, fr, d, n_res, False)]})
+            for req, w in variants:
+                timer("quota_drs", lambda: q.dominant_resource_share(
+                    tree, sub, g, usage, req, w, ri, n_res), None)
+                timer.add_bytes({"quota_drs": [drs_bytes(n, fr, d, n_res, True)]})
+        borrowing = [int((dd[1] >= 0).sum().item()) for dd in drs]
+        report[label] = {"shape": f"N={n} FR={fr} R={n_res} D={d}",
+                         "borrowing_nodes": borrowing,
+                         "cq_drs_max": int(card.max()) if card.size else 0}
+        print(f"{stamp()} B1' at {label} (N={n} FR={fr} R={n_res} D={d}): lendable and "
+              f"3 DRS variants bit-exact to their plain versions; nodes with a dominant "
+              f"resource {borrowing}; the DRS of all {n_cq} ClusterQueues equal "
+              f"dominant_resource_share_np")
+    return {"launches": launches, "report": report}
+
+
+def mesh_path(dev, cache, pending, walls) -> dict:
+    """Phase 13: ShardedSolver with B3' at the headline cycles, B1', and
+    every drain's mesh= path on a one-card mesh (module docstring).
+    ``walls`` are the earlier phases' unsharded walls (ms), printed
+    beside the mesh's."""
+    import torch
+
+    from kueue_tpu_torch import entry, interop
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core import preempt_batch as pb
+    from kueue_tpu_torch.core.pipeline import speculative_snapshot
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import assign_kernel as ak
+    from kueue_tpu_torch.ops import quota as q
+    from kueue_tpu_torch.parallel import ShardedSolver, harness, make_mesh
+    from kueue_tpu_torch.perf import cases, contended, cycle, headline, megaloop
+    from kueue_tpu_torch.perf import fairpreempt as fp
+    from kueue_tpu_torch.perf import mesh as pm
+    from kueue_tpu_torch.perf import tas as pt
+
+    errs, plain_ms = {}, {}
+    mesh = make_mesh(1, device=dev)
+    if harness.mesh_shape_str(mesh) != "wl=1" or mesh.distinct_devices()[0].type != dev.type:
+        fail(f"make_mesh(1, device={dev}) gave {mesh}")
+    harness.reset_stats()
+    by_path = {}
+
+    # 13c (the cycle): the headline cycles with the dispatch on the mesh,
+    # each segmented solve (B3) recorded
+    store = []
+    sched, ccache = cycle.build_headline_scheduler(device=dev, guard=strict_guard())
+    _build.reset_launches()
+    with pm.dispatch_through_mesh(mesh), pm.record_cycle_solves(store):
+        records = cycle.run_cycles(sched)
+        csum = cycle.cycle_summary(records, ccache, take_snapshot)
+        records += cycle.run_cycles(sched, STEADY_CYCLES - cycle.CYCLES)
+    by_path["mesh_cycle_dispatch"] = _build.launch_counts()
+    check_strict(sched.guard, "the headline cycles on the mesh")
+    if csum != cycle.CYCLE_EXPECT:
+        fail(f"dispatch_lowered(mesh=) headline cycles {csum} != {cycle.CYCLE_EXPECT}")
+    if records != walls["cycle_records"]:
+        fail("the headline cycles on the mesh differ from the cycles without it")
+    if len(store) != STEADY_CYCLES:
+        fail(f"{len(store)} segmented solves recorded over {STEADY_CYCLES} cycles")
+    for name in ("quota_tree", "cycle_phase1", "cycle_phase2"):
+        if by_path["mesh_cycle_dispatch"][name] <= 0:
+            fail(f"kernel {name} was not launched by the cycles on the mesh")
+    print(f"{stamp()} Scheduler with dispatch_lowered(mesh=wl=1) on cuda: {json.dumps(csum)}; "
+          f"{len(records)} cycles equal to the cycles without the mesh; launches "
+          f"{json.dumps(by_path['mesh_cycle_dispatch'])}")
+
+    # 13a. the main path of B3': ShardedSolver on each recorded cycle
+    solver = ShardedSolver(mesh)
+    _build.reset_launches()
+    results, solve_ms = [], []
+    for s in store:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solver(s.tree, s.local, s.heads, s.paths)
+        fetched = (torch.stack([r.chosen.long(), r.admitted.long(), r.borrows.long(),
+                                r.reserved.long(), r.order.long()]).cpu(), r.usage.cpu())
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+        results.append(fetched)
+    by_path["sharded_cycle"] = _build.launch_counts()
+    for name in _build.SHARDED_CYCLE_KERNELS:
+        if by_path["sharded_cycle"][name] <= 0:
+            fail(f"kernel {name} was not launched by ShardedSolver")
+    # ... held to B3 (the segmented solve on the same heads) and to
+    # solve_cycle_plain on the card, cycle by cycle
+    t0 = time.perf_counter()
+    err = 0
+    for i, (s, (rows, usage)) in enumerate(zip(store, results)):
+        if not (torch.equal(rows, s.packed.cpu()) and torch.equal(usage, s.usage.cpu())):
+            fail(f"B3' at headline cycle {i + 1} differs from B3 on the same heads")
+        p = ak.solve_cycle_plain(s.tree, s.local, s.heads, s.paths)
+        prow = torch.stack([p.chosen.long(), p.admitted.long(), p.borrows.long(),
+                            p.reserved.long(), p.order.long()]).cpu()
+        err = max(err, int((prow - rows).abs().max().item()),
+                  int((p.usage.cpu() - usage).abs().max().item()))
+    errs["cycle_global"] = err
+    if err:
+        fail(f"B3' differs from solve_cycle_plain by {err}")
+    n_walk = [int((s.packed[0] >= 0).sum().item()) for s in store]
+    print(f"{stamp()} ShardedSolver(make_mesh(1, 'cuda')) at the {len(store)} headline cycles "
+          f"(W={store[0].heads.cq_row.shape[0]}, N={store[0].tree.n_nodes}, "
+          f"FR={store[0].tree.nominal.shape[1]}): packed rows and usage tree bit-exact to B3's on "
+          f"the same heads and to solve_cycle_plain on the card "
+          f"({time.perf_counter() - t0:.1f} s); launches "
+          f"{json.dumps({k: v for k, v in by_path['sharded_cycle'].items() if v})}")
+
+    # ... on seeded small batches (reservations, preempt-mode heads,
+    # depth 3, pads, scores) and entry(device="cuda")'s problem, each
+    # launch held to its plain version on the card
+    check_errs = {}
+    from kueue_tpu_torch.perf.lockstep import Lockstep
+
+    check = Lockstep(check_errs, label="B3' small batches")
+    for seed in range(12):
+        kw = {} if seed < 8 else {"w": 200, "n_cq": 60, "fr": 12}
+        b = cases.cycle_batch(seed, **kw)
+        tree, heads = interop.quota_tree(b, dev), interop.heads_batch(b, dev)
+        local, paths = torch.tensor(b["local_usage"], device=dev), torch.tensor(b["paths"], device=dev)
+        sub, g = q.subtree_quota(tree)
+        usage = q.usage_tree(tree, g, local)
+        ph = ak.phase1_classify(tree, sub, g, local, heads)
+        u2 = usage.clone()
+        check("cycle_global",
+              lambda: (ak.cycle_global(tree, sub, g, usage, paths, heads, *ph), usage),
+              lambda: (ak.cycle_global_plain(tree, sub, g, u2, paths, heads, *ph), u2))
+        ref = ak.solve_cycle_segmented(tree, local, heads, paths, b["seg_id"],
+                                       max(b["n_segments"], 1), max(b["n_steps"], 1))
+        got = ak.solve_cycle(tree, local, heads, paths)
+        for f in ("chosen", "admitted", "borrows", "reserved", "order", "usage"):
+            if not torch.equal(getattr(got, f), getattr(ref, f)):
+                fail(f"B3' on cycle_batch({seed}) differs from B3 in {f}")
+    fn, eargs = entry.entry(device=dev)
+    got, ref = fn(*eargs), ak.solve_cycle_plain(*eargs)
+    for f in ("chosen", "admitted", "borrows", "reserved", "order", "usage"):
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            fail(f"entry(device='cuda'): solve_cycle differs from its plain version in {f}")
+    errs["cycle_global"] = max(errs["cycle_global"], check_errs.get("cycle_global", 0))
+    if check.failures:
+        fail(f"B3' small batches: {check.failures}")
+    print(f"{stamp()} B3' on cycle_batch seeds 0-11 (depth 3, reservations, pads, scores; "
+          f"W up to 200): bit-exact to its plain version and to B3; entry(device='cuda') "
+          f"({int(got.admitted.sum())} of {got.admitted.shape[0]} admitted) equal to "
+          f"solve_cycle_plain")
+
+    # 13d. B3' timed alone at every headline cycle, B3 beside it on the
+    # same heads; the plain step loop on the card at the first cycle
+    timer = TimedLaunches()
+    for i, s in enumerate(store):
+        sub, g = q.subtree_quota(s.tree)
+        usage0 = q.usage_tree(s.tree, g, s.local)
+        avail = q.available_all(s.tree, sub, g, usage0)
+        pot = q.potential_available_all(s.tree, sub, g)
+        ph = ak.phase1_classify(s.tree, sub, g, s.local, s.heads, avail, pot)
+        u1, u2 = usage0.clone(), usage0.clone()
+        packed = timer("cycle_global", lambda: ak.cycle_global(
+            s.tree, sub, g, u1, s.paths, s.heads, *ph), None)
+        seg_t, segments = ak._as_seg_id(s.seg_id, dev)
+        timer("cycle_phase2", lambda: ak.cycle_phase2(
+            s.tree, sub, g, u2, s.paths, s.heads, seg_t, segments, s.n_segments, s.n_steps,
+            *ph), None)
+        timer.add_bytes({
+            "cycle_global": [sharded_cycle_bytes(s.tree, s.heads, s.paths, ph, packed)],
+            "cycle_phase2": cycle_launch_bytes(s.tree, s.heads, s.paths, s.seg_id, ph,
+                                               packed)["cycle_phase2"],
+        })
+        if i in (0, len(store) - 1):
+            u3 = usage0.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pp = ak.cycle_global_plain(s.tree, sub, g, u3, s.paths, s.heads, *ph)
+            torch.cuda.synchronize()
+            plain_ms.setdefault("cycle_global", []).append((time.perf_counter() - t0) * 1e3)
+            if not (torch.equal(pp, packed) and torch.equal(u3, u1)):
+                fail(f"B3' at headline cycle {i + 1} differs from cycle_global_plain on the card")
+    gtiming = timing_of(timer, "cycle_global", plain_ms)
+    b3 = timing_of(timer, "cycle_phase2", {"cycle_phase2": [float("nan")]})
+    print(f"{stamp()} B3' timed alone at the {len(store)} headline cycles: "
+          f"{gtiming['ms'] * 1e3:.2f} us/launch on the device (B3 on the same heads "
+          f"{b3['ms'] * 1e3:.2f} us), plain step loop on the card {gtiming['plain_ms']:.1f} ms; "
+          f"bound {gtiming['bound_ms'] * 1e3:.4f} us ({gtiming['bytes']:.0f} B); heads with a "
+          f"fitting candidate a cycle {min(n_walk)}-{max(n_walk)}; ShardedSolver wall a cycle (phase 1, B3', fetch; "
+          f"median of {len(solve_ms)}) {float(np.median(solve_ms)):.3f} ms; "
+          f"{timer.uncovered} uncovered")
+
+    # 13b. B1' on fair-preempt-1k and the headline (after its cycles)
+    drs_timer = TimedLaunches()
+    drs = drs_path(dev, {"fair-preempt-1k": take_snapshot(walls["fair_preempt_env"].cache),
+                         "headline after 30 cycles": take_snapshot(ccache)},
+                   errs, drs_timer, plain_ms)
+    by_path["drs"] = drs["launches"]
+    dtiming = timing_of(drs_timer, "quota_drs", plain_ms)
+    print(f"{stamp()} B1' timed alone: {dtiming['ms'] * 1e3:.2f} us/launch over "
+          f"{dtiming['timed']} launches (lendable and DRS), plain {dtiming['plain_ms']:.3f} "
+          f"ms/call, bound {dtiming['bound_ms'] * 1e3:.4f} us ({dtiming['bytes']:.0f} B); "
+          f"{drs_timer.uncovered} uncovered")
+
+    # 13c. every drain's mesh= path on the one-card mesh, counters reset
+    # before each, its constant asserted, its wall (median of 3) beside
+    # the unsharded wall of its earlier phase
+    mc = headline.HEADLINE_MAX_CELLS
+    cenv, fenv, tenv = walls["contended_env"], walls["fair_preempt_env"], walls["tas_env"]
+
+    def chain(snap):
+        return megaloop.run_chain(pd.launch_drain_megaloop, speculative_snapshot,
+                                  snap, pending, cache.flavors, mesh=mesh)
+
+    # label -> (the snapshot to drain, taken outside the timed region as
+    # the earlier phases take it; the drain; its summary; its constant;
+    # its kernels; the unsharded wall)
+    drains = {
+        "mesh_drain": (lambda: take_snapshot(cache),
+                       lambda s: pd.run_drain(s, pending, cache.flavors, max_cells=mc,
+                                              mesh=mesh),
+                       headline.outcome_summary, headline.HEADLINE_EXPECT,
+                       _build.DRAIN_KERNELS, walls["drain"]),
+        "mesh_fair": (lambda: take_snapshot(cache),
+                      lambda s: pd.run_drain(s, pending, cache.flavors, max_cells=mc,
+                                             fair_sharing=True, mesh=mesh),
+                      headline.outcome_summary, headline.FAIR_EXPECT, _build.FAIR_KERNELS,
+                      walls["fair"]),
+        "mesh_megaloop": (lambda: take_snapshot(cache), chain, megaloop.chain_summary,
+                          megaloop.MEGALOOP_EXPECT, _build.MEGALOOP_KERNELS,
+                          walls["megaloop"]),
+        "mesh_preempt": (lambda: take_snapshot(cenv.cache), lambda s: pd.run_drain_preempt(
+            s, cenv.pending, cenv.cache.flavors, timestamp_fn=cenv.ts_fn,
+            search_width=contended.SEARCH_WIDTH, panel_tuner=pd.PanelTuner(), mesh=mesh),
+            contended.drain_summary, contended.CONTENDED_EXPECT, _build.PREEMPT_KERNELS,
+            walls["contended"]),
+        "mesh_fair_preempt": (lambda: take_snapshot(fenv.cache), lambda s: pd.run_drain_fair_preempt(
+            s, fenv.pending, fenv.cache.flavors, timestamp_fn=fenv.ts_fn, mesh=mesh),
+            fp.drain_summary, fp.FAIR_PREEMPT_EXPECT, _build.FAIR_PREEMPT_KERNELS,
+            walls["fair_preempt"]),
+        "mesh_tas": (lambda: take_snapshot(tenv.cache), lambda s: pd.run_drain_tas(
+            s, tenv.pending, tenv.cache.flavors, tenv.tas, timestamp_fn=tenv.ts_fn, mesh=mesh),
+            pt.drain_summary, pt.TAS_DRAIN_EXPECT, _build.TAS_DRAIN_KERNELS, walls["tas"]),
+    }
+    mesh_walls = {}
+    for label, (snap_of, run, summarize, expect, kernels, plain_wall) in drains.items():
+        ts, out = [], None
+        for rep in range(3):
+            snap = snap_of()
+            if rep == 0:
+                _build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run(snap)
+            ts.append(time.perf_counter() - t0)
+            if rep == 0:  # the main path's run: counted and checked
+                by_path[label], out = _build.launch_counts(), res
+        summary = summarize(out)
+        if summary != expect:
+            fail(f"{label}: {summary} != expected {expect}")
+        for name in kernels:
+            if by_path[label][name] <= 0:
+                fail(f"kernel {name} was not launched by {label}")
+        mesh_walls[label] = {"mesh_ms": float(np.median(ts)) * 1e3, "unsharded_ms": plain_wall}
+        extra = ""
+        if label == "mesh_preempt":
+            extra = (f"; panel schedule {json.dumps(harness.last_panel_schedule())}, canary "
+                     f"verdicts {json.dumps({str(k[1]): v for k, v in harness.probe_verdicts().items()})}")
+        print(f"{stamp()} {label} on make_mesh(1, 'cuda'): {json.dumps(summary)}; wall "
+              f"(median of 3) {mesh_walls[label]['mesh_ms']:.1f} ms beside {plain_wall:.1f} ms "
+              f"without the mesh{extra}")
+    verdicts = harness.probe_verdicts()
+    if not verdicts or not all(verdicts.values()):
+        fail(f"the narrow-panel canary did not certify the card's mesh: {verdicts}")
+    if not all(k[0] == harness.mesh_fingerprint(mesh) for k in verdicts):
+        fail(f"the canary ran off the card: {list(verdicts)}")
+
+    # batched_fair_get_targets(mesh=) at bench.py's fair stage
+    snap, items, pre = fp.build_fair_search(np.random.default_rng(fp.SEARCH_SEED))
+    arrays, meta = pb.lower_fair_preemption(snap, items, pre)
+    _build.reset_launches()
+    res = pb.batched_fair_get_targets(snap, items, pre, mesh=mesh)
+    by_path["mesh_fair_search"] = _build.launch_counts()
+    ssum = fp.search_summary(items, res, meta)
+    ref = pb.batched_fair_get_targets(snap, items, pre, device=dev)
+    if ssum != fp.FAIR_SEARCH_EXPECT or [sorted((t.workload.workload.name, t.reason) for t in r)
+                                         for r in res] != [
+            sorted((t.workload.workload.name, t.reason) for t in r) for r in ref]:
+        fail(f"batched_fair_get_targets(mesh=) {ssum} != {fp.FAIR_SEARCH_EXPECT}")
+    if by_path["mesh_fair_search"]["fair_search"] != 1:
+        fail("the fair search under the mesh is not one full-width launch")
+    print(f"{stamp()} batched_fair_get_targets(mesh=wl=1): FAIR_SEARCH_EXPECT, the victims "
+          f"of the search without the mesh, one full-width B9 launch")
+    print(f"{stamp()} mesh {harness.mesh_shape_str(mesh)}: bucket_stats "
+          f"{json.dumps(harness.bucket_stats())}; placement {harness.place_seconds():.3f} s "
+          f"in all; the canary ran {len(verdicts)} time(s)")
+    return {"errs": errs, "timing": {"cycle_global": gtiming, "quota_drs": dtiming},
+            "b3_same_heads": b3, "launches": by_path, "walls": mesh_walls,
+            "sharded_solve_ms": float(np.median(solve_ms)), "drs": drs["report"],
+            "buckets": harness.bucket_stats(), "place_s": harness.place_seconds()}
+
+
 # ---- main ---------------------------------------------------------------
 
 
@@ -3142,7 +3607,18 @@ def main() -> int:
     plan = planner_path(dev)
     pol = policy_path(dev)
 
-    # 13. result lines
+    # 13. the mesh harness: ShardedSolver with B3', B1', every mesh= path
+    walls = {
+        "cycle_records": cyc["records"], "contended_env": pdrain["env"],
+        "fair_preempt_env": fdrain["env"], "tas_env": tasr["env"], "drain": wall_ms,
+        "fair": fairr["wall_ms"],
+        "megaloop": sum(w["plan_ms"] + w["enqueue_ms"] + w["fetch_ms"] for w in mega["walls"]),
+        "contended": pdrain["wall_ms"], "fair_preempt": fdrain["wall_ms"],
+        "tas": tasr["wall_ms"],
+    }
+    meshr = mesh_path(dev, cache, pending, walls)
+
+    # 14. result lines
     by_path = {
         "drain": drain_launches, "megaloop": mega["launches"], "fair": fairr["launches"],
         "cycle_headline": cycle_launches, "cycle_small": small_launches,
@@ -3154,6 +3630,7 @@ def main() -> int:
         "planner_stage": plan["launches"]["planner-stage-500"],
         "policy_first_fit": pol["launches"]["first_fit"],
         "policy_gavel": pol["launches"]["gavel"],
+        **meshr["launches"],
     }
     kernels = []
     for name in _build.KERNELS:
@@ -3179,6 +3656,8 @@ def main() -> int:
         elif name.startswith("plan_"):
             # the planner's full-width path: planner-sweep-50k
             t, lib = plan["cells"]["planner-sweep-50k"]["timing"][name], None
+        elif name in ("cycle_global", "quota_drs"):
+            t, lib = meshr["timing"][name], None
         else:
             t, lib = ctiming[name], library.get(name)
         entry = {
@@ -3192,7 +3671,7 @@ def main() -> int:
                                                          pcyc["errs"], pdrain["errs"],
                                                          fcyc["errs"], fdrain["errs"],
                                                          tasr["errs"], plan["errs"],
-                                                         pol["errs"])),
+                                                         pol["errs"], meshr["errs"])),
             "ms": t["ms"],
             "device_ms_total": t["device_ms_total"],
             "host_ms": t["host_ms"],
@@ -3225,8 +3704,11 @@ def main() -> int:
         if name.startswith("plan_"):
             st = plan["cells"]["planner-stage-500"]["timing"][name]
             entry["at_planner_stage"] = {k: st[k] for k in ("ms", "plain_ms", "bound_ms")}
+        if name == "cycle_global":
+            b3 = meshr["b3_same_heads"]
+            entry["b3_same_heads"] = {k: b3[k] for k in ("ms", "bound_ms", "bytes")}
         kernels.append(entry)
-    if len(kernels) != 22:
+    if len(kernels) != 24:
         fail(f"{len(kernels)} kernels in the result line")
     print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
@@ -3259,7 +3741,11 @@ def main() -> int:
                       "planner": {label: {k: v for k, v in c.items() if k != "timing"}
                                   for label, c in plan["cells"].items()},
                       "policy_drain_walls_ms": pol["walls"],
-                      "policy_forecast_s": pol["forecast_s"]}))
+                      "policy_forecast_s": pol["forecast_s"],
+                      "mesh": {"walls_ms": meshr["walls"],
+                               "sharded_solve_ms": meshr["sharded_solve_ms"],
+                               "drs": meshr["drs"], "buckets": meshr["buckets"],
+                               "place_s": meshr["place_s"]}}))
     print(card)
     print(json.dumps({
         "ok": True,

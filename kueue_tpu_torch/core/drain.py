@@ -24,8 +24,18 @@ in-scope TAS flavor, the placement and its admit-time re-validation in
 kernel B13, and the host replay of the placements). Every drain takes
 an admission ``policy`` (kueue_tpu_torch/policy): ``plan_drain``
 compiles its candidate scores and priority boosts onto the backlog, and
-the preemption drains order victims by its PREMA costs. Mesh sharding
-is not ported yet and raises NotImplementedError.
+the preemption drains order victims by its PREMA costs.
+
+Every drain takes ``mesh=`` (kueue_tpu_torch/parallel): its per-queue
+tensors are padded to a multiple of the mesh's ``wl`` axis with inert
+queues (qlen 0, cq_row and seg_id -1; the decode skips them) and placed
+through the mesh's ``place_*`` entry, then the same kernels run; the
+decisions do not change with the mesh. Under a mesh the preempt drain
+runs a narrow panel width only after the harness's canary certified it.
+A mesh over one device (a card, or the CPU's virtual devices) runs; a
+mesh over several distinct devices raises NotImplementedError, as
+splitting the drain loop over cards waits for a machine with more than
+one GPU (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -825,10 +835,13 @@ def preempt_drain_inputs(
     max_cycles: Optional[int] = None,
     now: Optional[float] = None,
     policy=None,
+    mesh=None,
 ):
     """The preempt drain's plan, pool lowering and device inputs, as
     ``run_drain_preempt`` makes them: (plan, lowering, tree, paths,
-    leaf usage, DrainQueues, SegVictims) on ``dev``."""
+    leaf usage, DrainQueues, SegVictims) on ``dev``. Under ``mesh`` the
+    queues and the pools' per-queue arrays are padded to a multiple of
+    ``wl`` and placed through ``place_preempt_drain_inputs``."""
     from kueue_tpu_torch.interop import seg_victims
 
     plan = plan_drain(
@@ -839,8 +852,44 @@ def preempt_drain_inputs(
         snapshot, plan, timestamp_fn, now, max_victims, max_victim_cells, max_cycles,
         policy=policy,
     )
+    if mesh is not None:
+        tree, paths, usage_in, queues, victims = _place_preempt(snapshot, plan, low, dev, mesh)
+        return plan, low, tree, paths, usage_in, queues, victims
     tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev)
     return plan, low, tree, paths, usage_in, queues, seg_victims(low.victims_np, dev)
+
+
+def _place_preempt(snapshot: Snapshot, plan: DrainPlan, low, dev, mesh, fairp_np=None):
+    """The preemption drains' inputs under ``mesh``: the queues and the
+    pools' per-queue arrays padded to a multiple of ``wl``, then placed
+    through ``place_preempt_drain_inputs`` (with ``fairp_np``, the fair
+    panels, through ``place_fair_preempt_drain_inputs``). Returns
+    (tree, paths, leaf usage, DrainQueues, SegVictims[, FairSegPanels])."""
+    import time
+
+    from kueue_tpu_torch.parallel import harness
+    from kueue_tpu_torch.parallel.sharded_solver import (
+        pad_victim_arrays,
+        place_fair_preempt_drain_inputs,
+        place_preempt_drain_inputs,
+    )
+
+    t0 = time.perf_counter()
+    _mesh_pad(plan, mesh)
+    low.victims_np = pad_victim_arrays(low.victims_np, plan.queues_np["qlen"].shape[0])
+    tree, paths, _ = tree_arrays(snapshot, dev)
+    if fairp_np is None:
+        tree, usage_in, queues, victims, paths = place_preempt_drain_inputs(
+            mesh, tree, snapshot.local_usage, plan.queues_np, low.victims_np, paths
+        )
+        out = (tree, paths, usage_in, queues, victims)
+    else:
+        tree, usage_in, queues, victims, panels, paths = place_fair_preempt_drain_inputs(
+            mesh, tree, snapshot.local_usage, plan.queues_np, low.victims_np, fairp_np, paths
+        )
+        out = (tree, paths, usage_in, queues, victims, panels)
+    harness.note_place_seconds(time.perf_counter() - t0)
+    return out
 
 
 def run_drain_preempt(
@@ -860,6 +909,10 @@ def run_drain_preempt(
     panel_tuner: Optional[PanelTuner] = None,
     policy=None,
     device=None,
+    # internal (the narrow-panel canary): run the given panel_widths
+    # under the mesh WITHOUT consulting the canary's verdict — the
+    # canary itself is what establishes it
+    _trust_panel_widths: bool = False,
 ) -> PreemptDrainOutcome:
     """Multi-cycle drain WITH classic preemption — within-ClusterQueue
     and cross-CQ cohort reclamation — on the card, one fetch for each
@@ -891,16 +944,19 @@ def run_drain_preempt(
     Runs on the card: ``device`` defaults to ``cuda`` and raises where
     there is none; ``device="cpu"`` runs the plain torch versions.
     ``policy`` scores the flavor candidates and, under PREMA, orders
-    the victims by its costs. Mesh sharding (ROADMAP A11) raises
-    NotImplementedError."""
-    from kueue_tpu_torch._torch import resolve_device
+    the victims by its costs. With ``mesh`` (a ``parallel`` Mesh over
+    one device) the per-queue tensors are padded to a multiple of its
+    ``wl`` axis and placed on it, and each narrow rung of the panel
+    ladder runs only after the per-(mesh, width) canary of
+    ``parallel.harness.mesh_safe_widths`` reproduced the drain without
+    the mesh; a mesh over several devices raises NotImplementedError."""
     from kueue_tpu_torch.ops.drain_kernel import _solve_drain_preempt_packed
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded drains are not ported yet (ROADMAP A11)")
+    dev = _run_device(mesh, device)
     plan, low, tree, paths, usage_in, queues, victims = preempt_drain_inputs(
-        snapshot, pending, flavors, resolve_device(device), max_candidates, max_cells,
+        snapshot, pending, flavors, dev, max_candidates, max_cells,
         max_victims, max_victim_cells, timestamp_fn, max_cycles, now, policy=policy,
+        mesh=mesh,
     )
     # ---- the two-tier panel ladder (exactness escape hatch): a clean
     # narrow run is provably identical to the exact width's, and an
@@ -912,8 +968,26 @@ def run_drain_preempt(
         widths = tuple(panel_widths)
     else:
         widths = tuner.widths_for(search_width)
+    if mesh is not None and not _trust_panel_widths:
+        # each narrow rung runs under the mesh only after a canary
+        # proved it (memoized per mesh and width); unsupported rungs
+        # clamp up the ladder to the exact ``search_width``
+        from kueue_tpu_torch.parallel.harness import mesh_safe_widths, note_panel_schedule
+
+        safe = mesh_safe_widths(mesh, widths)
+        note_panel_schedule(safe, fenced=safe != widths)
+        widths = safe
     escalated = False
     for i, width in enumerate(widths):
+        if mesh is not None:
+            from kueue_tpu_torch.parallel import harness
+
+            harness.note_bucket(
+                "preempt_kernel",
+                (plan.queues_np["cells"].shape, plan.n_segments, plan.n_steps,
+                 plan.max_cycles, int(width)),
+                mesh,
+            )
         flat = _solve_drain_preempt_packed(
             tree, usage_in, queues, victims, paths,
             n_segments=plan.n_segments, n_steps=plan.n_steps,
@@ -1109,11 +1183,13 @@ def fair_preempt_drain_inputs(
     max_cycles: Optional[int] = None,
     now: Optional[float] = None,
     policy=None,
+    mesh=None,
 ):
     """The fair-preempt drain's plan, pool lowering and device inputs,
     as ``run_drain_fair_preempt`` makes them: (plan, lowering, tree,
     paths, leaf usage, DrainQueues, SegVictims, FairSegPanels,
-    FairInputs) on ``dev``.
+    FairInputs) on ``dev``; under ``mesh`` padded to a multiple of its
+    ``wl`` axis and placed through ``place_fair_preempt_drain_inputs``.
 
     The candidate pools are the classic preemption drain's (fair
     sharing shares _find_candidates and the candidate ordering,
@@ -1176,7 +1252,7 @@ def fair_preempt_drain_inputs(
     res_of_cell = np.full((s_dim, cu), n_res, dtype=np.int32)
     svqty_cu = np.zeros((s_dim, v_cap, cu), dtype=np.int64)
 
-    fair = fair_inputs(snapshot, snapshot.flat.max_depth, dev)
+    fair = fair_inputs(snapshot, snapshot.flat.max_depth, dev, mesh=mesh)
     depth_of = fair.depth_of.cpu().numpy()
     victims_by_seg: Dict[int, List[Tuple[int, object]]] = {}
     for (ss, slot), ws in low.victim_of.items():
@@ -1202,12 +1278,18 @@ def fair_preempt_drain_inputs(
                     raise AssertionError(f"victim cell {j} outside segment {s} universe")
                 svqty_cu[s, slot, ci] = int(ws.usage_vec[j])
 
-    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev)
-    panels = fair_seg_panels(dict(
+    fairp_np = dict(
         seg_cells=seg_cells, parent_local=parent_local, depth_local=depth_local,
         is_cq_local=is_cq_local, node_valid=node_valid, weight_local=weight_local,
         res_of_cell=res_of_cell, svqty_cu=svqty_cu,
-    ), dev)
+    )
+    if mesh is not None:
+        tree, paths, usage_in, queues, victims, panels = _place_preempt(
+            snapshot, plan, low, dev, mesh, fairp_np
+        )
+        return plan, low, tree, paths, usage_in, queues, victims, panels, fair
+    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev)
+    panels = fair_seg_panels(fairp_np, dev)
     return (plan, low, tree, paths, usage_in, queues, seg_victims(low.victims_np, dev),
             panels, fair)
 
@@ -1241,24 +1323,31 @@ def run_drain_fair_preempt(
     Runs on the card: ``device`` defaults to ``cuda`` and raises where
     there is none; ``device="cpu"`` runs the plain torch versions.
     ``policy`` scores the flavor candidates and, under PREMA, orders
-    the victims by its costs. Mesh sharding (ROADMAP A11) raises
+    the victims by its costs. With ``mesh`` (a ``parallel`` Mesh over
+    one device) the per-queue tensors are padded to a multiple of its
+    ``wl`` axis and placed on it; a mesh over several devices raises
     NotImplementedError."""
-    from kueue_tpu_torch._torch import resolve_device
     from kueue_tpu_torch.core.preemption import (
         LESS_THAN_INITIAL_SHARE,
         LESS_THAN_OR_EQUAL_TO_FINAL_SHARE,
     )
     from kueue_tpu_torch.ops.drain_kernel import _solve_drain_fair_preempt_packed
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded drains are not ported yet (ROADMAP A11)")
     plan, low, tree, paths, usage_in, queues, victims, panels, fair = (
         fair_preempt_drain_inputs(
-            snapshot, pending, flavors, resolve_device(device), max_candidates, max_cells,
-            max_victims, max_victim_cells, max_fair_cells, timestamp_fn, max_cycles, now,
-            policy=policy,
+            snapshot, pending, flavors, _run_device(mesh, device), max_candidates,
+            max_cells, max_victims, max_victim_cells, max_fair_cells, timestamp_fn,
+            max_cycles, now, policy=policy, mesh=mesh,
         )
     )
+    if mesh is not None:
+        from kueue_tpu_torch.parallel import harness
+
+        harness.note_bucket(
+            "fair_preempt_kernel",
+            (plan.queues_np["cells"].shape, plan.n_segments, plan.n_steps, plan.max_cycles),
+            mesh,
+        )
     strategies = list(
         fs_strategies or [LESS_THAN_OR_EQUAL_TO_FINAL_SHARE, LESS_THAN_INITIAL_SHARE]
     )
@@ -1403,11 +1492,14 @@ def tas_drain_inputs(
     max_cycles: Optional[int] = None,
     policy=None,
     now: float = 0.0,
+    mesh=None,
 ) -> TASDrainInputs:
     """The TAS drain's host lowering (the JAX ``run_drain_tas`` up to
     its solve): the plan, the scope rules, the merged domain forest and
     the per-queue TAS lowering, uploaded to ``device`` with no host
-    sync."""
+    sync. Under ``mesh`` the queues and the TAS per-queue arrays are
+    padded to a multiple of its ``wl`` axis and placed through
+    ``place_tas_drain_inputs``."""
     from kueue_tpu_torch._torch import to_device
     from kueue_tpu_torch.core.workload_info import quota_per_pod
     from kueue_tpu_torch.interop import drain_queues, tas_heads, tas_topology
@@ -1591,18 +1683,42 @@ def tas_drain_inputs(
     )
     n_live = int((plan.queues_np["cq_rows"] >= 0).sum())
     tree, paths, _ = tree_arrays(snapshot, device)
-    return TASDrainInputs(
-        plan=plan, tas_queue={qi: f for qi, f in tas_queue.items() if qi not in dropped},
+    common = dict(
+        tas_queue={qi: f for qi, f in tas_queue.items() if qi not in dropped},
         snaps=snaps, live_flavors=live_flavors, union_res=union_res, leaf_off=leaf_off,
-        extra_fb=extra_fb, theads_np=theads_np,
-        n_domains=tuple(int(n) for n in n_domains),
+        extra_fb=extra_fb, n_domains=tuple(int(n) for n in n_domains),
         n_steps=_bucket(max(n_live, 1), minimum=8),
+    )
+    if mesh is not None:
+        import time
+
+        from kueue_tpu_torch.parallel import harness
+        from kueue_tpu_torch.parallel.sharded_solver import (
+            pad_tas_arrays,
+            place_tas_drain_inputs,
+        )
+
+        t0 = time.perf_counter()
+        _mesh_pad(plan, mesh)
+        theads_np = pad_tas_arrays(theads_np, plan.queues_np["qlen"].shape[0])
+        tree, local, queues, paths, topo, theads = place_tas_drain_inputs(
+            mesh, tree, snapshot.local_usage, plan.queues_np, paths, topo_free_np,
+            tas_usage0_np, seg_ids_np, theads_np, n_domains,
+        )
+        harness.note_place_seconds(time.perf_counter() - t0)
+        return TASDrainInputs(
+            plan=plan, theads_np=theads_np, tree=tree, paths=paths, local=local,
+            queues=queues, topo=topo, theads=theads, **common,
+        )
+    return TASDrainInputs(
+        plan=plan, theads_np=theads_np,
         tree=tree, paths=paths,
         local=to_device(snapshot.local_usage, device, np.int64),
         queues=drain_queues(plan.queues_np, device),
         topo=tas_topology(dict(free=topo_free_np, tas_usage=tas_usage0_np, seg_ids=seg_ids_np,
                                n_domains=n_domains), device),
         theads=tas_heads(theads_np, device),
+        **common,
     )
 
 
@@ -1760,18 +1876,26 @@ def run_drain_tas(
     default BestFit profile applies. Topology requests on non-TAS
     ClusterQueues PARK in kernel at the exact cycle the host would
     reject the flavor. Heads outside the scope route to ``fallback``
-    for the cycle loop. Mesh sharding is not ported
-    (NotImplementedError)."""
-    from kueue_tpu_torch._torch import resolve_device
+    for the cycle loop. With ``mesh`` (a ``parallel`` Mesh over one
+    device) the per-queue tensors are padded to a multiple of its
+    ``wl`` axis and placed on it; a mesh over several devices raises
+    NotImplementedError."""
     from kueue_tpu_torch.ops.drain_kernel import _solve_drain_tas_packed
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded drains are not ported yet")
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device)
     inp = tas_drain_inputs(
         snapshot, pending, flavors, tas_cache, dev, max_candidates, max_cells,
-        timestamp_fn, max_cycles=max_cycles, policy=policy, now=now,
+        timestamp_fn, max_cycles=max_cycles, policy=policy, now=now, mesh=mesh,
     )
+    if mesh is not None:
+        from kueue_tpu_torch.parallel import harness
+
+        harness.note_bucket(
+            "tas_kernel",
+            (inp.plan.queues_np["cells"].shape, inp.n_domains, inp.n_steps,
+             inp.plan.max_cycles),
+            mesh,
+        )
     flat = _solve_drain_tas_packed(
         *inp.solve_args(), seg_id=inp.plan.queues_np["seg_id"]
     ).cpu().numpy()  # the single fetch
@@ -1947,10 +2071,11 @@ def _route_preempt_capable(snapshot: Snapshot, plan: DrainPlan) -> List[Tuple[Wo
     return extra
 
 
-def fair_inputs(snapshot: Snapshot, max_depth: int, dev):
+def fair_inputs(snapshot: Snapshot, max_depth: int, dev, mesh=None):
     """The fair drain's extra inputs on ``dev`` (ops/drain_kernel.FairInputs):
     depth, weight and lendable per node, the resource of each cell, and
-    the PrioritySortingWithinCohort gate as it stands."""
+    the PrioritySortingWithinCohort gate as it stands. Under ``mesh``
+    they are placed whole through ``place_fair_drain_extras``."""
     from kueue_tpu_torch._torch import to_device
     from kueue_tpu_torch.features import enabled as feature_enabled
     from kueue_tpu_torch.ops.assign_kernel import build_paths
@@ -1958,6 +2083,14 @@ def fair_inputs(snapshot: Snapshot, max_depth: int, dev):
 
     paths_np = build_paths(snapshot.flat.parent, max_depth)
     depth_of, lendable, res_of_fr = _fair_lendable(snapshot, paths_np)
+    if mesh is not None:
+        from kueue_tpu_torch.parallel.sharded_solver import place_fair_drain_extras
+
+        return place_fair_drain_extras(
+            mesh, depth_of, snapshot.weight_milli, lendable, res_of_fr,
+            len(snapshot.resource_names),
+            bool(feature_enabled("PrioritySortingWithinCohort")),
+        )
     return FairInputs(
         depth_of=to_device(depth_of, dev, np.int32),
         weight=to_device(snapshot.weight_milli, dev, np.int64),
@@ -1968,13 +2101,62 @@ def fair_inputs(snapshot: Snapshot, max_depth: int, dev):
     )
 
 
-def _drain_device_inputs(snapshot: Snapshot, plan: DrainPlan, dev, resident=None):
+def _run_device(mesh, device):
+    """The device a drain runs on: under ``mesh`` its one device (a mesh
+    over several distinct devices raises NotImplementedError before any
+    device is touched), else ``device`` (the card unless the caller
+    names the CPU)."""
+    from kueue_tpu_torch._torch import resolve_device
+
+    if mesh is None:
+        return resolve_device(device)
+    from kueue_tpu_torch.parallel.sharded_solver import mesh_device
+
+    dev = mesh_device(mesh)
+    if device is not None and resolve_device(device).type != dev.type:
+        raise ValueError(f"device={device} disagrees with the mesh's device {dev}")
+    return dev
+
+
+def _mesh_pad(plan: DrainPlan, mesh) -> None:
+    """Pad the plan's Q axis to a multiple of the mesh's ``wl`` axis
+    with inert queues (qlen 0, cq_row/seg_id -1). The decode reads the
+    padded ``plan.queues_np`` and skips the pads as it skips empty
+    queues, so the decisions do not change with the mesh."""
+    from kueue_tpu_torch.parallel.sharded_solver import pad_queue_arrays
+
+    plan.queues_np = pad_queue_arrays(plan.queues_np, mesh.shape["wl"])
+
+
+def _drain_device_inputs(snapshot: Snapshot, plan: DrainPlan, dev, resident=None, mesh=None):
     """(tree, paths, leaf usage, DrainQueues) on ``dev``, uploaded with
     no host sync; with ``resident`` (a ResidentEncoder on ``dev``) the
-    tree and paths stay on the card and only changed usage rows ship."""
+    tree and paths stay on the card and only changed usage rows ship.
+    Under ``mesh`` the plan's Q axis is padded to a multiple of ``wl``
+    and the inputs are placed through ``place_drain_inputs`` (the
+    resident buffers are single-device only)."""
+    import time
+
     from kueue_tpu_torch._torch import to_device
     from kueue_tpu_torch.interop import drain_queues
 
+    if mesh is not None:
+        from kueue_tpu_torch.parallel import harness
+        from kueue_tpu_torch.parallel.sharded_solver import place_drain_inputs
+
+        if resident is not None:
+            raise ValueError(
+                "resident=... is single-device only: the mesh path places its "
+                "inputs on the mesh every launch — pass resident=None under a mesh"
+            )
+        t0 = time.perf_counter()
+        _mesh_pad(plan, mesh)
+        tree, paths, _ = tree_arrays(snapshot, dev)
+        tree, usage_in, queues, paths = place_drain_inputs(
+            mesh, tree, snapshot.local_usage, plan.queues_np, paths
+        )
+        harness.note_place_seconds(time.perf_counter() - t0)
+        return tree, paths, usage_in, queues
     if resident is not None:
         tree, paths, usage_in = resident.refresh(snapshot)
     else:
@@ -2013,13 +2195,13 @@ def launch_drain(
     waits for the card. With
     ``resident`` the tree and paths stay on the card between launches
     and only changed leaf-usage rows ship. With ``fair_sharing`` the
-    fair drain (see ``run_drain``)."""
-    from kueue_tpu_torch._torch import resolve_device
+    fair drain (see ``run_drain``). With ``mesh`` (a ``parallel`` Mesh
+    over one device; ``resident`` must be None) the queues are padded
+    to a multiple of its ``wl`` axis and placed on it; a mesh over
+    several devices raises NotImplementedError."""
     from kueue_tpu_torch.ops.drain_kernel import _solve_drain_packed
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded drains are not ported yet")
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device)
     plan = plan_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
         policy=policy, now=now,
@@ -2027,12 +2209,21 @@ def launch_drain(
     extra_fb = _route_preempt_capable(snapshot, plan) if fair_sharing else []
     if max_cycles is not None:
         plan.max_cycles = max_cycles
-    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev, resident)
+    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev, resident, mesh)
+    if mesh is not None:
+        from kueue_tpu_torch.parallel import harness
+
+        harness.note_bucket(
+            "drain_kernel",
+            (plan.queues_np["cells"].shape, plan.n_segments, plan.n_steps, plan.max_cycles,
+             "fair" if fair_sharing else "plain"),
+            mesh,
+        )
     flat_dev = _solve_drain_packed(
         tree, usage_in, queues, paths,
         n_segments=plan.n_segments, n_steps=plan.n_steps, max_cycles=plan.max_cycles,
         seg_id=plan.queues_np["seg_id"],
-        fair=fair_inputs(snapshot, tree.max_depth, dev) if fair_sharing else None,
+        fair=fair_inputs(snapshot, tree.max_depth, dev, mesh) if fair_sharing else None,
     )
     return DrainLaunch(
         plan=plan,
@@ -2069,8 +2260,9 @@ def run_drain(
     ``fair``) instead of the (borrowing, priority, FIFO) sort;
     preempt-capable ClusterQueues route to ``fallback``. ``policy``
     (kueue_tpu_torch/policy) scores the flavor candidates and boosts
-    priorities at ``now``. Mesh sharding is not ported yet and raises
-    NotImplementedError."""
+    priorities at ``now``. ``mesh`` (a ``parallel`` Mesh over one
+    device) pads the queues to a multiple of its ``wl`` axis and places
+    them on it; a mesh over several devices raises NotImplementedError."""
     return launch_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
         max_cycles=max_cycles, mesh=mesh, policy=policy, now=now, device=device,
@@ -2269,19 +2461,30 @@ def launch_drain_megaloop(
     ``chunk_cycles x max_rounds`` cycles of launches go out with no
     host read, so this returns while the card works; ``fetch()`` is the
     one sync. With ``resident`` the tree and paths stay on the card
-    between launches."""
-    from kueue_tpu_torch._torch import resolve_device, to_device
+    between launches. With ``mesh`` (a ``parallel`` Mesh over one
+    device; ``resident`` must be None) the queues and the suffix retry
+    budgets are padded to a multiple of its ``wl`` axis and placed on
+    it; a mesh over several devices raises NotImplementedError."""
+    from kueue_tpu_torch._torch import to_device
     from kueue_tpu_torch.ops.megaloop_kernel import _solve_drain_megaloop_packed
 
-    if mesh is not None:
-        raise NotImplementedError("mesh-sharded drains are not ported yet")
-    dev = resolve_device(device)
+    dev = _run_device(mesh, device)
     plan = plan_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
         policy=policy, now=now,
     )
+    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev, resident, mesh)
+    # after the mesh padding: inert queues get zero budgets
     cap_suffix = _cap_suffix_of(plan)
-    tree, paths, usage_in, queues = _drain_device_inputs(snapshot, plan, dev, resident)
+    if mesh is not None:
+        from kueue_tpu_torch.parallel import harness
+
+        harness.note_bucket(
+            "megaloop_kernel",
+            (plan.queues_np["cells"].shape, plan.n_segments, plan.n_steps,
+             int(chunk_cycles), int(max_rounds)),
+            mesh,
+        )
     flat_dev = _solve_drain_megaloop_packed(
         tree, usage_in, queues, paths, to_device(cap_suffix, dev, np.int32),
         n_segments=plan.n_segments,

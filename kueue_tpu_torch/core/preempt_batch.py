@@ -483,17 +483,22 @@ def lower_fair_preemption(
     return arrays, meta
 
 
-def fair_tiers(arrays: dict, meta: dict):
+def fair_tiers(arrays: dict, meta: dict, mesh=None):
     """The two-tier candidate-panel schedule of ``batched_fair_get_targets``:
     ``[(rows, v_dim, padded row arrays)]`` for the narrow tier and, when
     some head's pool overflows it, the full-width tier (heads whose
     whole pool fits the bucketed-median panel solve at the narrow width,
     exact by membership: a head never sees a truncated view of its own
-    pool)."""
+    pool). Under ``mesh`` one full-width tier, its rows padded to a
+    multiple of the mesh's ``wl`` axis, as the JAX package's sharded
+    search keeps one dispatch."""
     from kueue_tpu_torch.ops.fair_preempt_kernel import split_panel_rows
 
     counts = [len(m["cands"]) for m in meta["rows"]]
-    v_narrow, narrow_rows, wide_rows = split_panel_rows(counts, meta["v"], _bucket)
+    if mesh is None:
+        v_narrow, narrow_rows, wide_rows = split_panel_rows(counts, meta["v"], _bucket)
+    else:
+        v_narrow, narrow_rows, wide_rows = meta["v"], list(range(len(counts))), []
     tiers = []
     for rows, v_dim in ((narrow_rows, v_narrow), (wide_rows, meta["v"])):
         if not rows:
@@ -508,7 +513,12 @@ def fair_tiers(arrays: dict, meta: dict):
             )
             for k, x in arrays.items()
         }
-        tiers.append((rows, v_dim, _pad_rows(sub, _bucket(len(rows), minimum=8))))
+        w_pad = _bucket(len(rows), minimum=8)
+        if mesh is not None:
+            from kueue_tpu_torch.parallel.sharded_solver import pad_w_multiple
+
+            w_pad = pad_w_multiple(w_pad, mesh.shape["wl"])
+        tiers.append((rows, v_dim, _pad_rows(sub, w_pad)))
     return tiers
 
 
@@ -516,19 +526,35 @@ def batched_fair_get_targets(
     snapshot: Snapshot,
     items: Sequence[Tuple[Workload, str, AssignmentResult]],
     preemptor,
+    mesh=None,
     device=None,
 ) -> List[List[PreemptionTarget]]:
     """Fair-sharing victim sets for every preempt-mode head, one launch
     of kernel B9 per panel tier on ``device`` (the card unless the
     caller names the CPU, where the plain version runs); heads beyond
-    the lowering's caps are searched by the host Preemptor. Parity:
+    the lowering's caps are searched by the host Preemptor. With
+    ``mesh`` (a ``parallel`` Mesh over one device) the head rows are
+    padded to a multiple of its ``wl`` axis and placed through
+    ``place_fair_problem``, in one full-width launch; a mesh over
+    several devices raises NotImplementedError. Parity:
     tests/test_torch_fair_preempt.py."""
     from kueue_tpu_torch._torch import resolve_device
     from kueue_tpu_torch.core.preemption import IN_CLUSTER_QUEUE, IN_COHORT_FAIR_SHARING
     from kueue_tpu_torch.interop import fair_problem
     from kueue_tpu_torch.ops.fair_preempt_kernel import solve_fair_packed
 
-    dev = resolve_device(device)
+    if mesh is not None:
+        from kueue_tpu_torch.parallel.sharded_solver import mesh_device, place_fair_problem
+
+        dev = mesh_device(mesh)
+
+        def problem_of(padded):
+            return place_fair_problem(mesh, padded)
+    else:
+        dev = resolve_device(device)
+
+        def problem_of(padded):
+            return fair_problem(padded, dev)
     results: List[List[PreemptionTarget]] = [[] for _ in items]
     arrays, meta = lower_fair_preemption(snapshot, items, preemptor)
     for idx in meta["fallback"]:
@@ -539,10 +565,10 @@ def batched_fair_get_targets(
 
     targets_of = {}
     fits_of = {}
-    for rows, v_dim, padded in fair_tiers(arrays, meta):
+    for rows, v_dim, padded in fair_tiers(arrays, meta, mesh):
         w_pad = padded["row_valid"].shape[0]
         flat = _fetch(dev, "fair_search", lambda: solve_fair_packed(
-            fair_problem(padded, dev), depth=meta["depth"], n_cand=v_dim,
+            problem_of(padded), depth=meta["depth"], n_cand=v_dim,
             n_local=meta["s"], n_res=meta["r"], strategy1=meta["strategy1"],
             has_second=meta["has_second"],
         ))  # one fetch per tier

@@ -12,8 +12,9 @@ Two lowerings: ``lower_heads`` for the interactive cycle (one podset,
 default fungibility; ``dispatch_lowered`` ships it to the cycle solver,
 ``ops/assign_kernel.solve_cycle_segmented_packed``, with the quota
 tensors kept on the card between cycles by ``ResidentCycleState``) and
-``lower_heads_multi`` for the bulk drain. The mesh-sharded dispatch is
-not ported yet.
+``lower_heads_multi`` for the bulk drain. ``dispatch_lowered(mesh=)``
+places the cycle on a ``parallel`` Mesh over one device (W padded to its
+``wl`` axis) and runs the same segmented solve.
 """
 
 from __future__ import annotations
@@ -576,26 +577,47 @@ def dispatch_lowered(
     rows; without it they ship to ``device`` (the card unless the
     caller names the CPU).
 
+    With ``mesh`` (a ``parallel`` Mesh over one device) W is padded to
+    a multiple of its ``wl`` axis, ``resident`` is skipped, and the
+    heads, tree and usage are placed through ``place_cycle_inputs``;
+    the segmented solve (B2/B3) then runs as without it. A mesh over
+    several distinct devices raises NotImplementedError (ROADMAP A11).
+
     Returns a HOST-side SolveResult (numpy arrays, usage omitted): all
     per-head outputs come back in one packed copy."""
     from kueue_tpu_torch._torch import resolve_device, torch
     from kueue_tpu_torch.ops.assign_kernel import HeadsBatch, SolveResult
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh-sharded cycle dispatch (B16) is not ported yet (ROADMAP A11)"
-        )
     w = len(lowered.heads)
     w_pad = _bucket(w) if pad_heads else w
-    dev = resident.device if resident is not None else resolve_device(device)
+    if mesh is not None:
+        from kueue_tpu_torch.parallel.sharded_solver import (
+            mesh_device,
+            pad_w_multiple,
+            place_cycle_inputs,
+        )
+
+        # W divides the mesh's wl axis: power-of-two buckets already do
+        # for power-of-two meshes, this covers the rest
+        w_pad = pad_w_multiple(w_pad, mesh.shape["wl"])
+        dev = mesh_device(mesh)
+    else:
+        dev = resident.device if resident is not None else resolve_device(device)
     try:
-        if resident is not None:
-            tree, paths, roots, usage_in = resident.refresh(snapshot)
-        else:
+        if mesh is not None:
             tree, paths, roots = tree_arrays(snapshot, dev)
-            usage_in = torch.tensor(snapshot.local_usage, device=dev)
-        batch_np, seg_id, n_segments, n_steps = pack_heads(lowered, roots, w_pad)
-        batch = HeadsBatch(*(torch.as_tensor(x, device=dev) for x in batch_np))
+            batch_np, seg_id, n_segments, n_steps = pack_heads(lowered, roots, w_pad)
+            tree, usage_in, batch, paths, seg_id = place_cycle_inputs(
+                mesh, tree, snapshot.local_usage, batch_np, paths, seg_id
+            )
+        else:
+            if resident is not None:
+                tree, paths, roots, usage_in = resident.refresh(snapshot)
+            else:
+                tree, paths, roots = tree_arrays(snapshot, dev)
+                usage_in = torch.tensor(snapshot.local_usage, device=dev)
+            batch_np, seg_id, n_segments, n_steps = pack_heads(lowered, roots, w_pad)
+            batch = HeadsBatch(*(torch.as_tensor(x, device=dev) for x in batch_np))
         packed = (
             solve_cycle_segmented_packed(
                 tree, usage_in, batch, paths, seg_id, n_segments, n_steps

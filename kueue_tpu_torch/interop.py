@@ -14,7 +14,8 @@ on a device; ``fair_inputs`` adds the fair drain's ``FairInputs``,
 (``TASTopology``: free capacity, TAS usage, segment ids) and
 ``tas_heads`` the TAS drain's per-queue lowering (``TASHeads``);
 ``plan_inputs`` the planner's scenario-batched solve (kernel B14) from
-the arrays ``Planner.plan`` stacks. The parity tests feed the same
+the arrays ``Planner.plan`` stacks; ``drs_inputs`` the fair-sharing
+reductions' resource map, weights and request (kernel B1'). The parity tests feed the same
 arrays to both packages through it; nothing here imports the JAX
 package.
 """
@@ -277,3 +278,17 @@ def plan_inputs(arrays: Mapping[str, object], device=None) -> dict:
     )
     out["seg_id"] = np.asarray(arrays["seg_id"], dtype=np.int32)
     return out
+
+
+def drs_inputs(arrays: Mapping[str, np.ndarray], device=None) -> dict:
+    """The fair-sharing reductions' extra inputs (ops/quota
+    ``lendable_per_resource`` / ``dominant_resource_share``, kernel B1')
+    from ``resource_index`` int[FR], ``weight_milli`` int[N] and
+    ``wl_req`` int[N, FR]: int32, int64 and int64 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    return {
+        "resource_index": _on(arrays["resource_index"], np.int32, dev),
+        "weight_milli": _on(arrays["weight_milli"], np.int64, dev),
+        "wl_req": _on(arrays["wl_req"], np.int64, dev),
+    }

@@ -47,6 +47,7 @@ KERNELS = (
     "fair_search", "drain_fair_preempt_search", "drain_fair_preempt_phase2",
     "tas_leaf_counts", "drain_tas_place", "drain_tas_phase2",
     "plan_quota_tree", "plan_phase1", "plan_phase2",
+    "cycle_global", "quota_drs",
 )
 # the kernels of each path: the plain drain (ops/drain_kernel.solve_drain),
 # the megaloop (ops/megaloop_kernel.solve_drain_megaloop), the fair drain
@@ -56,8 +57,10 @@ KERNELS = (
 # (core/solver.dispatch_lowered and the resident row scatter), the
 # cycle with the batched classic and fair victim searches
 # (core/preempt_batch), the TAS drain (ops/drain_kernel.solve_drain_tas),
-# the TAS snapshot's fleet-size pod counting (tas/snapshot.py) and the
-# planner's scenario-batched cycle solve (ops/plan_kernel, kernel B14)
+# the TAS snapshot's fleet-size pod counting (tas/snapshot.py), the
+# planner's scenario-batched cycle solve (ops/plan_kernel, kernel B14),
+# the unsegmented cycle of parallel.ShardedSolver (kernel B3') and the
+# fair-sharing reductions over the quota tree (ops/quota, kernel B1')
 DRAIN_KERNELS = ("quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion")
 MEGALOOP_KERNELS = DRAIN_KERNELS + ("megaloop_boundary",)
 FAIR_KERNELS = ("quota_tree", "drain_nominate", "drain_fair_phase2", "drain_queue_motion")
@@ -78,6 +81,8 @@ CYCLE_KERNELS = ("quota_tree", "cycle_phase1", "cycle_phase2", "scatter_rows")
 PREEMPT_CYCLE_KERNELS = CYCLE_KERNELS + ("preempt_search",)
 FAIR_CYCLE_KERNELS = CYCLE_KERNELS + ("fair_search",)
 PLAN_KERNELS = ("plan_quota_tree", "plan_phase1", "plan_phase2")
+SHARDED_CYCLE_KERNELS = ("quota_tree", "cycle_phase1", "cycle_global")
+DRS_KERNELS = ("quota_drs",)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

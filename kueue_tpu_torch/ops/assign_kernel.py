@@ -18,13 +18,18 @@ over dense tensors, as in the JAX package:
   whole cycle (four ``quota_tree`` launches, then the two kernels); the
   packed form returns int64[5, W] (chosen, admitted, borrows, reserved,
   order) for one device-to-host copy.
+- ``solve_cycle`` / ``solve_cycle_packed``: the unsegmented cycle, one
+  scan over all heads in the global entry order (kernel B3',
+  ``cycle_global``, ``csrc/cycle_global.cu``, one block, the usage tree
+  in shared memory); ``parallel.ShardedSolver`` runs its phase 2 on the
+  gathered phase-1 output. ``solve_cycle_plain`` is the JAX
+  ``solve_cycle`` written out in torch.
 
 Every wrapper launches its CUDA kernel for a CUDA tensor (or raises) and
 runs the plain torch version beside it (``*_plain``) for a CPU tensor.
 The drain reuses the host helpers here (``build_paths``,
 ``build_roots``, ``build_segments``, ``cell_masks``,
-``_avail_along_path``, ``segmented_rank``, ``_lexsort``); the
-unsegmented ``solve_cycle`` is not ported yet.
+``_avail_along_path``, ``segmented_rank``, ``_lexsort``).
 
 Shapes: N nodes (CQs then cohorts), FR flavor-resource cells, W heads,
 K flavor candidates per head, C requested cells per candidate, D max
@@ -44,9 +49,13 @@ from kueue_tpu_torch.ops.quota import (
     NO_LIMIT,
     QuotaTree,
     available_all,
+    available_all_plain,
     potential_available_all,
+    potential_available_all_plain,
     subtree_quota,
+    subtree_quota_plain,
     usage_tree,
+    usage_tree_plain,
 )
 
 # jnp.argmax's sentinel for ineligible candidates in the score-argmax
@@ -633,3 +642,235 @@ def solve_cycle_segmented_packed(
     int64[5, W] tensor (chosen, admitted, borrows, reserved, order), so
     the host retrieves the whole cycle outcome in a single copy."""
     return _solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps)[0]
+
+
+# ---- the unsegmented cycle: kernel B3' cycle_global (csrc/cycle_global.cu)
+
+
+def cycle_global_plain(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    usage: torch.Tensor,  # int64[N, FR] the cycle usage tree, mutated
+    paths: torch.Tensor,
+    heads: HeadsBatch,
+    chosen: torch.Tensor,
+    borrows_wk: torch.Tensor,
+    preempt_k: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of ``cycle_global``: the entry order and the
+    lax.scan step loop of the JAX ``solve_cycle``, one head a step over
+    all W heads in that order. Returns the packed int64[5, W] outcome
+    (chosen, admitted, borrows, reserved, order); ``usage`` ends as the
+    cycle's final usage tree."""
+    max_depth = tree.max_depth
+    w = heads.cq_row.shape[0]
+    dev = usage.device
+    # effective candidate: the fit choice, else the preempt-mode
+    # representative, so that a preempt-mode head's reservation blocks
+    # later borrowers (scheduler.go:228-242)
+    eff_k = torch.where(chosen >= 0, chosen, preempt_k)
+    eff_safe = eff_k.clamp_min(0).long()
+    rows = torch.arange(w, device=dev)
+    head_borrow = borrows_wk[rows, eff_safe] & (eff_k >= 0)
+    # entry order: (borrowing asc, priority desc, timestamp asc); padded
+    # or hopeless (NoFit-everywhere) heads sink to the end
+    nofit = eff_k < 0
+    order = _lexsort(
+        (heads.timestamp, -heads.priority, head_borrow.to(I64), nofit.to(I64))
+    )
+    cells_eff = heads.cells[rows, eff_safe]  # [W, C]
+    qty_eff = heads.qty[rows, eff_safe]
+    cq = heads.cq_row
+    cqs = cq.clamp_min(0).long()
+    may_admit = (cq >= 0) & (chosen >= 0)
+    # blocked preempt-mode head: reserve capacity so later entries cannot
+    # take it (resourcesToReserve, scheduler.go:391-416)
+    reserve = (cq >= 0) & (chosen < 0) & (preempt_k >= 0) & heads.no_reclaim
+    admitted = torch.zeros(w, dtype=BOOL, device=dev)
+    for s in range(w):
+        wi = order[s : s + 1]
+        path = paths[cqs[wi]]  # [1, D+1]
+        cells_ = cells_eff[wi]  # [1, C]
+        qty_ = qty_eff[wi]
+        cell_valid = (cells_ >= 0) & (qty_ > 0)
+        avail = _avail_along_path(
+            path, cells_, usage, subtree, guaranteed, tree.borrowing_limit, max_depth
+        )
+        fits = torch.where(cell_valid, avail >= qty_, True).all(dim=1)
+        admit = may_admit[wi] & fits
+        _bubble_usage(
+            path, cells_, torch.where(cell_valid & admit[:, None], qty_, 0), usage,
+            guaranteed, max_depth,
+        )
+        # the reservation's caps from the leaf row after this step's admit
+        leaf = cqs[wi][:, None]
+        ccells = cells_.clamp_min(0).long()
+        nominal_c = tree.nominal[leaf, ccells]
+        bl_c = tree.borrowing_limit[leaf, ccells]
+        leaf_c = usage[leaf, ccells]
+        borrow_cap = torch.where(
+            bl_c < NO_LIMIT, torch.minimum(qty_, nominal_c + bl_c - leaf_c), qty_
+        )
+        nominal_cap = torch.minimum(qty_, nominal_c - leaf_c).clamp_min(0)
+        reserve_qty = torch.where(head_borrow[wi][:, None], borrow_cap, nominal_cap)
+        _bubble_usage(
+            path, cells_, torch.where(cell_valid & reserve[wi][:, None], reserve_qty, 0),
+            usage, guaranteed, max_depth,
+        )
+        admitted[wi] = admit
+    return torch.stack(
+        [chosen.to(I64), admitted.to(I64), head_borrow.to(I64), reserve.to(I64),
+         order.to(I64)]
+    )
+
+
+def cycle_global(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    usage: torch.Tensor,
+    paths: torch.Tensor,
+    heads: HeadsBatch,
+    chosen: torch.Tensor,
+    borrows_wk: torch.Tensor,
+    preempt_k: torch.Tensor,
+    packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Phase 2 of the unsegmented cycle: the packed int64[5, W] outcome
+    (into ``packed`` when given). ``usage`` (the cycle usage tree) is
+    updated in place by the admissions and reservations. On the card
+    the kernel keeps the usage tree in one block's shared memory and
+    refuses a tree that does not fit there."""
+    if not usage.is_cuda:
+        res = cycle_global_plain(
+            tree, subtree, guaranteed, usage, paths, heads, chosen, borrows_wk, preempt_k
+        )
+        if packed is None:
+            return res
+        packed.copy_(res)
+        return packed
+    kernel = "cycle_global"
+    w, k, c = heads.cells.shape
+    n, fr = tree.nominal.shape
+    d = tree.max_depth
+    if c > MAX_C:
+        raise _build.KernelInputError(f"{kernel}: takes C<={MAX_C} cells, got {c}")
+    # the usage tree, the walk and the head classes (csrc/cycle_global.cu)
+    smem = 8 * n * fr + 5 * w
+    limit_fn = _build.c_function(kernel, "cycle_global_smem_limit", [])
+    limit_fn.restype = ctypes.c_longlong
+    with torch.cuda.device(usage.device):
+        limit = int(limit_fn())
+    if smem > limit:
+        raise _build.KernelInputError(
+            f"{kernel}: the usage tree [{n}, {fr}] and {w} heads need {smem} B of "
+            f"shared memory, more than the {limit} B one block has"
+        )
+    if packed is None:
+        packed = torch.empty((5, w), dtype=I64, device=usage.device)
+    ptr = _build.ptr
+    ptrs = [
+        ptr(kernel, "cq_row", heads.cq_row, I32, (w,)),
+        ptr(kernel, "cells", heads.cells, I32, (w, k, c)),
+        ptr(kernel, "qty", heads.qty, I64, (w, k, c)),
+        ptr(kernel, "priority", heads.priority, I64, (w,)),
+        ptr(kernel, "timestamp", heads.timestamp, I64, (w,)),
+        ptr(kernel, "no_reclaim", heads.no_reclaim, BOOL, (w,)),
+        ptr(kernel, "chosen", chosen, I32, (w,)),
+        ptr(kernel, "borrows", borrows_wk, BOOL, (w, k)),
+        ptr(kernel, "preempt_k", preempt_k, I32, (w,)),
+        ptr(kernel, "nominal", tree.nominal, I64, (n, fr)),
+        ptr(kernel, "borrowing_limit", tree.borrowing_limit, I64, (n, fr)),
+        ptr(kernel, "subtree", subtree, I64, (n, fr)),
+        ptr(kernel, "guaranteed", guaranteed, I64, (n, fr)),
+        ptr(kernel, "paths", paths, I32, (n, d + 1)),
+        ptr(kernel, "usage", usage, I64, (n, fr)),
+        ptr(kernel, "packed", packed, I64, (5, w)),
+    ]
+    _call(kernel, [w, k, c, n, fr, d], ptrs, usage.device)
+    return packed
+
+
+def _unpack(packed: torch.Tensor, usage) -> SolveResult:
+    return SolveResult(
+        chosen=packed[0].to(I32),
+        admitted=packed[1].to(BOOL),
+        borrows=packed[2].to(BOOL),
+        reserved=packed[3].to(BOOL),
+        usage=usage,
+        order=packed[4].to(I32),
+    )
+
+
+def _solve_global(tree, local_usage, heads, paths, packed=None, usage_out=None):
+    subtree, guaranteed = subtree_quota(tree)
+    usage = usage_tree(tree, guaranteed, local_usage, out=usage_out)
+    avail = available_all(tree, subtree, guaranteed, usage)
+    potential = potential_available_all(tree, subtree, guaranteed)
+    chosen, borrows_wk, preempt_k = phase1_classify(
+        tree, subtree, guaranteed, local_usage, heads, avail, potential
+    )
+    packed = cycle_global(
+        tree, subtree, guaranteed, usage, paths, heads, chosen, borrows_wk, preempt_k,
+        packed=packed,
+    )
+    return packed, usage
+
+
+def solve_cycle_plain(
+    tree: QuotaTree, local_usage: torch.Tensor, heads: HeadsBatch, paths: torch.Tensor
+) -> SolveResult:
+    """The JAX ``solve_cycle`` written out in plain torch: the quota
+    recurrences, phase 1 (``phase1_classify_plain``), the global
+    lexsort and one step a head. The reference of ``solve_cycle`` on
+    any device."""
+    subtree, guaranteed = subtree_quota_plain(tree)
+    usage = usage_tree_plain(tree, guaranteed, local_usage)
+    avail = available_all_plain(tree, subtree, guaranteed, usage)
+    potential = potential_available_all_plain(tree, subtree, guaranteed)
+    chosen, borrows_wk, preempt_k = phase1_classify_plain(
+        tree, subtree, local_usage, avail, potential, heads
+    )
+    packed = cycle_global_plain(
+        tree, subtree, guaranteed, usage, paths, heads, chosen, borrows_wk, preempt_k
+    )
+    return _unpack(packed, usage)
+
+
+def solve_cycle(
+    tree: QuotaTree, local_usage: torch.Tensor, heads: HeadsBatch, paths: torch.Tensor
+) -> SolveResult:
+    """One full admission cycle with one global scan (the JAX
+    ``solve_cycle``): phase 1 picks flavors for all heads in parallel;
+    phase 2 re-checks and admits in the reference's entry order —
+    non-borrowing first, then priority desc, then queue timestamp
+    (scheduler.go:575-599) — against incrementally updated
+    availability. On the card: ``quota_tree``, ``cycle_phase1`` and
+    ``cycle_global``; decisions equal ``solve_cycle_segmented``'s."""
+    packed, usage = _solve_global(tree, local_usage, heads, paths)
+    return _unpack(packed, usage)
+
+
+def solve_cycle_packed(
+    tree: QuotaTree, local_usage: torch.Tensor, heads: HeadsBatch, paths: torch.Tensor
+) -> torch.Tensor:
+    """solve_cycle with its outcome in ONE int64 buffer: the [5, W] rows
+    (chosen, admitted, borrows, reserved, order) flattened, then the
+    [N, FR] usage tree, so the host fetches the cycle in one copy
+    (``unpack_cycle`` splits it)."""
+    w = heads.cq_row.shape[0]
+    n, fr = tree.nominal.shape
+    buf = torch.empty(5 * w + n * fr, dtype=I64, device=local_usage.device)
+    _solve_global(
+        tree, local_usage, heads, paths, packed=buf[: 5 * w].view(5, w),
+        usage_out=buf[5 * w:].view(n, fr),
+    )
+    return buf
+
+
+def unpack_cycle(buf, w: int, n: int, fr: int) -> SolveResult:
+    """The SolveResult of a ``solve_cycle_packed`` buffer (a tensor or
+    a numpy array)."""
+    packed = torch.as_tensor(buf[: 5 * w]).reshape(5, w)
+    return _unpack(packed, torch.as_tensor(buf[5 * w:]).reshape(n, fr))

@@ -9,13 +9,16 @@ as level-scheduled passes over a dense node array:
                                  bottom-up from leaf usage
 - ``available_all``           <- available() (:89-104), top-down
 - ``potential_available_all`` <- potentialAvailable() (:108-119)
+- ``lendable_per_resource``   <- calculateLendable (fair_sharing.go:90-104)
+- ``dominant_resource_share`` <- DominantResourceShare (:49-86)
 
 Layout: N nodes (ClusterQueues first, then cohorts), FR dense (flavor,
 resource) cells, all quantities int64.
 
-Each function is a wrapper over kernel 1, ``quota_tree``
-(``csrc/quota_tree.cu``): on a CUDA tensor it launches the kernel (or
-raises), on a CPU tensor it runs the plain torch version beside it
+The first four are wrappers over kernel 1, ``quota_tree``
+(``csrc/quota_tree.cu``), the last two over kernel B1', ``quota_drs``
+(``csrc/quota_drs.cu``): on a CUDA tensor a wrapper launches its kernel
+(or raises), on a CPU tensor it runs the plain torch version beside it
 (``*_plain``). The wrappers take an optional ``out`` buffer and an
 optional ``done`` flag (int32[1] on the same device): when the flag is
 set the call does nothing, which lets the drain's host loop enqueue a
@@ -291,3 +294,161 @@ def potential_available_all(
         None,
     )
     return out
+
+
+# ---- kernel B1': quota_drs (csrc/quota_drs.cu) ---------------------------
+#
+# The fair-sharing reductions over the quota tree: calculateLendable
+# (fair_sharing.go:90-104) and DominantResourceShare (:49-86). Two C
+# entries, quota_lendable and quota_drs, under the one launch counter
+# ``quota_drs``.
+
+DRS_KERNEL = "quota_drs"
+
+
+def _per_resource(x: torch.Tensor, resource_index: torch.Tensor, n_resources: int):
+    """Sum the [N, FR] cells of ``x`` per resource: int64[N, R]."""
+    out = torch.zeros((x.shape[0], n_resources), dtype=I64, device=x.device)
+    out.index_add_(1, resource_index.long(), x)
+    return out
+
+
+def lendable_per_resource_plain(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    resource_index: torch.Tensor,
+    n_resources: int,
+) -> torch.Tensor:
+    """The plain version of ``lendable_per_resource``."""
+    pot = potential_available_all_plain(tree, subtree, guaranteed)
+    per_res = _per_resource(pot[_parent_index(tree)], resource_index, n_resources)
+    return torch.where((tree.parent >= 0)[:, None], per_res, 0)
+
+
+def dominant_resource_share_plain(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    usage: torch.Tensor,
+    wl_req: torch.Tensor,
+    weight_milli: torch.Tensor,
+    resource_index: torch.Tensor,
+    n_resources: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``dominant_resource_share``."""
+    borrowed = _per_resource(
+        (wl_req + usage - subtree).clamp_min(0), resource_index, n_resources
+    )
+    lendable = lendable_per_resource_plain(
+        tree, subtree, guaranteed, resource_index, n_resources
+    )
+    # only borrowing resources with lendable > 0 take part
+    # (fair_sharing.go:69-78, drs starts at -1)
+    ratio = torch.where(
+        (borrowed > 0) & (lendable > 0),
+        torch.div(borrowed * 1000, lendable.clamp_min(1), rounding_mode="floor"),
+        -1,
+    )
+    drs = ratio.max(dim=1).values
+    # torch.argmax, like jnp.argmax, returns the first maximum
+    dominant = ratio.argmax(dim=1).to(I32)
+    active = (borrowed > 0).any(dim=1) & (tree.parent >= 0)
+    # Go's division truncates toward zero; drs may be -1
+    share = torch.div(drs * 1000, weight_milli.clamp_min(1), rounding_mode="trunc")
+    dws = torch.where(
+        active, torch.where(weight_milli == 0, DRS_MAX, share), 0
+    )
+    dominant = torch.where(active & (drs >= 0), dominant, -1).to(I32)
+    return dws, dominant
+
+
+def _drs_call(symbol: str, tree, subtree, guaranteed, resource_index, n_resources, extra):
+    """Launch ``symbol`` of kernel quota_drs: (ints, n_ints, ptrs, n_ptrs,
+    stream), with the [N, FR] potentialAvailable scratch allocated
+    here and ``extra`` ((name, tensor, dtype, shape) after it)."""
+    n, fr = tree.nominal.shape
+    d = tree.max_depth
+    ptr = _build.ptr
+    k = DRS_KERNEL
+    pot = torch.empty_like(subtree)
+    ptrs = [
+        ptr(k, "parent", tree.parent, I32, (n,)),
+        ptr(k, "level_mask", tree.level_mask, BOOL, (d + 1, n)),
+        ptr(k, "subtree", subtree, I64, (n, fr)),
+        ptr(k, "guaranteed", guaranteed, I64, (n, fr)),
+        ptr(k, "borrowing_limit", tree.borrowing_limit, I64, (n, fr)),
+        ptr(k, "resource_index", resource_index, I32, (fr,)),
+        pot.data_ptr(),
+    ] + [ptr(k, name, t, dtype, shape) for name, t, dtype, shape in extra]
+    ints = [n, fr, int(n_resources), d]
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    fn = _build.c_function(
+        k, symbol,
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    )
+    _build.note_launch(k)
+    rc = fn(
+        ctypes.addressof(c_ints), len(ints), ctypes.addressof(c_ptrs), len(ptrs),
+        _build.stream_ptr(subtree.device),
+    )
+    _build.check(rc, k)
+
+
+def lendable_per_resource(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    resource_index: torch.Tensor,  # int32[FR] resource of each cell
+    n_resources: int,
+) -> torch.Tensor:
+    """calculateLendable for every node (fair_sharing.go:90-104): the
+    parent's potentialAvailable summed per resource. Roots get zeros
+    (their DRS is 0 by definition). Returns int64[N, R]."""
+    if not subtree.is_cuda:
+        return lendable_per_resource_plain(
+            tree, subtree, guaranteed, resource_index, n_resources
+        )
+    out = torch.empty((tree.n_nodes, int(n_resources)), dtype=I64, device=subtree.device)
+    _drs_call(
+        "quota_lendable", tree, subtree, guaranteed, resource_index, n_resources,
+        [("out", out, I64, tuple(out.shape))],
+    )
+    return out
+
+
+def dominant_resource_share(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    usage: torch.Tensor,
+    wl_req: torch.Tensor,
+    weight_milli: torch.Tensor,
+    resource_index: torch.Tensor,
+    n_resources: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DominantResourceShare for every node (fair_sharing.go:49-86).
+
+    wl_req: int64[N, FR] hypothetical extra usage per node (zeros for
+    the current share). Returns (dws int64[N], dominant resource id
+    int32[N], -1 where the node does not borrow). dws = max over
+    resources of (borrowed above the subtree quota * 1000 / lendable)
+    * 1000 / weight_milli, truncated as Go divides; a zero weight while
+    borrowing gives DRS_MAX. Ties pick the lowest resource id: callers
+    number resources in sorted name order."""
+    if not usage.is_cuda:
+        return dominant_resource_share_plain(
+            tree, subtree, guaranteed, usage, wl_req, weight_milli, resource_index,
+            n_resources,
+        )
+    n, fr = tree.nominal.shape
+    dws = torch.empty(n, dtype=I64, device=usage.device)
+    dominant = torch.empty(n, dtype=I32, device=usage.device)
+    _drs_call(
+        "quota_drs", tree, subtree, guaranteed, resource_index, n_resources,
+        [("usage", usage, I64, (n, fr)), ("wl_req", wl_req, I64, (n, fr)),
+         ("weight_milli", weight_milli, I64, (n,)), ("drs", dws, I64, (n,)),
+         ("dominant", dominant, I32, (n,))],
+    )
+    return dws, dominant

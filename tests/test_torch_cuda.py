@@ -40,6 +40,16 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   device path equal to the CPU; a drain_tas_place that does not build
   makes the TAS drain raise KernelError.
 
+- the unsegmented cycle's kernel B3' (cycle_global) bit-exact to its
+  plain version on random batches up to W=1024 and equal to the
+  segmented B3, its refusal of a usage tree beyond one block's shared
+  memory, and a trapping build raising at ShardedSolver's first sync;
+  B1' (quota_drs) bit-exact to its plain versions, and a build that
+  fails raising KernelError; run_drain (plain and fair) and
+  dispatch_lowered on a one-card mesh (and on the card repeated eight
+  times, which pads every axis) equal to the run without it;
+  entry(device="cuda") equal to solve_cycle_plain.
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
@@ -924,3 +934,174 @@ def test_planner_raises_when_a_plan_kernel_does_not_build(cuda, monkeypatch, tmp
     planner, sweep, _, _ = pp.build_stage(n_cq=4, n_scenarios=2, device=cuda)
     with pytest.raises(_build.KernelError, match="plan_phase2"):
         planner.plan(scenarios=sweep)
+
+
+# ---- the mesh harness: the unsegmented cycle (B3') and the DRS (B1') --------
+
+
+@pytest.mark.parametrize("seed,kw", [(s, {}) for s in range(6)]
+                         + [(s, {"w": 200, "n_cq": 60, "fr": 12}) for s in (6, 7)]
+                         + [(8, {"w": 1024, "n_cq": 400, "fr": 17, "depth": 1})])
+def test_cycle_global_bit_exact_on_random_batches(cuda, seed, kw):
+    from kueue_tpu_torch.ops import assign_kernel as ak
+    from kueue_tpu_torch.ops import quota as q
+
+    b = cases.cycle_batch(seed, **kw)
+    tree, heads = interop.quota_tree(b, cuda), interop.heads_batch(b, cuda)
+    local = torch.tensor(b["local_usage"], device=cuda)
+    paths = torch.tensor(b["paths"], device=cuda)
+    sub, g = q.subtree_quota(tree)
+    usage = q.usage_tree(tree, g, local)
+    ph = ak.phase1_classify(tree, sub, g, local, heads)
+    u2 = usage.clone()
+    before = _build.launch_counts()["cycle_global"]
+    packed = ak.cycle_global(tree, sub, g, usage, paths, heads, *ph)
+    assert _build.launch_counts()["cycle_global"] == before + 1
+    assert torch.equal(packed, ak.cycle_global_plain(tree, sub, g, u2, paths, heads, *ph))
+    assert torch.equal(usage, u2)
+    got = ak.solve_cycle(tree, local, heads, paths)
+    seg = ak.solve_cycle_segmented(tree, local, heads, paths, b["seg_id"],
+                                   max(b["n_segments"], 1), max(b["n_steps"], 1))
+    for f in ("chosen", "admitted", "borrows", "reserved", "usage", "order"):
+        assert torch.equal(getattr(got, f), getattr(seg, f)), f
+
+
+def test_cycle_global_refuses_a_tree_beyond_shared_memory(cuda):
+    from kueue_tpu_torch.ops import assign_kernel as ak
+    from kueue_tpu_torch.ops import quota as q
+
+    b = cases.cycle_batch(0, w=8, n_cq=3000, fr=12)  # 288 kB of usage tree
+    tree, heads = interop.quota_tree(b, cuda), interop.heads_batch(b, cuda)
+    local = torch.tensor(b["local_usage"], device=cuda)
+    sub, g = q.subtree_quota(tree)
+    usage = q.usage_tree(tree, g, local)
+    ph = ak.phase1_classify(tree, sub, g, local, heads)
+    with pytest.raises(_build.KernelInputError, match="shared memory"):
+        ak.cycle_global(tree, sub, g, usage, torch.tensor(b["paths"], device=cuda), heads, *ph)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_quota_drs_bit_exact_on_random_forests(cuda, seed):
+    from kueue_tpu_torch.ops import quota as q
+
+    b = cases.cycle_batch(seed, n_cq=30, fr=8)
+    tree = interop.quota_tree(b, cuda)
+    n, fr = tree.nominal.shape
+    rng = np.random.default_rng(seed)
+    n_res = int(rng.integers(1, 4))
+    ri = torch.tensor(np.sort(rng.integers(0, n_res, fr)).astype(np.int32), device=cuda)
+    w = torch.tensor(rng.choice([0, 3, 500, 1000, 2000], n), device=cuda)
+    local = torch.tensor(b["local_usage"] * 2, device=cuda)
+    sub, g = q.subtree_quota(tree)
+    usage = q.usage_tree(tree, g, local)
+    req = torch.tensor(rng.integers(0, 20, (n, fr)) * (rng.random((n, fr)) < 0.3), device=cuda)
+    before = _build.launch_counts()["quota_drs"]
+    assert torch.equal(q.lendable_per_resource(tree, sub, g, ri, n_res),
+                       q.lendable_per_resource_plain(tree, sub, g, ri, n_res))
+    for wr in (torch.zeros_like(req), req):
+        d, dom = q.dominant_resource_share(tree, sub, g, usage, wr, w, ri, n_res)
+        pd_, pdom = q.dominant_resource_share_plain(tree, sub, g, usage, wr, w, ri, n_res)
+        assert torch.equal(d, pd_) and torch.equal(dom, pdom)
+        assert (dom >= 0).any()
+    assert _build.launch_counts()["quota_drs"] == before + 3
+
+
+def test_one_card_mesh_drain_and_dispatch_equal_the_unsharded_run(cuda):
+    from kueue_tpu_torch import entry
+    from kueue_tpu_torch.core import solver
+    from kueue_tpu_torch.parallel import ShardedSolver, make_mesh
+    from kueue_tpu_torch.parallel.sharded_solver import Mesh
+
+    one = make_mesh(1)
+    assert one.shape == {"wl": 1} and one.distinct_devices() == (torch.device("cuda", 0),)
+    # the same card eight times: every Q and W axis padded with inert rows
+    eight = Mesh(np.array([torch.device("cuda", 0)] * 8, dtype=object), ("wl",))
+    for mesh in (one, eight):
+        for case in (entry.drain_case, entry.fair_drain_case):
+            fair = case is entry.fair_drain_case
+            ref = run_drain(*case(), fair_sharing=fair, device="cuda")
+            got = run_drain(*case(), fair_sharing=fair, mesh=mesh)
+            assert _view(got) == _view(ref)
+        snap, pending, flavors = entry.preempt_drain_case()
+        heads = [(w, c) for w, c in pending if len(w.pod_sets) == 1]
+        low = solver.lower_heads(snap, heads, flavors)
+        a = solver.dispatch_lowered(snap, low, device="cuda")
+        b = solver.dispatch_lowered(snap, low, mesh=mesh)
+        for f in ("chosen", "admitted", "borrows", "reserved", "order"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    fn, args = entry.entry(device="cuda")
+    for mesh in (one, eight):
+        got = ShardedSolver(mesh)(*args)
+        ref = fn(*args)
+        w = ref.admitted.shape[0]
+        for f in ("chosen", "admitted", "borrows", "reserved"):
+            assert torch.equal(getattr(got, f)[:w], getattr(ref, f)), f
+        assert torch.equal(got.usage, ref.usage)
+
+
+def test_entry_on_the_card_equals_its_plain_version(cuda):
+    from kueue_tpu_torch import entry
+    from kueue_tpu_torch.ops import assign_kernel as ak
+
+    fn, args = entry.entry()
+    assert args[1].is_cuda
+    got, ref = fn(*args), ak.solve_cycle_plain(*args)
+    for f in ("chosen", "admitted", "borrows", "reserved", "usage", "order"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+
+
+def test_drs_raises_when_its_kernel_does_not_build(cuda, monkeypatch, tmp_path):
+    from kueue_tpu_torch.ops import quota as q
+
+    b = cases.cycle_batch(0)
+    tree = interop.quota_tree(b, cuda)
+    _broken(monkeypatch, tmp_path, "quota_drs")
+    ri = torch.zeros(tree.nominal.shape[1], dtype=torch.int32, device=cuda)
+    with pytest.raises(_build.KernelError, match="quota_drs"):
+        q.lendable_per_resource(tree, tree.nominal, tree.nominal, ri, 1)
+
+
+_B3G_FAULT_RUN = """
+import pathlib, sys
+from kueue_tpu_torch.ops import _build
+from kueue_tpu_torch import entry
+from kueue_tpu_torch.parallel import ShardedSolver, make_mesh
+
+_build.CSRC = pathlib.Path(sys.argv[1])
+_build.BUILD_DIR = _build.CSRC.parent / "build"
+fn, args = entry.entry(device="cuda")
+try:
+    out = ShardedSolver(make_mesh(1))(*args)
+    out.admitted.cpu()
+except Exception as exc:  # a fault at the launch or at the first sync after it
+    print("raised", type(exc).__name__, _build.launch_counts()["cycle_global"])
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
+
+
+def test_a_faulting_cycle_global_raises_and_is_not_contained(cuda, tmp_path):
+    """A cycle_global build that traps on the card: ShardedSolver's
+    result raises at its first sync; nothing solves on the host in its
+    place. In a process of its own, as a trap leaves that process's
+    CUDA context unusable."""
+    import pathlib
+    import subprocess
+    import sys
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (csrc / src.name).write_text(src.read_text())
+    body = (csrc / "cycle_global.cu").read_text()
+    entry = "  const size_t nfr = (size_t)a.N * a.FR;\n"
+    assert entry in body
+    (csrc / "cycle_global.cu").write_text(
+        body.replace(entry, entry + "  if (threadIdx.x == 0) __trap();\n", 1))
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", _B3G_FAULT_RUN, str(csrc)], cwd=repo,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert run.stdout.startswith("raised") and run.stdout.split()[-1] == "1", run.stdout

@@ -43,7 +43,7 @@ from kueue_tpu_torch.perf import cases
 from kueue_tpu_torch.perf import fairpreempt as fp
 from kueue_tpu_torch.perf.cases import build_cache
 
-from tests.test_torch_preempt_drain import jax_api, view
+from tests.test_torch_preempt_drain import jax_api, two_card_mesh, view
 from tests.test_torch_scheduler import jax_spec, port_spec
 
 BOTH = [LESS_THAN_OR_EQUAL_TO_FINAL_SHARE, LESS_THAN_INITIAL_SHARE]
@@ -241,12 +241,15 @@ def test_run_drain_for_scope_forwards_the_strategies(strategies):
     assert view(out) == view(jout)
     assert fp.drain_summary(out) != fp.FAIR_PREEMPT_SMALL_EXPECT
 
+
 def test_unported_options_raise():
     env = fp.build_fair_preempt(12)
     snap = take_snapshot(env.cache)
 
+    # a mesh over one device runs (tests/test_torch_parallel.py); one
+    # over two cards is refused
     with pytest.raises(NotImplementedError):
-        run_drain_fair_preempt(snap, env.pending, env.cache.flavors, mesh=object(),
+        run_drain_fair_preempt(snap, env.pending, env.cache.flavors, mesh=two_card_mesh(),
                                device="cpu")
     # a non-default admission policy is ported (tests/test_torch_policy.py
     # holds PREMA's victim order to the JAX package's); first-fit named

@@ -3,8 +3,9 @@
 - it imports and runs its CPU path with jax, flax and kueue_tpu blocked
   (a plain drain, a megaloop launch, a fair drain, a cycle, the preempt
   and fair-preempt drains, a fair cycle with the batched fair search,
-  the TAS drain and a TAS placement, a Gavel drain and a planner sweep
-  with a policy scenario);
+  the TAS drain and a TAS placement, a Gavel drain, a planner sweep
+  with a policy scenario, a drain on a two-device CPU mesh and the
+  unsegmented cycle of entry.entry);
 - no module of the package, nor chip_smoke.py, imports jax, flax or
   kueue_tpu (AST scan);
 - its entry points run on the card: without one, and without an
@@ -53,7 +54,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_scan_covers_every_subpackage():
     scanned = {p.relative_to(PKG).parts[0] for p in _port_files() if PKG in p.parents}
-    assert {"core", "ops", "perf", "tas", "models", "policy", "planner"} <= scanned
+    assert {"core", "ops", "perf", "tas", "models", "policy", "planner", "parallel",
+            "entry.py"} <= scanned
 
 
 def test_scan_catches_a_forbidden_import(tmp_path):
@@ -125,6 +127,12 @@ from kueue_tpu_torch.planner.scenarios import PlanScenario, PolicyDelta
 report = planner.plan(scenarios=sweep + [PlanScenario("gavel", (PolicyDelta("gavel"),))],
                       include_reasons="all", verify_host=True)
 assert report.launches == 1 and report.recommended
+from kueue_tpu_torch.parallel import make_mesh
+import kueue_tpu_torch.entry as port_entry
+mesh_out = run_drain(take_snapshot(cache), pending, cache.flavors, mesh=make_mesh(2, device="cpu"))
+assert [w.name for w, *_ in mesh_out.admitted] == [w.name for w, *_ in out.admitted]
+fn, args = port_entry.entry(device="cpu")
+assert bool(fn(*args).admitted.any())
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "kueue_tpu")
             and sys.modules[m] is not None]
 print("OK", len(mods), out.cycles, len(out.admitted))
@@ -219,9 +227,10 @@ def test_resolve_device_defaults_to_cuda(monkeypatch):
 
 
 def test_unported_drain_scopes_raise():
-    """Mesh sharding is not ported: it raises (the fair-preempt and TAS
-    drains are, and run), and no launch/fetch split is offered for a
-    scope other than the plain one (None, as the reference returns)."""
+    """A mesh over more than one distinct device raises (a mesh over one
+    device runs, tests/test_torch_parallel.py), and no launch/fetch
+    split is offered for a scope other than the plain one (None, as the
+    reference returns)."""
     from kueue_tpu_torch.core.drain import (
         launch_drain,
         launch_drain_for_scope,
@@ -240,12 +249,20 @@ def test_unported_drain_scopes_raise():
     assert run_drain_for_scope("fair_preempt", snap, pending, flavors, device="cpu").cycles > 0
     for kind in ("preempt", "fair_preempt", "tas", "fair"):
         assert launch_drain_for_scope(kind, snap, pending, flavors, device="cpu") is None
+    import numpy as np
+    import torch
+
+    from kueue_tpu_torch.parallel.sharded_solver import Mesh
+
+    two = np.empty(2, dtype=object)
+    two[:] = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    two_cards = Mesh(two, ("wl",))
     for fn in (run_drain, launch_drain, launch_drain_megaloop, run_drain_preempt,
                run_drain_fair_preempt):
         with pytest.raises(NotImplementedError):
-            fn(snap, pending, flavors, mesh=object(), device="cpu")
+            fn(snap, pending, flavors, mesh=two_cards, device="cpu")
     with pytest.raises(NotImplementedError):
-        run_drain_tas(snap, pending, flavors, TASCache(), mesh=object(), device="cpu")
+        run_drain_tas(snap, pending, flavors, TASCache(), mesh=two_cards, device="cpu")
 
 
 def test_wrappers_reject_cpu_tensors_for_kernels():

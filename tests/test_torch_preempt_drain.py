@@ -230,11 +230,24 @@ def test_run_drain_for_scope_preempt_runs():
     assert out.admitted
 
 
+
+def two_card_mesh():
+    """A mesh over cuda:0 and cuda:1 (refused: one card per machine)."""
+    import torch
+
+    from kueue_tpu_torch.parallel.sharded_solver import Mesh
+
+    devices = np.empty(2, dtype=object)
+    devices[:] = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    return Mesh(devices, ("wl",))
+
 def test_unported_options_raise():
     pcache, ppending = build_cache(port_spec(preempt_spec(0)))
 
+    # a mesh over one device runs (tests/test_torch_parallel.py); one
+    # over two cards is refused
     with pytest.raises(NotImplementedError):
-        run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors, mesh=object(),
+        run_drain_preempt(take_snapshot(pcache), ppending, pcache.flavors, mesh=two_card_mesh(),
                           device="cpu")
     # a non-default admission policy is ported (tests/test_torch_policy.py
     # holds PREMA's victim order to the JAX package's); first-fit named

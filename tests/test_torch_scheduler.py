@@ -464,8 +464,12 @@ class TestRefusals:
         _, mgr, cache = self._env()
         snapshot = take_snapshot(cache)
         lowered = lower_heads(snapshot, _heads(mgr), cache.flavors)
+        # a mesh over one device runs (tests/test_torch_parallel.py); one
+        # over two cards is refused
+        from tests.test_torch_preempt_drain import two_card_mesh
+
         with pytest.raises(NotImplementedError):
-            dispatch_lowered(snapshot, lowered, mesh=object(), device="cpu")
+            dispatch_lowered(snapshot, lowered, mesh=two_card_mesh(), device="cpu")
 
 
 class TestKernelErrorsAreNotContained:

@@ -222,9 +222,13 @@ def test_run_drain_tas_without_device_raises_without_cuda(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+    # a mesh over one device runs (tests/test_torch_parallel.py); one over
+    # two cards is refused
+    from tests.test_torch_preempt_drain import two_card_mesh
+
     with pytest.raises(NotImplementedError):
         pd.run_drain_tas(port_take_snapshot(pe.cache), pe.pending, pe.cache.flavors, pe.tas,
-                         mesh=object(), device="cpu")
+                         mesh=two_card_mesh(), device="cpu")
 
 
 # ---- the placement step ------------------------------------------------------
