@@ -13,9 +13,13 @@ victim search (phase 9), the drain with fair-sharing preemption
 and the TAS drain (phase 11), the what-if planner's scenario-batched
 solve with the admission policies (phase 12), and the mesh harness:
 the unsegmented cycle through ShardedSolver, the fair-sharing DRS
-reductions and every drain's mesh= path on a one-card mesh (phase 13).
+reductions and every drain's mesh= path on a one-card mesh (phase 13),
+and the runtime and the federation: ClusterRuntime's serial, pipelined
+and megaloop drain loops at bench.py's 50k x 1000-CQ stages and the
+MultiKueue federation's global rescore (kernel B15) through
+GlobalScheduler at bench.py's 50-worker stage (phase 14).
 
-1. Prints the card's name and power limit, builds the 24 kernels from
+1. Prints the card's name and power limit, builds the 25 kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
    the build seconds and each kernel's registers and spills.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
@@ -23,7 +27,10 @@ reductions and every drain's mesh= path on a one-card mesh (phase 13).
    real 50k x 1k headline plan, and a small seeded case with three
    podsets, nonzero candidate scores, a depth-3 cohort forest,
    borrowing and lending limits and PendingFlavors queues that freeze
-   as stuck. The plain steps of the headline lockstep are timed.
+   as stuck (all 1168 cycles: every admission is decided by cycle 5,
+   and its queues freeze at cycles 59, 86, 198 and 1168). The plain
+   steps of the headline lockstep are timed. Each cycle's differences
+   are taken on the card in stream order and read once a cycle.
    Then the headline drain runs once more on the kernels alone with
    every launch timed on the device (a spin kernel holds the stream
    while the host enqueues the events and the launch), and each
@@ -216,8 +223,10 @@ reductions and every drain's mesh= path on a one-card mesh (phase 13).
       segmented solve (B3) recorded; the main path of kernel B3'
       (cycle_global): ``ShardedSolver(mesh)`` on every recorded cycle,
       counters reset before, its packed rows and usage tree bit-exact
-      to B3's on the same heads and to ``solve_cycle_plain`` on the
-      card; B3' held to its plain version on seeded
+      to B3's on the same heads at every cycle (B3 is held to its plain
+      version at these cycles in phase 6) and to ``solve_cycle_plain``
+      on the card at cycles 1, 16 and 30 (the plain step loop takes
+      seconds a cycle); B3' held to its plain version on seeded
       ``cycle_batch`` problems (reservations, preempt-mode heads,
       depth 3) and ``entry(device="cuda")``'s;
    b. kernel B1' (quota_drs: lendable_per_resource and
@@ -238,9 +247,43 @@ reductions and every drain's mesh= path on a one-card mesh (phase 13).
       cycle's data and B3's time on the same heads beside it, the plain
       step loop's time on the card, B1''s launches timed alone, the
       ShardedSolver wall a cycle (median of 30: phase 1, B3', the
-      fetch) and each mesh drain's wall (median of 3) beside the wall
-      of the same drain without the mesh from its earlier phase.
-14. Prints the 24 kernels' JSON line, the card line, and as the last
+      fetch) and each mesh drain's wall (one run) beside the wall of
+      the same drain without the mesh from its earlier phase.
+14. The runtime and the federation:
+   a. B15 (global_rescore) held bit-exact to rescore_plain on the card
+      and to the numpy mirror global_np.rescore_np at the CPU tests'
+      cases (seeds 0-7 x 12 fleets, degraded masks, wide rotations,
+      current columns past C, the key's corner, ties, the hysteresis
+      boundary) and at rescore-65k-64 (W=65,536 x C=64) and
+      rescore-1k-4096 (W=1024 x C=4096); each launch there timed alone,
+      with the plain version's ms and the bytes bound;
+   b. perf/multikueue.run_federation_scale(n_workers=50) with every
+      runtime on the card and every B15 launch held to rescore_plain,
+      counters reset before: FED_SCALE_EXPECT (200/200 admitted, 5
+      passes, 5 rescore passes, 24 rebalances, 224 acked retractions,
+      1200 s virtual), the applied rebalances' digest
+      FED_REBALANCE_DIGEST (from the JAX package on the CPU), every
+      rescore with pending rows on path "device", and global_rescore
+      launched 3 times (at 108, 45 and 10 pending rows); the federation
+      launches are then timed alone on their own inputs (the kernels
+      line's B15 numbers);
+   c. perf/runtime at bench.py's pipeline stage (seed
+      default_rng(13), chunk 16, divergence sampling off): serial then
+      pipelined bulk_drain on the card, both RUNTIME_DRAIN_EXPECT,
+      rounds >= 2 and prefetches >= 1, no guard failure, the drain
+      kernels launched; and at the megaloop stage (default_rng(17),
+      chunk 4): serial, pipelined and drain_megaloop="16", all
+      RUNTIME_MEGALOOP_EXPECT, megaloop_boundary launched; prints each
+      mode's wall, its dispatches and the Pipeline/MegaloopStats; then
+      a pipelined and a K=4 megaloop drain of a 32-CQ cut on the card
+      with every committed round replayed on the numpy mirror (a
+      differing round raises KernelError), none differing;
+   d. no fallback on the card (perf/trap.py, each in a process of its
+      own over sources with one kernel patched to trap): a trapping B15
+      raises KernelError out of GlobalScheduler.rescore with no host
+      rescore, and a trapping drain_nominate raises KernelError out of
+      a pipelined bulk_drain round's device_join with no failover.
+15. Prints the 25 kernels' JSON line, the card line, and as the last
    line ``{"ok": true, "device": {...}}``.
 
 No phase is caught and passed over: any failure exits non-zero.
@@ -249,6 +292,7 @@ No phase is caught and passed over: any failure exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -260,6 +304,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock, per timed launch
 SMALL_SEED = 7  # mixed_spec seed whose drain freezes PendingFlavors queues
+SMALL_CYCLES_END = 1168  # its drain's length: its fourth queue freezes at the last cycle
 FAIR_SEED = 4  # fair_spec seed: depth 3, weights 0-2000, 133 cycles
 SMALL_CYCLE_SEED = 0  # cycle_spec seed: reservations, preemption, scatters
 SMALL_CYCLES = 24  # its preempting heads re-nominate until then (no evictions)
@@ -267,6 +312,8 @@ STEADY_CYCLES = 30  # the headline run goes on to here: from cycle 24 on, each
 # cycle changes at most N/4 usage rows, so the resident buffer takes row deltas
 SMALL_FAIR_PREEMPT_SEED = 1  # fair_preempt_spec seed: depth 3, weights 0-2000
 SMALL_FAIR_PREEMPT_CYCLES = 32  # its decisions end by cycle 13; stalled heads then spin
+TAS_LOCKSTEP_CYCLES = 160  # tas-drain-10k is held in lockstep over its first 160 of
+# 490 cycles (its main-path run goes all 490 against TAS_DRAIN_EXPECT)
 SMALL_PREEMPT_SEED = 6  # preempt_spec seed: depth 3, three podsets, 65 cycles,
 # within-CQ preemption and cross-CQ reclamation, a stuck queue
 
@@ -295,6 +342,7 @@ SOURCES = {
     "plan_phase2": "kueue_tpu_torch/csrc/plan_phase2.cu",
     "cycle_global": "kueue_tpu_torch/csrc/cycle_global.cu",
     "quota_drs": "kueue_tpu_torch/csrc/quota_drs.cu",
+    "global_rescore": "kueue_tpu_torch/csrc/global_rescore.cu",
 }
 REPLACES = {
     "quota_tree": "kueue_tpu/ops/quota.py:93",
@@ -321,6 +369,7 @@ REPLACES = {
     "plan_phase2": "kueue_tpu/ops/plan_kernel.py:36",
     "cycle_global": "kueue_tpu/ops/assign_kernel.py:343",
     "quota_drs": "kueue_tpu/ops/quota.py:175",
+    "global_rescore": "kueue_tpu/ops/global_kernel.py:115",
 }
 
 
@@ -2516,14 +2565,15 @@ def tas_path(dev) -> dict:
     plain = {}
     t0 = time.perf_counter()
     _, state, cyc = lockstep_tas(*inp.solve_args(), errs, label="tas-drain-10k",
-                                 plain_ms=plain)
-    if cyc != pt.TAS_DRAIN_EXPECT["cycles"]:
+                                 plain_ms=plain, stop_after=TAS_LOCKSTEP_CYCLES)
+    if cyc != TAS_LOCKSTEP_CYCLES:
         fail(f"tas-drain-10k lockstep ran {cyc} cycles")
     shape = (f"Q={inp.plan.queues_np['cells'].shape[0]} L={inp.plan.queues_np['cells'].shape[1]}"
              f" Lf={inp.topo.free.shape[0]} Rt={inp.topo.free.shape[1]} "
              f"n_domains={inp.n_domains} n_steps={inp.n_steps}")
-    print(f"{stamp()} TAS drain lockstep at tas-drain-10k ({shape}): {cyc} cycles, "
-          f"{int((state.adm_cycle >= 0).sum())} admitted; every launch of "
+    print(f"{stamp()} TAS drain lockstep at tas-drain-10k ({shape}): the first {cyc} of "
+          f"{pt.TAS_DRAIN_EXPECT['cycles']} cycles, {int((state.adm_cycle >= 0).sum())} admitted "
+          f"by then; every launch of "
           f"{sorted(TAS_DRAIN_KERNELS)} bit-exact ({time.perf_counter() - t0:.1f} s)")
     s_inp = inputs(small)
     _, s_state, s_cyc = lockstep_tas(*s_inp.solve_args(), errs, label="tas small")
@@ -3190,13 +3240,17 @@ def mesh_path(dev, cache, pending, walls) -> dict:
     for name in _build.SHARDED_CYCLE_KERNELS:
         if by_path["sharded_cycle"][name] <= 0:
             fail(f"kernel {name} was not launched by ShardedSolver")
-    # ... held to B3 (the segmented solve on the same heads) and to
-    # solve_cycle_plain on the card, cycle by cycle
+    # ... held to B3 (the segmented solve on the same heads) at every
+    # cycle, and to solve_cycle_plain on the card at the first, a middle
+    # and the last cycle
     t0 = time.perf_counter()
     err = 0
+    plain_at = {0, len(store) // 2, len(store) - 1}
     for i, (s, (rows, usage)) in enumerate(zip(store, results)):
         if not (torch.equal(rows, s.packed.cpu()) and torch.equal(usage, s.usage.cpu())):
             fail(f"B3' at headline cycle {i + 1} differs from B3 on the same heads")
+        if i not in plain_at:
+            continue
         p = ak.solve_cycle_plain(s.tree, s.local, s.heads, s.paths)
         prow = torch.stack([p.chosen.long(), p.admitted.long(), p.borrows.long(),
                             p.reserved.long(), p.order.long()]).cpu()
@@ -3209,7 +3263,8 @@ def mesh_path(dev, cache, pending, walls) -> dict:
     print(f"{stamp()} ShardedSolver(make_mesh(1, 'cuda')) at the {len(store)} headline cycles "
           f"(W={store[0].heads.cq_row.shape[0]}, N={store[0].tree.n_nodes}, "
           f"FR={store[0].tree.nominal.shape[1]}): packed rows and usage tree bit-exact to B3's on "
-          f"the same heads and to solve_cycle_plain on the card "
+          f"the same heads, and to solve_cycle_plain on the card at cycles "
+          f"{sorted(i + 1 for i in plain_at)} "
           f"({time.perf_counter() - t0:.1f} s); launches "
           f"{json.dumps({k: v for k, v in by_path['sharded_cycle'].items() if v})}")
 
@@ -3304,8 +3359,8 @@ def mesh_path(dev, cache, pending, walls) -> dict:
           f"{drs_timer.uncovered} uncovered")
 
     # 13c. every drain's mesh= path on the one-card mesh, counters reset
-    # before each, its constant asserted, its wall (median of 3) beside
-    # the unsharded wall of its earlier phase
+    # before it, its constant asserted, its wall (one run) beside the
+    # unsharded wall of its earlier phase
     mc = headline.HEADLINE_MAX_CELLS
     cenv, fenv, tenv = walls["contended_env"], walls["fair_preempt_env"], walls["tas_env"]
 
@@ -3345,30 +3400,26 @@ def mesh_path(dev, cache, pending, walls) -> dict:
     }
     mesh_walls = {}
     for label, (snap_of, run, summarize, expect, kernels, plain_wall) in drains.items():
-        ts, out = [], None
-        for rep in range(3):
-            snap = snap_of()
-            if rep == 0:
-                _build.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = run(snap)
-            ts.append(time.perf_counter() - t0)
-            if rep == 0:  # the main path's run: counted and checked
-                by_path[label], out = _build.launch_counts(), res
+        snap = snap_of()
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(snap)
+        wall = time.perf_counter() - t0
+        by_path[label] = _build.launch_counts()
         summary = summarize(out)
         if summary != expect:
             fail(f"{label}: {summary} != expected {expect}")
         for name in kernels:
             if by_path[label][name] <= 0:
                 fail(f"kernel {name} was not launched by {label}")
-        mesh_walls[label] = {"mesh_ms": float(np.median(ts)) * 1e3, "unsharded_ms": plain_wall}
+        mesh_walls[label] = {"mesh_ms": wall * 1e3, "unsharded_ms": plain_wall}
         extra = ""
         if label == "mesh_preempt":
             extra = (f"; panel schedule {json.dumps(harness.last_panel_schedule())}, canary "
                      f"verdicts {json.dumps({str(k[1]): v for k, v in harness.probe_verdicts().items()})}")
         print(f"{stamp()} {label} on make_mesh(1, 'cuda'): {json.dumps(summary)}; wall "
-              f"(median of 3) {mesh_walls[label]['mesh_ms']:.1f} ms beside {plain_wall:.1f} ms "
+              f"(one run) {mesh_walls[label]['mesh_ms']:.1f} ms beside {plain_wall:.1f} ms "
               f"without the mesh{extra}")
     verdicts = harness.probe_verdicts()
     if not verdicts or not all(verdicts.values()):
@@ -3402,6 +3453,332 @@ def mesh_path(dev, cache, pending, walls) -> dict:
 
 
 # ---- main ---------------------------------------------------------------
+
+
+# ---- the runtime and the federation (phase 14) -----------------------------
+
+
+B15_CELLS = {"rescore-65k-64": (65_536, 64, 915), "rescore-1k-4096": (1024, 4096, 916)}
+
+
+def b15_bytes(w: int, c: int) -> int:
+    """Bytes B15 must move: tta, score and valid per pair, current and
+    rotation per row, degraded per column in; best (int32), best_key,
+    gain (int64) and rebalance (bool) per row out."""
+    return w * c * 17 + w * 8 + c + w * 21
+
+
+def b15_case_inputs() -> list:
+    """The CPU tests' B15 cases (tests/test_torch_global_kernel.py), as
+    rescore_pairs keyword arguments."""
+    from kueue_tpu_torch.ops.global_kernel import TTA_CAP_MS
+    from kueue_tpu_torch.perf.cases import rescore_fleet
+
+    out = []
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        out += [rescore_fleet(rng) for _ in range(12)]
+    for seed in range(4):
+        rng = np.random.default_rng(100 + seed)
+        for _ in range(10):
+            c = int(rng.integers(2, 9))
+            out.append(rescore_fleet(rng, w=int(rng.integers(1, 12)), c=c,
+                                     n_degraded=int(rng.integers(0, c + 1))))
+    for seed in range(4):
+        rng = np.random.default_rng(200 + seed)
+        out += [rescore_fleet(rng, wide_rotation=True, current_past=True,
+                              n_degraded=1 if i % 2 else None) for i in range(10)]
+    corner = dict(tta_ms=np.full((2, 4096), TTA_CAP_MS, np.int64),
+                  score=np.full((2, 4096), -(2**21), np.int64),
+                  valid=np.zeros((2, 4096), bool), current=np.array([0, 4095], np.int32),
+                  rotation=np.zeros(2, np.int32), hysteresis_ms=0)
+    corner["valid"][1, 4095] = True
+    ties = dict(tta_ms=np.array([[100, 100, 50], [100, 100, 100], [100, 100, 100]], np.int64),
+                score=np.array([[5, 9, 0], [5, 9, 0], [0, 0, 0]], np.int64),
+                valid=np.ones((3, 3), bool), current=np.zeros(3, np.int32),
+                rotation=np.array([0, 0, 2], np.int32), hysteresis_ms=0)
+    hyst = dict(tta_ms=np.array([[100_000, 0]], np.int64), score=np.zeros((1, 2), np.int64),
+                valid=np.ones((1, 2), bool), current=np.array([0], np.int32),
+                rotation=np.array([0], np.int32))
+    out += [corner, ties, {**hyst, "hysteresis_ms": 100_000}, {**hyst, "hysteresis_ms": 99_999}]
+    return out
+
+
+@contextlib.contextmanager
+def b15_lockstep(errs: dict, plain_ms: list, seen: list):
+    """Every B15 launch on the card (``rescore_packed``, which
+    ``rescore_pairs`` calls) held bit-exact to ``rescore_plain`` on the
+    same inputs; the plain version's ms and each launch's inputs are
+    kept. The compare calls launch nothing."""
+    import torch
+
+    from kueue_tpu_torch.ops import global_kernel as gk
+
+    real = gk.rescore_packed
+
+    def checked(*args):
+        out = real(*args)
+        if args[0].is_cuda:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = gk.rescore_plain(*args)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            if not torch.equal(out, plain):
+                bad = int((out != plain).sum().item())
+                errs["global_rescore"] = max(errs.get("global_rescore", 0), bad)
+                fail(f"B15 at W={out.shape[1]} C={args[0].shape[1]}: {bad} packed "
+                     "values differ from rescore_plain")
+            seen.append(args)
+        return out
+
+    gk.rescore_packed = checked
+    try:
+        yield
+    finally:
+        gk.rescore_packed = real
+
+
+def b15_time(timer, args, reps: int) -> None:
+    """``reps`` launches of B15 on ``args``, each timed alone."""
+    from kueue_tpu_torch.ops import global_kernel as gk
+
+    w, c = args[0].shape
+    for _ in range(reps):
+        timer("global_rescore", lambda: gk.rescore_packed(*args), None)
+        timer.add_bytes({"global_rescore": [b15_bytes(w, c)]})
+
+
+def b15_plain_ms(args, reps: int = 3) -> float:
+    import torch
+
+    from kueue_tpu_torch.ops import global_kernel as gk
+
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gk.rescore_plain(*args)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.mean(ms))
+
+
+def federation_path(dev) -> dict:
+    """14a and 14b: B15 in lockstep at the test cases and the two wide
+    cells, timed there; the federation at bench.py's 50-worker stage on
+    the card, its B15 launches counted, held and then timed."""
+    import torch
+
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.ops import global_kernel as gk
+    from kueue_tpu_torch.ops import global_np as gnp
+    from kueue_tpu_torch.perf import multikueue as pmk
+    from kueue_tpu_torch.perf.cases import rescore_fleet
+
+    errs = {"global_rescore": 0}
+    plain_ms, seen = [], []
+    # a. the test cases through the entry point, each equal to the mirror
+    cases_ = b15_case_inputs()
+    with b15_lockstep(errs, plain_ms, seen):
+        for i, a in enumerate(cases_):
+            got = gk.rescore_pairs(**a, device=dev)
+            ref = gnp.rescore_np(**a)
+            for f in ("best", "best_key", "gain_ms", "rebalance"):
+                if not np.array_equal(getattr(got, f), getattr(ref, f)):
+                    fail(f"B15 case {i}: {f} differs from global_np.rescore_np")
+    n_case_launches = len(seen)
+    print(f"{stamp()} B15 at the CPU tests' {len(cases_)} cases: {n_case_launches} launches "
+          f"bit-exact to rescore_plain, every result equal to global_np.rescore_np")
+
+    cells = {}
+    for label, (w, c, seed) in B15_CELLS.items():
+        a = rescore_fleet(np.random.default_rng(seed), w=w, c=c, invalid=0.25, n_degraded=4)
+        seen.clear()
+        with b15_lockstep(errs, plain_ms, seen):
+            got = gk.rescore_pairs(**a, device=dev)
+        ref = gnp.rescore_np(**a)
+        for f in ("best", "best_key", "gain_ms", "rebalance"):
+            if not np.array_equal(getattr(got, f), getattr(ref, f)):
+                fail(f"B15 at {label}: {f} differs from global_np.rescore_np")
+        args = gk.rescore_inputs(a["tta_ms"], a["score"], a["valid"], a["current"],
+                                 a["rotation"], a["degraded"], dev) + (
+            a["hysteresis_ms"], a["degraded_penalty_ms"])
+        timer = TimedLaunches()
+        b15_time(timer, args, 20)
+        t = timing_of(timer, "global_rescore", {"global_rescore": [b15_plain_ms(args)]})
+        t["shape"] = f"W={w} C={c}"
+        t["rebalance_rows"] = int(got.rebalance.sum())
+        t["uncovered"] = timer.uncovered
+        cells[label] = t
+        print(f"{stamp()} B15 at {label} (W={w} C={c}, 25% invalid, 4 degraded): "
+              f"bit-exact; {t['ms'] * 1e3:.2f} us/launch on the device (mean of "
+              f"{t['timed']}), plain {t['plain_ms']:.3f} ms, bound {t['bound_ms'] * 1e3:.2f} us "
+              f"({t['bytes']:.0f} B) = {100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
+
+    # b. the federation at bench.py's stage, every runtime on the card
+    reports, fed_args = [], []
+    with b15_lockstep(errs, plain_ms, fed_args):
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = pmk.run_federation_scale(n_workers=50, device=dev,
+                                       on_scheduler=pmk.record_rescores(reports))
+        torch.cuda.synchronize()
+        fed_wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+    summary = pmk.fed_scale_summary(res)
+    digest = pmk.rebalance_digest(reports)
+    with_rows = [r for r in reports if r["pending"]]
+    print(f"{stamp()} federation-50 on cuda: {json.dumps(summary)}; rescore passes with rows "
+          f"at {[r['pending'] for r in with_rows]}, paths {[r['path'] for r in reports]}; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if summary != pmk.FED_SCALE_EXPECT:
+        fail(f"federation-50 {summary} != FED_SCALE_EXPECT {pmk.FED_SCALE_EXPECT}")
+    if digest != pmk.FED_REBALANCE_DIGEST:
+        fail(f"federation-50 rebalance digest {digest} != {pmk.FED_REBALANCE_DIGEST}")
+    if tuple(r["pending"] for r in with_rows) != pmk.FED_RESCORE_PENDING:
+        fail(f"federation-50 rescored {[r['pending'] for r in with_rows]} pending rows")
+    if any(r["path"] != "device" for r in with_rows):
+        fail("a federation rescore with pending rows did not take the device path")
+    if launches["global_rescore"] != len(pmk.FED_RESCORE_PENDING):
+        fail(f"B15 launched {launches['global_rescore']} times on the federation path")
+    timer = TimedLaunches()
+    fed_plain = []
+    for args in fed_args:
+        b15_time(timer, args, 10)
+        fed_plain.append(b15_plain_ms(args))
+    timing = timing_of(timer, "global_rescore", {"global_rescore": fed_plain})
+    print(f"{stamp()} federation-50 wall {fed_wall * 1e3:.1f} ms (virtual "
+          f"{res.virtual_s} s, {res.passes} passes); fan-out pass {res.fanout_pass_ms:.1f} ms; "
+          f"a rescore pass: aggregate {res.aggregate_ms_per_cycle:.3f} ms, rescore "
+          f"{res.rescore_ms_per_cycle:.3f} ms (mean of {res.rescore_passes}); B15 on the "
+          f"federation's own {len(fed_args)} inputs (W x C = "
+          f"{[tuple(a[0].shape) for a in fed_args]}): {timing['ms'] * 1e3:.2f} us/launch, "
+          f"plain {timing['plain_ms']:.3f} ms, bound {timing['bound_ms'] * 1e3:.4f} us")
+    return {
+        "errs": errs, "launches": launches, "timing": timing, "cells": cells,
+        "case_launches": n_case_launches,
+        "fed": {"wall_ms": fed_wall * 1e3, "summary": summary, "digest": digest,
+                "fanout_pass_ms": res.fanout_pass_ms,
+                "aggregate_ms_per_pass": res.aggregate_ms_per_cycle,
+                "rescore_ms_per_pass": res.rescore_ms_per_cycle,
+                "rescore_pending": [r["pending"] for r in with_rows]},
+    }
+
+
+def _drain_spans(rt) -> dict:
+    """The drain traces' span seconds summed by name, in ms."""
+    out = {}
+    for t in rt.scheduler.last_traces:
+        if t.resolution != "drain":
+            continue
+        for k, v in t.spans.items():
+            out[k] = out.get(k, 0.0) + v * 1e3
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def runtime_stage(dev, label: str, seed: int, chunk: int, modes, expect: dict) -> dict:
+    """One bench.py drain-loop stage on the card: each mode built from
+    the same seed, its kernels' counters reset before its one
+    ``bulk_drain`` and read after; every mode must give ``expect``."""
+    from kueue_tpu_torch.ops import _build
+    from kueue_tpu_torch.perf import runtime as prt
+
+    out = {}
+    for mode, mega in modes:
+        t0 = time.perf_counter()
+        rt = prt.build_drain_loop_rt(mode, seed, chunk=chunk, megaloop=mega, device=dev)
+        build_s = time.perf_counter() - t0
+        _build.reset_launches()
+        wall = prt.drain_once(rt)
+        launches = _build.launch_counts()
+        summary = prt.admitted_summary(rt)
+        health = rt.guard.health()
+        name = f"{mode}" + (f"+megaloop{mega}" if mega != "off" else "")
+        p, m = rt.pipeline.to_dict(), rt.megaloop.to_dict()
+        dispatches = m["launches"] if mega != "off" else p["rounds"]
+        print(f"{stamp()} {label} {name}: {json.dumps(summary)}; wall {wall * 1e3:.1f} ms "
+              f"(build {build_s:.1f} s), {dispatches} dispatches; pipeline {json.dumps(p)}; "
+              f"megaloop {json.dumps(m)}; drain spans (ms) {json.dumps(_drain_spans(rt))}; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        if summary != expect:
+            fail(f"{label} {name}: {summary} != {expect}")
+        if health["failovers"] or health["breaker"] != "closed" or health["deadlineBreaches"]:
+            fail(f"{label} {name}: the guard failed over or breached: {health}")
+        kernels = ("quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion")
+        if mega != "off":
+            kernels += ("megaloop_boundary",)
+        for k in kernels:
+            if launches[k] <= 0:
+                fail(f"{label} {name}: kernel {k} was not launched")
+        if mode == "on" and mega == "off" and (p["rounds"] < 2 or p["prefetches"] < 1):
+            fail(f"{label} pipelined: {p['rounds']} rounds, {p['prefetches']} prefetches")
+        if mega != "off" and m["launches"] < 1:
+            fail(f"{label} {name}: no fused launch")
+        out[name] = {"wall_ms": wall * 1e3, "build_s": build_s, "dispatches": dispatches,
+                     "pipeline": p, "megaloop": m, "spans_ms": _drain_spans(rt),
+                     "launches": launches}
+        del rt
+    return out
+
+
+def runtime_path(dev) -> dict:
+    """14c: the runtime's drain loops at bench.py's pipeline and
+    megaloop stages."""
+    from kueue_tpu_torch.perf import runtime as prt
+
+    pipe = runtime_stage(dev, "runtime-drain-50k", prt.stage_seed(13), prt.PIPELINE_CHUNK,
+                         (("serial", "off"), ("on", "off")), prt.RUNTIME_DRAIN_EXPECT)
+    mega = runtime_stage(dev, "runtime-megaloop-50k", prt.stage_seed(17), prt.MEGALOOP_CHUNK,
+                         (("serial", "off"), ("on", "off"), ("on", prt.MEGALOOP_K)),
+                         prt.RUNTIME_MEGALOOP_EXPECT)
+    s, m = mega["serial"], mega[f"on+megaloop{prt.MEGALOOP_K}"]
+    if m["megaloop"]["rounds"] != s["pipeline"]["rounds"]:
+        fail(f"megaloop committed {m['megaloop']['rounds']} rounds, serial ran "
+             f"{s['pipeline']['rounds']}")
+    # the sampled divergence check on the card (off in the stages, as
+    # bench.py sets it): every committed round of a pipelined and a
+    # fused drain replayed on the numpy mirror, which would raise
+    checks = {}
+    for label, mega_k in (("pipelined", "off"), ("megaloop", "4")):
+        rt = prt.build_drain_loop_rt("on", 5, chunk=4, megaloop=mega_k, device=dev, n_cq=32,
+                                     wl_per_cq=14, n_flavors=2, n_cohort=4)
+        rt.guard.config.divergence_check_every = 1
+        rt.run_until_idle()
+        health = rt.guard.health()
+        if not health["divergenceChecks"] or health["divergences"] or health["failovers"]:
+            fail(f"sampled divergence {label}: {health}")
+        checks[label] = health["divergenceChecks"]
+    print(f"{stamp()} sampled divergence on the card (32 CQs x 14 workloads, chunk 4): "
+          f"{json.dumps(checks)} rounds replayed on the numpy mirror, none differs")
+    return {"runtime-drain-50k": pipe, "runtime-megaloop-50k": mega}
+
+
+def trap_path() -> dict:
+    """14d: a trapping B15 and a trapping drain kernel, each in a
+    process of its own, must raise KernelError out of their loops."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from kueue_tpu_torch.perf import trap
+
+    runs = (("global_rescore", trap.RESCORE_RUN), ("drain_nominate", trap.DRAIN_RUN))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(len(runs)) as pool:
+        # the two processes run side by side, each on the card
+        futures = {kernel: pool.submit(trap.run_trapped, kernel, script, Path(tmp) / kernel)
+                   for kernel, script in runs}
+        results = {kernel: f.result() for kernel, f in futures.items()}
+    wall = time.perf_counter() - t0
+    for kernel, run in results.items():
+        if run.returncode != 0 or not run.stdout.startswith("KernelError True"):
+            fail(f"a trapping {kernel} was not raised out of its loop: "
+                 f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+        print(f"{stamp()} a trapping {kernel} raised out of its loop "
+              f"({run.stdout.strip()[:160]})")
+    print(f"{stamp()} the two trapped runs side by side: {wall:.1f} s")
+    return {"wall_s": wall}
 
 
 def main() -> int:
@@ -3485,8 +3862,9 @@ def main() -> int:
     shape = tuple(s_plan.queues_np["cells"].shape)
     print(f"{stamp()} lockstep small case: cells {shape} D={s_tree.max_depth} "
           f"{s_cyc} cycles, {n_stuck} stuck queues, bit-exact")
-    if shape[2] != 3 or s_tree.max_depth != 3 or n_stuck == 0:
-        fail("the small case lost its coverage (P=3, depth 3, stuck queues)")
+    if shape[2] != 3 or s_tree.max_depth != 3 or n_stuck != 4 or s_cyc != SMALL_CYCLES_END:
+        fail("the small case lost its coverage (P=3, depth 3, four stuck queues, "
+             f"{SMALL_CYCLES_END} cycles)")
 
     # 2c. every launch of the headline drain timed on the device
     t_cyc, dtimer = timed_drain(ctx0, local, queues)
@@ -3618,7 +3996,20 @@ def main() -> int:
     }
     meshr = mesh_path(dev, cache, pending, walls)
 
-    # 14. result lines
+    # 14. the runtime's drain loops and the federation (kernel B15), after
+    # dropping the earlier phases' clusters and freezing what stays, so
+    # the garbage collector does not rescan them in phase 14's host loops
+    for res in (pdrain, fdrain, tasr):
+        res.pop("env", None)
+    cyc.pop("records", None)
+    del cache, pending, walls, snap, s_snap, s_plan, s_cache, s_pending, outcome
+    gc.collect()
+    gc.freeze()
+    fedr = federation_path(dev)
+    rtr = runtime_path(dev)
+    trapr = trap_path()
+
+    # 15. result lines
     by_path = {
         "drain": drain_launches, "megaloop": mega["launches"], "fair": fairr["launches"],
         "cycle_headline": cycle_launches, "cycle_small": small_launches,
@@ -3631,6 +4022,9 @@ def main() -> int:
         "policy_first_fit": pol["launches"]["first_fit"],
         "policy_gavel": pol["launches"]["gavel"],
         **meshr["launches"],
+        "federation": fedr["launches"],
+        **{f"{stage}/{mode}": r["launches"] for stage, modes in rtr.items()
+           for mode, r in modes.items()},
     }
     kernels = []
     for name in _build.KERNELS:
@@ -3658,6 +4052,9 @@ def main() -> int:
             t, lib = plan["cells"]["planner-sweep-50k"]["timing"][name], None
         elif name in ("cycle_global", "quota_drs"):
             t, lib = meshr["timing"][name], None
+        elif name == "global_rescore":
+            # the main path's entry: the federation's own B15 inputs
+            t, lib = fedr["timing"], None
         else:
             t, lib = ctiming[name], library.get(name)
         entry = {
@@ -3671,7 +4068,8 @@ def main() -> int:
                                                          pcyc["errs"], pdrain["errs"],
                                                          fcyc["errs"], fdrain["errs"],
                                                          tasr["errs"], plan["errs"],
-                                                         pol["errs"], meshr["errs"])),
+                                                         pol["errs"], meshr["errs"],
+                                                         fedr["errs"])),
             "ms": t["ms"],
             "device_ms_total": t["device_ms_total"],
             "host_ms": t["host_ms"],
@@ -3704,11 +4102,16 @@ def main() -> int:
         if name.startswith("plan_"):
             st = plan["cells"]["planner-stage-500"]["timing"][name]
             entry["at_planner_stage"] = {k: st[k] for k in ("ms", "plain_ms", "bound_ms")}
+        if name == "global_rescore":
+            entry["at_cells"] = {label: {k: c[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                           "bytes", "timed")}
+                                 for label, c in fedr["cells"].items()}
+            entry["case_launches"] = fedr["case_launches"]
         if name == "cycle_global":
             b3 = meshr["b3_same_heads"]
             entry["b3_same_heads"] = {k: b3[k] for k in ("ms", "bound_ms", "bytes")}
         kernels.append(entry)
-    if len(kernels) != 24:
+    if len(kernels) != 25:
         fail(f"{len(kernels)} kernels in the result line")
     print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
@@ -3745,7 +4148,12 @@ def main() -> int:
                       "mesh": {"walls_ms": meshr["walls"],
                                "sharded_solve_ms": meshr["sharded_solve_ms"],
                                "drs": meshr["drs"], "buckets": meshr["buckets"],
-                               "place_s": meshr["place_s"]}}))
+                               "place_s": meshr["place_s"]},
+                      "federation": fedr["fed"],
+                      "runtime": {stage: {mode: {k: v for k, v in r.items() if k != "launches"}
+                                          for mode, r in modes.items()}
+                                  for stage, modes in rtr.items()},
+                      "trap_s": trapr}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -47,6 +47,7 @@ import numpy as np
 
 from kueue_tpu_torch.models import ResourceFlavor, Workload
 from kueue_tpu_torch.core.snapshot import Snapshot
+from kueue_tpu_torch.ops import _build
 from kueue_tpu_torch.core.solver import (
     MultiLowered,
     _bucket,
@@ -2034,7 +2035,7 @@ class DrainLaunch:
     max_cycles: Optional[int] = None
 
     def fetch(self) -> DrainOutcome:
-        flat = self.flat_dev.cpu().numpy()  # the single fetch
+        flat = _build.fetch(self.flat_dev, "the drain")  # the single fetch
         nq, nl, npd = self.queues_np["cells"].shape[:3]  # incl. padding
         ql = nq * nl
         qlp = nq * nl * npd
@@ -2249,6 +2250,7 @@ def run_drain(
     policy=None,
     now: float = 0.0,
     device=None,
+    use_device: bool = True,
 ) -> DrainOutcome:
     """Plan + solve + map back, with one device-to-host copy.
 
@@ -2262,7 +2264,17 @@ def run_drain(
     (kueue_tpu_torch/policy) scores the flavor candidates and boosts
     priorities at ``now``. ``mesh`` (a ``parallel`` Mesh over one
     device) pads the queues to a multiple of its ``wl`` axis and places
-    them on it; a mesh over several devices raises NotImplementedError."""
+    them on it; a mesh over several devices raises NotImplementedError.
+
+    ``use_device=False`` solves the identical plan on the numpy host
+    mirror (ops/drain_np.solve_drain_np), bit-for-bit the same
+    decisions: the runtime's sampled divergence check. Plain scope
+    only."""
+    if not use_device:
+        return _run_drain_np(
+            snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+            max_cycles, mesh, fair_sharing, policy, now,
+        )
     return launch_drain(
         snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
         max_cycles=max_cycles, mesh=mesh, policy=policy, now=now, device=device,
@@ -2338,7 +2350,7 @@ class MegaloopLaunch:
         return self.flat_dev[off : off + n * fr].reshape((n, fr))
 
     def fetch(self) -> MegaloopLog:
-        flat = self.flat_dev.cpu().numpy()  # the single fetch
+        flat = _build.fetch(self.flat_dev, "the megaloop")  # the single fetch
         q, l, p = self.queues_np["cells"].shape[:3]
         n, fr = self.usage_shape
         rr = self.max_rounds
@@ -2438,6 +2450,45 @@ def _map_megaloop_rounds(
         prev_cursor = cursor_r.astype(np.int64).copy()
         prev_dead = prev_dead | stuck_r
     return rounds
+
+
+def _run_drain_np(snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+                  max_cycles, mesh, fair_sharing, policy, now) -> DrainOutcome:
+    """``run_drain(use_device=False)``: the plan solved by the numpy
+    mirror, no tensor anywhere."""
+    from kueue_tpu_torch.core.encode import encode_snapshot
+    from kueue_tpu_torch.ops.assign_kernel import build_paths
+    from kueue_tpu_torch.ops.drain_np import solve_drain_np
+
+    if fair_sharing or mesh is not None:
+        raise ValueError(
+            "use_device=False covers the plain drain only (no fair "
+            "tournament, no mesh sharding)"
+        )
+    plan = plan_drain(
+        snapshot, pending, flavors, max_candidates, max_cells, timestamp_fn,
+        policy=policy, now=now,
+    )
+    if max_cycles is not None:
+        plan.max_cycles = max_cycles
+    enc = encode_snapshot(snapshot)
+    host = solve_drain_np(
+        enc.parent,
+        enc.level_mask,
+        enc.nominal.astype(np.int64, copy=False),
+        enc.lending_limit.astype(np.int64, copy=False),
+        enc.borrowing_limit.astype(np.int64, copy=False),
+        enc.local_usage.astype(np.int64, copy=False),
+        plan.queues_np,
+        build_paths(enc.parent, enc.max_depth),
+        enc.max_depth,
+        plan.max_cycles,
+    )
+    return _map_drain_result(
+        plan, host.admitted_k, host.admitted_cycle, host.cursor, host.stuck,
+        int(host.cycles), plan.queues_np, extra_fb_entries=[],
+        final_usage=np.asarray(host.local_usage),
+    )
 
 
 def launch_drain_megaloop(

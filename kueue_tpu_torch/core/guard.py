@@ -31,15 +31,22 @@ device path has a containment story here:
   journal, and re-admitted to nomination after a TTL or ``kueuectl
   quarantine clear``.
 
-In the port, a ``KernelError`` (one of its hand-written kernels could
-not be built, refused its input or failed to launch) is never
-contained: failing over would move the cycle's work to the host while
-the card sits idle, so it propagates out of the guard and the
-Scheduler.
-
 Fault points (testing/faults.py registry): ``solver.device_raise``,
 ``solver.device_hang``, ``solver.device_wrong_answer``,
 ``cycle.phase_deadline`` drive the chaos suite in tests/test_guard.py.
+
+In the port, a ``KernelError`` (one of its hand-written kernels could
+not be built, refused its input or failed to launch) is never contained:
+failing over would move the cycle's work to the host while the card
+sits idle, so it propagates out of ``device_call`` and the Scheduler.
+The runtime's drain rounds (``device_launch``/``device_join``) contain
+only the injected device faults of ``testing/faults``: anything else
+their launch or fetch raises (a ``KernelError``, a failed CUDA call, an
+out-of-memory, a torch op's error in lowering or upload) leaves the
+guard and the drain loop. A round that answers past its deadline is
+counted against the breaker as in the reference, but its answer is
+kept, and a sampled round that differs from the numpy mirror raises
+``KernelError`` naming the fields: no drain round is handed to the host.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from kueue_tpu_torch.utils.clock import Clock
 
 
 # ---- host mirror of the cycle batch solve ----
+
 def solve_lowered_host(snapshot, lowered):
     """Pure-numpy solve of an already-lowered cycle heads batch — the
     HOST AUTHORITY twin of core/solver.dispatch_lowered.
@@ -354,6 +362,97 @@ class GuardConfig:
 
 
 @dataclass
+class DeviceLaunch:
+    """One guarded ASYNC device dispatch (the pipelined drain's
+    prefetch window): the unfetched handle plus the deadline clock's
+    start. ``failed=True`` means an injected device fault was contained
+    at the launch — the matching join returns an empty GuardOutcome.
+    ``deadline_s`` overrides the config deadline for THIS launch (the
+    megaloop legitimately runs K rounds of device work in one
+    dispatch, so its budget scales with K — the deadline still covers
+    the whole launch→fetch window)."""
+
+    handle: object = None
+    t0: float = 0.0
+    t0_wall: float = 0.0
+    label: str = ""
+    failed: bool = False
+    deadline_s: Optional[float] = None
+
+
+class RoundsTuner:
+    """Online rounds-per-launch (K) search for the megaloop — the
+    PanelTuner's sibling: per-workload-mix coordinate descent
+    (arXiv:2406.20037) reduced to the one live coordinate, the fused
+    round count.
+
+    The trade: a bigger K amortizes the fixed dispatch round trip over
+    more drain rounds, but every round past a conflict-check mismatch
+    (host interference, stuck queues, structural fallback re-entering
+    the backlog) is wasted device work — the host truncates the batch
+    there and re-solves from the real state. So per backlog-size
+    bucket the tuner walks the K ladder: a launch whose batch
+    truncated early shrinks K; ``grow_after`` consecutive launches
+    that committed every round and STILL had work left grow it. State
+    only ever changes how many rounds one launch fuses — the per-round
+    conflict-check contract makes every K equally correct."""
+
+    LADDER = (2, 4, 8, 16, 32, 64)
+
+    def __init__(self, default_k: int = 8, grow_after: int = 2):
+        self.default_k = default_k
+        self.grow_after = grow_after
+        self._k: Dict[int, int] = {}  # backlog bucket -> current K
+        self._clean: Dict[int, int] = {}  # consecutive exhausted-clean
+        self.launches = 0
+        self.truncations = 0
+
+    @staticmethod
+    def _bucket(backlog: int) -> int:
+        b = 256
+        while b < backlog:
+            b *= 4
+        return b
+
+    def k_for(self, backlog: int) -> int:
+        """The fused round count for a launch over ``backlog`` heads."""
+        return self._k.get(self._bucket(backlog), self.default_k)
+
+    def observe(self, backlog: int, committed: int, truncated: bool) -> None:
+        """One finished launch: ``committed`` rounds shipped, and
+        ``truncated`` when a conflict-check mismatch cut the batch
+        before the device's log ran out."""
+        self.launches += 1
+        b = self._bucket(backlog)
+        k = self._k.get(b, self.default_k)
+        if truncated:
+            self.truncations += 1
+            self._clean[b] = 0
+            # shrink: don't compute rounds the host will discard; keep
+            # at least the smallest rung (K=1 would be the pipeline)
+            down = [w for w in self.LADDER if w < k]
+            self._k[b] = max(down) if down else self.LADDER[0]
+        elif committed >= k:
+            # the whole batch shipped and work remained: a taller
+            # launch would have amortized more
+            n = self._clean.get(b, 0) + 1
+            self._clean[b] = n
+            up = [w for w in self.LADDER if w > k]
+            if n >= self.grow_after and up:
+                self._k[b] = min(up)
+                self._clean[b] = 0
+        else:
+            self._clean[b] = 0
+
+    def to_dict(self) -> dict:
+        return {
+            "launches": self.launches,
+            "truncations": self.truncations,
+            "k": {str(b): k for b, k in sorted(self._k.items())},
+        }
+
+
+@dataclass
 class GuardOutcome:
     """One guarded batch solve: the result (None = both paths failed —
     callers fall back to per-head host assignment), which path produced
@@ -367,12 +466,11 @@ class GuardOutcome:
 
 class SolverGuard:
     """Owns the breaker, the divergence sampler and the failure
-    bookkeeping of the interactive cycle's batch solve (``solve``, over
-    ``device_call``). Hooks (events / metrics / journal) are wired by
-    the owner; a bare Scheduler gets a hookless guard that still
-    contains failures. The port's bulk drain does not run under the
-    guard yet, so the drain-prefetch and megaloop surfaces of the
-    reference come with the slices that call them (ROADMAP A4)."""
+    bookkeeping for BOTH guarded device surfaces: the interactive cycle
+    batch (``solve``) and the runtime's bulk drain (``device_launch``/
+    ``device_join``/``allow_device``). Hooks (events / metrics / journal) are wired by
+    ClusterRuntime; a bare Scheduler gets a hookless guard that still
+    contains failures."""
 
     def __init__(
         self,
@@ -416,6 +514,10 @@ class SolverGuard:
         self._cycle_t0: Optional[float] = None
         self._cycle_breached = False
         self._mirror_of = solve_lowered_host
+        # online rounds-per-launch (K) tuner for the fused megaloop —
+        # owned here so its verdicts ride the same health/dump surface
+        # as the rest of the solver's self-tuning state
+        self.rounds_tuner = RoundsTuner()
         self._report_path()
 
     # ---- path selection ----
@@ -428,7 +530,16 @@ class SolverGuard:
             return "device"
         return "device" if self.breaker.allow_device() else "host"
 
-    # ---- failure/success bookkeeping ----
+    def allow_device(self) -> bool:
+        """Gate for device-only surfaces with a host twin elsewhere
+        (the bulk drain: its host fallback is the cycle loop)."""
+        if self.config.mode == "host":
+            return False
+        if self.config.mode == "device":
+            return True
+        return self.breaker.allow_device()
+
+    # ---- failure/success bookkeeping shared by both surfaces ----
     def _note_failure(self, reason: str, label: str) -> None:
         self.failovers += 1
         if self.metrics is not None:
@@ -465,7 +576,7 @@ class SolverGuard:
         self.metrics.solver_path.set(1 if path == "device" else 0, path="device")
         self.metrics.solver_path.set(1 if path == "host" else 0, path="host")
 
-    # ---- the guarded device call ----
+    # ---- the guarded device call (shared: cycle dispatch, bulk drain) ----
     def device_call(self, fn: Callable[[], object], label: str) -> GuardOutcome:
         """Run one device launch under exception containment + the
         wall-clock deadline. Returns GuardOutcome with ``result=None``
@@ -514,6 +625,161 @@ class SolverGuard:
         self.device_solves += 1
         self._note_success()
         return GuardOutcome(result=out, via="device", device_dt=dt_wall)
+
+    # ---- the guarded ASYNC device call (pipelined drain prefetch) ----
+    def device_launch(
+        self,
+        fn: Callable[[], object],
+        label: str,
+        deadline_s: Optional[float] = None,
+    ):
+        """Async half of ``device_call``: run the dispatch (which
+        returns an unfetched handle — the launch enqueues on the card
+        and returns) and START the deadline clock. The matching
+        ``device_join`` applies the deadline to the WHOLE launch→fetch
+        window, so a prefetched solve lives under exactly the
+        wall-clock budget a synchronous one does. ``deadline_s``
+        overrides the config budget for this launch — the megaloop's
+        fused K-round dispatch scales it by K while the window still
+        covers the entire launch. Only the injected fault
+        ``solver.device_raise`` is contained (``failed=True``); what the
+        dispatch itself raises leaves the guard."""
+        import time as _time
+
+        t0 = self.clock.now()
+        t0_wall = _time.perf_counter()
+        if not self._injected("solver.device_raise", label):
+            return DeviceLaunch(failed=True, label=label)
+        return DeviceLaunch(
+            handle=fn(), t0=t0, t0_wall=t0_wall, label=label,
+            deadline_s=deadline_s,
+        )
+
+    def device_join(
+        self, launch: "DeviceLaunch", fetch_fn: Callable[[object], object]
+    ) -> GuardOutcome:
+        """Blocking half: fetch the launched result. What the fetch
+        raises leaves the guard; the injected fault
+        ``solver.device_hang`` is contained as in ``device_call``. A
+        fetch past the deadline counts against the breaker as in
+        ``device_call``, but the round keeps the card's answer: it is
+        late, not wrong, and dropping it would hand the round to the
+        host."""
+        import time as _time
+
+        if launch.failed:
+            return GuardOutcome(result=None, via="device")
+        out = fetch_fn(launch.handle)
+        if not self._injected("solver.device_hang", launch.label):
+            return GuardOutcome(result=None, via="device")
+        if self.config.mode == "device":
+            return GuardOutcome(result=out, via="device", device_dt=None)
+        dt_clock = self.clock.now() - launch.t0
+        dt_wall = _time.perf_counter() - launch.t0_wall
+        deadline = (
+            launch.deadline_s
+            if launch.deadline_s is not None
+            else self.config.device_deadline_s
+        )
+        if dt_clock > deadline:
+            self._note_failure(
+                f"{launch.label} exceeded device deadline "
+                f"({dt_clock:.3f}s > {deadline}s)",
+                "deadline",
+            )
+            return GuardOutcome(result=out, via="device", device_dt=dt_wall)
+        self.device_solves += 1
+        self._note_success()
+        return GuardOutcome(result=out, via="device", device_dt=dt_wall)
+
+    def _injected(self, point: str, label: str) -> bool:
+        """Fire the injected device fault ``point`` inside a drain
+        round's guarded window. False when it raised and was contained
+        (a strike on the breaker); in debugging mode it propagates."""
+        from kueue_tpu_torch.testing import faults
+
+        try:
+            faults.fire(point)
+        except faults.InjectedCrash:
+            raise  # simulated power loss must never be contained
+        except Exception as exc:  # noqa: BLE001 — the injected fault IS the point
+            if self.config.mode == "device":
+                raise
+            self._note_failure(f"{label} raised: {exc!r}", "raise")
+            return False
+        return True
+
+    # ---- sampled drain divergence (pipelined rounds) ----
+    def should_sample_drain(self, committed: int) -> bool:
+        """Every K-th COMMITTED prefetched drain round is differentially
+        verified against the numpy drain mirror (K =
+        divergence_check_every, 0 disables) — the PR-5 sampling
+        discipline extended to the prefetched launch surface."""
+        k = self.config.divergence_check_every
+        return bool(k) and committed > 0 and committed % k == 0
+
+    def pick_replay_round(self, n_committed: int) -> int:
+        """Deterministic pseudo-random pick of WHICH committed megaloop
+        round a sampled divergence check replays — a Weyl sequence over
+        the check counter (no host RNG: chaos/property tests must
+        replay identically), uniform over the batch across launches."""
+        if n_committed <= 1:
+            return 0
+        return (self.divergence_checks * 2654435761) % n_committed
+
+    def check_drain_divergence(
+        self,
+        device_sig: dict,
+        host_sig_of: Callable[[], dict],
+        heads: int,
+        surface: str = "drain-prefetch",
+    ) -> None:
+        """Compare a committed drain round's decision signature against
+        the host mirror's (ops/drain_np via run_drain(use_device=False)
+        — bit-for-bit by construction). ``surface`` labels the guarded
+        producer: "drain-prefetch" for pipelined speculative rounds,
+        "drain-megaloop" for a replayed round of a fused launch. A
+        mismatch is a fault of the port's drain on any device: it
+        raises ``KernelError`` naming the differing fields, and the
+        round is neither applied nor re-decided on the host."""
+        import time as _time
+
+        t0 = _time.perf_counter()
+        self.divergence_checks += 1
+        if self.metrics is not None:
+            self.metrics.solver_divergence_checks_total.inc()
+        host_sig = host_sig_of()
+        dt = _time.perf_counter() - t0
+        self.divergence_check_s += dt
+        if self.tracer is not None:
+            self.tracer.add_cycle_span(
+                "cycle.divergence_check", dt,
+                attrs={"surface": surface,
+                       "diverged": host_sig != device_sig},
+            )
+        if host_sig == device_sig:
+            return
+        bad = sorted(
+            k for k in device_sig if device_sig.get(k) != host_sig.get(k)
+        )
+        self.divergences += 1
+        self.last_divergence = {
+            "fields": bad,
+            "surface": surface,
+            "deviceSolves": self.device_solves,
+            "heads": heads,
+        }
+        if self.metrics is not None:
+            self.metrics.solver_divergences_total.inc()
+        self.record_event(
+            "SolverDiverged",
+            f"{surface} solve diverged from the host mirror in {bad}; "
+            "the drain raised",
+        )
+        raise KernelError(
+            f"{surface}: a drain round of {heads} heads differs from the "
+            f"numpy mirror in {bad}"
+        )
 
     # ---- the guarded cycle batch solve ----
     def solve(self, snapshot, lowered, dispatch: Callable[[], object]) -> GuardOutcome:
@@ -632,3 +898,28 @@ class SolverGuard:
             f"scheduling cycle raised and was contained: {exc!r}; heads "
             "requeued, admission continues next cycle",
         )
+
+    # ---- surfaces ----
+    def health(self) -> dict:
+        """The /healthz + dashboard solver detail."""
+        return {
+            "path": self.path,
+            "mode": self.config.mode,
+            "breaker": self.breaker.state,
+            "consecutiveFailures": self.breaker.consecutive_failures,
+            "nextProbeAt": self.breaker.next_probe_at,
+            "lastFailure": self.breaker.last_failure,
+            "deviceSolves": self.device_solves,
+            "failovers": self.failovers,
+            "divergenceChecks": self.divergence_checks,
+            "divergences": self.divergences,
+            "containedCycles": self.contained_cycles,
+            "deadlineBreaches": self.deadline_breaches,
+        }
+
+    @property
+    def degraded(self) -> bool:
+        """True while the circuit is open/quarantined in auto mode —
+        the /healthz "degraded" signal (a forced --solver-path host is
+        an operator choice, not a degradation)."""
+        return self.config.mode == "auto" and self.breaker.state != "closed"

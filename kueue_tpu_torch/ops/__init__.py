@@ -11,9 +11,6 @@ packages equal. ``kueue_tpu_torch.parallel.SHARDED_KERNELS`` names the
 mesh placement entry of a module; every module there is registered
 here, and tests/test_torch_parallel.py lints both registries (every
 name resolves, every file exists).
-
-Still to port: ``global_kernel`` (the federation's global rescore,
-kernel B15), with the federation slice (ROADMAP A5 -> A10).
 """
 
 from __future__ import annotations
@@ -132,5 +129,14 @@ KERNEL_PORTS = {
                  _CSRC + "plan_phase2.cu"),
         kernels=("plan_quota_tree", "plan_phase1", "plan_phase2"),
         tests=("tests/test_torch_plan_kernel.py",),
+    ),
+    "global_kernel": KernelPort(
+        jax=("kueue_tpu.ops.global_kernel:solve_rescore",
+             "kueue_tpu.ops.global_kernel:rescore_pairs"),
+        wrappers=(_OPS + "global_kernel:rescore_packed", _OPS + "global_kernel:rescore_pairs"),
+        plain=(_OPS + "global_kernel:rescore_plain", _OPS + "global_np:rescore_np"),
+        sources=(_CSRC + "global_rescore.cu",),
+        kernels=("global_rescore",),
+        tests=("tests/test_torch_global_kernel.py", "tests/test_torch_federation.py"),
     ),
 }

@@ -47,7 +47,7 @@ KERNELS = (
     "fair_search", "drain_fair_preempt_search", "drain_fair_preempt_phase2",
     "tas_leaf_counts", "drain_tas_place", "drain_tas_phase2",
     "plan_quota_tree", "plan_phase1", "plan_phase2",
-    "cycle_global", "quota_drs",
+    "cycle_global", "quota_drs", "global_rescore",
 )
 # the kernels of each path: the plain drain (ops/drain_kernel.solve_drain),
 # the megaloop (ops/megaloop_kernel.solve_drain_megaloop), the fair drain
@@ -59,8 +59,9 @@ KERNELS = (
 # (core/preempt_batch), the TAS drain (ops/drain_kernel.solve_drain_tas),
 # the TAS snapshot's fleet-size pod counting (tas/snapshot.py), the
 # planner's scenario-batched cycle solve (ops/plan_kernel, kernel B14),
-# the unsegmented cycle of parallel.ShardedSolver (kernel B3') and the
-# fair-sharing reductions over the quota tree (ops/quota, kernel B1')
+# the unsegmented cycle of parallel.ShardedSolver (kernel B3'), the
+# fair-sharing reductions over the quota tree (ops/quota, kernel B1') and
+# the federation's global rescore (ops/global_kernel, kernel B15)
 DRAIN_KERNELS = ("quota_tree", "drain_nominate", "drain_phase2", "drain_queue_motion")
 MEGALOOP_KERNELS = DRAIN_KERNELS + ("megaloop_boundary",)
 FAIR_KERNELS = ("quota_tree", "drain_nominate", "drain_fair_phase2", "drain_queue_motion")
@@ -83,6 +84,7 @@ FAIR_CYCLE_KERNELS = CYCLE_KERNELS + ("fair_search",)
 PLAN_KERNELS = ("plan_quota_tree", "plan_phase1", "plan_phase2")
 SHARDED_CYCLE_KERNELS = ("quota_tree", "cycle_phase1", "cycle_global")
 DRS_KERNELS = ("quota_drs",)
+GLOBAL_KERNELS = ("global_rescore",)
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -213,6 +215,21 @@ def load(names=KERNELS) -> None:
 def check(rc: int, name: str) -> None:
     if rc != 0:
         raise KernelError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+
+
+def fetch(tensor, what: str):
+    """The one device-to-host copy of a launch's result, as a numpy
+    array. A kernel's fault on the card surfaces as torch's error at
+    this first sync after it, and is raised as a ``KernelError`` naming
+    ``what``; a CPU tensor's errors pass as they are."""
+    try:
+        return tensor.cpu().numpy()
+    except KernelError:
+        raise
+    except RuntimeError as exc:  # torch.AcceleratorError is one
+        if tensor.is_cuda:
+            raise KernelError(f"{what} failed on {tensor.device}: {exc}") from exc
+        raise
 
 
 def stream_ptr(device) -> int:

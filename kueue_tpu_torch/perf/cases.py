@@ -603,3 +603,43 @@ def tas_spec(seed: int, n_tas_cq: int = 4, workloads_per_cq: int = 5) -> dict:
         "cqs": cqs,
         "workloads": workloads,
     }
+
+
+def rescore_fleet(rng, w: int = None, c: int = None, invalid: float = 0.25,
+                  n_degraded: int = None, wide_rotation: bool = False,
+                  current_past: bool = False) -> dict:
+    """A random input of the federation's global rescore (kernel B15),
+    as numpy arrays named as ``ops.global_kernel.rescore_pairs`` takes
+    them: heterogeneous forecasts (instant fits, deep queues, values
+    past the 30-bit cap up to 2^40, deliberate ties so the score and
+    rotation tie-breaks engage), scores beyond +-2^20, ``invalid`` of
+    the pairs unscorable, ``n_degraded`` degraded columns with a
+    penalty (none when None and the mask omitted), rotations that are
+    negative or >= C with ``wide_rotation``, and current columns up to
+    C + 2 with ``current_past``. W and C are drawn (W in [0, 12), C in
+    [1, 9)) when not given, as the JAX package's own parity test draws
+    them."""
+    w = int(rng.integers(0, 12)) if w is None else w
+    c = int(rng.integers(1, 9)) if c is None else c
+    tta = rng.choice([0, 1, 999, 60_000, 600_000, 10**9, 2**40], size=(w, c)).astype(np.int64)
+    tta += rng.integers(0, 3, size=(w, c)) * (tta < 10**9)
+    score = rng.integers(-(2**22), 2**22, size=(w, c)).astype(np.int64)
+    score[rng.random((w, c)) < 0.3] = 0
+    valid = rng.random((w, c)) >= invalid
+    hi = c + 3 if current_past else c
+    current = rng.integers(-1, hi, size=w).astype(np.int32)
+    if wide_rotation:
+        rotation = rng.integers(-(2**31), 2**31 - 1, size=w).astype(np.int32)
+    else:
+        rotation = (rng.integers(0, 2**31, size=w) % c).astype(np.int32)
+    out = {
+        "tta_ms": tta, "score": score, "valid": valid, "current": current,
+        "rotation": rotation,
+        "hysteresis_ms": int(rng.choice([0, 1, 30_000, 600_000])),
+    }
+    if n_degraded is not None:
+        degraded = np.zeros(c, dtype=bool)
+        degraded[rng.permutation(c)[:n_degraded]] = True
+        out["degraded"] = degraded
+        out["degraded_penalty_ms"] = int(rng.choice([1, 120_000, 2**29, 2**31]))
+    return out

@@ -120,9 +120,10 @@ FAIR_PREEMPT_KERNELS = _build.FAIR_PREEMPT_KERNELS
 PLAN_KERNELS = _build.PLAN_KERNELS
 
 
-def max_abs_diff(a, b, skip=()) -> int:
-    """Largest |a.f - b.f| over the tensor fields of two dataclasses."""
-    err = 0
+def _diff_max(a, b, skip=()):
+    """Largest |a.f - b.f| over the tensor fields of two dataclasses, as
+    a 0-d int64 tensor on their device: enqueued, not read."""
+    diffs = []
     for f in fields(a):
         if f.name in skip:
             continue
@@ -131,8 +132,13 @@ def max_abs_diff(a, b, skip=()) -> int:
         if x.shape != y.shape:
             raise LockstepMismatch(f"{f.name}: shapes {tuple(x.shape)} vs {tuple(y.shape)}")
         if x.numel():
-            err = max(err, int((x - y).abs().max().item()))
-    return err
+            diffs.append((x - y).abs().max())
+    return torch.stack(diffs).max()
+
+
+def max_abs_diff(a, b, skip=()) -> int:
+    """Largest |a.f - b.f| over the tensor fields of two dataclasses."""
+    return int(_diff_max(a, b, skip).item())
 
 
 def _check_quota(tree, errs, label) -> None:
@@ -162,6 +168,7 @@ def run_lockstep(ctx, state, buf, steps, bound: int, errs: Dict[str, int],
     while not state.done.item() and cycles != stop_after:
         if cycles > bound:
             raise LockstepMismatch(f"{label}: the drain ran past its bound of {bound} cycles")
+        diffs = []
         for name, kern, plain in steps:
             ps, pb = state.clone(), buf.clone()
             kern(ctx, state, buf)
@@ -173,8 +180,12 @@ def run_lockstep(ctx, state, buf, steps, bound: int, errs: Dict[str, int],
                 plain(ctx, ps, pb)
                 torch.cuda.synchronize()
                 plain_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-            # buf.order is kernel 3's scratch; the plain version has none
-            e = max(max_abs_diff(state, ps), max_abs_diff(buf, pb, skip=("order",)))
+            # buf.order is kernel 3's scratch; the plain version has none.
+            # The difference is taken in stream order, before the next
+            # step writes the state in place, and read once a cycle.
+            diffs.append(torch.maximum(_diff_max(state, ps),
+                                       _diff_max(buf, pb, skip=("order",))))
+        for (name, _, _), e in zip(steps, torch.stack(diffs).tolist()):
             errs[name] = max(errs.get(name, 0), e)
             if e:
                 raise LockstepMismatch(

@@ -50,6 +50,18 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   times, which pads every axis) equal to the run without it;
   entry(device="cuda") equal to solve_cycle_plain.
 
+- the federation's global rescore (B15, global_rescore) bit-exact to
+  its plain version and to the numpy mirror on 200 random batches up
+  to C=4096, rescore_pairs on the card equal to the CPU;
+  ClusterRuntime(device="cuda") draining a small cluster through the
+  drain kernels (serial, pipelined, megaloop) equal to its CPU run;
+  run_federation_scale(8, 40) on the card equal to the CPU with every
+  rescore with rows on B15; a trapping B15 raising KernelError out of
+  GlobalScheduler.rescore and a trapping drain_nominate out of a
+  pipelined bulk_drain round's device_join (perf/trap.py); a drain
+  round on the card planted wrong at its fetch raising KernelError at
+  the sampled check against the numpy mirror.
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
@@ -1105,3 +1117,166 @@ def test_a_faulting_cycle_global_raises_and_is_not_contained(cuda, tmp_path):
                          capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stdout + run.stderr
     assert run.stdout.startswith("raised") and run.stdout.split()[-1] == "1", run.stdout
+
+
+# ---- the runtime and the federation (B15) ---------------------------------
+
+
+def _b15_batch(rng):
+    """One random B15 input: mostly small fleets, some up to C=4096 and
+    W in the thousands, with degraded columns, wide rotations and
+    current columns past C."""
+    from kueue_tpu_torch.perf.cases import rescore_fleet
+
+    kind = int(rng.integers(0, 4))
+    if kind == 0:
+        return rescore_fleet(rng)
+    if kind == 1:
+        c = int(rng.integers(1, 4097))
+        w = int(rng.integers(1, max(2, 2_000_000 // c)))
+    else:
+        c = int(rng.integers(2, 129))
+        w = int(rng.integers(1, 4096))
+    return rescore_fleet(rng, w=w, c=c, invalid=float(rng.choice([0.0, 0.25, 0.9, 1.0])),
+                         n_degraded=int(rng.integers(0, c + 1)) if kind != 3 else None,
+                         wide_rotation=kind == 3, current_past=kind >= 2)
+
+
+def test_global_rescore_bit_exact_on_random_batches(cuda):
+    from kueue_tpu_torch.ops import global_kernel as gk
+    from kueue_tpu_torch.ops import global_np as gnp
+
+    rng = np.random.default_rng(915)
+    _build.reset_launches()
+    n = 0
+    for i in range(200):
+        a = _b15_batch(rng)
+        w, c = a["tta_ms"].shape
+        if w == 0:
+            continue
+        deg = a.get("degraded", np.zeros(c, bool))
+        pen = a.get("degraded_penalty_ms", 0)
+        t = gk.rescore_inputs(a["tta_ms"], a["score"], a["valid"], a["current"],
+                              a["rotation"], deg, cuda)
+        card = gk.rescore_packed(*t, a["hysteresis_ms"], pen)
+        plain = gk.rescore_plain(*t, a["hysteresis_ms"], pen)
+        assert torch.equal(card, plain), (i, w, c)
+        ref = gnp.rescore_np(**a)
+        got = gk.decode(card.cpu().numpy())
+        for f in ("best", "best_key", "gain_ms", "rebalance"):
+            assert np.array_equal(getattr(got, f), getattr(ref, f)), (i, f)
+        n += 1
+    assert _build.launch_counts()["global_rescore"] == n
+
+
+def test_rescore_pairs_on_the_card_equals_the_cpu(cuda):
+    from kueue_tpu_torch.ops import global_kernel as gk
+    from kueue_tpu_torch.perf.cases import rescore_fleet
+
+    a = rescore_fleet(np.random.default_rng(3), w=300, c=50, n_degraded=4)
+    on_card = gk.rescore_pairs(**a)
+    on_cpu = gk.rescore_pairs(**a, device="cpu")
+    for f in ("best", "best_key", "gain_ms", "rebalance"):
+        assert np.array_equal(getattr(on_card, f), getattr(on_cpu, f)), f
+    with pytest.raises(ValueError, match="4096-cluster"):
+        gk.rescore_pairs(**rescore_fleet(np.random.default_rng(0), w=1, c=4097))
+
+
+def _runtime_view(rt):
+    from kueue_tpu_torch.perf import runtime as prt
+
+    return (prt.admitted_summary(rt), [(e.kind, e.object_key) for e in rt.events])
+
+
+@pytest.mark.parametrize("mode,chunk,megaloop", [("serial", 16, "off"), ("on", 4, "off"),
+                                                 ("on", 4, "4")])
+def test_runtime_on_the_card_drains_through_the_kernels(cuda, mode, chunk, megaloop):
+    from kueue_tpu_torch.perf import runtime as prt
+
+    cut = dict(n_cq=32, wl_per_cq=14, n_flavors=2, n_cohort=4)
+    _build.reset_launches()
+    rt = prt.build_drain_loop_rt(mode, 5, chunk=chunk, megaloop=megaloop, device="cuda", **cut)
+    rt.run_until_idle()
+    counts = _build.launch_counts()
+    ref = prt.build_drain_loop_rt(mode, 5, chunk=chunk, megaloop=megaloop, device="cpu", **cut)
+    ref.run_until_idle()
+    assert _runtime_view(rt) == _runtime_view(ref)
+    assert rt.guard.health()["failovers"] == 0
+    for name in DRAIN_KERNELS:
+        assert counts[name] > 0, name
+    if megaloop != "off":
+        assert counts["megaloop_boundary"] > 0 and rt.megaloop.launches >= 1
+
+
+def test_federation_on_the_card_equals_the_cpu(cuda):
+    from kueue_tpu_torch.perf import multikueue as pmk
+
+    reps = {}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        reps[dev] = []
+        _build.reset_launches()
+        res[dev] = pmk.run_federation_scale(n_workers=8, n_workloads=40, device=dev,
+                                            on_scheduler=pmk.record_rescores(reps[dev]))
+        if dev == "cuda":
+            launches = _build.launch_counts()["global_rescore"]
+    assert pmk.fed_scale_summary(res["cuda"]) == pmk.fed_scale_summary(res["cpu"])
+    assert pmk.rebalance_digest(reps["cuda"]) == pmk.rebalance_digest(reps["cpu"])
+    with_rows = [r for r in reps["cuda"] if r["pending"]]
+    assert with_rows and all(r["path"] == "device" for r in with_rows)
+    assert launches == len(with_rows)
+
+
+@pytest.mark.parametrize("megaloop", ["off", "4"])
+def test_wrong_drain_round_raises_on_the_card(cuda, monkeypatch, megaloop):
+    """A drain round on the card whose admissions come back one cycle
+    late (planted at the fetch) is caught by the sampled check against
+    the numpy mirror: bulk_drain raises KernelError naming the field,
+    with no failover and the device path not quarantined."""
+    from kueue_tpu_torch.perf import runtime as prt
+
+    real_drain, real_mega = pd.DrainLaunch.fetch, pd.MegaloopLaunch.fetch
+
+    def late(outcome):
+        outcome.admitted = [(wl, cq, fl, cyc + 1) for wl, cq, fl, cyc in outcome.admitted]
+        return outcome
+
+    def mega(self):
+        log = real_mega(self)
+        for outcome in log.rounds:
+            late(outcome)
+        return log
+
+    rt = prt.build_drain_loop_rt("on", 5, chunk=4, megaloop=megaloop, device="cuda",
+                                 n_cq=32, wl_per_cq=14, n_flavors=2, n_cohort=4)
+    rt.guard.config.divergence_check_every = 1
+    monkeypatch.setattr(pd.DrainLaunch, "fetch", lambda self: late(real_drain(self)))
+    monkeypatch.setattr(pd.MegaloopLaunch, "fetch", mega)
+    _build.reset_launches()
+    with pytest.raises(_build.KernelError, match="admitted"):
+        rt.bulk_drain()
+    assert _build.launch_counts()["drain_nominate"] > 0
+    health = rt.guard.health()
+    assert health["divergences"] == 1 and health["failovers"] == 0
+    assert rt.guard.path == "device"
+
+
+def test_rescore_raises_when_b15_faults_on_the_card(cuda, tmp_path):
+    """A global_rescore build that traps: GlobalScheduler.rescore raises
+    KernelError and the numpy mirror never runs in its place."""
+    from kueue_tpu_torch.perf import trap
+
+    run = trap.run_trapped("global_rescore", trap.RESCORE_RUN, tmp_path)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert run.stdout.startswith("KernelError True"), run.stdout
+
+
+def test_drain_round_raises_when_a_kernel_faults_on_the_card(cuda, tmp_path):
+    """A drain_nominate build that traps: the pipelined drain round's
+    device_join raises KernelError out of bulk_drain, with no failover
+    and nothing admitted."""
+    from kueue_tpu_torch.perf import trap
+
+    run = trap.run_trapped("drain_nominate", trap.DRAIN_RUN, tmp_path)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert run.stdout.startswith("KernelError True"), run.stdout

@@ -285,6 +285,33 @@ def test_group_walk_matches(seed):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+def test_lockstep_harness_catches_a_difference():
+    """A plain step that disagrees with its kernel step is reported by
+    name and cycle, with its difference recorded, although the harness
+    reads the differences once a cycle."""
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.perf import lockstep as ls
+
+    enc, queues_np, plan = _plan_inputs(mixed_spec(8, workloads_per_cq=4), 8)
+    tree, queues, local, paths = interop.drain_inputs(enc, queues_np, "cpu")
+    ctx = dk.DrainContext.build(tree, queues, paths, plan.n_segments, plan.n_steps,
+                                plan.max_cycles)
+    state = dk.DrainState.initial(local, queues, plan.max_cycles)
+    buf = dk.CycleBuffers.empty(local, queues)
+
+    def off_by_one(ctx, s, b):
+        dk.drain_phase2_plain(ctx, s, b)
+        s.cycle.add_(1)
+
+    name, kern, _ = ls.STEPS[3]
+    steps = ls.STEPS[:3] + ((name, kern, off_by_one),) + ls.STEPS[4:]
+    errs = {}
+    with pytest.raises(ls.LockstepMismatch, match="drain_phase2 differs from its plain "
+                                                  "version by 1 at cycle 0"):
+        ls.run_lockstep(ctx, state, buf, steps, plan.max_cycles, errs)
+    assert errs == {"quota_tree": 0, "drain_nominate": 0, "drain_phase2": 1}
+
+
 def test_lockstep_harness_runs_on_cpu():
     """The harness chip_smoke.py holds the kernels with: on the CPU both
     sides are the plain versions, so it must report zero everywhere."""

@@ -405,7 +405,7 @@ def test_kernel_ports_resolve(module):
 def test_kernel_ports_cover_every_built_kernel_once():
     names = [n for p in KERNEL_PORTS.values() for n in p.kernels]
     assert sorted(names) == sorted(_build.KERNELS)
-    # every JAX kernel module is ported but the federation's rescore (B15)
+    # every JAX kernel module is ported
     from kueue_tpu.ops import KERNEL_MIRRORS
 
-    assert set(KERNEL_MIRRORS) - set(KERNEL_PORTS) == {"global_kernel"}
+    assert set(KERNEL_MIRRORS) - set(KERNEL_PORTS) == set()
