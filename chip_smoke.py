@@ -21,7 +21,11 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
 
 1. Prints the card's name and power limit, builds the 25 kernels from
    ``kueue_tpu_torch/csrc`` with nvcc (sm_90a, in parallel) and prints
-   the build seconds and each kernel's registers and spills.
+   the build seconds and each kernel's registers, stack frame and
+   spills, and the card's shared-memory load latency (a one-thread
+   pointer chase): the serial kernels' chain bound (cycle_phase2,
+   cycle_global, drain_fair_phase2, drain_tas_phase2, plan_phase2) is
+   two such trips a walked head of the launch's longest segment.
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
    (int64, tolerance 0), in lockstep at EVERY cycle of two drains: the
    real 50k x 1k headline plan, and a small seeded case with three
@@ -316,6 +320,8 @@ TAS_LOCKSTEP_CYCLES = 160  # tas-drain-10k is held in lockstep over its first 16
 # 490 cycles (its main-path run goes all 490 against TAS_DRAIN_EXPECT)
 SMALL_PREEMPT_SEED = 6  # preempt_spec seed: depth 3, three podsets, 65 cycles,
 # within-CQ preemption and cross-CQ reclamation, a stuck queue
+TRIPS_PER_HEAD = 2  # a walked head's dependent shared-memory trips: read its rows, add
+SMEM = {"ns": float("nan")}  # the card's shared-memory load latency (phase 1)
 
 SOURCES = {
     "quota_tree": "kueue_tpu_torch/csrc/quota_tree.cu",
@@ -412,6 +418,16 @@ class BoundData:
         self.rows = qs.cq_rows.cpu().numpy()
         self.no_reclaim = qs.no_reclaim.cpu().numpy()
         self.paths = ctx.paths.cpu().numpy()
+        self.seg_id = qs.seg_id.cpu().numpy()
+
+
+def chain_heads(walked: np.ndarray, seg: np.ndarray, n_steps: int) -> int:
+    """Walked heads of the longest segment (at most n_steps): the serial
+    kernels' chain, each head TRIPS_PER_HEAD dependent shared-memory
+    trips after its predecessor's."""
+    if not walked.any():
+        return 0
+    return int(min(np.bincount(seg[walked]).max(), n_steps))
 
 
 def _distinct(rows: np.ndarray, cells: np.ndarray, fr: int) -> int:
@@ -647,6 +663,21 @@ def cycle_launch_bytes(tree, heads, paths, seg_id, phase1, packed) -> dict:
     return {"quota_tree": quota, "cycle_phase1": [phase1_b], "cycle_phase2": [phase2_b]}
 
 
+def cycle_chain(heads, seg_id, phase1, n_segments: int, n_steps: int,
+                segmented: bool = True) -> int:
+    """cycle_phase2's chain on one cycle: the walked heads (a
+    ClusterQueue, an effective candidate) of its longest segment below
+    n_segments; all of them, one chain, when not ``segmented``, as
+    cycle_global walks them."""
+    cq = heads.cq_row.cpu().numpy()
+    chosen, _, preempt_k = (t.cpu().numpy() for t in phase1)
+    walked = (cq >= 0) & ((chosen >= 0) | (preempt_k >= 0))
+    if not segmented:
+        return int(walked.sum())
+    seg = np.asarray(seg_id)
+    return chain_heads(walked & (seg >= 0) & (seg < n_segments), seg, n_steps)
+
+
 def sharded_cycle_bytes(tree, heads, paths, phase1, packed) -> int:
     """Bytes B3' (``cycle_global``) must move on one cycle's data, each
     input read once and each output written once: per live head its
@@ -710,7 +741,7 @@ class TimedLaunches:
     (for the library yardstick)."""
 
     def __init__(self):
-        self.dev_ms, self.host_ms, self.nbytes = {}, {}, {}
+        self.dev_ms, self.host_ms, self.nbytes, self.chain = {}, {}, {}, {}
         self.spin, self.uncovered = SPIN_CYCLES, 0
         self.phase1 = None
         self.scatter_args = []
@@ -740,6 +771,9 @@ class TimedLaunches:
         for name, b in per_kernel.items():
             self.nbytes.setdefault(name, []).extend(b)
 
+    def add_chain(self, name: str, heads: int) -> None:
+        self.chain.setdefault(name, []).append(heads)
+
 
 @contextlib.contextmanager
 def timed_cycle_kernels(timer: TimedLaunches):
@@ -755,6 +789,8 @@ def timed_cycle_kernels(timer: TimedLaunches):
             tree, local, heads, paths, seg_id, n_segments, n_steps, timer
         )
         timer.add_bytes(cycle_launch_bytes(tree, heads, paths, seg_id, timer.phase1, packed))
+        timer.add_chain("cycle_phase2", cycle_chain(heads, seg_id, timer.phase1, n_segments,
+                                                    n_steps))
         return packed
 
     def scatter(usage, idx, rows):
@@ -776,7 +812,7 @@ def timing_of(timer: TimedLaunches, name: str, plain_ms: dict) -> dict:
     """One kernel's numbers for the result lines: means over the timed
     launches, the bound from their bytes."""
     nbytes = float(np.mean(timer.nbytes[name]))
-    return {
+    out = {
         "ms": float(np.mean(timer.dev_ms[name])),
         "device_ms_total": float(np.sum(timer.dev_ms[name])),
         "host_ms": float(np.mean(timer.host_ms[name])),
@@ -785,6 +821,11 @@ def timing_of(timer: TimedLaunches, name: str, plain_ms: dict) -> dict:
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "timed": len(timer.dev_ms[name]),
     }
+    if name in timer.chain:
+        heads = float(np.mean(timer.chain[name]))
+        out["chain_heads"] = heads
+        out["chain_bound_ms"] = heads * TRIPS_PER_HEAD * SMEM["ns"] * 1e-6
+    return out
 
 
 def index_copy_ms(scatters) -> float:
@@ -1017,6 +1058,16 @@ def boundary_bytes(bd: BoundData, cursor, closing: bool, alive_after, n_stamped:
         b += 2 * bd.n * bd.fr * 8 + q * (4 + 1 + 1 + 1 + 4 + 4 * pg + 4)
         b += 4 * int(remaining.sum())
     return b
+
+
+def drain_chain(bd: BoundData, buf, n_steps: int, segmented: bool = True) -> int:
+    """A drain phase 2's chain on one cycle: the nominated heads of its
+    longest segment (at most n_steps), or all of them for a global scan."""
+    nominated = (buf.is_fit | buf.is_pre).cpu().numpy()
+    if not segmented:
+        return int(nominated.sum())
+    seg = bd.seg_id
+    return chain_heads(nominated & (seg >= 0), seg, n_steps)
 
 
 def fair_bytes(bd: BoundData, cursor, alive, buf, n_res: int) -> int:
@@ -1359,6 +1410,7 @@ def fair_path(dev, cache, pending) -> dict:
         del per["drain_phase2"]
         per["drain_fair_phase2"] = [fair_bytes(bd, cursor, alive, buf, fair.n_res)]
         timer.add_bytes(per)
+        timer.add_chain("drain_fair_phase2", drain_chain(bd, buf, plan.n_steps))
     timing = {name: timing_of(timer, name, plain) for name in _build.FAIR_KERNELS}
     print(f"{stamp()} timed fair drain: "
           f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "
@@ -2651,6 +2703,7 @@ def tas_path(dev) -> dict:
         for name, kern, _ in TAS_STEPS:
             timer(name, lambda: kern(ctx, st, buf), None)
         timer.add_bytes(tas_cycle_bytes(bd, ctx, cursor, buf, tas_before, st.tas_u.cpu().numpy()))
+        timer.add_chain("drain_tas_phase2", drain_chain(bd, buf, 0, segmented=False))
     timing = {name: timing_of(timer, name, plain) for name in TAS_DRAIN_KERNELS}
     kernel_ms = sum(t["device_ms_total"] for t in timing.values())
     print(f"{stamp()} timed TAS drain: {json.dumps({k: len(v) for k, v in timer.dev_ms.items()})}"
@@ -2983,8 +3036,15 @@ def planner_path(dev) -> dict:
             buf = plan_solve(**inp, **steps, check=check)
         # the same inputs every time: the bytes once
         ph, _ = plk.unpack(buf, s_, inp["heads"].cq_row.shape[0], n_, fr_)
+        chosen, _, pk = (t.cpu().numpy() for t in captured["plan_phase1"])
+        seg = np.asarray(inp["seg_id"])
+        live = (inp["heads"].cq_row.cpu().numpy() >= 0) & (seg >= 0) & (
+            seg < steps["n_segments"])
+        p_chain = max(chain_heads(live & ((chosen[si] >= 0) | (pk[si] >= 0)), seg,
+                                  steps["n_steps"]) for si in range(s_))
         for _ in range(3):
             timer.add_bytes(plan_launch_bytes(inp, captured["plan_phase1"], ph))
+            timer.add_chain("plan_phase2", p_chain)
         timing = {n: timing_of(timer, n, plain[label]) for n in PLAN_KERNELS}
         n_seq = s_ - 1 if label == "planner-stage-500" else 8
         seq = sequential_ms(inp, steps, n_seq)
@@ -3327,6 +3387,10 @@ def mesh_path(dev, cache, pending, walls) -> dict:
             "cycle_phase2": cycle_launch_bytes(s.tree, s.heads, s.paths, s.seg_id, ph,
                                                packed)["cycle_phase2"],
         })
+        timer.add_chain("cycle_global", cycle_chain(s.heads, s.seg_id, ph, 0, 0,
+                                                    segmented=False))
+        timer.add_chain("cycle_phase2", cycle_chain(s.heads, s.seg_id, ph, s.n_segments,
+                                                    s.n_steps))
         if i in (0, len(store) - 1):
             u3 = usage0.clone()
             torch.cuda.synchronize()
@@ -3795,6 +3859,7 @@ def main() -> int:
         from kueue_tpu_torch.core.solver import tree_arrays
         from kueue_tpu_torch.ops import _build
         from kueue_tpu_torch.ops.drain_kernel import _solve_drain_packed
+        from kueue_tpu_torch.perf.kernel_ab import smem_latency_ns
         from kueue_tpu_torch.perf import cases, headline
         from kueue_tpu_torch.perf.lockstep import DRAIN_KERNELS, lockstep
     except ImportError as exc:
@@ -3813,6 +3878,10 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    SMEM["ns"] = smem_latency_ns(dev, _build.BUILD_DIR)
+    print(f"shared-memory load latency {SMEM['ns']:.3f} ns (one thread chasing pointers): "
+          f"the serial kernels' chain bound is {TRIPS_PER_HEAD} such trips a walked head of "
+          f"the longest segment")
 
     errs = {name: 0 for name in _build.KERNELS}
 
@@ -4110,10 +4179,18 @@ def main() -> int:
         if name == "cycle_global":
             b3 = meshr["b3_same_heads"]
             entry["b3_same_heads"] = {k: b3[k] for k in ("ms", "bound_ms", "bytes")}
+        if "chain_bound_ms" in t:
+            entry["chain_bound_ms"] = t["chain_bound_ms"]
+            entry["chain_heads"] = t["chain_heads"]
         kernels.append(entry)
+    print("chain bounds (us a launch; walked heads of the longest segment x "
+          f"{TRIPS_PER_HEAD} x {SMEM['ns']:.3f} ns): " + json.dumps(
+              {e["name"]: [round(e["chain_bound_ms"] * 1e3, 4), e["chain_heads"]]
+               for e in kernels if "chain_bound_ms" in e}))
     if len(kernels) != 25:
         fail(f"{len(kernels)} kernels in the result line")
-    print(json.dumps({"kernels": kernels, "wall_ms": wall_ms, "plan_ms": plan_ms,
+    print(json.dumps({"kernels": kernels, "smem_latency_ns": SMEM["ns"],
+                      "wall_ms": wall_ms, "plan_ms": plan_ms,
                       "solve_ms": solve_ms, "kernels_device_ms": kernel_ms,
                       "drain_graph_ms": graph_ms, "cycles": cycles,
                       "megaloop_walls": mega["walls"], "megaloop_serial_ms": mega["serial_ms"],

@@ -7,33 +7,56 @@
 // the usage bubble-up (_bubble_usage, :315). It writes the packed
 // int64[5, W] outcome: chosen, admitted, borrows, reserved, order.
 //
-// Grid: one block per root-cohort segment (CSR from the host), plus one
-// block for the heads outside every segment (pads). Each block
-//   1. puts every head's class (no-fit, borrowing) in shared memory;
+// Grid: one block of 8 warps per root-cohort segment (CSR from the
+// host), plus one block for the heads outside every segment (pads).
+// Each block
+//   1. stages every head's sort key in shared memory with coalesced
+//      loads: its class (no-fit, borrowing), priority and timestamp,
+//      17 B a head (the priorities and timestamps stay in device memory
+//      when W is too wide for them);
 //   2. gives each of its heads its global position in the entry order
 //      (no-fit last, non-borrowing first, priority desc, timestamp
-//      asc, head index asc: the index is jnp.lexsort's stability) by
-//      counting the heads that order before it, and writes order[pos];
-//   3. ranks its walkable heads (not no-fit, cq_row >= 0) by position;
-//      ranks >= n_steps are dropped, as the JAX mode="drop" scatter
-//      drops them, and so is a segment >= n_segments;
-//   4. warp 0 walks them in rank order, one lane per cell (C <= 32):
+//      asc, head index asc: the index is jnp.lexsort's stability), a
+//      warp a head, the lanes counting the heads that order before it
+//      and a warp sum; writes order[pos]. The pad block deals its heads
+//      to the warps in turn (pads sit together at the end of W);
+//   3. ranks its walkable heads (not no-fit, cq_row >= 0) by position
+//      (cycle_body::rank_members); ranks >= n_steps are dropped, as
+//      the JAX mode="drop" scatter drops them, and so is a segment
+//      >= n_segments;
+//   4. puts the walk's quota rows in shared memory: the nodes on the
+//      walked heads' paths (a segment is a root cohort, so blocks hold
+//      disjoint nodes), deduplicated in the block, with their subtree,
+//      guaranteed, borrowing-limit and usage rows; a segment whose rows
+//      do not fit (segment_bytes below) walks on the device-memory rows
+//      instead, chosen here from its size;
+//   5. stages each walked head's step operands (its effective
+//      candidate's cells and quantities, the leaf caps, its path's
+//      rows, its admit / reserve / borrow flags) in windows of up to 32
+//      heads: all warps stage the first, then warps 1-7 stage window
+//      i+1 while warp 0 walks window i;
+//   6. warp 0 walks in rank order, one lane per cell (C <= 32), a
+//      head's path rows read at once (up to 4 levels; deeper paths
+//      level by level):
 //      available() root-down along the path, a warp vote for fits,
 //      admit (chosen >= 0 and fits) or reserve (chosen < 0, a
 //      preempt-mode candidate and reclaimWithinCohort != Any) with the
 //      borrow or nominal cap, then the bubble of each node's
 //      over-guaranteed delta up the path. Every lane reads its level
-//      before any lane adds (atomicAdd), as the JAX .at[].add does.
-// Steps 3 and 4 are cycle_body::rank_members and walk_segment
-// (cycle_body.cuh), shared with plan_phase2.cu.
+//      before any lane adds, as the JAX .at[].add does; a head whose
+//      cells are distinct stores its sums, one repeating a cell adds
+//      atomically. With the rows in shared memory the walk touches
+//      shared memory only, and the usage rows are written back at the
+//      end.
 // `usage` is the cycle's usage tree, built by quota_tree from the leaf
 // rows; the resident leaf buffer is never written here.
 //
 // What bounds it: the walk is sequential within a segment (each head
-// sees its predecessors' admissions), so the chain of dependent global
-// round trips (heads per root x (D+1) levels x 2) and the O(W) position
-// count per head bound it, not bytes: the bytes bound (chip_smoke.py
-// counts them) is well under a microsecond at the headline.
+// sees its predecessors' admissions). Its least time is a chain: two
+// dependent shared-memory trips a walked head (read its path's rows,
+// add) over the longest segment, ~0.6 us at the headline; the bytes
+// bound (chip_smoke.py counts it) is well under a microsecond. Steps
+// 1-5 are a few device-memory round trips a block, all warps at once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,7 +66,31 @@
 namespace cycle2 {
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWin = 32;            // heads a staging window
+constexpr int kStage = 2;           // heads a thread stages a round
+constexpr int kLevels = 4;          // path levels the unrolled walk holds in registers
+constexpr int kSmemMax = 232448 - 1024;  // a block's opt-in shared memory (sm_90),
+                                          // less room for the static n_valid
+constexpr unsigned kFull = 0xffffffffu;
+
+extern __shared__ __align__(16) unsigned char smem[];
+
+// Byte offsets of the dynamic shared memory (multiples of 8), set by
+// the host.
+struct Layout {
+  int prio, ts;      // int64[W] each, when the keys are staged
+  int stage;         // two staging windows of `win` heads
+  int stage_buf;     // bytes of one window
+  int spos, walk;    // int32[max_members] each
+  int cls;           // uint8[W]
+  int rows;          // the segment's rows, `rows_bytes` of them
+  int rows_bytes;
+  int win;
+  int keys;          // 1 when the priorities and timestamps are staged
+  int total;
+};
 
 struct Args {
   int W, K, C, N, FR, D, n_segments, n_steps, n_seg, max_members;
@@ -66,74 +113,445 @@ struct Args {
   const int* paths;           // [N,D+1]
   long long* usage;           // [N,FR] the cycle usage tree, updated
   long long* packed;          // [5,W]
+  Layout lay;
 };
 
-// (no-fit << 1) | borrowing of the effective candidate
-__device__ __forceinline__ uint8_t head_class(const Args& a, int x) {
-  const int e = cycle_body::eff_k(a.chosen, a.preempt_k, x);
-  if (e < 0) return 2;
-  return a.borrows[(size_t)x * a.K + e] ? 1 : 0;
+__host__ __device__ inline int align8(long long b) { return (int)((b + 7) & ~7LL); }
+
+// Shared bytes the walk of a segment with n_walk walked heads needs to
+// keep its rows in shared memory: per path entry (head, level) a node
+// id, a slot and the four int64 rows of FR cells. (The wrapper's
+// segment_bytes says the same.)
+__host__ __device__ inline long long segment_bytes(int n_walk, int fr, int d) {
+  return (long long)n_walk * (d + 1) * (8 + 32LL * fr);
 }
 
-__device__ __forceinline__ bool orders_before(const Args& a, const uint8_t* cls, int y,
-                                              int x) {
-  if (cls[y] != cls[x]) return cls[y] < cls[x];
-  const long long py = a.priority[y], px = a.priority[x];
-  if (py != px) return py > px;
-  const long long ty = a.timestamp[y], tx = a.timestamp[x];
-  if (ty != tx) return ty < tx;
-  return y < x;
+// One staging window: per head its C cells, quantities and leaf caps,
+// its path's D+1 rows (shared slots or node ids), its index, its path's
+// valid levels and its flags (1 admit-able, 2 reserve, 4 borrowing).
+struct Window {
+  int* cell;
+  int* lvl;
+  int* head;
+  int* nv;
+  int* flag;
+  long long* qty;
+  long long* nom;
+  long long* bl;
+};
+
+__host__ __device__ inline int window_bytes(int win, int C, int D) {
+  return align8(4LL * win * (C + D + 4)) + 24 * win * C;
 }
 
-__global__ void phase2(Args a) {
-  extern __shared__ unsigned char smem[];
-  uint8_t* cls = smem;
-  int* spos = (int*)(smem + ((a.W + 7) & ~7));
-  int* walk = spos + a.max_members;
+// The window at byte offset `off` of the dynamic shared memory.
+__device__ __forceinline__ Window window(int off, int win, int C, int D) {
+  unsigned char* base = smem + off;
+  Window w;
+  w.cell = (int*)base;
+  w.lvl = w.cell + win * C;
+  w.head = w.lvl + win * (D + 1);
+  w.nv = w.head + win;
+  w.flag = w.nv + win;
+  w.qty = (long long*)(base + align8(4LL * win * (C + D + 4)));
+  w.nom = w.qty + win * C;
+  w.bl = w.nom + win * C;
+  return w;
+}
+
+// Position of head x in the entry order: the heads that order before it,
+// counted by the lanes of one warp and summed.
+template <bool kKeys>
+__device__ __forceinline__ int position(const Args& a, const uint8_t* cls,
+                                        const long long* prio, const long long* ts,
+                                        int x, int lane) {
+  const uint8_t cx = cls[x];
+  const long long px = kKeys ? prio[x] : __ldg(a.priority + x);
+  const long long tx = kKeys ? ts[x] : __ldg(a.timestamp + x);
+  int n = 0;
+#pragma unroll 4
+  for (int y = lane; y < a.W; y += 32) {
+    const uint8_t cy = cls[y];
+    const long long py = kKeys ? prio[y] : __ldg(a.priority + y);
+    const long long ty = kKeys ? ts[y] : __ldg(a.timestamp + y);
+    // branchless: (cls, -priority, timestamp, index) lexicographic
+    n += (cy < cx) | ((cy == cx) & ((py > px) | ((py == px) & ((ty < tx) | ((ty == tx) &
+                                                                            (y < x))))));
+  }
+  return __reduce_add_sync(kFull, n);
+}
+
+// Stage window `wi` of the walk (heads walk[wi*win ...]) with threads
+// t, t + nt, ... of the block, a thread a (head, cell or level) slot so
+// that a slot's loads form one chain of three trips. lvl holds shared
+// slots (ent_slot, by path entry) when rows are staged, else the paths'
+// node ids.
+__device__ __forceinline__ void stage(const Args& a, const int* walk, int n_walk, int wi,
+                                      int w_off, const uint8_t* cls,
+                                      const int* ent_slot, int t, int nt, bool lvl = true) {
+  const int C = a.C, D1 = a.D + 1, win = a.lay.win, span = max(C, D1);
+  const Window w = window(w_off, win, C, a.D);
+  const int r0 = wi * win, nr = min(win, n_walk - r0);
+  for (int i = t; i < nr * span; i += nt) {
+    const int r = i / span, c = i - r * span;
+    const int h = walk[r0 + r];
+    const int cq = __ldg(a.cq_row + h);
+    const int ch = __ldg(a.chosen + h), pk = __ldg(a.preempt_k + h);
+    const int* path = a.paths + (size_t)cq * D1;
+    if (c < D1 && lvl) {
+      w.lvl[r * D1 + c] = ent_slot ? ent_slot[(r0 + r) * D1 + c] : __ldg(path + c);
+    }
+    if (c == 0) {
+      int nv = 0;
+      for (int d = 0; d < D1; ++d) nv += __ldg(path + d) >= 0;
+      w.head[r] = h;
+      w.nv[r] = nv;
+      w.flag[r] = (ch >= 0 ? 1 : 0) | (ch < 0 && pk >= 0 && __ldg(a.no_reclaim + h) ? 2 : 0) |
+                  ((cls[h] & 1) ? 4 : 0);
+    }
+    if (c < C) {
+      const size_t ci = ((size_t)h * a.K + (ch >= 0 ? ch : pk)) * C + c;
+      const int cell = __ldg(a.cells + ci);
+      const size_t lx = (size_t)cq * a.FR + max(cell, 0);
+      w.cell[r * C + c] = cell;
+      w.qty[r * C + c] = __ldg(a.qty + ci);
+      w.nom[r * C + c] = cell >= 0 ? __ldg(a.nominal + lx) : 0;
+      w.bl[r * C + c] = cell >= 0 ? __ldg(a.borrowing_limit + lx) : 0;
+    }
+  }
+}
+
+// Warp 0's walk of one staged window over the rows S, G, BL, U (shared
+// slots or device-memory nodes, as lvl holds). With kL > 0 (paths of at
+// most kL levels) a head's rows are read once, every level at once, and
+// its bubble adds from those values: every lane reads every level
+// before any lane adds. kL = 0 reads level by level.
+template <bool kShared, int kL>
+__device__ __forceinline__ void walk_window(const Args& a, int w_off, int nr,
+                                            const long long* S, const long long* G,
+                                            const long long* BL, long long* U, int lane) {
+  const int C = a.C, FR = a.FR, D1 = a.D + 1;
+  const Window w = window(w_off, a.lay.win, C, a.D);
+  long long* out_admitted = a.packed + a.W;
+  long long* out_reserved = a.packed + 3 * (size_t)a.W;
+  auto load_u = [&](size_t x) { return kShared ? U[x] : __ldcg(U + x); };
+  for (int r = 0; r < nr; ++r) {
+    const int* lvl = w.lvl + r * D1;
+    const int nv = w.nv[r], flag = w.flag[r];
+    int cell = -1;
+    long long qv = 0;
+    if (lane < C) {
+      cell = w.cell[r * C + lane];
+      qv = w.qty[r * C + lane];
+    }
+    const bool cv = cell >= 0 && qv > 0;
+    const int cc = cv ? cell : 0;
+    // a cell on two lanes adds twice at each level (the JAX .at[].add):
+    // then atomics, else each lane stores its own sums. Cells are told
+    // apart modulo 32; a collision only costs the atomics.
+    const unsigned seen = __reduce_or_sync(kFull, cv ? 1u << (cell & 31) : 0u);
+    const bool dup = __popc(seen) < __popc(__ballot_sync(kFull, cv));
+    bool ok = true;
+    long long leaf = 0;
+    long long u[kL > 0 ? kL : 1], g[kL > 0 ? kL : 1];
+    size_t x[kL > 0 ? kL : 1];
+    if constexpr (kL > 0) {
+      long long s[kL], bl[kL];
+#pragma unroll
+      for (int d = 0; d < kL; ++d) {
+        x[d] = (size_t)(d < nv ? lvl[d] : 0) * FR + cc;
+        const bool on = cv && d < nv;
+        s[d] = on ? S[x[d]] : 0;
+        g[d] = on ? G[x[d]] : 0;
+        bl[d] = on ? BL[x[d]] : 0;
+        u[d] = on ? load_u(x[d]) : 0;
+      }
+      long long avail = 0;
+#pragma unroll
+      for (int d = kL - 1; d >= 0; --d) {
+        if (d >= nv) continue;
+        if (d == nv - 1) {
+          avail = s[d] - u[d];
+        } else {
+          const long long with_max = (s[d] - g[d]) - max(0LL, u[d] - g[d]) + bl[d];
+          const long long clamped =
+              bl[d] < quota_path::kNoLimit ? min(with_max, avail) : avail;
+          avail = max(0LL, g[d] - u[d]) + clamped;
+        }
+      }
+      ok = !cv || avail >= qv;
+      leaf = u[0];  // the leaf row as this step found it
+    } else if (cv) {
+      long long avail = 0;
+      for (int d = nv - 1; d >= 0; --d) {
+        const size_t xd = (size_t)lvl[d] * FR + cell;
+        const long long sd = S[xd], gd = G[xd], bld = BL[xd];
+        const long long ud = load_u(xd);
+        if (d == nv - 1) {
+          avail = sd - ud;
+        } else {
+          const long long with_max = (sd - gd) - max(0LL, ud - gd) + bld;
+          const long long clamped = bld < quota_path::kNoLimit ? min(with_max, avail) : avail;
+          avail = max(0LL, gd - ud) + clamped;
+        }
+        leaf = ud;  // ends as the leaf row as this step found it
+      }
+      ok = avail >= qv;
+    }
+    const bool fits = __all_sync(kFull, ok);
+    const bool admit = (flag & 1) && fits;
+    const bool reserve = flag & 2;
+    long long delta = 0;
+    if (cv) {
+      const long long nom = w.nom[r * C + lane], bl = w.bl[r * C + lane];
+      const long long cap = (flag & 4)
+          ? (bl < quota_path::kNoLimit ? min(qv, nom + bl - leaf) : qv)
+          : max(0LL, min(qv, nom - leaf));
+      delta = admit ? qv : reserve ? cap : 0;
+    }
+    if constexpr (kL > 0) {
+      __syncwarp();  // every lane has read every level
+#pragma unroll
+      for (int d = 0; d < kL; ++d) {
+        if (d >= nv) break;
+        if (cv && delta != 0) {
+          if (dup) atomicAdd((unsigned long long*)&U[x[d]], (unsigned long long)delta);
+          else U[x[d]] = u[d] + delta;
+        }
+        delta = max(0LL, u[d] + delta - g[d]) - max(0LL, u[d] - g[d]);
+      }
+    } else {
+      for (int d = 0; d < nv; ++d) {
+        const size_t xd = (size_t)lvl[d] * FR + cc;
+        long long old = 0, gd = 0;
+        if (cv) {
+          old = load_u(xd);
+          gd = G[xd];
+        }
+        __syncwarp();
+        if (cv && delta != 0) {
+          if (dup) atomicAdd((unsigned long long*)&U[xd], (unsigned long long)delta);
+          else U[xd] = old + delta;
+        }
+        __syncwarp();
+        delta = max(0LL, old + delta - gd) - max(0LL, old - gd);
+      }
+    }
+    if (lane == 0) {
+      out_admitted[w.head[r]] = admit;
+      out_reserved[w.head[r]] = reserve;
+    }
+    __syncwarp();  // the head's adds land before the next head reads
+  }
+}
+
+template <bool kShared>
+__device__ __forceinline__ void walk_steps(const Args& a, int w_off, int nr,
+                                           const long long* S, const long long* G,
+                                           const long long* BL, long long* U, int lane) {
+  if (a.D + 1 <= kLevels) walk_window<kShared, kLevels>(a, w_off, nr, S, G, BL, U, lane);
+  else walk_window<kShared, 0>(a, w_off, nr, S, G, BL, U, lane);
+}
+
+template <bool kKeys>
+__global__ void __launch_bounds__(kThreads) phase2(Args a) {
+  const Layout& L = a.lay;
+  long long* prio = (long long*)(smem + L.prio);
+  long long* ts = (long long*)(smem + L.ts);
+  int* spos = (int*)(smem + L.spos);
+  int* walk = (int*)(smem + L.walk);
+  uint8_t* cls = smem + L.cls;
   __shared__ int n_valid;
 
+  const int W = a.W, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
   const bool seg_block = b < a.n_seg;
-  for (int j = threadIdx.x; j < a.W; j += blockDim.x) cls[j] = head_class(a, j);
-  if (threadIdx.x == 0) n_valid = 0;
+  // a thread's heads j = tid + i * kThreads, kStage at a time: every
+  // load of a round issued before the round's dependent borrow bits
+  for (int base = 0; base < W; base += kStage * kThreads) {
+    int e[kStage];
+    long long pr[kStage], tm[kStage];
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int j = base + i * kThreads + tid;
+      e[i] = -1;
+      if (j < W) {
+        const int ch = __ldg(a.chosen + j), pk = __ldg(a.preempt_k + j);
+        e[i] = ch >= 0 ? ch : pk;
+        if (kKeys) {
+          pr[i] = __ldg(a.priority + j);
+          tm[i] = __ldg(a.timestamp + j);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int j = base + i * kThreads + tid;
+      if (j >= W) continue;
+      // (no-fit << 1) | borrowing of the effective candidate
+      cls[j] = e[i] < 0 ? 2 : (__ldg(a.borrows + (size_t)j * a.K + e[i]) ? 1 : 0);
+      if (kKeys) {
+        prio[j] = pr[i];
+        ts[j] = tm[i];
+      }
+    }
+  }
+  if (tid == 0) n_valid = 0;
   __syncthreads();
 
-  const int W = a.W;
   long long* out_chosen = a.packed;
   long long* out_admitted = a.packed + W;
   long long* out_borrows = a.packed + 2 * (size_t)W;
   long long* out_reserved = a.packed + 3 * (size_t)W;
   long long* out_order = a.packed + 4 * (size_t)W;
   const int beg = seg_block ? a.seg_offsets[b] : 0;
-  const int m = seg_block ? a.seg_offsets[b + 1] - beg : W;
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int x = seg_block ? a.seg_members[beg + i] : i;
-    if (!seg_block && a.seg_id[x] >= 0) continue;  // a segment block's
-    int pos = 0;
-    for (int y = 0; y < W; ++y) pos += orders_before(a, cls, y, x);
-    out_order[pos] = x;
-    out_chosen[x] = a.chosen[x];
-    out_borrows[x] = cls[x] & 1;
-    out_admitted[x] = 0;
-    out_reserved[x] = 0;
-    if (seg_block) spos[i] = (cls[x] & 2) || a.cq_row[x] < 0 ? -1 : pos;
+  const int m = seg_block ? a.seg_offsets[b + 1] - beg : 0;
+  auto place = [&](int x, int i) {
+    const int pos = position<kKeys>(a, cls, prio, ts, x, lane);
+    if (lane == 0) {
+      out_order[pos] = x;
+      out_chosen[x] = a.chosen[x];
+      out_borrows[x] = cls[x] & 1;
+      out_admitted[x] = 0;
+      out_reserved[x] = 0;
+      if (i >= 0) spos[i] = (cls[x] & 2) || a.cq_row[x] < 0 ? -1 : pos;
+    }
+  };
+  if (seg_block) {
+    for (int i = warp; i < m; i += kWarps) place(a.seg_members[beg + i], i);
+  } else {  // the heads of no segment, dealt to the warps in turn
+    int seen = 0;
+    for (int base = 0; base < W; base += 32) {
+      const int y = base + lane;
+      unsigned pads = __ballot_sync(kFull, y < W && __ldg(a.seg_id + y) < 0);
+      while (pads) {
+        const int x = base + __ffs(pads) - 1;
+        pads &= pads - 1;
+        if (seen++ % kWarps == warp) place(x, -1);
+      }
+    }
   }
   if (!seg_block || b >= a.n_segments) return;
   __syncthreads();
 
   cycle_body::rank_members(spos, m, a.seg_members + beg, a.n_steps, walk, &n_valid);
   __syncthreads();
-  if (threadIdx.x >= 32) return;
+  const int n_walk = min(n_valid, a.n_steps);
+  if (n_walk == 0) return;
 
-  cycle_body::Phase2View v;
-  v.K = a.K; v.C = a.C; v.FR = a.FR; v.D = a.D;
-  v.cq_row = a.cq_row; v.cells = a.cells; v.qty = a.qty; v.no_reclaim = a.no_reclaim;
-  v.chosen = a.chosen; v.preempt_k = a.preempt_k;
-  v.nominal = a.nominal; v.borrowing_limit = a.borrowing_limit;
-  v.subtree = a.subtree; v.guaranteed = a.guaranteed; v.paths = a.paths;
-  v.usage = a.usage; v.out_admitted = out_admitted; v.out_reserved = out_reserved;
-  cycle_body::walk_segment(v, walk, min(n_valid, a.n_steps), threadIdx.x,
-                           [cls](int h) { return (cls[h] & 1) != 0; });
+  // the walk's rows: in shared memory when the segment's fit
+  const int FR = a.FR, D1 = a.D + 1, E = n_walk * D1;
+  const bool shared_rows = segment_bytes(n_walk, FR, a.D) <= L.rows_bytes;
+  int* ent_node = (int*)(smem + L.rows);
+  int* ent_slot = ent_node + E;
+  long long* S = (long long*)(smem + L.rows + align8(8LL * E));
+  long long* G = S + (size_t)E * FR;
+  long long* BL = G + (size_t)E * FR;
+  long long* U = BL + (size_t)E * FR;
+  const int win = L.win, n_win = (n_walk + win - 1) / win;
+  const int w0 = L.stage, w1 = L.stage + L.stage_buf;  // the two windows' offsets
+  const int* slots = shared_rows ? ent_slot : nullptr;
+  // window 0's operands (its path rows once the slots are known) beside
+  // the path nodes of every walked head
+  stage(a, walk, n_walk, 0, w0, cls, nullptr, tid, kThreads, !shared_rows);
+  if (shared_rows) {
+    for (int e = tid; e < E; e += kThreads) {
+      const int r = e / D1, d = e - r * D1;
+      ent_node[e] = __ldg(a.paths + (size_t)__ldg(a.cq_row + walk[r]) * D1 + d);
+    }
+    __syncthreads();
+    // a node's slot: its first path entry (the rows of later entries of
+    // the same node are never used)
+    for (int e = tid; e < E; e += kThreads) {
+      const int node = ent_node[e];
+      int slot = node < 0 ? -1 : e;
+      for (int f = 0; f < e && node >= 0; ++f) {
+        if (ent_node[f] == node) {
+          slot = f;
+          break;
+        }
+      }
+      ent_slot[e] = slot;
+    }
+    __syncthreads();
+    for (int i = tid; i < E * FR; i += kThreads) {
+      const int e = i / FR;
+      if (ent_slot[e] != e) continue;
+      const size_t x = (size_t)ent_node[e] * FR + (i - e * FR);
+      S[i] = __ldg(a.subtree + x);
+      G[i] = __ldg(a.guaranteed + x);
+      BL[i] = __ldg(a.borrowing_limit + x);
+      U[i] = a.usage[x];
+    }
+    int* lvl0 = window(w0, win, a.C, a.D).lvl;
+    for (int i = tid; i < min(win, n_walk) * D1; i += kThreads) lvl0[i] = ent_slot[i];
+  }
+  __syncthreads();
+  for (int wi = 0; wi < n_win; ++wi) {
+    const int cur = (wi & 1) ? w1 : w0;
+    if (warp == 0) {
+      const int nr = min(win, n_walk - wi * win);
+      if (shared_rows) walk_steps<true>(a, cur, nr, S, G, BL, U, lane);
+      else walk_steps<false>(a, cur, nr, a.subtree, a.guaranteed, a.borrowing_limit, a.usage,
+                             lane);
+    } else if (wi + 1 < n_win) {
+      stage(a, walk, n_walk, wi + 1, (wi & 1) ? w0 : w1, cls, slots, tid - 32,
+            kThreads - 32);
+    }
+    __syncthreads();
+  }
+  if (shared_rows) {
+    for (int i = tid; i < E * FR; i += kThreads) {
+      const int e = i / FR;
+      if (ent_slot[e] == e) a.usage[(size_t)ent_node[e] * FR + (i - e * FR)] = U[i];
+    }
+  }
+}
+
+// The block's shared-memory layout for these shapes; false when even
+// one-head windows do not fit.
+bool plan_layout(const Args& a, Layout* L) {
+  const int base = 2 * align8(4LL * a.max_members) + align8(a.W);
+  const int keys = 16 * a.W;
+  int win = kWin;
+  bool with_keys = base + keys + 2 * window_bytes(win, a.C, a.D) <= kSmemMax;
+  if (!with_keys) {
+    while (win > 1 && base + 2 * window_bytes(win, a.C, a.D) > kSmemMax) win >>= 1;
+    if (base + 2 * window_bytes(win, a.C, a.D) > kSmemMax) return false;
+  }
+  int off = 0;
+  L->prio = off;
+  off += with_keys ? 8 * a.W : 0;
+  L->ts = off;
+  off += with_keys ? 8 * a.W : 0;
+  L->win = win;
+  L->keys = with_keys;
+  L->stage = off;
+  L->stage_buf = window_bytes(win, a.C, a.D);
+  off += 2 * L->stage_buf;
+  L->spos = off;
+  off += align8(4LL * a.max_members);
+  L->walk = off;
+  off += align8(4LL * a.max_members);
+  L->cls = off;
+  off += align8(a.W);
+  L->rows = off;
+  // the largest segment walks at most max_members heads
+  const long long need = align8(segment_bytes(a.max_members, a.FR, a.D));
+  L->rows_bytes = (int)(need < kSmemMax - off ? need : kSmemMax - off);
+  L->total = off + L->rows_bytes;
+  return true;
+}
+
+template <bool kKeys>
+int launch(const Args& a, cudaStream_t stream) {
+  if (a.lay.total > 48 * 1024) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        phase2<kKeys>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.lay.total);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  phase2<kKeys><<<a.n_seg + 1, kThreads, a.lay.total, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -172,12 +590,7 @@ extern "C" int cycle_phase2(const int* ints, int n_ints, void* const* p, int n_p
   a.usage = (long long*)p[i++];
   a.packed = (long long*)p[i++];
   if (a.W == 0) return (int)cudaGetLastError();
-  const size_t smem = (size_t)((a.W + 7) & ~7) + 8 * (size_t)a.max_members;
-  if (smem > 48 * 1024) {
-    cudaError_t rc = cudaFuncSetAttribute(
-        cycle2::phase2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
-  cycle2::phase2<<<a.n_seg + 1, cycle2::kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if (!cycle2::plan_layout(a, &a.lay)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return a.lay.keys ? cycle2::launch<true>(a, s) : cycle2::launch<false>(a, s);
 }

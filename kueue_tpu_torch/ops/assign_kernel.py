@@ -404,6 +404,51 @@ def _call(kernel: str, ints, ptrs, device) -> None:
 
 # ---- phase 2: kernel cycle_phase2 (csrc/cycle_phase2.cu) ----------------
 
+# A block's opt-in shared memory on sm_90 (232,448 bytes), less the
+# kilobyte cycle_phase2 keeps for its static variables.
+PHASE2_SHARED_BYTES = 232448 - 1024
+PHASE2_WINDOW = 32  # walked heads a staging window
+
+
+def segment_bytes(n_walk: int, fr: int, max_depth: int) -> int:
+    """Shared-memory bytes cycle_phase2 needs to walk a segment of
+    ``n_walk`` walked heads on shared rows: per path entry (head, level)
+    a node id, a slot and the subtree, guaranteed, borrowing-limit and
+    usage rows of ``fr`` int64 cells. A segment that needs more than its
+    block has left (``phase2_layout``'s ``rows_bytes``) walks on the
+    device-memory rows; the kernel chooses, block by block."""
+    return n_walk * (max_depth + 1) * (8 + 32 * fr)
+
+
+def _align8(b: int) -> int:
+    return (b + 7) & ~7
+
+
+def phase2_layout(w: int, max_members: int, c: int, fr: int, max_depth: int):
+    """cycle_phase2's shared memory a block, as the kernel plans it
+    (``plan_layout`` in csrc/cycle_phase2.cu): the sort keys (priority
+    and timestamp, 16 B a head, left in device memory when they do not
+    fit), two staging windows of ``win`` heads, the ranks and walk order
+    (8 B a member), the classes (1 B a head), and ``rows_bytes`` for a
+    segment's rows. None when even one-head windows do not fit (the
+    kernel refuses the shape)."""
+
+    def window(win):
+        return _align8(4 * win * (c + max_depth + 4)) + 24 * win * c
+
+    base = 2 * _align8(4 * max_members) + _align8(w)
+    win = PHASE2_WINDOW
+    keys = base + 16 * w + 2 * window(win) <= PHASE2_SHARED_BYTES
+    if not keys:
+        while win > 1 and base + 2 * window(win) > PHASE2_SHARED_BYTES:
+            win >>= 1
+        if base + 2 * window(win) > PHASE2_SHARED_BYTES:
+            return None
+    fixed = base + 2 * window(win) + (16 * w if keys else 0)
+    need = _align8(segment_bytes(max_members, fr, max_depth))
+    rows = min(need, PHASE2_SHARED_BYTES - fixed)
+    return {"win": win, "keys": keys, "rows_bytes": rows, "total": fixed + rows}
+
 
 def _bubble_usage(
     path: torch.Tensor,  # int32[B, D+1]
@@ -541,7 +586,10 @@ def cycle_phase2(
     """Phase 2 of the cycle: the packed int64[5, W] outcome. ``usage``
     (the cycle usage tree, never the resident leaf buffer) is updated
     in place by the admissions and reservations. ``segments`` is the
-    CSR of ``seg_id`` (``build_segments``), which the kernel walks."""
+    CSR of ``seg_id`` (``build_segments``), which the kernel walks, a
+    block a segment: on shared-memory rows where ``segment_bytes`` of
+    its walk fit ``phase2_layout``'s ``rows_bytes``, else on the
+    device-memory rows."""
     if not usage.is_cuda:
         return cycle_phase2_plain(
             tree, subtree, guaranteed, usage, paths, heads, seg_id,

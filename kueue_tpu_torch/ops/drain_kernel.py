@@ -1079,7 +1079,7 @@ def _launch(kernel: str, ctx: DrainContext, state: DrainState, buf: CycleBuffers
 
 
 def drain_nominate(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
-    """Kernel 2: every queue head's nomination (one thread per queue)."""
+    """Kernel 2: every queue head's nomination (one warp per queue)."""
     if not state.local.is_cuda:
         return drain_nominate_plain(ctx, state, buf)
     _launch("drain_nominate", ctx, state, buf)

@@ -496,6 +496,89 @@ def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
     }
 
 
+def nominate_batch(seed: int, q: int = 24, l: int = 3, p: int = 2, k: int = 4, c: int = 3,
+                   g: int = 2, depth: int = 2, n_cq: int = 10, fr: int = 6,
+                   scored: bool = True) -> dict:
+    """A random input of one drain nomination (kernel drain_nominate) as
+    numpy arrays: ``cycle_batch``'s cohort forest (its encoded-snapshot
+    fields and ``paths``), ``q`` queues of ``l`` entries with ``p``
+    podsets of ``k`` candidates over ``c`` cells in ``g`` resource
+    groups (the plan's ``queues_np`` keys), and the drain state it
+    meets: ``cursor`` (some past ``qlen``), ``alive`` (a few queues
+    retired), ``g_start`` (group walks resumed), ``local`` and ``avail``.
+    Candidates draw cells from few flavors, so podsets repeat cells;
+    flavor indices and scores (``scored``) tie."""
+    enc = cycle_batch(seed, w=8, depth=depth, n_cq=n_cq, fr=fr)
+    rng = np.random.default_rng(seed + 7919)
+    n = enc["parent"].shape[0]
+    cells = np.full((q, l, p, k, c), -1, dtype=np.int32)
+    qty = np.zeros((q, l, p, k, c), dtype=np.int64)
+    cgrp = np.full((q, l, p, k, c), -1, dtype=np.int8)
+    for idx in np.ndindex(q, l, p, k):
+        m = int(rng.integers(1, min(c, fr) + 1))
+        cells[idx][:m] = rng.choice(fr, size=m, replace=False)
+        qty[idx][:m] = rng.integers(0, 20, size=m)  # some zero cells
+        cgrp[idx][:m] = rng.integers(0, g, size=m)
+    gidx = rng.integers(0, 3, size=(q, l, p, k, g)).astype(np.int32)
+    cq_rows = rng.integers(0, n_cq, size=q).astype(np.int32)
+    roots = enc["paths"][np.arange(n), (enc["paths"] >= 0).sum(axis=1) - 1]
+    uniq, seg_id = np.unique(roots[cq_rows], return_inverse=True)
+    qlen = rng.integers(0, l + 1, size=q).astype(np.int32)
+    local = enc["local_usage"].copy()
+    local[n_cq:] = rng.integers(0, 60, size=(n - n_cq, fr))
+    return {
+        **enc,
+        "queues_np": {
+            "cq_rows": cq_rows,
+            "seg_id": seg_id.astype(np.int32),
+            "qlen": qlen,
+            "cells": cells,
+            "qty": qty,
+            "valid": rng.random((q, l, p, k)) < 0.85,
+            "gidx": gidx,
+            "glast": gidx == 2,
+            "cgrp": cgrp,
+            "n_podsets": rng.integers(1, p + 1, size=(q, l)).astype(np.int32),
+            "ffb": rng.random(q) < 0.5,
+            "ffp": rng.random(q) < 0.5,
+            "retry_cap": np.full(q, 3, dtype=np.int32),
+            "priority": rng.integers(0, 3, size=(q, l)).astype(np.int64),
+            "timestamp": rng.integers(0, 6, size=(q, l)).astype(np.int64),
+            "no_reclaim": rng.random(q) < 0.6,
+            "score": rng.integers(-1, 2, size=(q, l, p, k)).astype(np.int64) if scored else None,
+        },
+        "n_segments": len(uniq),
+        "cursor": np.minimum(rng.integers(0, l + 1, size=q), qlen).astype(np.int32),
+        "alive": rng.random(q) < 0.9,
+        "g_start": rng.integers(0, 2, size=(q, p, g)).astype(np.int32),
+        "local": local,
+        "avail": rng.integers(-5, 40, size=(n, fr)).astype(np.int64),
+    }
+
+
+def nominate_inputs(b: dict, dev, avail=None):
+    """(DrainContext, DrainState, CycleBuffers) of a ``nominate_batch``
+    on ``dev``: the state and buffers its nomination meets. ``avail``
+    (int64[N, FR]) replaces the batch's random availability."""
+    import torch
+
+    from kueue_tpu_torch import interop
+    from kueue_tpu_torch.ops import drain_kernel as dk
+
+    tree, queues, local, paths = interop.drain_inputs(b, b["queues_np"], dev)
+    q = queues.qlen.shape[0]
+    ctx = dk.DrainContext.build(tree, queues, paths, b["n_segments"], q, 1,
+                                seg_id=b["queues_np"]["seg_id"])
+    state = dk.DrainState.initial(local, queues, 1)
+    for name in ("local", "cursor", "g_start", "alive"):
+        getattr(state, name).copy_(torch.as_tensor(b[name]))
+    state.done.zero_()
+    buf = dk.CycleBuffers.empty(local, queues)
+    buf.usage.zero_()
+    buf.avail.copy_(torch.as_tensor(b["avail"]) if avail is None else avail)
+    return ctx, state, buf
+
+
 def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, **kw) -> dict:
     """A random input of the planner's scenario-batched solve (kernel
     B14), as numpy arrays in ``interop.plan_inputs``' form: scenario 0

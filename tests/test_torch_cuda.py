@@ -62,6 +62,14 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   round on the card planted wrong at its fetch raising KernelError at
   the sampled check against the numpy mirror.
 
+- the redesigned kernels at their edges: drain_nominate bit-exact to its
+  plain version on random nominations with K*C up to 128 pairs, P = 4
+  podsets repeating cells, G = 8 groups, tied flavor indices and
+  scores, retired and exhausted queues, a set done flag, and over the
+  contended cut's 128-entry pools; cycle_phase2 with a segment beyond
+  its shared-memory rows beside small ones, W not a multiple of 32,
+  pads, dropped ranks, repeated cells and paths of 7 levels.
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
@@ -1280,3 +1288,130 @@ def test_drain_round_raises_when_a_kernel_faults_on_the_card(cuda, tmp_path):
     run = trap.run_trapped("drain_nominate", trap.DRAIN_RUN, tmp_path)
     assert run.returncode == 0, run.stdout + run.stderr
     assert run.stdout.startswith("KernelError True"), run.stdout
+
+
+# ---- the redesigned kernels at their edges: B4's nomination (a warp a
+# queue head) and B3 (cycle_phase2 on shared or device-memory rows) ----
+
+
+# (k, c, p, g): K*C = 64, 96, 128 pairs (two to four lanes deep), P = kMaxP
+# podsets repeating cells, G = 8 groups, tied flavor indices and scores
+NOMINATE_EDGES = {
+    "fold-2": dict(k=16, c=4, p=1, g=2),
+    "fold-3": dict(k=12, c=8, p=2, g=3),
+    "fold-4": dict(k=16, c=8, p=1, g=4, fr=10),
+    "podsets-4": dict(k=4, c=3, p=dk.MAX_P, g=2, fr=4),
+    "groups-8": dict(k=8, c=8, p=2, g=dk.MAX_G, fr=9),
+    "unscored": dict(k=8, c=3, p=1, g=2, scored=False),
+}
+
+
+def _nominate_step(ctx, state, buf):
+    """drain_nominate on the card against drain_nominate_plain on
+    copies; returns the kernel's buffers."""
+    ps, pb = state.clone(), buf.clone()
+    _build.reset_launches()
+    dk.drain_nominate(ctx, state, buf)
+    dk.drain_nominate_plain(ctx, ps, pb)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["drain_nominate"] == 1
+    for name in ("is_fit", "is_pre", "pend", "head_borrow", "rep_k", "walk_next",
+                 "cells_eff", "qty_eff", "admitted"):
+        assert torch.equal(getattr(buf, name), getattr(pb, name)), name
+    return buf
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("shape", sorted(NOMINATE_EDGES))
+def test_nominate_bit_exact_at_edge_shapes(cuda, shape, seed):
+    b = cases.nominate_batch(seed, q=61, **NOMINATE_EDGES[shape])
+    ctx, state, buf = cases.nominate_inputs(b, cuda)
+    buf.admitted.fill_(True)  # the nomination clears it
+    out = _nominate_step(ctx, state, buf)
+    assert bool(out.is_fit.any() or out.is_pre.any())
+    assert not bool(out.admitted.any())
+
+
+def test_nominate_done_is_a_no_op_and_retired_queues_nominate_nothing(cuda):
+    b = cases.nominate_batch(3, q=40, k=12, c=8, p=3, g=3)
+    ctx, state, buf = cases.nominate_inputs(b, cuda)
+    state.alive.zero_()
+    out = _nominate_step(ctx, state, buf)
+    assert not bool(out.is_fit.any() or out.is_pre.any())
+    assert bool((out.rep_k == -1).all() and (out.cells_eff == -1).all())
+    ctx, state, buf = cases.nominate_inputs(b, cuda)
+    state.done.fill_(1)
+    buf.admitted.fill_(True)
+    before = buf.clone()
+    out = _nominate_step(ctx, state, buf)
+    for f in ("is_fit", "rep_k", "walk_next", "cells_eff", "qty_eff", "admitted"):
+        assert torch.equal(getattr(out, f), getattr(before, f)), f
+
+
+def test_nominate_oracle_over_pools_wider_than_a_warp(cuda):
+    """The reclaim oracle's victim loop split over the lanes, V = 128
+    pool entries a segment: every launch of the preempt cycle held to its
+    plain version over the contended cut's first cycles."""
+    from kueue_tpu_torch.perf.lockstep import PREEMPT_KERNELS, lockstep_preempt
+
+    env = _contended_cut(40)
+    plan, _, tree, paths, local, queues, victims = _preempt_case(
+        env.cache, env.pending, cuda, env.ts_fn)
+    assert victims.sowner.shape[1] > 32
+    errs = {}
+    _, state, cycles = lockstep_preempt(
+        tree, local, queues, victims, paths, plan.n_segments, plan.n_steps,
+        plan.max_cycles, 64, errs, label="contended-40, V=128", stop_after=24,
+    )
+    assert cycles == 24 and bool(state.vevicted.any())
+    assert set(errs) == set(PREEMPT_KERNELS) and not any(errs.values())
+
+
+# cycle_batch with one root cohort holding most ClusterQueues (depth 1):
+# its segment outgrows cycle_phase2's shared rows, the parentless
+# ClusterQueues' segments do not; W not a multiple of 32, pads; the
+# drop cases rank fewer steps than the largest segment. Depth 6 (paths of
+# 7 levels) walks level by level, on device-memory rows at W=200 and on
+# shared rows at W=40.
+CYCLE_EDGES = [(1, 400, False, 1), (6, 477, True, 1), (1, 77, True, 1), (3, 1000, False, 1),
+               (0, 200, False, 6), (2, 40, True, 6)]
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("seed,w,drop,depth", CYCLE_EDGES)
+def test_cycle_phase2_bit_exact_on_shared_and_device_rows(cuda, seed, w, drop, depth, dup):
+    """With ``dup`` every third head's candidates repeat a cell (two
+    lanes add at each level, as the JAX .at[].add does)."""
+    from kueue_tpu_torch.ops import assign_kernel as ak
+    from kueue_tpu_torch.ops import quota
+
+    n_cq = w if depth == 1 else w // 3
+    b = cases.cycle_batch(seed, w=w, k=4, c=8, depth=depth, n_cq=n_cq, fr=17,
+                          drop_steps=drop)
+    if dup:
+        b["cells"][::3, :, 1] = np.where(b["cells"][::3, :, 1] >= 0, b["cells"][::3, :, 0], -1)
+    tree = interop.quota_tree(b, cuda)
+    heads = interop.heads_batch(b, cuda)
+    local = torch.as_tensor(b["local_usage"], device=cuda)
+    paths = torch.as_tensor(b["paths"], device=cuda)
+    errs = {}
+    _build.reset_launches()
+    packed = cycle_solve(tree, local, heads, paths, b["seg_id"], b["n_segments"],
+                         b["n_steps"], Lockstep(errs, label=f"cycle edge {seed}, W={w}"))
+    torch.cuda.synchronize()
+    assert set(errs) == set(CYCLE_KERNELS) - {"scatter_rows"} and not any(errs.values())
+    assert _build.launch_counts()["cycle_phase2"] == 1
+    assert bool((packed[1] > 0).any())
+    sub, g = quota.subtree_quota(tree)
+    chosen, _, pk = ak.phase1_classify(tree, sub, g, local, heads)
+    walked = (b["cq_row"] >= 0) & ((chosen >= 0) | (pk >= 0)).cpu().numpy()
+    n_walk = np.minimum(np.bincount(b["seg_id"][walked]), b["n_steps"])
+    members = int(np.bincount(b["seg_id"][b["seg_id"] >= 0]).max())
+    lay = ak.phase2_layout(w, members, 8, 17, b["max_depth"])
+    need = [ak.segment_bytes(int(n), 17, b["max_depth"]) for n in n_walk]
+    if depth == 1:
+        assert min(need) <= lay["rows_bytes"]  # small segments walk on shared rows
+    if w >= 200:  # and the big ones on device-memory rows
+        assert max(need) > lay["rows_bytes"]
+    else:
+        assert max(need) <= lay["rows_bytes"]
