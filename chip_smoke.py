@@ -49,8 +49,8 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
 4. The megaloop chain at the headline (perf/megaloop.py: 8 rounds of 8
    cycles a launch, relaunched over the last round's undecided backlog
    until a log is not truncated):
-   a. lockstep: every launch of its six per-cycle launches (quota_tree
-      twice, drain_nominate, drain_phase2, drain_queue_motion,
+   a. lockstep: every launch of its five per-cycle launches (quota_tree
+      once, drain_nominate, drain_phase2, drain_queue_motion,
       megaloop_boundary) held to its plain version at every cycle of
       both launches of the chain, and of mixed_spec(7) at 56 cycles a
       round, where a round boundary retires stuck queues;
@@ -74,8 +74,8 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
    16 cycles of CYCLE_EXPECT, then on to cycle 30 (steady state: from
    cycle 24 on each cycle changes at most N/4 usage rows, so the
    resident buffer takes row deltas through scatter_rows):
-   a. lockstep: every launch of the cycle's kernels (quota_tree,
-      cycle_phase1, cycle_phase2, scatter_rows) held to its plain
+   a. lockstep: every launch of the cycle's kernels (quota_tree once
+      for its four recurrences, cycle_phase1, cycle_phase2, scatter_rows) held to its plain
       version at every one of the 30 headline cycles and of a small
       seeded cluster run to quiescence (perf.cases.cycle_spec:
       depth-3 cohorts, limits, reservations, host victim search),
@@ -113,7 +113,7 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
       batched search within it, the host apply).
 8. The drain with classic preemption over the same cluster
    (run_drain_preempt at bench.py's search_width=64):
-   a. lockstep: every launch of the preempt cycle (quota_tree twice,
+   a. lockstep: every launch of the preempt cycle (quota_tree once,
       drain_nominate with the reclaim oracle, drain_preempt_search,
       drain_preempt_phase2, drain_preempt_motion) held to its plain
       version at every cycle of both tiers a fresh PanelTuner solves
@@ -149,7 +149,7 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
       quiescence run's batches and on bench.py's fair batch: host wall
       and device time of each, the same decisions.
 10. The drain with fair-sharing preemption:
-   a. lockstep: every launch of its cycle (quota_tree twice,
+   a. lockstep: every launch of its cycle (quota_tree once,
       drain_nominate with the reclaim oracle, drain_fair_preempt_search,
       drain_fair_preempt_phase2, drain_preempt_motion with the fair-panel
       fill) held to its plain version at every cycle of fair-preempt-1k,
@@ -182,7 +182,7 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
       equal to the same call on a device="cpu" snapshot; the host numpy
       CountIn and B12's (upload, launch, fetch) per podset at both
       sizes;
-   c. lockstep: every launch of the TAS cycle (quota_tree twice,
+   c. lockstep: every launch of the TAS cycle (quota_tree once,
       drain_nominate, drain_tas_place, drain_tas_phase2,
       drain_queue_motion) held to its plain version at every cycle of
       tas-drain-10k (bench.py's tas_drain stage, seed 6) and of the
@@ -419,6 +419,17 @@ class BoundData:
         self.no_reclaim = qs.no_reclaim.cpu().numpy()
         self.paths = ctx.paths.cpu().numpy()
         self.seg_id = qs.seg_id.cpu().numpy()
+        self.forest = forest_bytes(ctx.tree)
+
+
+def forest_bytes(tree) -> int:
+    """Bytes of quota_tree's packing of the forest a launch reads: a
+    position's node, parent and children (16 B), and each bin's level
+    starts."""
+    from kueue_tpu_torch.ops.quota import tree_forest
+
+    f = tree_forest(tree)
+    return 16 * tree.n_nodes + 4 * f.bins.numel()
 
 
 def chain_heads(walked: np.ndarray, seg: np.ndarray, n_steps: int) -> int:
@@ -441,13 +452,12 @@ def cycle_bytes(bd: BoundData, cursor: np.ndarray, buf, alive=None) -> dict:
     each output written once), counted from the cycle's own data:
     ``cursor`` (and the megaloop's ``alive``) at the cycle's start and
     the buffers after it, which say who was nominated and admitted.
-    quota_tree gets its two passes."""
+    quota_tree is its one launch of usage and availability."""
     q, l, p, k, c, g, fr, d1 = bd.q, bd.l, bd.p, bd.k, bd.c, bd.g, bd.fr, bd.d1
-    tree_links = 4 * bd.n + d1 * bd.n
     mat = bd.n * fr * 8
-    # usage_tree: local, guaranteed in, usage out; available_all:
-    # subtree, guaranteed, borrowing_limit, usage in, avail out
-    quota = [3 * mat + tree_links, 5 * mat + tree_links]
+    # local, guaranteed, subtree, borrowing_limit in, usage and avail
+    # out, and the forest's packing
+    quota = [6 * mat + bd.forest]
 
     active = cursor < bd.qlen
     if alive is not None:
@@ -526,6 +536,7 @@ def timed_drain(ctx, local, queues):
         for name, kern, _ in STEPS:
             timer(name, lambda: kern(ctx, state, buf), None)
         timer.add_bytes(cycle_bytes(bd, cursor, buf))
+        timer.add_chain("drain_phase2", drain_chain(bd, buf, ctx.n_steps))
         cycles += 1
     return cycles, timer
 
@@ -609,8 +620,10 @@ def cycle_launch_bytes(tree, heads, paths, seg_id, phase1, packed) -> dict:
     gathers count distinct (row, cell) pairs."""
     n, fr = tree.nominal.shape
     d1 = paths.shape[1]
-    mat, links = n * fr * 8, 4 * n + d1 * n
-    quota = [4 * mat + links, 3 * mat + links, 5 * mat + links, 4 * mat + links]
+    mat = n * fr * 8
+    # quota_all: nominal, lending, borrowing_limit, local in; subtree,
+    # guaranteed, usage, avail, potential out; the forest's packing
+    quota = [9 * mat + forest_bytes(tree)]
 
     cq = heads.cq_row.cpu().numpy()
     cells = heads.cells.cpu().numpy()
@@ -1008,13 +1021,14 @@ def cycle_path(device) -> dict:
     cycle_ms = {k: 1e3 * float(np.mean(v)) for k, v in parts.items()}
     cycle_max_ms = 1e3 * float(np.max(totals))
     solve_dev = sum(ctiming[n]["ms"] * m for n, m in
-                    (("quota_tree", 4), ("cycle_phase1", 1), ("cycle_phase2", 1)))
+                    (("quota_tree", 1), ("cycle_phase1", 1), ("cycle_phase2", 1)))
     print(f"{stamp()} headline cycle wall, mean of {cycle.CYCLES} cycles (max {cycle_max_ms:.1f} ms): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in cycle_ms.items())
-          + f"; the solve's six launches, each timed alone, {solve_dev:.3f} ms a cycle")
+          + f"; the solve's three launches, each timed alone, {solve_dev:.3f} ms a cycle")
     depth = sched._resident_state._tree.max_depth
     cshapes = {
-        "quota_tree": f"headline cycles 1-{cycle.CYCLES}, 4 a cycle, D={depth}",
+        "quota_tree": f"headline cycles 1-{cycle.CYCLES}, 1 a cycle (4 recurrences), "
+                      f"D={depth}",
         "cycle_phase1": f"headline cycles 1-{cycle.CYCLES}, W=1024 K=8 C=16",
         "cycle_phase2": f"headline cycles 1-{cycle.CYCLES}, W=1024 K=8 C=16 D={depth}",
         "scatter_rows": f"headline cycles {cycle.CYCLES + 1}-{STEADY_CYCLES}, row deltas",
@@ -1308,6 +1322,7 @@ def megaloop_path(dev, cache, pending) -> dict:
                 bd, after, int(state.round_idx.item()) != rnd,
                 state.alive.cpu().numpy(), int(buf.admitted.sum()))]
             timer.add_bytes(per)
+            timer.add_chain("drain_phase2", drain_chain(bd, buf, plan.n_steps))
     timing = {name: timing_of(timer, name, plain) for name in _build.MEGALOOP_KERNELS}
     print(f"{stamp()} timed megaloop chain: "
           f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "
@@ -1601,8 +1616,7 @@ def preempt_cycle_bytes(ctx, state_before, buf, state_after) -> dict:
     targets = buf.targets.cpu().numpy()
     ev_now = buf.ev_now.cpu().numpy()
     mat = n * fr * 8
-    links = 4 * n + d1 * n
-    quota = [3 * mat + links, 5 * mat + links]
+    quota = [6 * mat + forest_bytes(ctx.tree)]
 
     # nomination: the plain drain's walk (each head's entry, the quota
     # cells it gathers), plus the oracle over the segment's live pool

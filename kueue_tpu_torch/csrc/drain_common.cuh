@@ -9,7 +9,7 @@
 // by kueue_tpu_torch/ops/drain_kernel.py (DrainContext.kernel_args):
 //   ints: Q L P K C G N FR D n_segments n_steps n_seg max_cycles
 //         chunk_cycles max_rounds n_res prio_tie V Cv M search_width
-//         Cu strategy1 has_second Lf Rt Dt ND
+//         Cu strategy1 has_second Lf Rt Dt ND max_members
 //   ptrs: 17 DrainQueues fields, 7 tree tensors, 12 DrainState
 //         fields, 12 CycleBuffers fields, seg_offsets, seg_members,
 //         8 megaloop round-log fields, 6 fair-drain fields, 33
@@ -199,6 +199,7 @@ struct Args {
   int V, Cv, M, search_width;
   int Cu, strategy1, has_second;
   int Lf, Rt, Dt, ND;
+  int max_members;  // queues of the largest segment
   Queues q;
   Tree t;
   State s;
@@ -212,7 +213,7 @@ struct Args {
   Tas tas;
 };
 
-constexpr int kNumInts = 28;
+constexpr int kNumInts = 29;
 constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8 + 17;
 
 // Fills `a` from the two arrays; false when their lengths do not match.
@@ -227,6 +228,7 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->V = ints[17]; a->Cv = ints[18]; a->M = ints[19]; a->search_width = ints[20];
   a->Cu = ints[21]; a->strategy1 = ints[22]; a->has_second = ints[23];
   a->Lf = ints[24]; a->Rt = ints[25]; a->Dt = ints[26]; a->ND = ints[27];
+  a->max_members = ints[28];
   int i = 0;
   a->q.cq_rows = (const int*)p[i++];
   a->q.seg_id = (const int*)p[i++];

@@ -6,125 +6,653 @@
 // per-step _avail_along_path (assign_kernel.py:282) and the usage
 // bubble-up.
 //
-// One block per root-cohort segment: roots touch disjoint tree rows,
-// so segments need no synchronisation with each other (the JAX scan
-// runs them in lockstep, which is the same). Inside a segment:
-//   1. every thread ranks some of the segment's nominated heads (Fit
-//      or preempt-mode) by (borrowing asc, priority desc, timestamp
-//      asc, queue index asc) — the last key is jnp.lexsort's
-//      stability — by counting the heads that order before it
-//      (segments hold tens of queues); ranks >= n_steps are dropped
-//      exactly as the JAX scatter drops them;
-//   2. warp 0 walks the ranked heads in order, one lane per merged
-//      cell: available() root-down along the head's ancestor path, a
-//      warp vote for fits, the admit or reserve decision, then the
-//      bubble of each node's over-guaranteed delta up the path.
-//      Admitted quantities are added to the queue's leaf row of the
-//      leaf usage. The cycle usage tree is mutated in place: it is
-//      rebuilt from the leaf rows at the start of every cycle, so
-//      reservations die with the cycle.
-// Segment membership is static for a drain (CSR built on the host).
+// Grid: one block of 8 warps per root-cohort segment (CSR from the
+// host): roots touch disjoint tree rows, so segments need no
+// synchronisation with each other (the JAX scan runs them in lockstep,
+// which is the same). Each block
+//   1. stages every member's sort key in shared memory, the loads of a
+//      round issued together: ranked (nominated, Fit or preempt-mode,
+//      and active), borrowing, the priority and timestamp of its entry
+//      at min(cursor, L-1), and its ClusterQueue row and ancestor path
+//      (the keys stay in device memory when the segment is too wide for
+//      them);
+//   2. ranks each ranked member by (borrowing asc, priority desc,
+//      timestamp asc, queue index asc) — the last key is jnp.lexsort's
+//      stability — a warp a member, the lanes counting the members that
+//      order before it, branchless, and a warp sum; ranks >= n_steps
+//      are dropped exactly as the JAX scatter drops them, and so is a
+//      segment >= n_segments;
+//   3. puts the walk's quota rows in shared memory: the subtree,
+//      guaranteed, borrowing-limit, usage and nominal rows of every
+//      node on the walked heads' paths, read in one round while window
+//      0 is staged (step 4), then deduplicated in the block (a node's
+//      first path entry holds its rows; a warp an entry, a ballot over
+//      the earlier ones); a segment whose rows do not fit
+//      (segment_bytes below) walks on the device-memory rows instead,
+//      chosen here from its size;
+//   4. stages each walked head's step operands (its merged cells and
+//      quantities, its path's rows, its flags) in windows of up to 32
+//      heads: all warps stage the first, then warps 1-7 stage window
+//      i+1 while warp 0 walks window i;
+//   5. warp 0 walks the heads in rank order, one lane per merged cell
+//      (P*C <= 32), each head's step unrolled over its own path's
+//      levels (up to 4; longer paths level by level): available()
+//      root-down along the path, a warp vote for fits, admit (Fit and
+//      fits) or reserve (preempt-mode and reclaimWithinCohort != Any)
+//      with the borrow or nominal cap, then the bubble of each node's
+//      over-guaranteed delta up the path. Every lane reads its level
+//      before any lane adds, as the JAX .at[].add does; a head whose
+//      cells are distinct stores its sums, one repeating a cell adds
+//      atomically. The walk touches shared memory only: the cycle usage
+//      tree is mutated in place on the shared rows (it is rebuilt from
+//      the leaf rows at the start of every cycle, so reservations die
+//      with the cycle), and each head's admission is kept by rank;
+//   6. writes back the usage rows, adds the admitted quantities to
+//      their queues' leaf rows of the leaf usage (from the windows
+//      still staged, else from device memory) and sets `admitted`,
+//      every thread at once. `admitted` is written for the walked heads
+//      only: the nomination cleared it for every queue.
 //
 // What bounds it: the walk is sequential within a segment (each head
-// sees its predecessors' admissions), so latency, not bytes (about
-// 0.2 MB at the headline's first cycle as chip_smoke.py counts it,
-// ~0.07 us at 3.35 TB/s), bounds it: 20 heads x (D+1) dependent global
-// round trips per segment. 50 segments run on
-// 50 SMs at once. A set `done` flag makes the launch a no-op.
+// sees its predecessors' admissions). Its least time is a chain: two
+// dependent shared-memory trips a walked head (read its usage rows,
+// add) over the longest segment, ~0.6 us at the headline (20 heads);
+// the bytes bound (chip_smoke.py counts it) is well under a
+// microsecond. On the card a head's step is a chain of dependent int64
+// operations and warp votes of one warp, ~0.5 us a head (PERF.md).
+// Steps 1-4 and 6 are a few device-memory round trips a block, all
+// warps at once. A set `done` flag makes the launch a no-op.
 
 #include "drain_common.cuh"
-#include "quota_path.cuh"
 
 namespace drain {
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kWin = 32;     // heads a staging window
+constexpr int kStage = 2;    // members a thread stages a round
+constexpr int kRows = 4;     // row cells a thread stages a round
+constexpr int kLevels = 4;   // path levels the unrolled walk holds in registers
+constexpr int kSmemMax = 232448 - 1024;  // a block's opt-in shared memory (sm_90),
+                                          // less room for the static n_valid
+constexpr unsigned kFull = 0xffffffffu;
+constexpr long long kNoClamp = 0x7fffffffffffffffLL;  // a level with no borrowing limit
 
-__device__ __forceinline__ bool orders_before(const Args& a, int x, int y) {
-  // (borrow asc, priority desc, timestamp asc, queue index asc)
-  const int bx = a.b.head_borrow[x], by = a.b.head_borrow[y];
-  if (bx != by) return bx < by;
-  const int cx = min(a.s.cursor[x], a.L - 1), cy = min(a.s.cursor[y], a.L - 1);
-  const long long px = a.q.priority[(size_t)x * a.L + cx];
-  const long long py = a.q.priority[(size_t)y * a.L + cy];
-  if (px != py) return px > py;
-  const long long tx = a.q.timestamp[(size_t)x * a.L + cx];
-  const long long ty = a.q.timestamp[(size_t)y * a.L + cy];
-  if (tx != ty) return tx < ty;
-  return x < y;
+extern __shared__ __align__(16) unsigned char smem[];
+
+// Byte offsets of the dynamic shared memory (multiples of 8), set by
+// the host.
+struct Layout {
+  int kx, kf, kp, kt;  // member keys: queue index, flags, priority, timestamp
+  int kc, kpath;       // member's ClusterQueue row, its ancestor path
+  int walk;            // int32[max_members]: the walked members by rank
+  int adm;             // uint8[max_members]: admitted, by rank
+  int stage;           // two staging windows of `win` heads
+  int stage_buf;       // bytes of one window
+  int rows;            // the segment's rows, `rows_bytes` of them
+  int rows_bytes;
+  int win;
+  int keys;            // 1 when the members' keys are staged
+  int total;
+};
+
+__host__ __device__ inline int align8(long long b) { return (int)((b + 7) & ~7LL); }
+
+// Shared bytes the walk of a segment with n_walk walked heads needs to
+// keep its rows in shared memory: per path entry (head, level) a node
+// id, a slot and the five int64 rows of FR cells. (The wrapper's
+// phase2_segment_bytes says the same.)
+__host__ __device__ inline long long segment_bytes(int n_walk, int fr, int d) {
+  return (long long)n_walk * (d + 1) * (8 + 40LL * fr);
 }
 
-__device__ __forceinline__ bool nominated(const Args& a, int x) {
-  return a.b.is_fit[x] || a.b.is_pre[x];
+// One staging window: per head its PC merged cells and quantities, its
+// path's D+1 rows (shared slots or node ids), its path's valid levels,
+// its flags (1 Fit, 2 reserve, 4 borrowing, 8 cells repeat) and its
+// ClusterQueue row.
+struct Window {
+  int* cell;
+  int* lvl;
+  int* nv;
+  int* flag;
+  int* cq;
+  long long* qty;
+};
+
+__host__ __device__ inline int window_bytes(int win, int pc, int d) {
+  return align8(4LL * win * (pc + d + 4)) + 8 * win * pc;
 }
 
-__global__ void phase2(Args a) {
+__device__ __forceinline__ Window window(int off, int win, int pc, int d) {
+  unsigned char* base = smem + off;
+  Window w;
+  w.cell = (int*)base;
+  w.lvl = w.cell + win * pc;
+  w.nv = w.lvl + win * (d + 1);
+  w.flag = w.nv + win;
+  w.cq = w.flag + win;
+  w.qty = (long long*)(base + align8(4LL * win * (pc + d + 4)));
+  return w;
+}
+
+// A member's sort key: its queue, flags (1 ranked, 2 borrowing), the
+// priority and timestamp of its current entry.
+struct Key {
+  int x, f;
+  long long p, t;
+};
+
+// Key of member j from device memory: three dependent trips.
+__device__ __forceinline__ Key load_key(const Args& a, int beg, int j) {
+  Key k;
+  k.x = __ldg(a.seg_members + beg + j);
+  const int cur = __ldg(a.s.cursor + k.x);
+  const bool ranked = (__ldg(a.b.is_fit + k.x) | __ldg(a.b.is_pre + k.x)) &&
+                      cur < __ldg(a.q.qlen + k.x) && __ldg(a.s.alive + k.x);
+  k.f = (ranked ? 1 : 0) | (__ldg(a.b.head_borrow + k.x) ? 2 : 0);
+  const size_t e = (size_t)k.x * a.L + min(cur, a.L - 1);
+  k.p = __ldg(a.q.priority + e);
+  k.t = __ldg(a.q.timestamp + e);
+  return k;
+}
+
+template <bool kKeys>
+__device__ __forceinline__ Key key_of(const Args& a, const Layout& L, int beg, int j) {
+  if constexpr (kKeys) {
+    Key k;
+    k.x = ((const int*)(smem + L.kx))[j];
+    k.f = smem[L.kf + j];
+    k.p = ((const long long*)(smem + L.kp))[j];
+    k.t = ((const long long*)(smem + L.kt))[j];
+    return k;
+  } else {
+    return load_key(a, beg, j);
+  }
+}
+
+// Member m's queue, ClusterQueue row and path node at level d: staged
+// with the keys, else from device memory.
+template <bool kKeys>
+struct Members {
+  const int* kx;       // shared: queue, ClusterQueue row, path by member
+  const int* kc;
+  const int* kpath;
+  const int* members;  // device memory: the segment's queues
+  const int* cq_rows;
+  const int* paths;
+  int d1;
+  __device__ __forceinline__ int queue(int m) const {
+    return kKeys ? kx[m] : __ldg(members + m);
+  }
+  __device__ __forceinline__ int cq(int m) const {
+    return kKeys ? kc[m] : max(__ldg(cq_rows + queue(m)), 0);
+  }
+  __device__ __forceinline__ int path(int m, int d) const {
+    return kKeys ? kpath[m * d1 + d] : __ldg(paths + (size_t)cq(m) * d1 + d);
+  }
+};
+
+// Stage window `wi` of the walk (members walk[wi*win ...]) with threads
+// t, t + nt, ... of the block, a thread a (head, cell or level) slot.
+// lvl holds shared slots (ent_slot, by path entry) when rows are
+// staged, else the paths' node ids.
+template <bool kKeys>
+__device__ __forceinline__ void stage(const Args& a, const Layout& L, const Members<kKeys>& mb,
+                                      const int* walk, int n_walk, int wi, int w_off,
+                                      const int* ent_slot, int t, int nt, bool lvl = true) {
+  const int PC = a.P * a.C, D1 = a.D + 1, win = L.win, span = max(PC, D1);
+  const Window w = window(w_off, win, PC, a.D);
+  const int r0 = wi * win, nr = min(win, n_walk - r0);
+  for (int i = t; i < nr * span; i += nt) {
+    const int r = i / span, c = i - r * span;
+    const int m = walk[r0 + r];
+    const int h = mb.queue(m);
+    if (c < D1 && lvl) {
+      w.lvl[r * D1 + c] = ent_slot ? ent_slot[(r0 + r) * D1 + c] : mb.path(m, c);
+    }
+    if (c == 0) {
+      int nv = 0;
+      for (int d = 0; d < D1; ++d) nv += mb.path(m, d) >= 0;
+      w.nv[r] = nv;
+      w.cq[r] = mb.cq(m);
+      w.flag[r] = (__ldg(a.b.is_fit + h) ? 1 : 0) |
+                  (__ldg(a.b.is_pre + h) && __ldg(a.q.no_reclaim + h) ? 2 : 0) |
+                  (__ldg(a.b.head_borrow + h) ? 4 : 0);
+    }
+    if (c < PC) {
+      const size_t ci = (size_t)h * PC + c;
+      w.cell[r * PC + c] = __ldg(a.b.cells_eff + ci);
+      w.qty[r * PC + c] = __ldg(a.b.qty_eff + ci);
+    }
+  }
+}
+
+// Flag 8 on the window's heads whose merged cells repeat a cell, a lane
+// a head: a cell on two lanes adds twice at each level (the JAX
+// .at[].add), so such a head adds atomically, the others store their
+// sums. Cells are told apart modulo 32; a collision only costs the
+// atomics.
+__device__ __forceinline__ void mark_repeats(const Window& w, int nr, int PC, int lane) {
+  for (int r = lane; r < nr; r += 32) {
+    unsigned seen = 0;
+    int n_cells = 0;
+    for (int k = 0; k < PC; ++k) {
+      const int cell = w.cell[r * PC + k];
+      if (cell >= 0 && w.qty[r * PC + k] > 0) {
+        seen |= 1u << (cell & 31);
+        ++n_cells;
+      }
+    }
+    if (__popc(seen) < n_cells) w.flag[r] |= 8;
+  }
+  __syncwarp();
+}
+
+// The admit-or-reserve delta of one lane: the quantity when admitted,
+// else the reservation's borrow or nominal cap against the leaf's usage
+// as this step found it.
+__device__ __forceinline__ long long step_delta(bool cv, bool admit, int flag, long long qv,
+                                                long long nom, long long bl, long long leaf) {
+  if (!cv) return 0;
+  const long long cap = (flag & 4) ? (bl < kNoLimit ? min(qv, nom + bl - leaf) : qv)
+                                   : max(0LL, min(qv, nom - leaf));
+  return admit ? qv : (flag & 2) ? cap : 0;
+}
+
+// One head of warp 0's walk over the rows S, G, BL, U, N (shared slots
+// or device-memory nodes, as lvl holds), its path NV levels long: its
+// rows are read once, every level at once, and its bubble adds from
+// those values (every lane reads every level before any lane adds; the
+// lanes of a head with distinct cells write distinct cells, so only a
+// repeating one waits for the others' reads).
+template <bool kShared, int NV>
+__device__ __forceinline__ void walk_head(const Window& w, int r, int PC, int D1, int FR,
+                                          const long long* S, const long long* G,
+                                          const long long* BL, long long* U,
+                                          const long long* N, uint8_t* adm, int lane) {
+  const int* lvl = w.lvl + r * D1;
+  const int flag = w.flag[r];
+  int cell = -1;
+  long long qv = 0;
+  if (lane < PC) {
+    cell = w.cell[r * PC + lane];
+    qv = w.qty[r * PC + lane];
+  }
+  const bool cv = cell >= 0 && qv > 0, dup = flag & 8;
+  const int cc = cv ? cell : 0;
+  size_t x[NV];
+  long long s[NV], g[NV], bl[NV], u[NV], over[NV];
+#pragma unroll
+  for (int d = 0; d < NV; ++d) {
+    x[d] = (size_t)lvl[d] * FR + cc;
+    s[d] = cv ? S[x[d]] : 0;
+    g[d] = cv ? G[x[d]] : 0;
+    bl[d] = cv ? BL[x[d]] : 0;
+    u[d] = cv ? (kShared ? U[x[d]] : __ldcg(U + x[d])) : 0;
+    over[d] = max(0LL, u[d] - g[d]);
+  }
+  const long long nom = cv ? N[x[0]] : 0;
+  long long avail = s[NV - 1] - u[NV - 1];  // the root
+#pragma unroll
+  for (int d = NV - 2; d >= 0; --d) {
+    // storedInParent - usedInParent + borrowingLimit, or no clamp
+    const long long cap = bl[d] < kNoLimit ? (s[d] - g[d]) - over[d] + bl[d] : kNoClamp;
+    avail = max(0LL, g[d] - u[d]) + min(cap, avail);
+  }
+  const bool fits = __all_sync(kFull, !cv || avail >= qv);
+  const bool admit = (flag & 1) && fits;
+  long long delta = step_delta(cv, admit, flag, qv, nom, bl[0], u[0]);
+  if (dup) __syncwarp();  // every lane has read every level
+#pragma unroll
+  for (int d = 0; d < NV; ++d) {
+    if (cv && delta != 0) {
+      if (dup) atomicAdd((unsigned long long*)&U[x[d]], (unsigned long long)delta);
+      else U[x[d]] = u[d] + delta;
+    }
+    delta = max(0LL, u[d] + delta - g[d]) - over[d];
+  }
+  if (lane == 0) adm[r] = admit;
+  __syncwarp();  // the head's adds land before the next head reads
+}
+
+// The same step level by level, for paths longer than kLevels.
+template <bool kShared>
+__device__ __forceinline__ void walk_head_deep(const Window& w, int r, int PC, int D1, int FR,
+                                               const long long* S, const long long* G,
+                                               const long long* BL, long long* U,
+                                               const long long* N, uint8_t* adm, int lane) {
+  auto load_u = [&](size_t x) { return kShared ? U[x] : __ldcg(U + x); };
+  const int* lvl = w.lvl + r * D1;
+  const int nv = w.nv[r], flag = w.flag[r];
+  int cell = -1;
+  long long qv = 0;
+  if (lane < PC) {
+    cell = w.cell[r * PC + lane];
+    qv = w.qty[r * PC + lane];
+  }
+  const bool cv = cell >= 0 && qv > 0, dup = flag & 8;
+  const int cc = cv ? cell : 0;
+  long long avail = 0, leaf = 0;
+  if (cv) {
+    for (int d = nv - 1; d >= 0; --d) {
+      const size_t xd = (size_t)lvl[d] * FR + cell;
+      const long long sd = S[xd], gd = G[xd], bld = BL[xd];
+      const long long ud = load_u(xd);
+      if (d == nv - 1) {
+        avail = sd - ud;
+      } else {
+        const long long with_max = (sd - gd) - max(0LL, ud - gd) + bld;
+        const long long clamped = bld < kNoLimit ? min(with_max, avail) : avail;
+        avail = max(0LL, gd - ud) + clamped;
+      }
+      leaf = ud;  // ends as the leaf row as this step found it
+    }
+  }
+  const bool fits = __all_sync(kFull, !cv || avail >= qv);
+  const bool admit = (flag & 1) && fits;
+  const size_t x0 = (size_t)lvl[0] * FR + cc;
+  long long delta = step_delta(cv, admit, flag, qv, cv ? N[x0] : 0, cv ? BL[x0] : 0, leaf);
+  for (int d = 0; d < nv; ++d) {
+    const size_t xd = (size_t)lvl[d] * FR + cc;
+    long long old = 0, gd = 0;
+    if (cv) {
+      old = load_u(xd);
+      gd = G[xd];
+    }
+    __syncwarp();
+    if (cv && delta != 0) {
+      if (dup) atomicAdd((unsigned long long*)&U[xd], (unsigned long long)delta);
+      else U[xd] = old + delta;
+    }
+    __syncwarp();
+    delta = max(0LL, old + delta - gd) - max(0LL, old - gd);
+  }
+  if (lane == 0) adm[r] = admit;
+  __syncwarp();  // the head's adds land before the next head reads
+}
+
+// Warp 0's walk of one staged window: each head's step unrolled over its
+// own path's levels (up to kLevels), else level by level.
+template <bool kShared>
+__device__ __forceinline__ void walk_window(const Args& a, const Layout& Lay, int w_off,
+                                            int nr, const long long* S, const long long* G,
+                                            const long long* BL, long long* U,
+                                            const long long* N, uint8_t* adm, int lane) {
+  const int PC = a.P * a.C, FR = a.FR, D1 = a.D + 1;
+  const Window w = window(w_off, Lay.win, PC, a.D);
+  mark_repeats(w, nr, PC, lane);
+  static_assert(kLevels == 4, "the switch below unrolls 1-4 levels");
+  for (int r = 0; r < nr; ++r) {
+    switch (w.nv[r]) {
+      case 1: walk_head<kShared, 1>(w, r, PC, D1, FR, S, G, BL, U, N, adm, lane); break;
+      case 2: walk_head<kShared, 2>(w, r, PC, D1, FR, S, G, BL, U, N, adm, lane); break;
+      case 3: walk_head<kShared, 3>(w, r, PC, D1, FR, S, G, BL, U, N, adm, lane); break;
+      case 4: walk_head<kShared, 4>(w, r, PC, D1, FR, S, G, BL, U, N, adm, lane); break;
+      default: walk_head_deep<kShared>(w, r, PC, D1, FR, S, G, BL, U, N, adm, lane);
+    }
+  }
+}
+
+// One block a multiprocessor is enough (the grid is a block a segment or
+// bin): without the 1, ptxas held the kernel to 64 registers and spilled.
+template <bool kKeys>
+__global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Layout L) {
   const int s = blockIdx.x;
   if (*a.s.done || s >= a.n_segments) return;
-  const int beg = a.seg_offsets[s], end = a.seg_offsets[s + 1];
-  const int m = end - beg;
+  const int beg = a.seg_offsets[s], m = a.seg_offsets[s + 1] - beg;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int D1 = a.D + 1;
+  int* walk = (int*)(smem + L.walk);
+  const Members<kKeys> mb{(const int*)(smem + L.kx), (const int*)(smem + L.kc),
+                          (const int*)(smem + L.kpath), a.seg_members + beg, a.q.cq_rows,
+                          a.t.paths, D1};
   __shared__ int n_valid;
-  if (threadIdx.x == 0) n_valid = 0;
-  __syncthreads();
+  if (tid == 0) n_valid = 0;
 
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    const int x = a.seg_members[beg + i];
-    if (!nominated(a, x)) continue;
-    atomicAdd(&n_valid, 1);
-    int rank = 0;
-    for (int j = 0; j < m; ++j) {
-      const int y = a.seg_members[beg + j];
-      if (y != x && nominated(a, y) && orders_before(a, y, x)) ++rank;
+  if constexpr (kKeys) {
+    // a thread's members j = base + i * kThreads + tid, kStage at a
+    // time: every load of a trip issued before the next trip's
+    int* kx = (int*)(smem + L.kx);
+    uint8_t* kf = smem + L.kf;
+    long long* kp = (long long*)(smem + L.kp);
+    long long* kt = (long long*)(smem + L.kt);
+    int* kc = (int*)(smem + L.kc);
+    int* kpath = (int*)(smem + L.kpath);
+    for (int base = 0; base < m; base += kStage * kThreads) {
+      int x[kStage], cur[kStage], f[kStage], cq[kStage];
+#pragma unroll
+      for (int i = 0; i < kStage; ++i) {
+        const int j = base + i * kThreads + tid;
+        x[i] = j < m ? __ldg(a.seg_members + beg + j) : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kStage; ++i) {
+        cur[i] = __ldg(a.s.cursor + x[i]);
+        cq[i] = max(__ldg(a.q.cq_rows + x[i]), 0);
+        const bool ranked = (__ldg(a.b.is_fit + x[i]) | __ldg(a.b.is_pre + x[i])) &&
+                            cur[i] < __ldg(a.q.qlen + x[i]) && __ldg(a.s.alive + x[i]);
+        f[i] = (ranked ? 1 : 0) | (__ldg(a.b.head_borrow + x[i]) ? 2 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < kStage; ++i) {
+        const int j = base + i * kThreads + tid;
+        if (j >= m) continue;
+        const size_t e = (size_t)x[i] * a.L + min(cur[i], a.L - 1);
+        kx[j] = x[i];
+        kf[j] = (uint8_t)f[i];
+        kc[j] = cq[i];
+        kp[j] = __ldg(a.q.priority + e);
+        kt[j] = __ldg(a.q.timestamp + e);
+        for (int d = 0; d < D1; ++d) {
+          kpath[j * D1 + d] = __ldg(a.t.paths + (size_t)cq[i] * D1 + d);
+        }
+      }
     }
-    if (rank < a.n_steps) a.b.order[beg + rank] = x;
   }
   __syncthreads();
-  if (threadIdx.x >= 32) return;
 
-  const int lane = threadIdx.x;
-  const int PC = a.P * a.C, FR = a.FR, D = a.D;
+  // rank: a warp a ranked member, its lanes counting its predecessors
+  for (int i = warp; i < m; i += kWarps) {
+    const Key ki = key_of<kKeys>(a, L, beg, i);
+    if (!(ki.f & 1)) continue;
+    const int bi = ki.f >> 1;
+    int n = 0;
+    for (int j = lane; j < m; j += 32) {
+      const Key kj = key_of<kKeys>(a, L, beg, j);
+      const int bj = kj.f >> 1;
+      // branchless: (borrowing, -priority, timestamp, queue index)
+      n += (kj.f & 1) &
+           ((bj < bi) | ((bj == bi) & ((kj.p > ki.p) |
+                                       ((kj.p == ki.p) & ((kj.t < ki.t) |
+                                                          ((kj.t == ki.t) & (kj.x < ki.x)))))));
+    }
+    n = __reduce_add_sync(kFull, n);
+    if (lane == 0) {
+      atomicAdd(&n_valid, 1);
+      if (n < a.n_steps) walk[n] = i;
+    }
+  }
+  __syncthreads();
   const int n_walk = min(n_valid, a.n_steps);
-  for (int r = 0; r < n_walk; ++r) {
-    const int h = a.b.order[beg + r];
-    const int cq = max(a.q.cq_rows[h], 0);
-    const int* path = a.t.paths + (size_t)cq * (D + 1);
-    int cell = -1;
-    long long qv = 0;
-    if (lane < PC) {
-      cell = a.b.cells_eff[(size_t)h * PC + lane];
-      qv = a.b.qty_eff[(size_t)h * PC + lane];
+  if (n_walk == 0) return;
+
+  // the walk's rows: in shared memory when the segment's fit
+  const int FR = a.FR, E = n_walk * D1;
+  const bool shared_rows = segment_bytes(n_walk, FR, a.D) <= L.rows_bytes;
+  int* ent_node = (int*)(smem + L.rows);
+  int* ent_slot = ent_node + E;
+  long long* S = (long long*)(smem + L.rows + align8(8LL * E));
+  long long* G = S + (size_t)E * FR;
+  long long* BL = G + (size_t)E * FR;
+  long long* U = BL + (size_t)E * FR;
+  long long* N = U + (size_t)E * FR;
+  const int win = L.win, n_win = (n_walk + win - 1) / win;
+  const int w0 = L.stage, w1 = L.stage + L.stage_buf;  // the two windows' offsets
+  const int* slots = shared_rows ? ent_slot : nullptr;
+  if (!shared_rows) {
+    stage<kKeys>(a, L, mb, walk, n_walk, 0, w0, nullptr, tid, kThreads, true);
+  } else {
+    for (int e = tid; e < E; e += kThreads) {
+      const int r = e / D1;
+      ent_node[e] = mb.path(walk[r], e - r * D1);
     }
-    const bool cell_valid = cell >= 0 && qv > 0;
-    const bool ok = !cell_valid ||
-                    quota_path::avail_along_path(path, D, FR, cell, a.t.subtree,
-                                                 a.t.guaranteed, a.t.borrowing_limit,
-                                                 a.b.usage) >= qv;
-    const bool fits = __all_sync(0xffffffffu, ok);
-    const bool admit = a.b.is_fit[h] && fits;
-    const bool reserve = a.b.is_pre[h] && a.q.no_reclaim[h];
-    if (cell_valid && (admit || reserve)) {
-      long long delta = qv;
-      if (!admit) {
-        const size_t lx = (size_t)cq * FR + cell;
-        const long long nom = a.t.nominal[lx], bl = a.t.borrowing_limit[lx];
-        const long long leaf = a.b.usage[lx];
-        const long long borrow_cap = bl < kNoLimit ? min(qv, nom + bl - leaf) : qv;
-        const long long nominal_cap = max(0LL, min(qv, nom - leaf));
-        delta = a.b.head_borrow[h] ? borrow_cap : nominal_cap;
+    __syncthreads();
+    // every path entry's rows, kRows cells a thread a round, every load
+    // of a round issued before its stores; window 0's operands are
+    // staged while the first round's loads are in flight (the rows of a
+    // later entry of a node are loaded too, and never used)
+    for (int base = 0; base < E * FR; base += kRows * kThreads) {
+      long long v[kRows][5];
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const int i = base + k * kThreads + tid, e = i / FR;
+        const bool on = i < E * FR && ent_node[e] >= 0;
+        const size_t x = on ? (size_t)ent_node[e] * FR + (i - e * FR) : 0;
+        v[k][0] = on ? __ldg(a.t.subtree + x) : 0;
+        v[k][1] = on ? __ldg(a.t.guaranteed + x) : 0;
+        v[k][2] = on ? __ldg(a.t.borrowing_limit + x) : 0;
+        v[k][3] = on ? a.b.usage[x] : 0;
+        v[k][4] = on ? __ldg(a.t.nominal + x) : 0;
       }
-      for (int d = 0; d <= D; ++d) {
-        const int node = path[d];
-        if (node < 0) continue;
-        const size_t x = (size_t)node * FR + cell;
-        const long long old = a.b.usage[x], g = a.t.guaranteed[x];
-        a.b.usage[x] = old + delta;
-        delta = max(0LL, old + delta - g) - max(0LL, old - g);
+      if (base == 0) stage<kKeys>(a, L, mb, walk, n_walk, 0, w0, nullptr, tid, kThreads, false);
+#pragma unroll
+      for (int k = 0; k < kRows; ++k) {
+        const int i = base + k * kThreads + tid;
+        if (i >= E * FR) continue;
+        S[i] = v[k][0];
+        G[i] = v[k][1];
+        BL[i] = v[k][2];
+        U[i] = v[k][3];
+        N[i] = v[k][4];
       }
-      if (admit) a.s.local[(size_t)cq * FR + cell] += qv;
     }
-    if (lane == 0) a.b.admitted[h] = admit;
-    __syncwarp();
+    // a node's slot: its first path entry, a warp an entry
+    for (int e = warp; e < E; e += kWarps) {
+      const int node = ent_node[e];
+      int slot = node < 0 ? -1 : e;
+      if (node >= 0) {
+        for (int f0 = 0; f0 < e; f0 += 32) {
+          const int f = f0 + lane;
+          const unsigned hit = __ballot_sync(kFull, f < e && ent_node[f] == node);
+          if (hit) {
+            slot = f0 + __ffs(hit) - 1;
+            break;
+          }
+        }
+      }
+      if (lane == 0) ent_slot[e] = slot;
+    }
+    __syncthreads();
+    int* lvl0 = window(w0, win, a.P * a.C, a.D).lvl;
+    for (int i = tid; i < min(win, n_walk) * D1; i += kThreads) lvl0[i] = ent_slot[i];
   }
+  __syncthreads();
+  uint8_t* adm = smem + L.adm;
+  for (int wi = 0; wi < n_win; ++wi) {
+    const int cur = (wi & 1) ? w1 : w0;
+    if (warp == 0) {
+      const int nr = min(win, n_walk - wi * win);
+      uint8_t* adm_w = adm + wi * win;
+      if (shared_rows) walk_window<true>(a, L, cur, nr, S, G, BL, U, N, adm_w, lane);
+      else walk_window<false>(a, L, cur, nr, a.t.subtree, a.t.guaranteed,
+                              a.t.borrowing_limit, a.b.usage, a.t.nominal, adm_w, lane);
+    } else if (wi + 1 < n_win) {
+      stage<kKeys>(a, L, mb, walk, n_walk, wi + 1, (wi & 1) ? w0 : w1, slots, tid - 32,
+                   kThreads - 32);
+    }
+    __syncthreads();
+  }
+  // the walk touched shared memory only: its rows, the admissions'
+  // leaf usage and flags go out now, every thread at once
+  if (shared_rows) {
+    for (int i = tid; i < E * FR; i += kThreads) {
+      const int e = i / FR;
+      if (ent_slot[e] == e) a.b.usage[(size_t)ent_node[e] * FR + (i - e * FR)] = U[i];
+    }
+  }
+  const int PC = a.P * a.C;
+  const int intact = max(0, n_win - 2) * win;  // the last two windows are still staged
+  for (int i = tid; i < n_walk * PC; i += kThreads) {
+    const int r = i / PC, c = i - r * PC;
+    if (!adm[r]) continue;
+    int cell, cq;
+    long long qv;
+    if (r >= intact) {
+      const Window w = window(((r / win) & 1) ? w1 : w0, win, PC, a.D);
+      const int rr = r % win;
+      cell = w.cell[rr * PC + c];
+      qv = w.qty[rr * PC + c];
+      cq = w.cq[rr];
+    } else {
+      const size_t ci = (size_t)mb.queue(walk[r]) * PC + c;
+      cell = __ldg(a.b.cells_eff + ci);
+      qv = __ldg(a.b.qty_eff + ci);
+      cq = mb.cq(walk[r]);
+    }
+    if (cell >= 0 && qv > 0) {
+      atomicAdd((unsigned long long*)(a.s.local + (size_t)cq * FR + cell),
+                (unsigned long long)qv);
+    }
+  }
+  for (int r = tid; r < n_walk; r += kThreads) a.b.admitted[mb.queue(walk[r])] = adm[r];
+}
+
+// The block's shared-memory layout for these shapes; false when even
+// one-head windows do not fit.
+bool plan_layout(const Args& a, Layout* L) {
+  const int M = max(a.max_members, 1), PC = a.P * a.C, D1 = a.D + 1;
+  const int base = align8(4LL * M) + align8(M);  // walk, adm
+  // kx, kf, kp, kt, kc, kpath
+  const int keys = align8(4LL * M) + align8(M) + 16 * M + align8(4LL * M) +
+                   align8(4LL * M * D1);
+  int win = kWin;
+  const bool with_keys = base + keys + 2 * window_bytes(win, PC, a.D) <= kSmemMax;
+  if (!with_keys) {
+    while (win > 1 && base + 2 * window_bytes(win, PC, a.D) > kSmemMax) win >>= 1;
+    if (base + 2 * window_bytes(win, PC, a.D) > kSmemMax) return false;
+  }
+  int off = 0;
+  L->kx = off;
+  off += with_keys ? align8(4LL * M) : 0;
+  L->kf = off;
+  off += with_keys ? align8(M) : 0;
+  L->kp = off;
+  off += with_keys ? 8 * M : 0;
+  L->kt = off;
+  off += with_keys ? 8 * M : 0;
+  L->kc = off;
+  off += with_keys ? align8(4LL * M) : 0;
+  L->kpath = off;
+  off += with_keys ? align8(4LL * M * D1) : 0;
+  L->keys = with_keys;
+  L->walk = off;
+  off += align8(4LL * M);
+  L->adm = off;
+  off += align8(M);
+  L->win = win;
+  L->stage = off;
+  L->stage_buf = window_bytes(win, PC, a.D);
+  off += 2 * L->stage_buf;
+  L->rows = off;
+  // a segment walks at most min(its members, n_steps) heads
+  const long long need = align8(segment_bytes(min(M, max(a.n_steps, 0)), a.FR, a.D));
+  L->rows_bytes = (int)(need < kSmemMax - off ? need : kSmemMax - off);
+  L->total = off + L->rows_bytes;
+  return true;
+}
+
+template <bool kKeys>
+int launch(const Args& a, const Layout& L, cudaStream_t stream) {
+  static int raised = 48 * 1024;  // the dynamic shared memory allowed so far
+  if (L.total > raised) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        phase2<kKeys>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (rc != cudaSuccess) return (int)rc;
+    raised = kSmemMax;
+  }
+  phase2<kKeys><<<a.n_seg, kThreads, L.total, stream>>>(a, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -135,8 +663,9 @@ extern "C" int drain_phase2(const int* ints, int n_ints, void* const* ptrs,
   drain::Args a;
   if (!drain::unpack(ints, n_ints, ptrs, n_ptrs, &a)) return (int)cudaErrorInvalidValue;
   if (a.P * a.C > 32) return (int)cudaErrorInvalidValue;
-  if (a.n_seg > 0) {
-    drain::phase2<<<a.n_seg, drain::kThreads, 0, (cudaStream_t)stream>>>(a);
-  }
-  return (int)cudaGetLastError();
+  if (a.n_seg <= 0) return (int)cudaGetLastError();
+  drain::Layout L;
+  if (!drain::plan_layout(a, &L)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return L.keys ? drain::launch<true>(a, L, s) : drain::launch<false>(a, L, s);
 }

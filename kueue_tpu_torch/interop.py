@@ -37,7 +37,7 @@ from kueue_tpu_torch.ops.drain_kernel import (
 )
 from kueue_tpu_torch.ops.fair_preempt_kernel import FairProblem
 from kueue_tpu_torch.ops.preempt_kernel import PreemptProblem
-from kueue_tpu_torch.ops.quota import QuotaTree
+from kueue_tpu_torch.ops.quota import QuotaTree, build_forest
 from kueue_tpu_torch.ops.tas_kernel import TASTopology
 
 # DrainQueues field -> numpy dtype of the plan tensors
@@ -121,7 +121,8 @@ def _on(a, dtype, device) -> torch.Tensor:
 
 def quota_tree(enc: Mapping[str, np.ndarray], device=None) -> QuotaTree:
     """QuotaTree from ``parent``, ``level_mask``, ``nominal``,
-    ``lending_limit`` and ``borrowing_limit``."""
+    ``lending_limit`` and ``borrowing_limit``; on a card with kernel 1's
+    packing of the forest, built here from the host's parent array."""
     dev = resolve_device(device)
     return QuotaTree(
         parent=_on(enc["parent"], np.int32, dev),
@@ -129,6 +130,7 @@ def quota_tree(enc: Mapping[str, np.ndarray], device=None) -> QuotaTree:
         nominal=_on(enc["nominal"], np.int64, dev),
         lending_limit=_on(enc["lending_limit"], np.int64, dev),
         borrowing_limit=_on(enc["borrowing_limit"], np.int64, dev),
+        forest=build_forest(enc["parent"], dev) if dev.type == "cuda" else None,
     )
 
 

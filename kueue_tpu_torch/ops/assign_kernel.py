@@ -49,13 +49,12 @@ from kueue_tpu_torch.ops.quota import (
     NO_LIMIT,
     QuotaTree,
     available_all,
-    available_all_plain,
     potential_available_all,
-    potential_available_all_plain,
+    quota_all,
+    quota_all_plain,
     subtree_quota,
-    subtree_quota_plain,
+    usage_and_available,
     usage_tree,
-    usage_tree_plain,
 )
 
 # jnp.argmax's sentinel for ineligible candidates in the score-argmax
@@ -155,8 +154,9 @@ def cell_masks(
     reclaim, borrow, need), each bool[W,K,C]."""
     if avail is None:
         if usage is None:
-            usage = usage_tree(tree, guaranteed, local_usage)
-        avail = available_all(tree, subtree, guaranteed, usage)
+            _, avail = usage_and_available(tree, subtree, guaranteed, local_usage)
+        else:
+            avail = available_all(tree, subtree, guaranteed, usage)
     if potential is None:
         potential = potential_available_all(tree, subtree, guaranteed)
 
@@ -347,8 +347,7 @@ def phase1_classify(
     int32[W]). ``avail`` / ``potential`` are computed (``quota_tree``
     launches) when not given."""
     if avail is None:
-        usage = usage_tree(tree, guaranteed, local_usage)
-        avail = available_all(tree, subtree, guaranteed, usage)
+        _, avail = usage_and_available(tree, subtree, guaranteed, local_usage)
     if potential is None:
         potential = potential_available_all(tree, subtree, guaranteed)
     if not local_usage.is_cuda:
@@ -642,10 +641,7 @@ def _as_seg_id(seg_id, device) -> Tuple[torch.Tensor, Segments]:
 
 
 def _solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps):
-    subtree, guaranteed = subtree_quota(tree)
-    usage = usage_tree(tree, guaranteed, local_usage)
-    avail = available_all(tree, subtree, guaranteed, usage)
-    potential = potential_available_all(tree, subtree, guaranteed)
+    subtree, guaranteed, usage, avail, potential = quota_all(tree, local_usage)
     chosen, borrows_wk, preempt_k = phase1_classify(
         tree, subtree, guaranteed, local_usage, heads, avail, potential
     )
@@ -852,10 +848,9 @@ def _unpack(packed: torch.Tensor, usage) -> SolveResult:
 
 
 def _solve_global(tree, local_usage, heads, paths, packed=None, usage_out=None):
-    subtree, guaranteed = subtree_quota(tree)
-    usage = usage_tree(tree, guaranteed, local_usage, out=usage_out)
-    avail = available_all(tree, subtree, guaranteed, usage)
-    potential = potential_available_all(tree, subtree, guaranteed)
+    subtree, guaranteed, usage, avail, potential = quota_all(
+        tree, local_usage, out_usage=usage_out
+    )
     chosen, borrows_wk, preempt_k = phase1_classify(
         tree, subtree, guaranteed, local_usage, heads, avail, potential
     )
@@ -873,10 +868,7 @@ def solve_cycle_plain(
     recurrences, phase 1 (``phase1_classify_plain``), the global
     lexsort and one step a head. The reference of ``solve_cycle`` on
     any device."""
-    subtree, guaranteed = subtree_quota_plain(tree)
-    usage = usage_tree_plain(tree, guaranteed, local_usage)
-    avail = available_all_plain(tree, subtree, guaranteed, usage)
-    potential = potential_available_all_plain(tree, subtree, guaranteed)
+    subtree, guaranteed, usage, avail, potential = quota_all_plain(tree, local_usage)
     chosen, borrows_wk, preempt_k = phase1_classify_plain(
         tree, subtree, local_usage, avail, potential, heads
     )

@@ -26,11 +26,11 @@ for preemption-free drains:
   tree is rebuilt from leaf rows every cycle, so reservations die with
   the cycle.
 
-Each cycle is five launches on the card: kernel 1 (``quota_tree``,
-ops/quota.py) twice for the cycle-start usage tree and availability,
-then kernels 2-4 below. Every wrapper launches its CUDA kernel for a
-CUDA tensor (or raises) and runs the plain torch version beside it for
-a CPU tensor; plain and kernel share one in-place interface over
+Each cycle is four launches on the card: kernel 1 (``quota_tree``,
+ops/quota.usage_and_available) once for the cycle-start usage tree and
+availability, then kernels 2-4 below. Every wrapper launches its CUDA
+kernel for a CUDA tensor (or raises) and runs the plain torch version
+beside it for a CPU tensor; plain and kernel share one in-place interface over
 ``DrainState`` and ``CycleBuffers``, so ``solve_drain`` is one loop for
 both. Kernel 4 keeps the cycle counter and a ``done`` flag on the
 device; every launch returns at once when ``done`` is set, so the host
@@ -84,10 +84,9 @@ from kueue_tpu_torch.ops.quota import (
     DRS_MAX,
     NO_LIMIT,
     QuotaTree,
-    available_all,
     potential_available_all,
     subtree_quota,
-    usage_tree,
+    usage_and_available,
     usage_tree_plain,
 )
 from kueue_tpu_torch.ops.tas_kernel import _trunc_div
@@ -1056,6 +1055,7 @@ class DrainContext:
             v, cv, m, width,
             cu, strategy1, has_second,
             lf, rt, d_t, nd,
+            self.segments.max_size,
         ]
         c_ints = (ctypes.c_int * len(ints))(*ints)
         c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
@@ -1085,9 +1085,55 @@ def drain_nominate(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> N
     _launch("drain_nominate", ctx, state, buf)
 
 
+# drain_phase2's shared memory (csrc/drain_phase2.cu): a block's opt-in
+# bytes, and the walked heads a staging window holds
+PHASE2_SHARED_BYTES = 232448 - 1024
+PHASE2_WINDOW = 32
+
+
+def _align8(b: int) -> int:
+    return (b + 7) & ~7
+
+
+def phase2_segment_bytes(n_walk: int, fr: int, max_depth: int) -> int:
+    """Shared-memory bytes drain_phase2 needs to walk a segment of
+    ``n_walk`` walked heads on shared rows: per path entry (head, level)
+    a node id, a slot and the subtree, guaranteed, borrowing-limit, usage
+    and nominal rows of FR cells (``segment_bytes`` in the kernel)."""
+    return n_walk * (max_depth + 1) * (8 + 40 * fr)
+
+
+def phase2_layout(max_members: int, n_steps: int, pc: int, fr: int, max_depth: int):
+    """drain_phase2's shared memory a block, as the kernel plans it
+    (``plan_layout`` in csrc/drain_phase2.cu): the members' sort keys,
+    ClusterQueue rows and paths (left in device memory when they do not
+    fit), the walk order and its admissions, two staging windows and the
+    rows of the largest walk, capped by what is left. Returns {"win",
+    "keys", "rows_bytes", "total"}, or None when even one-head windows
+    do not fit."""
+    m, d1 = max(max_members, 1), max_depth + 1
+    base = _align8(4 * m) + _align8(m)
+    keys = _align8(4 * m) + _align8(m) + 16 * m + _align8(4 * m) + _align8(4 * m * d1)
+
+    def window(win):
+        return _align8(4 * win * (pc + max_depth + 4)) + 8 * win * pc
+
+    win = PHASE2_WINDOW
+    with_keys = base + keys + 2 * window(win) <= PHASE2_SHARED_BYTES
+    if not with_keys:
+        while win > 1 and base + 2 * window(win) > PHASE2_SHARED_BYTES:
+            win >>= 1
+        if base + 2 * window(win) > PHASE2_SHARED_BYTES:
+            return None
+    fixed = base + 2 * window(win) + (keys if with_keys else 0)
+    need = _align8(phase2_segment_bytes(min(m, max(n_steps, 0)), fr, max_depth))
+    rows = min(need, PHASE2_SHARED_BYTES - fixed)
+    return {"win": win, "keys": with_keys, "rows_bytes": rows, "total": fixed + rows}
+
+
 def drain_phase2(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
     """Kernel 3: conflict resolution in entry order (one block per root
-    segment)."""
+    segment; keys and the walk's rows in shared memory)."""
     if not state.local.is_cuda:
         return drain_phase2_plain(ctx, state, buf)
     _launch("drain_phase2", ctx, state, buf)
@@ -1296,12 +1342,10 @@ def drain_fair_phase2(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -
 
 
 def drain_cycle(ctx: DrainContext, state: DrainState, buf: CycleBuffers) -> None:
-    """ONE drain cycle: five launches on the card (or their plain
+    """ONE drain cycle: four launches on the card (or their plain
     versions on the CPU); the fair drain's phase 2 is its tournament."""
-    usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
-    available_all(
-        ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
-    )
+    usage_and_available(ctx.tree, ctx.subtree, ctx.guaranteed, state.local, buf.usage,
+                        buf.avail, done=state.done)
     drain_nominate(ctx, state, buf)
     if ctx.fair is None:
         drain_phase2(ctx, state, buf)
@@ -1929,13 +1973,11 @@ def drain_preempt_motion(ctx: DrainContext, state: PreemptState, buf: PreemptBuf
 
 
 def drain_preempt_cycle(ctx: DrainContext, state: PreemptState, buf: PreemptBuffers) -> None:
-    """ONE preempt drain cycle: seven launches on the card (quota_tree
-    twice, drain_nominate with the reclaim oracle, the search, phase 2,
+    """ONE preempt drain cycle: five launches on the card (quota_tree
+    once, drain_nominate with the reclaim oracle, the search, phase 2,
     the motion), or their plain versions on the CPU."""
-    usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
-    available_all(
-        ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
-    )
+    usage_and_available(ctx.tree, ctx.subtree, ctx.guaranteed, state.local, buf.usage,
+                        buf.avail, done=state.done)
     drain_nominate(ctx, state, buf)
     drain_preempt_search(ctx, state, buf)
     drain_preempt_phase2(ctx, state, buf)
@@ -2253,14 +2295,12 @@ def drain_fair_preempt_phase2(ctx: DrainContext, state: FairPreemptState,
 
 def drain_fair_preempt_cycle(ctx: DrainContext, state: FairPreemptState,
                              buf: PreemptBuffers) -> None:
-    """ONE fair-preempt drain cycle: six launches on the card
-    (quota_tree twice, drain_nominate with the reclaim oracle, the fair
+    """ONE fair-preempt drain cycle: five launches on the card
+    (quota_tree once, drain_nominate with the reclaim oracle, the fair
     search, its phase 2, the preempt motion with the fair-panel fill),
     or their plain versions on the CPU."""
-    usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
-    available_all(
-        ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
-    )
+    usage_and_available(ctx.tree, ctx.subtree, ctx.guaranteed, state.local, buf.usage,
+                        buf.avail, done=state.done)
     drain_nominate(ctx, state, buf)
     drain_fair_preempt_search(ctx, state, buf)
     drain_fair_preempt_phase2(ctx, state, buf)
@@ -2750,13 +2790,11 @@ def drain_tas_phase2(ctx: DrainContext, state: TASState, buf: TASBuffers) -> Non
 
 
 def drain_tas_cycle(ctx: DrainContext, state: TASState, buf: TASBuffers) -> None:
-    """ONE TAS drain cycle: six launches on the card (quota_tree twice,
+    """ONE TAS drain cycle: five launches on the card (quota_tree once,
     drain_nominate, drain_tas_place, drain_tas_phase2,
     drain_queue_motion), or their plain versions on the CPU."""
-    usage_tree(ctx.tree, ctx.guaranteed, state.local, out=buf.usage, done=state.done)
-    available_all(
-        ctx.tree, ctx.subtree, ctx.guaranteed, buf.usage, out=buf.avail, done=state.done
-    )
+    usage_and_available(ctx.tree, ctx.subtree, ctx.guaranteed, state.local, buf.usage,
+                        buf.avail, done=state.done)
     drain_nominate(ctx, state, buf)
     drain_tas_place(ctx, state, buf)
     drain_tas_phase2(ctx, state, buf)

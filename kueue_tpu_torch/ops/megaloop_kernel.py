@@ -1,7 +1,7 @@
 """The admission megaloop: K drain rounds in one launch, on the card.
 
 Port of kueue_tpu/ops/megaloop_kernel.py. The plain drain cycle
-(ops/drain_kernel.drain_cycle: five launches) runs with a sixth launch
+(ops/drain_kernel.drain_cycle: four launches) runs with a fifth launch
 after it, ``megaloop_boundary`` (csrc/megaloop_boundary.cu), that
 closes a round every ``chunk_cycles`` cycles or when the round
 quiesces, so that each round decides exactly what a serial

@@ -16,20 +16,25 @@ Layout: N nodes (ClusterQueues first, then cohorts), FR dense (flavor,
 resource) cells, all quantities int64.
 
 The first four are wrappers over kernel 1, ``quota_tree``
-(``csrc/quota_tree.cu``), the last two over kernel B1', ``quota_drs``
-(``csrc/quota_drs.cu``): on a CUDA tensor a wrapper launches its kernel
-(or raises), on a CPU tensor it runs the plain torch version beside it
-(``*_plain``). The wrappers take an optional ``out`` buffer and an
-optional ``done`` flag (int32[1] on the same device): when the flag is
-set the call does nothing, which lets the drain's host loop enqueue a
-few cycles ahead of its termination check.
+(``csrc/quota_tree.cu``), one launch each; ``usage_and_available`` (the
+drain cycle's pair) and ``quota_all`` (the interactive cycle's four) run
+their recurrences in ONE launch of it. The last two are wrappers over
+kernel B1', ``quota_drs`` (``csrc/quota_drs.cu``). On a CUDA tensor a
+wrapper launches its kernel (or raises), on a CPU tensor it runs the
+plain torch version beside it (``*_plain``). The wrappers take an
+optional ``out`` buffer and an optional ``done`` flag (int32[1] on the
+same device): when the flag is set the call does nothing, which lets
+the drain's host loop enqueue a few cycles ahead of its termination
+check.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
 
 from kueue_tpu_torch._torch import BOOL, I32, I64, torch
 from kueue_tpu_torch.ops import _build
@@ -52,6 +57,9 @@ class QuotaTree:
     level_mask: bool[D+1, N] — nodes at each depth.
     nominal: int64[N, FR]
     lending_limit / borrowing_limit: int64[N, FR], NO_LIMIT when unset.
+    forest: kernel 1's packing of the forest (``build_forest``), made
+    with the tree where the host has its parent array, else at the
+    first launch.
     """
 
     parent: torch.Tensor
@@ -59,6 +67,7 @@ class QuotaTree:
     nominal: torch.Tensor
     lending_limit: torch.Tensor
     borrowing_limit: torch.Tensor
+    forest: Optional["Forest"] = None  # kernel 1's packing (tree_forest)
 
     @property
     def n_nodes(self) -> int:
@@ -161,37 +170,180 @@ def potential_available_all_plain(
 
 # ---- kernel 1: quota_tree (csrc/quota_tree.cu)
 
-def _launch(which: str, mode: int, tree: QuotaTree, named, done) -> None:
-    """Launch ``which`` over [N, FR] tensors ``named`` ((name, tensor)
-    pairs in C argument order; a None tensor is passed as NULL)."""
-    n, fr = tree.nominal.shape
-    ptrs = [_build.ptr(KERNEL, name, t, I64, (n, fr)) for name, t in named]
-    args = [
-        mode,
-        _build.ptr(KERNEL, "parent", tree.parent, I32, (n,)),
-        _build.ptr(KERNEL, "level_mask", tree.level_mask, BOOL, (tree.max_depth + 1, n)),
-        n,
-        fr,
-        tree.max_depth,
-        *ptrs,
-        _build.ptr(KERNEL, "done", done, I32, (1,)),
-        _build.stream_ptr(tree.nominal.device),
-    ]
-    # (mode, parent, level_mask, n, fr, max_depth, tensors..., done, stream)
-    fn = _build.c_function(
-        KERNEL,
-        which,
-        [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 3
-        + [ctypes.c_void_p] * (len(ptrs) + 2),
+# The recurrences one launch runs, a bitmask: (subtree, guaranteed),
+# usage, available, potential, in that order per column.
+SUBTREE, USAGE, AVAIL, POTENTIAL = 1, 2, 4, 8
+
+# Root subtrees are packed into bins of about N / BIN_SMS nodes, at most
+# BIN_NODES (a subtree larger than that is a bin of its own): a block a
+# bin, so at least BIN_SMS blocks share the work where the forest allows.
+BIN_SMS = 132
+BIN_NODES = 64
+# a block's opt-in shared memory (sm_90): the blocks of a bin split its
+# columns to fit it (column_chunk)
+QUOTA_SHARED_BYTES = 232448 - 1024
+
+
+def _mats(mask: int) -> int:
+    """The [nodes, columns] matrices kernel 1 keeps for the recurrences
+    of ``mask`` (``mats_of`` in the kernel: subtree, guaranteed, usage,
+    borrowing limit, available, potential, as they are needed)."""
+    down = bool(mask & (AVAIL | POTENTIAL))
+    return ((bool(mask & SUBTREE) or down) + 1 + bool(mask & (USAGE | AVAIL)) + down
+            + bool(mask & AVAIL) + bool(mask & POTENTIAL))
+
+
+def bin_shared_bytes(n_nodes: int, fr: int, mask: int) -> int:
+    """Shared bytes kernel 1 needs to run ``fr`` columns of a bin of
+    ``n_nodes`` nodes on shared rows: 16 B of packing a node, and a row
+    of int64 cells for each matrix the recurrences of ``mask`` keep."""
+    return n_nodes * (16 + 8 * fr * _mats(mask))
+
+
+def column_chunk(max_bin: int, fr: int, mask: int, n_bins: int) -> int:
+    """Columns a block of kernel 1 owns (``column_chunk`` in the kernel;
+    the blocks of a bin split its columns): few enough that the blocks
+    of all ``n_bins`` bins fill the card's BIN_SMS multiprocessors and
+    that the largest bin's rows fit a block's shared memory. A bin too
+    large for even one column runs on the device-memory rows."""
+    want = -(-BIN_SMS // max(n_bins, 1))
+    par = -(-fr // want)
+    fit = (QUOTA_SHARED_BYTES // max(max_bin, 1) - 16) // (8 * _mats(mask))
+    cw = fit if 1 <= fit < par else par
+    return max(cw, 1)
+
+
+class Forest(NamedTuple):
+    """The cohort forest as kernel 1 walks it, built once on the host
+    from ``parent``. Whole root subtrees are packed into bins (a block
+    each); a bin's nodes are numbered breadth first, its roots first,
+    so each level is a run of positions and each node's children are a
+    run of the next level.
+
+    meta: int32[N, 4] per position (bins back to back): the node, its
+    parent's position in the bin (-1 for a root), and its children's
+    positions in the bin, [first, end).
+    bins: int32[B, depth + 2] per bin the position where each level
+    starts, then the bin's end.
+    """
+
+    meta: torch.Tensor
+    bins: torch.Tensor
+    depth: int
+    max_bin: int
+
+    def to(self, device) -> "Forest":
+        return self._replace(meta=self.meta.to(device), bins=self.bins.to(device))
+
+
+def build_forest(parent, device=None) -> Forest:
+    """The ``Forest`` of a parent array (numpy or a list; -1 for roots)
+    on ``device``."""
+    parent = np.asarray(parent, dtype=np.int64)
+    n = parent.shape[0]
+    children = [[] for _ in range(n)]
+    roots = []
+    for i, p in enumerate(parent.tolist()):
+        (roots if p < 0 else children[p]).append(i)
+    # breadth-first order of the whole forest: subtree sizes and depths
+    order, depth_of = list(roots), np.zeros(n, dtype=np.int64)
+    for i in order:
+        for c in children[i]:
+            depth_of[c] = depth_of[i] + 1
+            order.append(c)
+    size = np.ones(n, dtype=np.int64)
+    for i in reversed(order):
+        if parent[i] >= 0:
+            size[parent[i]] += size[i]
+    depth = int(depth_of.max()) if n else 0
+    target = min(max(1, -(-n // BIN_SMS)), BIN_NODES)
+    groups, cur, cur_n = [], [], 0
+    for r in roots:
+        if cur and cur_n + size[r] > target:
+            groups.append(cur)
+            cur, cur_n = [], 0
+        cur.append(r)
+        cur_n += int(size[r])
+    if cur:
+        groups.append(cur)
+    meta = np.zeros((n, 4), dtype=np.int32)
+    bins = np.zeros((len(groups), depth + 2), dtype=np.int32)
+    pos = 0
+    for b, group in enumerate(groups):
+        start, level, parents = pos, group, [-1] * len(group)
+        for d in range(depth + 1):
+            bins[b, d] = pos
+            nxt, nxt_parents = [], []
+            first = pos - start + len(level)  # the next level's first position
+            for j, node in enumerate(level):
+                kids = children[node]
+                meta[pos + j] = (node, parents[j], first + len(nxt), first + len(nxt) + len(kids))
+                nxt_parents += [pos - start + j] * len(kids)
+                nxt += kids
+            pos += len(level)
+            level, parents = nxt, nxt_parents
+        bins[b, depth + 1] = pos
+    max_bin = int((bins[:, -1] - bins[:, 0]).max()) if len(groups) else 0
+    dev = torch.device("cpu") if device is None else device
+    return Forest(
+        meta=torch.from_numpy(meta).to(dev, non_blocking=True),
+        bins=torch.from_numpy(bins).to(dev, non_blocking=True),
+        depth=depth,
+        max_bin=max_bin,
     )
-    _build.note_launch(KERNEL)
-    _build.check(fn(*args), KERNEL)
+
+
+def tree_forest(tree: QuotaTree) -> Forest:
+    """``tree.forest``, built from ``tree.parent`` (a host read) the first
+    time a tree made without one needs it."""
+    if tree.forest is None:
+        tree.forest = build_forest(tree.parent.cpu().numpy(), tree.device)
+    return tree.forest
+
+
+def _launch(tree: QuotaTree, mask: int, done=None, **views) -> None:
+    """ONE launch of kernel 1 running the recurrences of ``mask`` on the
+    [N, FR] tensors ``views`` (subtree, guaranteed, local, usage, avail,
+    potential: each an input or an output as ``mask`` says)."""
+    k = KERNEL
+    n, fr = tree.nominal.shape
+    forest = tree_forest(tree)
+    sub = bool(mask & SUBTREE)
+    rows = [
+        ("nominal", tree.nominal if sub else None),
+        ("lending_limit", tree.lending_limit if sub else None),
+        ("borrowing_limit", tree.borrowing_limit if mask & (AVAIL | POTENTIAL) else None),
+    ] + [(name, views.get(name)) for name in (
+        "local", "subtree", "guaranteed", "usage", "avail", "potential")]
+    n_bins = forest.bins.shape[0]
+    ptrs = [
+        _build.ptr(k, "meta", forest.meta, I32, (n, 4)),
+        _build.ptr(k, "bins", forest.bins, I32, (n_bins, forest.depth + 2)),
+        *(_build.ptr(k, name, t, I64, (n, fr)) for name, t in rows),
+        _build.ptr(k, "done", done, I32, (1,)),
+    ]
+    ints = [mask, n, fr, forest.depth, n_bins, forest.max_bin]
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    fn = _build.c_function(
+        k, k, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    )
+    _build.note_launch(k)
+    rc = fn(ctypes.addressof(c_ints), len(ints), ctypes.addressof(c_ptrs), len(ptrs),
+            _build.stream_ptr(tree.nominal.device))
+    _build.check(rc, k)
 
 
 def _skip(done: Optional[torch.Tensor]) -> bool:
     """Plain-path honour of the done flag (a host read on the CPU)."""
     return done is not None and bool(done.item())
+
+
+def _into(out: Optional[torch.Tensor], res: torch.Tensor) -> torch.Tensor:
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
 
 
 # ---- public wrappers
@@ -206,12 +358,7 @@ def subtree_quota(tree: QuotaTree) -> Tuple[torch.Tensor, torch.Tensor]:
         return subtree_quota_plain(tree)
     subtree = torch.empty_like(tree.nominal)
     guaranteed = torch.empty_like(tree.nominal)
-    _launch(
-        "quota_bottom_up", 0, tree,
-        [("nominal", tree.nominal), ("lending_limit", tree.lending_limit),
-         ("subtree", subtree), ("guaranteed", guaranteed)],
-        None,
-    )
+    _launch(tree, SUBTREE, subtree=subtree, guaranteed=guaranteed)
     return subtree, guaranteed
 
 
@@ -228,19 +375,10 @@ def usage_tree(
     if not local_usage.is_cuda:
         if _skip(done):
             return out
-        res = usage_tree_plain(tree, guaranteed, local_usage)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
+        return _into(out, usage_tree_plain(tree, guaranteed, local_usage))
     if out is None:
         out = torch.empty_like(local_usage)
-    _launch(
-        "quota_bottom_up", 1, tree,
-        [("local_usage", local_usage), ("guaranteed", guaranteed),
-         ("out", out), ("unused", None)],
-        done,
-    )
+    _launch(tree, USAGE, done, guaranteed=guaranteed, local=local_usage, usage=out)
     return out
 
 
@@ -260,20 +398,10 @@ def available_all(
     if not usage.is_cuda:
         if _skip(done):
             return out
-        res = available_all_plain(tree, subtree, guaranteed, usage)
-        if out is None:
-            return res
-        out.copy_(res)
-        return out
+        return _into(out, available_all_plain(tree, subtree, guaranteed, usage))
     if out is None:
         out = torch.empty_like(usage)
-    _launch(
-        "quota_top_down", 0, tree,
-        [("subtree", subtree), ("guaranteed", guaranteed),
-         ("borrowing_limit", tree.borrowing_limit), ("usage", usage),
-         ("out", out)],
-        done,
-    )
+    _launch(tree, AVAIL, done, subtree=subtree, guaranteed=guaranteed, usage=usage, avail=out)
     return out
 
 
@@ -286,14 +414,64 @@ def potential_available_all(
     if not subtree.is_cuda:
         return potential_available_all_plain(tree, subtree, guaranteed)
     out = torch.empty_like(subtree)
-    _launch(
-        "quota_top_down", 1, tree,
-        [("subtree", subtree), ("guaranteed", guaranteed),
-         ("borrowing_limit", tree.borrowing_limit), ("usage", None),
-         ("out", out)],
-        None,
-    )
+    _launch(tree, POTENTIAL, subtree=subtree, guaranteed=guaranteed, potential=out)
     return out
+
+
+def usage_and_available_plain(
+    tree: QuotaTree, subtree: torch.Tensor, guaranteed: torch.Tensor, local_usage: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``usage_and_available``."""
+    usage = usage_tree_plain(tree, guaranteed, local_usage)
+    return usage, available_all_plain(tree, subtree, guaranteed, usage)
+
+
+def usage_and_available(
+    tree: QuotaTree,
+    subtree: torch.Tensor,
+    guaranteed: torch.Tensor,
+    local_usage: torch.Tensor,
+    out_usage: Optional[torch.Tensor] = None,
+    out_avail: Optional[torch.Tensor] = None,
+    done: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``usage_tree`` then ``available_all`` on its usage, in ONE launch:
+    the drain cycle's quota pass. Returns (usage, avail)."""
+    if not local_usage.is_cuda:
+        if _skip(done):
+            return out_usage, out_avail
+        usage, avail = usage_and_available_plain(tree, subtree, guaranteed, local_usage)
+        return _into(out_usage, usage), _into(out_avail, avail)
+    if out_usage is None:
+        out_usage = torch.empty_like(local_usage)
+    if out_avail is None:
+        out_avail = torch.empty_like(local_usage)
+    _launch(tree, USAGE | AVAIL, done, subtree=subtree, guaranteed=guaranteed,
+            local=local_usage, usage=out_usage, avail=out_avail)
+    return out_usage, out_avail
+
+
+def quota_all_plain(tree: QuotaTree, local_usage: torch.Tensor):
+    """The plain version of ``quota_all``."""
+    subtree, guaranteed = subtree_quota_plain(tree)
+    usage, avail = usage_and_available_plain(tree, subtree, guaranteed, local_usage)
+    potential = potential_available_all_plain(tree, subtree, guaranteed)
+    return subtree, guaranteed, usage, avail, potential
+
+
+def quota_all(tree: QuotaTree, local_usage: torch.Tensor,
+              out_usage: Optional[torch.Tensor] = None):
+    """All four recurrences in ONE launch: (subtree, guaranteed, usage,
+    avail, potential), the cycle's quota views. ``out_usage`` receives
+    the usage tree when given."""
+    if not local_usage.is_cuda:
+        res = quota_all_plain(tree, local_usage)
+        return res[:2] + (_into(out_usage, res[2]),) + res[3:]
+    views = {name: torch.empty_like(local_usage)
+             for name in ("subtree", "guaranteed", "avail", "potential")}
+    views["usage"] = torch.empty_like(local_usage) if out_usage is None else out_usage
+    _launch(tree, SUBTREE | USAGE | AVAIL | POTENTIAL, local=local_usage, **views)
+    return tuple(views[k] for k in ("subtree", "guaranteed", "usage", "avail", "potential"))
 
 
 # ---- kernel B1': quota_drs (csrc/quota_drs.cu) ---------------------------

@@ -167,12 +167,14 @@ def _put(x, dev, dtype=None) -> torch.Tensor:
 
 
 def _put_tree(tree: QuotaTree, dev) -> QuotaTree:
+    forest = getattr(tree, "forest", None)
     return QuotaTree(
         parent=_put(tree.parent, dev, np.int32),
         level_mask=_put(tree.level_mask, dev, np.bool_),
         nominal=_put(tree.nominal, dev, np.int64),
         lending_limit=_put(tree.lending_limit, dev, np.int64),
         borrowing_limit=_put(tree.borrowing_limit, dev, np.int64),
+        forest=None if forest is None else forest.to(dev),
     )
 
 
@@ -268,20 +270,12 @@ class ShardedSolver:
 
     def __call__(self, tree: QuotaTree, local_usage, heads: HeadsBatch, paths) -> SolveResult:
         from kueue_tpu_torch.ops.assign_kernel import _unpack, cycle_global
-        from kueue_tpu_torch.ops.quota import (
-            available_all,
-            potential_available_all,
-            subtree_quota,
-            usage_tree,
-        )
+        from kueue_tpu_torch.ops.quota import quota_all
 
         tree_d, usage_d, heads_d, paths_d = self.place(tree, local_usage, heads, paths)
         heads_d = self.pad_heads(heads_d)
         # the quota recurrences once, before the split
-        subtree, guaranteed = subtree_quota(tree_d)
-        usage = usage_tree(tree_d, guaranteed, usage_d)
-        avail = available_all(tree_d, subtree, guaranteed, usage)
-        potential = potential_available_all(tree_d, subtree, guaranteed)
+        subtree, guaranteed, usage, avail, potential = quota_all(tree_d, usage_d)
         chosen, borrows_wk, preempt_k = self.phase1(
             tree_d, usage_d, heads_d, subtree, guaranteed, avail, potential
         )

@@ -579,6 +579,119 @@ def nominate_inputs(b: dict, dev, avail=None):
     return ctx, state, buf
 
 
+def quota_forest(seed: int, depth: int = 3, big: int = 300, n_small: int = 40,
+                 fr: int = 37) -> dict:
+    """A random cohort forest for the quota recurrences (kernel 1) as
+    numpy arrays: one root subtree of ``big`` nodes (0: none) reaching
+    ``depth`` levels below its root, beside ``n_small`` root subtrees of
+    one to six nodes of random depth up to ``depth``, node ids shuffled;
+    nominal quotas (some beyond int32), lending and borrowing limits
+    (NO_LIMIT where unset), and usage on every node. Keys: ``parent``,
+    ``level_mask``, ``nominal``, ``lending_limit``, ``borrowing_limit``,
+    ``local_usage``, ``max_depth``."""
+    from kueue_tpu_torch.ops.quota import NO_LIMIT
+
+    rng = np.random.default_rng(seed)
+    parent, dep = [], []
+
+    def add(p):
+        parent.append(p)
+        dep.append(0 if p < 0 else dep[p] + 1)
+        return len(parent) - 1
+
+    def subtree(size, reach):
+        nodes = [add(-1)]
+        for _ in range(reach):  # a chain to the full depth
+            nodes.append(add(nodes[-1]))
+        while len(nodes) < size:
+            nodes.append(add(int(rng.choice([x for x in nodes if dep[x] < depth]))))
+
+    if big:
+        subtree(big, depth)
+    for _ in range(n_small):
+        reach = int(rng.integers(0, depth + 1))
+        subtree(int(rng.integers(reach + 1, reach + 7)), reach)
+    n = len(parent)
+    perm = rng.permutation(n)
+    par = np.full(n, -1, dtype=np.int32)
+    d = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        par[perm[i]] = -1 if parent[i] < 0 else perm[parent[i]]
+        d[perm[i]] = dep[i]
+    max_depth = int(d.max())
+    nominal = rng.integers(0, 50, size=(n, fr)).astype(np.int64)
+    nominal[rng.random((n, fr)) < 0.02] = 40 << 30  # beyond int32
+    lend = np.where(rng.random((n, fr)) < 0.35, rng.integers(0, 40, (n, fr)), NO_LIMIT)
+    borrow = np.where(rng.random((n, fr)) < 0.35, rng.integers(0, 40, (n, fr)), NO_LIMIT)
+    return {
+        "parent": par,
+        "level_mask": np.stack([d == k for k in range(max_depth + 1)]),
+        "nominal": nominal,
+        "lending_limit": lend.astype(np.int64),
+        "borrowing_limit": borrow.astype(np.int64),
+        "local_usage": rng.integers(0, 60, size=(n, fr)).astype(np.int64),
+        "max_depth": max_depth,
+    }
+
+
+def phase2_batch(seed: int, q: int = 48, depth: int = 1, big: float = 0.0, fr: int = 17,
+                 drop: bool = False, l: int = 3, p: int = 2, k: int = 3, c: int = 3,
+                 g: int = 2) -> dict:
+    """A random input of one plain drain cycle shaped for phase 2
+    (kernel drain_phase2): ``nominate_batch``'s keys with ``q`` queues
+    on ``q`` distinct ClusterQueues, most of them nominated (a third of
+    the nodes hold six times the quota), podsets repeating cells, priority
+    and timestamp ties and preempt-mode heads with and without
+    reclaimWithinCohort Never. ``big``: that share of the ClusterQueues
+    is moved under one root cohort (depth 1) and the rest lose their
+    cohort: one segment outgrows the kernel's shared rows where enough
+    of it is nominated, beside segments of one queue;
+    ``drop``: n_steps is half the largest segment, so phase 2 drops
+    ranks; ``depth`` 6 gives paths of 7 levels. Adds ``n_steps``."""
+    from kueue_tpu_torch.ops.assign_kernel import build_paths
+
+    b = nominate_batch(seed, q=q, l=l, p=p, k=k, c=c, g=g, depth=depth, n_cq=q, fr=fr)
+    rng = np.random.default_rng(seed + 104729)
+    parent = b["parent"].copy()
+    n = parent.shape[0]
+    if big:
+        roots = [i for i in range(q, n) if parent[i] < 0]
+        moved = rng.random(q) < big
+        parent[:q] = np.where(moved, roots[0], -1)
+    dep = np.zeros(n, dtype=np.int64)
+    for i in range(n):
+        cur = i
+        while parent[cur] >= 0:
+            dep[i] += 1
+            cur = parent[cur]
+    max_depth = int(dep.max())
+    paths = build_paths(parent, max_depth)
+    qn = dict(b["queues_np"])
+    qn["cq_rows"] = rng.permutation(q).astype(np.int32)
+    # most heads nominate: queues with entries, cursors inside them, a
+    # third of the nodes with six times the quota, a third of the usage
+    qn["qlen"] = np.maximum(qn["qlen"], 1)
+    cursor = np.where(rng.random(q) < 0.9, rng.integers(0, qn["qlen"]), qn["qlen"])
+    nominal = np.where((rng.random(n) < 0.3)[:, None], 6 * b["nominal"], b["nominal"])
+    roots = paths[np.arange(n), (paths >= 0).sum(axis=1) - 1]
+    uniq, seg_id = np.unique(roots[qn["cq_rows"]], return_inverse=True)
+    qn["seg_id"] = seg_id.astype(np.int32)
+    biggest = int(np.bincount(seg_id).max())
+    return {
+        **b,
+        "parent": parent,
+        "level_mask": np.stack([dep == d for d in range(max_depth + 1)]),
+        "max_depth": max_depth,
+        "paths": paths,
+        "queues_np": qn,
+        "cursor": cursor.astype(np.int32),
+        "nominal": nominal,
+        "local": b["local"] // 3,
+        "n_segments": len(uniq),
+        "n_steps": max(1, biggest // 2) if drop else biggest,
+    }
+
+
 def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, **kw) -> dict:
     """A random input of the planner's scenario-batched solve (kernel
     B14), as numpy arrays in ``interop.plan_inputs``' form: scenario 0

@@ -1,32 +1,43 @@
-"""Two builds of the kernels B3 (``cycle_phase2``) and B4's nomination
-(``drain_nominate``) timed side by side on one card.
+"""Two builds of a kernel timed side by side on one card: B3
+(``cycle_phase2``), B4's nomination (``drain_nominate``), B1
+(``quota_tree``, per call site) and B4's phase 2 (``drain_phase2``).
 
     python -m kueue_tpu_torch.perf.kernel_ab [--parent DIR] [--split]
+                                             [--kernel NAME ...]
 
 Run from the repository root on a machine with one CUDA card and nvcc.
-It records the inputs of every ``cycle_phase2`` launch over the
-headline cycles (perf/cycle.py's Scheduler, ``CYCLES`` cycles) and of
-every ``drain_nominate`` launch with work of three drains: the headline
-plain drain, the contended preempt drain at each panel width of its
-schedule, and the fair-preempt drain at the panel caps
-(``build_fair_wide``). Then it times each recorded launch alone on the
-device, once per build in turns: parent, new, new, parent. A spin
-kernel holds the stream while the host enqueues the start event, the
-launch and the end event, so the events bracket the launch's device
-time and no host time. The two builds' outputs are held equal at every
-launch (int64, tolerance 0).
+It records the inputs of every launch with work of the chosen kernels:
+``cycle_phase2`` and the cycle's quota call site (``quota_all``) over
+the headline cycles (perf/cycle.py's Scheduler, ``CYCLES`` cycles);
+``drain_nominate`` over three drains (the headline plain drain, the
+contended preempt drain at each panel width of its schedule, the
+fair-preempt drain at the panel caps, ``build_fair_wide``); the drain's
+quota call site (``usage_and_available``) and ``drain_phase2`` over the
+headline plain drain, and ``drain_phase2`` also over the first launch of
+the headline's megaloop chain (perf/megaloop.py's rounds). Then it times
+each recorded launch alone on the device, once per build in turns:
+parent, new, new, parent. A spin kernel holds the stream while the host
+enqueues the start event, the launch and the end event, so the events
+bracket the launch's device time and no host time. The two builds'
+outputs are held equal at every launch (int64, tolerance 0).
+
+B1's parent build runs a call site as several launches (two entries,
+``quota_bottom_up`` and ``quota_top_down``, one recurrence a launch:
+two at the drain's site, four at the cycle's); each is timed alone and
+their times are summed against the new build's one launch.
 
 ``--parent DIR``: a directory holding another build's sources (the
 parent commit's ``kueue_tpu_torch/csrc``), built here with the same
 nvcc flags. Without it only the current sources are timed (new, new).
-``--split``: each build's split too: ``cycle_phase2`` with
-``n_steps = 0`` (the entry order and the ranks, no walk) and
-``drain_nominate`` with the done flag set (the launch's floor).
-``--kernel NAME``: record and time that kernel only.
+``--split``: each build's split too: ``cycle_phase2`` and
+``drain_phase2`` with ``n_steps = 0`` (the order and the ranks, no
+walk), ``drain_nominate``, ``drain_phase2`` and the drain's quota site
+with the done flag set (the launch's floor).
+``--kernel NAME``: record and time that kernel only (repeatable).
 
 It also measures the card's shared-memory load latency (one thread
 chasing pointers through shared memory; the slope between two chase
-lengths, so the launch cancels) and counts each cycle launch's chain:
+lengths, so the launch cancels) and counts each serial launch's chain:
 the walked heads of its longest segment. Prints the ptxas lines
 (registers, stack frame, spills) of each build, a line per kernel, path
 and build, and as its last line a JSON object with every number.
@@ -47,7 +58,7 @@ from pathlib import Path
 
 import numpy as np
 
-KERNELS = ("cycle_phase2", "drain_nominate")
+KERNELS = ("cycle_phase2", "drain_nominate", "quota_tree", "drain_phase2")
 CYCLES = 30  # headline Scheduler cycles recorded (chip_smoke.py's STEADY_CYCLES)
 SPIN = 2_000_000  # about 1 ms of the card's clock before each timed launch
 CHASE_HOPS = (1 << 20, 1 << 21)
@@ -82,23 +93,45 @@ def _nvcc(src: Path, lib: Path):
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def build(csrc: Path, out: Path) -> dict:
-    """Build ``KERNELS`` from ``csrc`` into ``out`` (in parallel); returns
-    {name: (C entry, ptxas lines)}."""
+def _drain_ints(csrc: Path) -> int:
+    """The number of ints a drain kernel of ``csrc`` takes (its
+    drain_common.cuh's kNumInts)."""
+    text = (csrc / "drain_common.cuh").read_text()
+    return int(text.split("constexpr int kNumInts = ")[1].split(";")[0])
+
+
+def build(csrc: Path, out: Path, names=KERNELS) -> dict:
+    """Build ``names`` from ``csrc`` into ``out`` (in parallel); returns
+    {name: (library, ptxas lines)}. A drain kernel of a build with fewer
+    ints than this one's is called with its own count."""
     out.mkdir(parents=True, exist_ok=True)
-    procs = {name: _nvcc(csrc / f"{name}.cu", out / f"lib{name}.so") for name in KERNELS}
+    procs = {name: _nvcc(csrc / f"{name}.cu", out / f"lib{name}.so") for name in names}
     built = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {csrc / name}.cu:\n{log}")
-        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = _argtypes()
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
         lines = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack frame" in ln]
-        built[name] = (fn, lines)
+        built[name] = (lib, lines)
+    built["_drain_ints"] = _drain_ints(csrc)
     return built
+
+
+def entry(built: dict, kernel: str, symbol: str = None):
+    """The C entry ``symbol`` (default: the kernel's name) of ``built``'s
+    library of ``kernel``, taking (ints, n_ints, ptrs, n_ptrs, stream)
+    where it is the kernel's own entry."""
+    fn = getattr(built[kernel][0], symbol or kernel)
+    fn.restype = ctypes.c_int
+    if symbol is None or symbol == kernel:
+        fn.argtypes = _argtypes()
+    if kernel.startswith("drain_"):
+        n_ints = built["_drain_ints"]
+        return lambda ints, n, ptrs, n_ptrs, stream: fn(ints, min(n, n_ints), ptrs, n_ptrs,
+                                                        stream)
+    return fn
 
 
 @contextlib.contextmanager
@@ -110,7 +143,7 @@ def using(built: dict):
 
     def pick(kernel, symbol, argtypes):
         if kernel in built and symbol == kernel:
-            return built[kernel][0]
+            return entry(built, kernel)
         return saved(kernel, symbol, argtypes)
 
     _build.c_function = pick
@@ -138,9 +171,10 @@ def _clone(x):
 
 class Timer:
     """Each launch alone on the device (chip_smoke.py's TimedLaunches).
-    A launch whose start event had run before the host finished
-    enqueuing it (``uncovered``: its time holds host time) is timed
-    again on fresh inputs, with a longer spin."""
+    ``make()`` gives (launches, outputs): each launch is timed alone
+    and the times are summed. A launch whose start event had run before
+    the host finished enqueuing it (``uncovered``: its time holds host
+    time) is timed again on fresh inputs, with a longer spin."""
 
     def __init__(self):
         self.spin, self.uncovered = SPIN, 0
@@ -149,17 +183,20 @@ class Timer:
         import torch
 
         while True:
-            fn, outputs = make()
-            torch.cuda._sleep(self.spin)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn()
-            end.record()
-            covered = not start.query()
-            end.synchronize()
+            fns, outputs = make()
+            total, covered, outs = 0.0, True, []
+            for fn in fns:
+                torch.cuda._sleep(self.spin)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                outs.append(fn())
+                end.record()
+                covered &= not start.query()
+                end.synchronize()
+                total += start.elapsed_time(end) * 1e3
             if covered:
-                return start.elapsed_time(end) * 1e3, outputs(out)
+                return total, outputs(outs[-1])
             self.uncovered += 1
             self.spin = min(2 * self.spin, 16 * SPIN)
 
@@ -167,39 +204,47 @@ class Timer:
 # ---- recording ------------------------------------------------------------
 
 
-def record_cycles(dev, n: int = CYCLES) -> list:
-    """The arguments of every cycle_phase2 launch over ``n`` headline
-    cycles (each a copy taken before the launch)."""
+def record_cycles(dev, n: int = CYCLES) -> dict:
+    """The arguments of every cycle_phase2 launch and of every quota_all
+    call over ``n`` headline cycles (each a copy taken before the
+    launch)."""
     from kueue_tpu_torch.ops import assign_kernel as ak
     from kueue_tpu_torch.perf import cycle
 
-    recs, orig = [], ak.cycle_phase2
+    recs = {"cycle_phase2": [], "quota_tree": []}
+    orig = (ak.cycle_phase2, ak.quota_all)
 
-    def spy(*args):
-        recs.append(_clone(args))
-        return orig(*args)
+    def spy_phase2(*args):
+        recs["cycle_phase2"].append(_clone(args))
+        return orig[0](*args)
 
-    ak.cycle_phase2 = spy
+    def spy_quota(tree, local, **kw):
+        recs["quota_tree"].append((tree, local.clone()))
+        return orig[1](tree, local, **kw)
+
+    ak.cycle_phase2, ak.quota_all = spy_phase2, spy_quota
     try:
         sched, _ = cycle.build_headline_scheduler(device=dev)
         cycle.run_cycles(sched, n)
     finally:
-        ak.cycle_phase2 = orig
+        ak.cycle_phase2, ak.quota_all = orig
     return recs
 
 
-def _record_drain(ctx, state, buf, steps) -> list:
-    """(ctx, state copy, buffers copy) before every nomination with work."""
-    recs = []
+def _record_drain(ctx, state, buf, steps, names) -> dict:
+    """{kernel: [(ctx, state copy, buffers copy)]} before every launch of
+    ``names`` in a cycle with work."""
+    recs = {name: [] for name in names}
     while not state.done.item():
         for name, kern, _ in steps:
-            if name == "drain_nominate":
-                recs.append((ctx, state.clone(), buf.clone()))
+            if name in recs:
+                recs[name].append((ctx, state.clone(), buf.clone()))
             kern(ctx, state, buf)
     return recs
 
 
-def record_drains(dev) -> dict:
+def record_drains(dev, kernels) -> dict:
+    """{kernel: {path: records}} of the drains' launches of ``kernels``."""
     import torch
 
     from kueue_tpu_torch.core import drain as pd
@@ -207,10 +252,16 @@ def record_drains(dev) -> dict:
     from kueue_tpu_torch.core.solver import tree_arrays
     from kueue_tpu_torch.interop import drain_queues
     from kueue_tpu_torch.ops import drain_kernel as dk
-    from kueue_tpu_torch.perf import contended, fairpreempt as fp, headline
-    from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_STEPS, PREEMPT_STEPS, STEPS
+    from kueue_tpu_torch.ops import megaloop_kernel as mk
+    from kueue_tpu_torch.perf import contended, fairpreempt as fp, headline, megaloop
+    from kueue_tpu_torch.perf.lockstep import (
+        FAIR_PREEMPT_STEPS,
+        MEGALOOP_STEPS,
+        PREEMPT_STEPS,
+        STEPS,
+    )
 
-    out = {}
+    out = {k: {} for k in kernels}
     rng = np.random.default_rng(headline.HEADLINE_SEED)
     cache = headline.build_cluster(rng)
     pending = headline.build_backlog(rng)
@@ -221,9 +272,24 @@ def record_drains(dev) -> dict:
     queues = drain_queues(plan.queues_np, dev)
     ctx = dk.DrainContext.build(tree, queues, paths, plan.n_segments, plan.n_steps,
                                 plan.max_cycles)
-    out["headline"] = _record_drain(ctx, dk.DrainState.initial(local, queues, plan.max_cycles),
-                                    dk.CycleBuffers.empty(local, queues), STEPS)
+    recs = _record_drain(ctx, dk.DrainState.initial(local, queues, plan.max_cycles),
+                         dk.CycleBuffers.empty(local, queues), STEPS, kernels)
+    for k in kernels:
+        out[k]["headline"] = recs[k]
 
+    if "drain_phase2" in kernels:
+        bound = megaloop.CHUNK_CYCLES * megaloop.MAX_ROUNDS
+        mctx = dk.DrainContext.build(
+            tree, queues, paths, plan.n_segments, plan.n_steps, bound,
+            chunk_cycles=megaloop.CHUNK_CYCLES, max_rounds=megaloop.MAX_ROUNDS)
+        cap = torch.as_tensor(pd._cap_suffix_of(plan), device=dev)
+        state = mk.MegaloopState.initial_rounds(local, queues, cap, megaloop.MAX_ROUNDS)
+        recs = _record_drain(mctx, state, dk.CycleBuffers.empty(local, queues),
+                             MEGALOOP_STEPS, ("drain_phase2",))
+        out["drain_phase2"]["megaloop"] = recs["drain_phase2"]
+
+    if "drain_nominate" not in kernels:
+        return out
     env = contended.build_contended(np.random.default_rng(contended.SEED))
     plan, _, tree, paths, local, queues, victims = pd.preempt_drain_inputs(
         take_snapshot(env.cache), env.pending, env.cache.flavors, dev, timestamp_fn=env.ts_fn)
@@ -235,8 +301,8 @@ def record_drains(dev) -> dict:
         recs += _record_drain(ctx, dk.PreemptState.initial_preempt(local, queues,
                                                                    plan.max_cycles, victims),
                               dk.PreemptBuffers.empty_preempt(local, queues, victims),
-                              PREEMPT_STEPS)
-    out["contended"] = recs
+                              PREEMPT_STEPS, ("drain_nominate",))["drain_nominate"]
+    out["drain_nominate"]["contended"] = recs
 
     wenv = fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED))
     plan, _, tree, paths, local, queues, victims, panels, fair = pd.fair_preempt_drain_inputs(
@@ -244,19 +310,23 @@ def record_drains(dev) -> dict:
         timestamp_fn=wenv.ts_fn)
     ctx = dk.fair_preempt_context(tree, queues, victims, panels, paths, fair, plan.n_segments,
                                   plan.n_steps, plan.max_cycles, 0, True)
-    out["caps"] = _record_drain(
+    out["drain_nominate"]["caps"] = _record_drain(
         ctx, dk.FairPreemptState.initial_fair(local, queues, plan.max_cycles, victims, panels),
-        dk.PreemptBuffers.empty_preempt(local, queues, victims), FAIR_PREEMPT_STEPS)
+        dk.PreemptBuffers.empty_preempt(local, queues, victims), FAIR_PREEMPT_STEPS,
+        ("drain_nominate",))["drain_nominate"]
     return out
 
 
 # ---- the launches ---------------------------------------------------------
+#
+# make(record, variant, built) -> (launches, outputs getter); variant is
+# None (the launch as recorded) or a split: "n_steps=0" or "done".
 
 
 def chain_heads(rec) -> int:
-    """Walked heads of the launch's longest segment: the heads with an
-    effective candidate, a ClusterQueue and a segment below n_segments,
-    at most n_steps a segment (the JAX mode="drop" rule)."""
+    """Walked heads of a cycle_phase2 launch's longest segment: the heads
+    with an effective candidate, a ClusterQueue and a segment below
+    n_segments, at most n_steps a segment (the JAX mode="drop" rule)."""
     _, _, _, _, _, heads, seg_t, _, n_segments, n_steps, chosen, _, pk = rec
     seg = seg_t.cpu().numpy()
     walked = ((chosen >= 0) | (pk >= 0)).cpu().numpy() & (heads.cq_row >= 0).cpu().numpy()
@@ -265,36 +335,149 @@ def chain_heads(rec) -> int:
     return int(min(int(counts.max()), n_steps))
 
 
-def cycle_launch(rec, split: bool):
-    """(thunk, outputs getter) of one cycle_phase2 launch on a fresh copy
-    of its usage tree."""
+def drain_chain_heads(rec) -> int:
+    """Walked heads of a drain_phase2 launch's longest segment: its
+    nominated, active queues of a segment below n_segments, at most
+    n_steps a segment."""
+    ctx, state, buf = rec
+    q = ctx.queues
+    seg = q.seg_id.cpu().numpy()
+    active = ((state.cursor < q.qlen) & state.alive).cpu().numpy()
+    walked = (buf.is_fit | buf.is_pre).cpu().numpy() & active
+    walked &= (seg >= 0) & (seg < ctx.n_segments)
+    counts = np.bincount(seg[walked], minlength=1)
+    return int(min(int(counts.max()), ctx.n_steps))
+
+
+def cycle_launch(rec, variant, built):
+    """One cycle_phase2 launch on a fresh copy of its usage tree."""
     from kueue_tpu_torch.ops import assign_kernel as ak
 
     args = list(rec)
     args[3] = rec[3].clone()
-    if split:
+    if variant == "n_steps=0":
         args[9] = 0
-    return lambda: ak.cycle_phase2(*args), lambda packed: (packed, args[3])
+    return [lambda: ak.cycle_phase2(*args)], lambda packed: (packed, args[3])
 
 
-def nominate_launch(rec, split: bool):
-    from kueue_tpu_torch.ops import drain_kernel as dk
+def _drain_launch(kernel):
+    def make(rec, variant, built):
+        from kueue_tpu_torch.ops import drain_kernel as dk
+
+        ctx, state, buf = rec
+        state, buf = state.clone(), buf.clone()
+        if variant == "done":
+            state.done.fill_(1)
+        if variant == "n_steps=0":
+            ctx = dataclasses.replace(ctx, n_steps=0, _args=None)
+
+        def outputs(_):
+            return tuple(getattr(x, f.name) for x in (state, buf)
+                         for f in dataclasses.fields(x)
+                         if getattr(x, f.name) is not None and f.name != "order")
+
+        return [lambda: getattr(dk, kernel)(ctx, state, buf)], outputs
+
+    return make
+
+
+nominate_launch = _drain_launch("drain_nominate")
+phase2_launch = _drain_launch("drain_phase2")
+
+
+def _views(like, names):
+    import torch
+
+    return {name: torch.empty_like(like) for name in names}
+
+
+def _stream(t) -> int:
+    from kueue_tpu_torch.ops import _build
+
+    return _build.stream_ptr(t.device)
+
+
+def _old_quota(built, rows, *launches):
+    """B1's parent entries: each launch (symbol, mode, (tensor, ...)) on
+    ``rows`` = (parent, level_mask, n, fr, max_depth), one recurrence a
+    launch, its pointers as the old C signature takes them (None =
+    NULL)."""
+    fns = []
+    for symbol, mode, tensors in launches:
+        fn = entry(built, "quota_tree", symbol)
+        ptrs = [None if t is None else t.data_ptr() for t in tensors]
+        parent, level_mask, n, fr, d = rows
+
+        def call(fn=fn, mode=mode, ptrs=ptrs, stream=_stream(parent)):
+            rc = fn(ctypes.c_int(mode), ctypes.c_void_p(parent.data_ptr()),
+                    ctypes.c_void_p(level_mask.data_ptr()), ctypes.c_int(n),
+                    ctypes.c_int(fr), ctypes.c_int(d),
+                    *(ctypes.c_void_p(x) for x in ptrs), ctypes.c_void_p(stream))
+            if rc != 0:
+                raise RuntimeError(f"the parent's quota_tree failed: cudaError {rc}")
+        fns.append(call)
+    return fns
+
+
+def _new_abi(built) -> bool:
+    return hasattr(built["quota_tree"][0], "quota_tree")
+
+
+def quota_drain_launch(rec, variant, built):
+    """The drain cycle's quota call site: usage_tree then available_all
+    on the recorded state; one launch in a build with the fused entry,
+    two in the parent's."""
+    from kueue_tpu_torch.ops import quota
 
     ctx, state, buf = rec
-    if split:
-        state = state.clone()
-        state.done.fill_(1)
-    buf = buf.clone()
+    done = state.done.clone()
+    if variant == "done":
+        done.fill_(1)
+    usage, avail = buf.usage.clone(), buf.avail.clone()
+    outputs = lambda _: (usage, avail)  # noqa: E731
+    if _new_abi(built):
+        return [lambda: quota.usage_and_available(
+            ctx.tree, ctx.subtree, ctx.guaranteed, state.local, usage, avail, done)], outputs
+    t = ctx.tree
+    rows = (t.parent, t.level_mask, t.n_nodes, t.nominal.shape[1], t.max_depth)
+    return _old_quota(
+        built, rows,
+        ("quota_bottom_up", 1, (state.local, ctx.guaranteed, usage, None, done)),
+        ("quota_top_down", 0, (ctx.subtree, ctx.guaranteed, t.borrowing_limit, usage, avail,
+                               done)),
+    ), outputs
 
-    def outputs(_):
-        return tuple(getattr(buf, f.name) for f in dataclasses.fields(buf)
-                     if getattr(buf, f.name) is not None)
 
-    return lambda: dk.drain_nominate(ctx, state, buf), outputs
+def quota_cycle_launch(rec, variant, built):
+    """The cycle's quota call site: all four recurrences from the tree
+    and the leaf usage; one launch in a build with the fused entry, four
+    in the parent's."""
+    from kueue_tpu_torch.ops import quota
+
+    tree, local = rec
+    names = ("subtree", "guaranteed", "usage", "avail", "potential")
+    v = _views(local, names)
+    outputs = lambda _: tuple(v[k] for k in names)  # noqa: E731
+    if _new_abi(built):
+        return [lambda: quota._launch(
+            tree, quota.SUBTREE | quota.USAGE | quota.AVAIL | quota.POTENTIAL, local=local,
+            **v)], outputs
+    rows = (tree.parent, tree.level_mask, tree.n_nodes, tree.nominal.shape[1], tree.max_depth)
+    bl = tree.borrowing_limit
+    return _old_quota(
+        built, rows,
+        ("quota_bottom_up", 0, (tree.nominal, tree.lending_limit, v["subtree"],
+                                v["guaranteed"], None)),
+        ("quota_bottom_up", 1, (local, v["guaranteed"], v["usage"], None, None)),
+        ("quota_top_down", 0, (v["subtree"], v["guaranteed"], bl, v["usage"], v["avail"],
+                               None)),
+        ("quota_top_down", 1, (v["subtree"], v["guaranteed"], bl, None, v["potential"],
+                               None)),
+    ), outputs
 
 
-def time_path(records, make, builds: dict, order, split: bool) -> dict:
-    """Each record's launch once per entry of ``order`` (build names),
+def time_path(records, make, builds: dict, order, variant) -> dict:
+    """Each record's launches once per entry of ``order`` (build names),
     outputs held equal across builds; {build: mean us, median, max}."""
     import torch
 
@@ -304,7 +487,7 @@ def time_path(records, make, builds: dict, order, split: bool) -> dict:
         ref = None
         for name in order:
             with using(builds[name]):
-                t, res = timer(lambda: make(rec, split))
+                t, res = timer(lambda: make(rec, variant, builds[name]))
             us[name].append(t)
             got = [x.to(torch.int64) for x in res]
             if ref is None:
@@ -351,14 +534,21 @@ def smem_latency_ns(dev, work: Path) -> float:
     return (min(ms[hi]) - min(ms[lo])) * 1e6 / (hi - lo)
 
 
+# each kernel's splits with --split (quota_tree's drain call site: "done")
+SPLITS = {"cycle_phase2": ("n_steps=0",), "drain_nominate": ("done",),
+          "drain_phase2": ("n_steps=0", "done")}
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, help="the parent build's csrc directory")
     ap.add_argument("--split", action="store_true", help="also time each kernel's split")
-    ap.add_argument("--kernel", choices=KERNELS, help="time this kernel only")
+    ap.add_argument("--kernel", choices=KERNELS, action="append",
+                    help="time this kernel only (repeatable)")
     args = ap.parse_args(argv)
+    kernels = tuple(args.kernel or KERNELS)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -371,41 +561,59 @@ def main(argv=None) -> int:
     print(card)
     work = Path(tempfile.mkdtemp(prefix="kernel_ab-"))
     t0 = time.perf_counter()
-    builds = {"new": build(_build.CSRC, work / "new")}
+    builds = {"new": build(_build.CSRC, work / "new", kernels)}
     if args.parent is not None:
-        builds["parent"] = build(args.parent.resolve(), work / "parent")
+        builds["parent"] = build(args.parent.resolve(), work / "parent", kernels)
     print(f"built {sorted(builds)} in {time.perf_counter() - t0:.1f} s")
     for bname, built in builds.items():
-        for kname, (_, lines) in built.items():
-            for ln in lines:
+        for kname in kernels:
+            for ln in built[kname][1]:
                 print(f"  {bname} {kname}: {ln}")
     order = ["parent", "new", "new", "parent"] if "parent" in builds else ["new", "new"]
     _build.load(_build.KERNELS)  # the other kernels the recording runs
 
     t0 = time.perf_counter()
-    cycles = record_cycles(dev) if args.kernel != "drain_nominate" else []
-    drains = record_drains(dev) if args.kernel != "cycle_phase2" else {}
-    print(f"recorded {len(cycles)} cycle launches, "
-          f"{ {k: len(v) for k, v in drains.items()} } nominations "
+    cyc = record_cycles(dev) if {"cycle_phase2", "quota_tree"} & set(kernels) else {}
+    drain_kernels = tuple(k for k in ("drain_nominate", "quota_tree", "drain_phase2")
+                          if k in kernels)
+    drains = record_drains(dev, drain_kernels) if drain_kernels else {}
+    paths = []
+    if "cycle_phase2" in kernels:
+        paths.append(("cycle_phase2", "headline cycles", cyc["cycle_phase2"], cycle_launch))
+    if "quota_tree" in kernels:
+        paths.append(("quota_tree", "headline drain call site", drains["quota_tree"]["headline"],
+                      quota_drain_launch))
+        paths.append(("quota_tree", "headline cycle call site", cyc["quota_tree"],
+                      quota_cycle_launch))
+    for label, recs in drains.get("drain_nominate", {}).items():
+        paths.append(("drain_nominate", f"{label} drain", recs, nominate_launch))
+    for label, recs in drains.get("drain_phase2", {}).items():
+        paths.append(("drain_phase2", f"{label} drain", recs, phase2_launch))
+    print(f"recorded {[(k, label, len(r)) for k, label, r, _ in paths]} "
           f"({time.perf_counter() - t0:.1f} s)")
     lat = smem_latency_ns(dev, work)
-    chains = [chain_heads(r) for r in cycles] or [0]
-    chain_us = float(np.mean(chains)) * HOPS_PER_HEAD * lat * 1e-3
-    print(f"shared-memory load latency {lat:.3f} ns; the cycles' longest segments walk "
-          f"{float(np.mean(chains)):.2f} heads (max {max(chains)}): chain bound "
-          f"{chain_us:.4f} us a launch ({HOPS_PER_HEAD} trips a head)")
+    result = {"card": card, "smem_latency_ns": lat, "ptxas": {
+        b: {k: built[k][1] for k in kernels} for b, built in builds.items()},
+        "chains": {}, "times_us": {}}
+    print(f"shared-memory load latency {lat:.3f} ns")
+    for kname, label, recs, count in (
+            [("cycle_phase2", "headline cycles", cyc.get("cycle_phase2", []), chain_heads)]
+            + [("drain_phase2", f"{label} drain", recs, drain_chain_heads)
+               for label, recs in drains.get("drain_phase2", {}).items()]):
+        chains = [count(r) for r in recs] or [0]
+        chain_us = float(np.mean(chains)) * HOPS_PER_HEAD * lat * 1e-3
+        result["chains"][f"{kname} [{label}]"] = {"heads": chains, "bound_us": chain_us}
+        print(f"{kname} [{label}]: the longest segments walk {float(np.mean(chains)):.2f} "
+              f"heads (max {max(chains)}): chain bound {chain_us:.4f} us a launch "
+              f"({HOPS_PER_HEAD} trips a head)")
 
-    result = {"card": card, "smem_latency_ns": lat, "cycle_chain_heads": chains,
-              "cycle_chain_bound_us": chain_us, "ptxas": {
-                  b: {k: lines for k, (_, lines) in built.items()} for b, built in builds.items()},
-              "times_us": {}}
-    paths = [("cycle_phase2", "headline cycles", cycles, cycle_launch)] if cycles else []
-    paths += [("drain_nominate", f"{label} drain", recs, nominate_launch)
-              for label, recs in drains.items()]
     for kname, label, recs, make in paths:
-        for split in (False, True) if args.split else (False,):
-            key = f"{kname} [{label}{', split' if split else ''}]"
-            res = time_path(recs, make, builds, order, split)
+        splits = SPLITS.get(kname, ())
+        if kname == "quota_tree" and "drain" in label:
+            splits = ("done",)
+        for variant in (None,) + (splits if args.split else ()):
+            key = f"{kname} [{label}{', ' + variant if variant else ''}]"
+            res = time_path(recs, make, builds, order, variant)
             result["times_us"][key] = res | {"launches": len(recs)}
             print(f"{key}: {len(recs)} launches, " + ", ".join(
                 f"{b} {res[b]:.2f} us (median {res[b + ' median']:.2f}, max "

@@ -54,33 +54,23 @@ class LockstepMismatch(AssertionError):
     """A kernel step disagreed with its plain version."""
 
 
-def _usage_kernel(ctx, s, b):
-    quota.usage_tree(ctx.tree, ctx.guaranteed, s.local, out=b.usage, done=s.done)
+def _quota_kernel(ctx, s, b):
+    quota.usage_and_available(ctx.tree, ctx.subtree, ctx.guaranteed, s.local, b.usage,
+                              b.avail, done=s.done)
 
 
-def _usage_plain(ctx, s, b):
+def _quota_plain(ctx, s, b):
     if not s.done.item():
-        b.usage.copy_(quota.usage_tree_plain(ctx.tree, ctx.guaranteed, s.local))
-
-
-def _avail_kernel(ctx, s, b):
-    quota.available_all(
-        ctx.tree, ctx.subtree, ctx.guaranteed, b.usage, out=b.avail, done=s.done
-    )
-
-
-def _avail_plain(ctx, s, b):
-    if not s.done.item():
-        b.avail.copy_(
-            quota.available_all_plain(ctx.tree, ctx.subtree, ctx.guaranteed, b.usage)
-        )
+        usage, avail = quota.usage_and_available_plain(
+            ctx.tree, ctx.subtree, ctx.guaranteed, s.local)
+        b.usage.copy_(usage)
+        b.avail.copy_(avail)
 
 
 # (kernel name, kernel step, plain step) of one drain cycle, in order;
 # each acts in place on (ctx, state, buf)
 STEPS = (
-    ("quota_tree", _usage_kernel, _usage_plain),
-    ("quota_tree", _avail_kernel, _avail_plain),
+    ("quota_tree", _quota_kernel, _quota_plain),
     ("drain_nominate", dk.drain_nominate, dk.drain_nominate_plain),
     ("drain_phase2", dk.drain_phase2, dk.drain_phase2_plain),
     ("drain_queue_motion", dk.drain_queue_motion, dk.drain_queue_motion_plain),
@@ -94,22 +84,22 @@ FAIR_STEPS = tuple(
     for step in STEPS
     for name in (step[0],)
 )
-PREEMPT_STEPS = STEPS[:3] + (
+PREEMPT_STEPS = STEPS[:2] + (
     ("drain_preempt_search", dk.drain_preempt_search, dk.drain_preempt_search_plain),
     ("drain_preempt_phase2", dk.drain_preempt_phase2, dk.drain_preempt_phase2_plain),
     ("drain_preempt_motion", dk.drain_preempt_motion, dk.drain_preempt_motion_plain),
 )
-FAIR_PREEMPT_STEPS = STEPS[:3] + (
+FAIR_PREEMPT_STEPS = STEPS[:2] + (
     ("drain_fair_preempt_search", dk.drain_fair_preempt_search,
      dk.drain_fair_preempt_search_plain),
     ("drain_fair_preempt_phase2", dk.drain_fair_preempt_phase2,
      dk.drain_fair_preempt_phase2_plain),
     ("drain_preempt_motion", dk.drain_preempt_motion, dk.drain_preempt_motion_plain),
 )
-TAS_STEPS = STEPS[:3] + (
+TAS_STEPS = STEPS[:2] + (
     ("drain_tas_place", dk.drain_tas_place, dk.drain_tas_place_plain),
     ("drain_tas_phase2", dk.drain_tas_phase2, dk.drain_tas_phase2_plain),
-    STEPS[4],
+    STEPS[3],
 )
 DRAIN_KERNELS = _build.DRAIN_KERNELS
 TAS_DRAIN_KERNELS = _build.TAS_DRAIN_KERNELS
@@ -226,7 +216,7 @@ def lockstep_megaloop(
     plain_ms: Optional[Dict[str, List[float]]] = None,
     stop_after: Optional[int] = None,
 ):
-    """``lockstep`` for the megaloop: the plain cycle's five launches
+    """``lockstep`` for the megaloop: the plain cycle's four launches
     and the round boundary at every cycle. Returns (ctx, final
     MegaloopState, cycles)."""
     _check_quota(tree, errs, label)
@@ -250,7 +240,7 @@ def lockstep_preempt(
     stop_after: Optional[int] = None,
 ):
     """``lockstep`` for the preempt drain at one ``search_width``: every
-    cycle's seven launches, each against its plain version (which
+    cycle's five launches, each against its plain version (which
     rebuilds the usage tree after removals as the JAX code does, where
     the phase-2 kernel bubbles). Returns (ctx, final PreemptState,
     cycles)."""
@@ -273,7 +263,7 @@ def lockstep_fair_preempt(
     plain_ms: Optional[Dict[str, List[float]]] = None,
     stop_after: Optional[int] = None,
 ):
-    """``lockstep`` for the fair-preempt drain: every cycle's six
+    """``lockstep`` for the fair-preempt drain: every cycle's five
     launches, each against its plain version (which rebuilds the usage
     tree for every fit check as the JAX code does, where the phase-2
     kernel bubbles the removals and puts them back). Returns (ctx, final
@@ -297,7 +287,7 @@ def lockstep_tas(
     plain_ms: Optional[Dict[str, List[float]]] = None,
     stop_after: Optional[int] = None,
 ):
-    """``lockstep`` for the TAS drain: every cycle's six launches (the
+    """``lockstep`` for the TAS drain: every cycle's five launches (the
     nomination placement and the global step scan in place of phase 2),
     each against its plain version. Returns (ctx, final TASState,
     cycles)."""
@@ -344,25 +334,13 @@ Check = Callable[[str, Callable, Callable], object]
 
 
 def cycle_solve(tree, local_usage, heads, paths, seg_id, n_segments, n_steps, check):
-    """``solve_cycle_segmented_packed`` launch by launch (four quota_tree
-    passes, cycle_phase1, cycle_phase2), each through ``check``."""
-    sub, g = check(
-        "quota_tree", lambda: quota.subtree_quota(tree), lambda: quota.subtree_quota_plain(tree)
-    )
-    usage = check(
+    """``solve_cycle_segmented_packed`` launch by launch (one quota_tree
+    launch for its four recurrences, cycle_phase1, cycle_phase2), each
+    through ``check``."""
+    sub, g, usage, avail, pot = check(
         "quota_tree",
-        lambda: quota.usage_tree(tree, g, local_usage),
-        lambda: quota.usage_tree_plain(tree, g, local_usage),
-    )
-    avail = check(
-        "quota_tree",
-        lambda: quota.available_all(tree, sub, g, usage),
-        lambda: quota.available_all_plain(tree, sub, g, usage),
-    )
-    pot = check(
-        "quota_tree",
-        lambda: quota.potential_available_all(tree, sub, g),
-        lambda: quota.potential_available_all_plain(tree, sub, g),
+        lambda: quota.quota_all(tree, local_usage),
+        lambda: quota.quota_all_plain(tree, local_usage),
     )
     chosen, borrows, pk = check(
         "cycle_phase1",

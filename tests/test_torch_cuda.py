@@ -70,11 +70,25 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   its shared-memory rows beside small ones, W not a multiple of 32,
   pads, dropped ranks, repeated cells and paths of 7 levels.
 
+- quota_tree (B1) one launch a call site: quota_all (the cycle's four
+  recurrences) and usage_and_available (the drain's pair) bit-exact to
+  their plain versions, and each single recurrence, on forests of depth
+  1-7 with a root subtree beyond a block's shared memory (its columns
+  split over blocks, or on device rows) beside small ones, FR not a
+  multiple of 32, and a set done flag;
+  drain_phase2 (B4's phase 2) bit-exact after the card's own quota pass
+  and nomination on perf.cases.phase2_batch: a segment beyond its shared
+  rows beside small ones, dropped ranks, reserves, ties, paths of 7
+  levels, heads whose merged cells repeat a cell, a segment whose keys
+  outgrow shared memory, and a set done flag.
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1415,3 +1429,140 @@ def test_cycle_phase2_bit_exact_on_shared_and_device_rows(cuda, seed, w, drop, d
         assert max(need) > lay["rows_bytes"]
     else:
         assert max(need) <= lay["rows_bytes"]
+
+
+# ---- B1 (quota_tree, one launch a call site) and B4's phase 2
+# (drain_phase2: keys and rows in shared memory) at their edges ----
+
+
+# (seed, depth, big): a root subtree of `big` nodes (FR = 37) whose
+# columns blocks split (300) or that runs on device rows (4000)
+QUOTA_EDGES = [(0, 1, 300), (1, 3, 300), (0, 7, 300), (2, 1, 0), (3, 4, 0), (4, 3, 4000)]
+
+
+@pytest.mark.parametrize("seed,depth,big", QUOTA_EDGES)
+def test_quota_tree_one_launch_a_call_site(cuda, seed, depth, big):
+    from kueue_tpu_torch.ops import quota
+
+    f = cases.quota_forest(seed, depth=depth, big=big)
+    tree = interop.quota_tree(f, cuda)
+    local = torch.as_tensor(f["local_usage"], device=cuda)
+    want = quota.quota_all_plain(interop.quota_tree(f, "cpu"),
+                                 torch.as_tensor(f["local_usage"]))
+    every = quota.SUBTREE | quota.USAGE | quota.AVAIL | quota.POTENTIAL
+    max_bin, room = tree.forest.max_bin, quota.QUOTA_SHARED_BYTES
+    cw = quota.column_chunk(max_bin, 37, every, tree.forest.bins.shape[0])
+    assert (quota.bin_shared_bytes(max_bin, 37, every) > room) == (big > 0)
+    assert (quota.bin_shared_bytes(max_bin, cw, every) > room) == (big == 4000)
+    _build.reset_launches()
+    got = quota.quota_all(tree, local)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["quota_tree"] == 1
+    for name, x, y in zip(("subtree", "guaranteed", "usage", "avail", "potential"), got, want):
+        assert torch.equal(x.cpu(), y), name
+    sub, g = got[:2]
+    u, a = torch.full_like(local, -7), torch.full_like(local, -7)
+    _build.reset_launches()
+    quota.usage_and_available(tree, sub, g, local, u, a)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["quota_tree"] == 1
+    assert torch.equal(u.cpu(), want[2]) and torch.equal(a.cpu(), want[3])
+    singles = (quota.subtree_quota(tree) + (quota.usage_tree(tree, g, local),
+               quota.available_all(tree, sub, g, u), quota.potential_available_all(tree, sub, g)))
+    for name, x, y in zip(("subtree", "guaranteed", "usage", "avail", "potential"), singles,
+                          want):
+        assert torch.equal(x.cpu(), y), name
+    done = torch.ones(1, dtype=torch.int32, device=cuda)
+    u.fill_(-7)
+    quota.usage_and_available(tree, sub, g, local, u, a, done=done)
+    assert bool((u == -7).all())
+
+
+PHASE2_EDGES = {
+    "wide": dict(q=160, big=0.9, fr=40),
+    "wide-drop": dict(q=160, big=0.9, fr=40, drop=True),
+    "deep": dict(q=40, depth=6),
+    "deep-drop": dict(q=40, depth=6, drop=True),
+    "podsets-3": dict(q=48, p=3, c=3, fr=5),
+}
+
+
+def _phase2_inputs(b, dev):
+    """(ctx, state, buffers) of a phase2_batch on ``dev`` after the card's
+    quota pass and nomination of its cycle."""
+    from kueue_tpu_torch.ops import quota
+
+    qn = b["queues_np"]
+    tree, queues, local, paths = interop.drain_inputs(b, qn, dev)
+    ctx = dk.DrainContext.build(tree, queues, paths, b["n_segments"], b["n_steps"], 8,
+                                seg_id=qn["seg_id"])
+    state = dk.DrainState.initial(local, queues, 8)
+    for name in ("local", "cursor", "g_start", "alive"):
+        getattr(state, name).copy_(torch.as_tensor(b[name]))
+    state.done.zero_()
+    buf = dk.CycleBuffers.empty(local, queues)
+    quota.usage_and_available(ctx.tree, ctx.subtree, ctx.guaranteed, state.local, buf.usage,
+                              buf.avail, done=state.done)
+    dk.drain_nominate(ctx, state, buf)
+    return ctx, state, buf
+
+
+def _phase2_step(ctx, state, buf):
+    """drain_phase2 on the card against drain_phase2_plain on copies."""
+    ps, pb = state.clone(), buf.clone()
+    _build.reset_launches()
+    dk.drain_phase2(ctx, state, buf)
+    dk.drain_phase2_plain(ctx, ps, pb)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["drain_phase2"] == 1
+    for x, y in ((state, ps), (buf, pb)):
+        for f in dataclasses.fields(x):
+            if f.name != "order":
+                assert torch.equal(getattr(x, f.name), getattr(y, f.name)), f.name
+
+
+@pytest.mark.parametrize("dup", [False, True])
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("case", sorted(PHASE2_EDGES))
+def test_drain_phase2_bit_exact_at_its_edges(cuda, case, seed, dup):
+    """With ``dup`` every third nominated head's second merged cell
+    repeats its first (two lanes add at each level, as the JAX .at[].add
+    does)."""
+    b = cases.phase2_batch(seed, **PHASE2_EDGES[case])
+    ctx, state, buf = _phase2_inputs(b, cuda)
+    nominated = torch.nonzero(buf.is_fit | buf.is_pre).flatten()
+    assert nominated.numel() > 0
+    if dup:
+        rows = nominated[::3]
+        cells, qty = buf.cells_eff[rows], buf.qty_eff[rows]
+        ok = (cells[:, 0] >= 0) & (cells[:, 1] >= 0) & (qty[:, 1] > 0)
+        assert bool(ok.any())
+        cells[:, 1] = torch.where(ok, cells[:, 0], cells[:, 1])
+        buf.cells_eff[rows] = cells
+    _phase2_step(ctx, state, buf)
+    assert bool(buf.admitted.any())
+
+
+def test_drain_phase2_keys_in_device_memory(cuda):
+    """A segment of ~6900 queues: its keys outgrow the block's shared
+    memory, so the ranks read them from device memory and the walk runs
+    on device rows, in windows."""
+    b = cases.phase2_batch(0, q=7000, big=0.99, fr=5)
+    qn = b["queues_np"]
+    p, c = qn["cells"].shape[2], qn["cells"].shape[4]
+    members = int(np.bincount(qn["seg_id"]).max())
+    assert not dk.phase2_layout(members, b["n_steps"], p * c, 5, b["max_depth"])["keys"]
+    ctx, state, buf = _phase2_inputs(b, cuda)
+    _phase2_step(ctx, state, buf)
+    assert int(buf.admitted.sum()) > 2 * dk.PHASE2_WINDOW
+
+
+def test_drain_phase2_done_is_a_no_op(cuda):
+    b = cases.phase2_batch(0, **PHASE2_EDGES["wide"])
+    ctx, state, buf = _phase2_inputs(b, cuda)
+    state.done.fill_(1)
+    before_s, before_b = state.clone(), buf.clone()
+    _phase2_step(ctx, state, buf)
+    for x, y in ((state, before_s), (buf, before_b)):
+        for f in dataclasses.fields(x):
+            assert torch.equal(getattr(x, f.name), getattr(y, f.name)), f.name

@@ -303,8 +303,9 @@ def test_lockstep_harness_catches_a_difference():
         dk.drain_phase2_plain(ctx, s, b)
         s.cycle.add_(1)
 
-    name, kern, _ = ls.STEPS[3]
-    steps = ls.STEPS[:3] + ((name, kern, off_by_one),) + ls.STEPS[4:]
+    at = [step[0] for step in ls.STEPS].index("drain_phase2")
+    name, kern, _ = ls.STEPS[at]
+    steps = ls.STEPS[:at] + ((name, kern, off_by_one),) + ls.STEPS[at + 1:]
     errs = {}
     with pytest.raises(ls.LockstepMismatch, match="drain_phase2 differs from its plain "
                                                   "version by 1 at cycle 0"):
