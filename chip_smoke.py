@@ -25,7 +25,8 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
    spills, and the card's shared-memory load latency (a one-thread
    pointer chase): the serial kernels' chain bound (cycle_phase2,
    cycle_global, drain_fair_phase2, drain_tas_phase2, plan_phase2) is
-   two such trips a walked head of the launch's longest segment.
+   two such trips a walked head of the launch's longest segment (root
+   cohort; the TAS drain's one global scan).
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
    (int64, tolerance 0), in lockstep at EVERY cycle of two drains: the
    real 50k x 1k headline plan, and a small seeded case with three
@@ -232,7 +233,8 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
       on the card at cycles 1, 16 and 30 (the plain step loop takes
       seconds a cycle); B3' held to its plain version on seeded
       ``cycle_batch`` problems (reservations, preempt-mode heads,
-      depth 3) and ``entry(device="cuda")``'s;
+      depth 3, a 3000-ClusterQueue tree beyond one block's shared
+      memory) and ``entry(device="cuda")``'s;
    b. kernel B1' (quota_drs: lendable_per_resource and
       dominant_resource_share) on fair-preempt-1k's snapshot and the
       headline's after its 30 cycles, with a zero and a seeded nonzero
@@ -676,17 +678,14 @@ def cycle_launch_bytes(tree, heads, paths, seg_id, phase1, packed) -> dict:
     return {"quota_tree": quota, "cycle_phase1": [phase1_b], "cycle_phase2": [phase2_b]}
 
 
-def cycle_chain(heads, seg_id, phase1, n_segments: int, n_steps: int,
-                segmented: bool = True) -> int:
-    """cycle_phase2's chain on one cycle: the walked heads (a
-    ClusterQueue, an effective candidate) of its longest segment below
-    n_segments; all of them, one chain, when not ``segmented``, as
-    cycle_global walks them."""
+def cycle_chain(heads, seg_id, phase1, n_segments: int, n_steps: int) -> int:
+    """A cycle's chain: the walked heads (a ClusterQueue, an effective
+    candidate) of its longest root segment below n_segments, at most
+    n_steps (cycle_phase2's); cycle_global drops neither segments nor
+    steps, and its chain is the longest root's walked heads."""
     cq = heads.cq_row.cpu().numpy()
     chosen, _, preempt_k = (t.cpu().numpy() for t in phase1)
     walked = (cq >= 0) & ((chosen >= 0) | (preempt_k >= 0))
-    if not segmented:
-        return int(walked.sum())
     seg = np.asarray(seg_id)
     return chain_heads(walked & (seg >= 0) & (seg < n_segments), seg, n_steps)
 
@@ -3349,8 +3348,10 @@ def mesh_path(dev, cache, pending, walls) -> dict:
     from kueue_tpu_torch.perf.lockstep import Lockstep
 
     check = Lockstep(check_errs, label="B3' small batches")
-    for seed in range(12):
-        kw = {} if seed < 8 else {"w": 200, "n_cq": 60, "fr": 12}
+    for seed in range(13):
+        # seed 12: 3000 ClusterQueues x FR 12, beyond one block's shared memory
+        kw = ({} if seed < 8 else {"w": 200, "n_cq": 60, "fr": 12} if seed < 12
+              else {"w": 8, "n_cq": 3000, "fr": 12})
         b = cases.cycle_batch(seed, **kw)
         tree, heads = interop.quota_tree(b, dev), interop.heads_batch(b, dev)
         local, paths = torch.tensor(b["local_usage"], device=dev), torch.tensor(b["paths"], device=dev)
@@ -3375,10 +3376,10 @@ def mesh_path(dev, cache, pending, walls) -> dict:
     errs["cycle_global"] = max(errs["cycle_global"], check_errs.get("cycle_global", 0))
     if check.failures:
         fail(f"B3' small batches: {check.failures}")
-    print(f"{stamp()} B3' on cycle_batch seeds 0-11 (depth 3, reservations, pads, scores; "
-          f"W up to 200): bit-exact to its plain version and to B3; entry(device='cuda') "
-          f"({int(got.admitted.sum())} of {got.admitted.shape[0]} admitted) equal to "
-          f"solve_cycle_plain")
+    print(f"{stamp()} B3' on cycle_batch seeds 0-12 (depth 3, reservations, pads, scores; "
+          f"W up to 200; a 3000-ClusterQueue tree): bit-exact to its plain version and to "
+          f"B3; entry(device='cuda') ({int(got.admitted.sum())} of {got.admitted.shape[0]} "
+          f"admitted) equal to solve_cycle_plain")
 
     # 13d. B3' timed alone at every headline cycle, B3 beside it on the
     # same heads; the plain step loop on the card at the first cycle
@@ -3401,8 +3402,8 @@ def mesh_path(dev, cache, pending, walls) -> dict:
             "cycle_phase2": cycle_launch_bytes(s.tree, s.heads, s.paths, s.seg_id, ph,
                                                packed)["cycle_phase2"],
         })
-        timer.add_chain("cycle_global", cycle_chain(s.heads, s.seg_id, ph, 0, 0,
-                                                    segmented=False))
+        w = len(s.seg_id)
+        timer.add_chain("cycle_global", cycle_chain(s.heads, s.seg_id, ph, w, w))
         timer.add_chain("cycle_phase2", cycle_chain(s.heads, s.seg_id, ph, s.n_segments,
                                                     s.n_steps))
         if i in (0, len(store) - 1):

@@ -20,10 +20,11 @@ over dense tensors, as in the JAX package:
   order) for one device-to-host copy.
 - ``solve_cycle`` / ``solve_cycle_packed``: the unsegmented cycle, one
   scan over all heads in the global entry order (kernel B3',
-  ``cycle_global``, ``csrc/cycle_global.cu``, one block, the usage tree
-  in shared memory); ``parallel.ShardedSolver`` runs its phase 2 on the
-  gathered phase-1 output. ``solve_cycle_plain`` is the JAX
-  ``solve_cycle`` written out in torch.
+  ``cycle_global``, ``csrc/cycle_global.cu``: each root cohort's heads
+  walked in that order, a block a group of whole root subtrees, their
+  rows in shared memory where they fit); ``parallel.ShardedSolver``
+  runs its phase 2 on the gathered phase-1 output.
+  ``solve_cycle_plain`` is the JAX ``solve_cycle`` written out in torch.
 
 Every wrapper launches its CUDA kernel for a CUDA tensor (or raises) and
 runs the plain torch version beside it (``*_plain``) for a CPU tensor.
@@ -53,6 +54,7 @@ from kueue_tpu_torch.ops.quota import (
     quota_all,
     quota_all_plain,
     subtree_quota,
+    tree_forest,
     usage_and_available,
     usage_tree,
 )
@@ -449,6 +451,47 @@ def phase2_layout(w: int, max_members: int, c: int, fr: int, max_depth: int):
     return {"win": win, "keys": keys, "rows_bytes": rows, "total": fixed + rows}
 
 
+GLOBAL_BLOCKS = 264  # cycle_global's largest grid: two blocks a multiprocessor
+# the layout ints cycle_global takes after its shape (csrc/cycle_global.cu)
+GLOBAL_LAYOUT_FIELDS = ("prio", "ts", "stage", "stage_buf", "cls", "mem", "rows",
+                        "rows_bytes", "win", "keys", "total")
+
+
+def global_layout(w: int, c: int, fr: int, max_depth: int, n_bins: int, max_bin: int):
+    """cycle_global's grid and shared memory a block (csrc/cycle_global.cu
+    takes them as they are): a block per group of consecutive forest bins
+    (at most GLOBAL_BLOCKS groups); per block the classes (1 B a head),
+    two staging windows of ``win`` heads, the member lists (12 B a head
+    and two words a 32 heads), the sort keys (priority and timestamp, 16
+    B a head, left in device memory when they do not fit) and
+    ``rows_bytes`` for a group's subtree, guaranteed, borrowing-limit and
+    usage rows (a group whose rows need more walks on the device-memory
+    rows). None when even the classes, member lists and one-head windows
+    do not fit (W beyond ~17,000 heads)."""
+
+    def window(win):
+        return _align8(4 * win * (c + max_depth + 4)) + 24 * win * c
+
+    grid = max(1, min(n_bins, GLOBAL_BLOCKS))
+    base = _align8(w) + _align8(4 * (3 * w + 2 * ((w + 31) // 32)))  # classes, members
+    win = PHASE2_WINDOW
+    while win > 1 and base + 2 * window(win) > PHASE2_SHARED_BYTES:
+        win >>= 1
+    if base + 2 * window(win) > PHASE2_SHARED_BYTES:
+        return None
+    keys = base + 2 * window(win) + 16 * w <= PHASE2_SHARED_BYTES
+    off, at = {}, 0
+    for name, size in (("prio", 8 * w if keys else 0), ("ts", 8 * w if keys else 0),
+                       ("stage", 2 * window(win)), ("cls", _align8(w)),
+                       ("mem", base - _align8(w))):
+        off[name] = at
+        at += size
+    need = -(-n_bins // grid) * max_bin * fr * 32
+    rows = min(need, PHASE2_SHARED_BYTES - at)
+    return {**off, "grid": grid, "stage_buf": window(win), "rows": at, "rows_bytes": rows,
+            "win": win, "keys": int(keys), "total": at + rows}
+
+
 def _bubble_usage(
     path: torch.Tensor,  # int32[B, D+1]
     cells: torch.Tensor,  # int32[B, C]
@@ -783,9 +826,10 @@ def cycle_global(
 ) -> torch.Tensor:
     """Phase 2 of the unsegmented cycle: the packed int64[5, W] outcome
     (into ``packed`` when given). ``usage`` (the cycle usage tree) is
-    updated in place by the admissions and reservations. On the card
-    the kernel keeps the usage tree in one block's shared memory and
-    refuses a tree that does not fit there."""
+    updated in place by the admissions and reservations. On the card a
+    block walks each group of whole root subtrees of the tree's forest
+    (``tree_forest``: quota_tree's bins), on its rows in shared memory
+    where they fit and on the device-memory rows where they do not."""
     if not usage.is_cuda:
         res = cycle_global_plain(
             tree, subtree, guaranteed, usage, paths, heads, chosen, borrows_wk, preempt_k
@@ -800,16 +844,13 @@ def cycle_global(
     d = tree.max_depth
     if c > MAX_C:
         raise _build.KernelInputError(f"{kernel}: takes C<={MAX_C} cells, got {c}")
-    # the usage tree, the walk and the head classes (csrc/cycle_global.cu)
-    smem = 8 * n * fr + 5 * w
-    limit_fn = _build.c_function(kernel, "cycle_global_smem_limit", [])
-    limit_fn.restype = ctypes.c_longlong
-    with torch.cuda.device(usage.device):
-        limit = int(limit_fn())
-    if smem > limit:
+    forest = tree_forest(tree)
+    n_bins = forest.bins.shape[0]
+    lay = global_layout(w, c, fr, d, n_bins, forest.max_bin)
+    if lay is None:
         raise _build.KernelInputError(
-            f"{kernel}: the usage tree [{n}, {fr}] and {w} heads need {smem} B of "
-            f"shared memory, more than the {limit} B one block has"
+            f"{kernel}: the classes, member lists and one-head windows of {w} heads do "
+            f"not fit a block's shared memory"
         )
     if packed is None:
         packed = torch.empty((5, w), dtype=I64, device=usage.device)
@@ -829,10 +870,15 @@ def cycle_global(
         ptr(kernel, "subtree", subtree, I64, (n, fr)),
         ptr(kernel, "guaranteed", guaranteed, I64, (n, fr)),
         ptr(kernel, "paths", paths, I32, (n, d + 1)),
+        ptr(kernel, "pos", forest.pos, I32, (n,)),
+        ptr(kernel, "meta", forest.meta, I32, (n, 4)),
+        ptr(kernel, "bins", forest.bins, I32, (n_bins, forest.depth + 2)),
         ptr(kernel, "usage", usage, I64, (n, fr)),
         ptr(kernel, "packed", packed, I64, (5, w)),
     ]
-    _call(kernel, [w, k, c, n, fr, d], ptrs, usage.device)
+    ints = [w, k, c, n, fr, d, n_bins, forest.depth + 2, lay["grid"]] + [
+        int(lay[f]) for f in GLOBAL_LAYOUT_FIELDS]
+    _call(kernel, ints, ptrs, usage.device)
     return packed
 
 

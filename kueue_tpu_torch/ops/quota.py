@@ -225,15 +225,19 @@ class Forest(NamedTuple):
     positions in the bin, [first, end).
     bins: int32[B, depth + 2] per bin the position where each level
     starts, then the bin's end.
+    pos: int32[N] each node's position (the inverse of meta's first
+    column); kernel B3' (cycle_global) groups heads by it.
     """
 
     meta: torch.Tensor
     bins: torch.Tensor
     depth: int
     max_bin: int
+    pos: torch.Tensor
 
     def to(self, device) -> "Forest":
-        return self._replace(meta=self.meta.to(device), bins=self.bins.to(device))
+        return self._replace(meta=self.meta.to(device), bins=self.bins.to(device),
+                             pos=self.pos.to(device))
 
 
 def build_forest(parent, device=None) -> Forest:
@@ -284,12 +288,15 @@ def build_forest(parent, device=None) -> Forest:
             level, parents = nxt, nxt_parents
         bins[b, depth + 1] = pos
     max_bin = int((bins[:, -1] - bins[:, 0]).max()) if len(groups) else 0
+    pos = np.empty(n, dtype=np.int32)
+    pos[meta[:, 0]] = np.arange(n, dtype=np.int32)
     dev = torch.device("cpu") if device is None else device
     return Forest(
         meta=torch.from_numpy(meta).to(dev, non_blocking=True),
         bins=torch.from_numpy(bins).to(dev, non_blocking=True),
         depth=depth,
         max_bin=max_bin,
+        pos=torch.from_numpy(pos).to(dev, non_blocking=True),
     )
 
 

@@ -34,6 +34,17 @@ ClusterQueue riding along whose backlog holds plain workloads and one
 topology request on its non-TAS flavor (parked in kernel, ``t_bad``),
 and a second plain queue in its cohort that borrows, so blocked plain
 heads reserve capacity in the TAS drain's global scan.
+``global_batch(edge, seed)`` is a ``cycle_batch`` at one of the unsegmented
+cycle's edges (``GLOBAL_EDGES``: a tree beyond one block's shared memory,
+one root holding most heads, cohort-less ClusterQueues, depth 7, pads and
+no-fit heads, W not a multiple of 32).
+``tas_scan_spec(seed)`` reaches the edges of the TAS drain's step scan
+(kernel B13's phase 2): four topology resources (cpu, gpu, memory and
+the pods slot), gangs spread one pod a host over up to 72 leaves of a
+thin flavor, heads of two queues that nominate the same leaves in one
+cycle (the later one's re-validation fails on the live usage), ties on
+priority and timestamp across queues, and plain queues riding along
+that reserve when blocked.
 ``build_scheduler(spec)`` builds the interactive cycle over a spec: the
 cache, a QueueManager with one LocalQueue ``lq-<cq>`` per ClusterQueue
 holding the spec's workloads, and a ``Scheduler`` with the host
@@ -400,7 +411,8 @@ def build_scheduler(spec: dict, device=None, use_solver=True, guard=None, fair_s
 
 
 def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
-                n_cq: int = 10, fr: int = 6, drop_steps: bool = False) -> dict:
+                n_cq: int = 10, fr: int = 6, drop_steps: bool = False,
+                cohortless: float = 0.1) -> dict:
     """A random cycle-solver input as numpy arrays: a cohort forest of
     ``depth`` levels with quotas, lending and borrowing limits (NO_LIMIT
     where unset), leaf usage, and a heads batch of ``w`` rows (a few of
@@ -411,7 +423,8 @@ def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
     ``borrowing_limit``, ``local_usage``, ``max_depth``), the
     HeadsBatch fields, ``paths``, ``seg_id``, ``n_segments`` and
     ``n_steps`` (below the largest segment when ``drop_steps``, so
-    phase 2 drops ranks)."""
+    phase 2 drops ranks). A ClusterQueue but the first is without a
+    cohort with probability ``cohortless``."""
     from kueue_tpu_torch.ops.assign_kernel import build_paths, build_roots
     from kueue_tpu_torch.ops.quota import NO_LIMIT
 
@@ -430,7 +443,8 @@ def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
     for j, p in enumerate(parents_c):
         parent[n_cq + j] = -1 if p < 0 else n_cq + p
     for i in range(n_cq):
-        parent[i] = -1 if (i > 0 and rng.random() < 0.1) else n_cq + int(rng.integers(0, n_cohort))
+        parent[i] = (-1 if (i > 0 and rng.random() < cohortless)
+                     else n_cq + int(rng.integers(0, n_cohort)))
     if depth:
         parent[0] = n_cq + level[0]  # one ClusterQueue at the full depth
     dep = np.zeros(n, dtype=np.int32)
@@ -794,6 +808,108 @@ def tas_spec(seed: int, n_tas_cq: int = 4, workloads_per_cq: int = 5) -> dict:
     return {
         "topologies": {"deep": (BLOCK, RACK, HOST), "flat": (RACK, HOST)},
         "flavors": [("tas-a", "deep", {"pool": "a"}), ("tas-b", "flat", {"pool": "b"}),
+                    ("plain", None, {})],
+        "nodes": nodes,
+        "cqs": cqs,
+        "workloads": workloads,
+    }
+
+
+# the unsegmented cycle's edges (kernel B3', cycle_global): ``global_batch``
+GLOBAL_EDGES = ("beyond-shared-memory", "one-root", "cohortless", "depth-7",
+                "pads-and-no-fit", "w-37")
+
+
+def global_batch(edge: str, seed: int) -> dict:
+    """A ``cycle_batch`` at one of cycle_global's edges (seed 0 or 1):
+    3000 ClusterQueues x FR 12, a usage tree beyond one block's shared
+    memory; one root cohort over all but a few of 200 heads (depth 1);
+    ClusterQueues mostly without a cohort; paths of 8 levels; pads and
+    every fifth head asking more than any ClusterQueue holds (no-fit);
+    W = 37."""
+    if edge == "beyond-shared-memory":
+        return cycle_batch(seed, w=8, n_cq=3000, fr=12)
+    if edge == "one-root":  # seeds 1 and 6 draw one root cohort
+        return cycle_batch((1, 6)[seed], w=200, k=4, c=8, depth=1, n_cq=60, fr=17,
+                           cohortless=0.02)
+    if edge == "cohortless":
+        return cycle_batch(seed, w=64, depth=1, n_cq=40, cohortless=0.9)
+    if edge == "depth-7":
+        return cycle_batch(seed, w=48, depth=7, n_cq=16)
+    if edge == "pads-and-no-fit":
+        b = cycle_batch(seed, w=40, n_cq=14)
+        b["qty"][::5] = np.where(b["cells"][::5] >= 0, 1 << 40, 0)
+        return b
+    if edge == "w-37":
+        return cycle_batch(seed, w=37, n_cq=12)
+    raise ValueError(f"no cycle_global edge {edge!r}")
+
+
+def tas_scan_spec(seed: int, gangs_per_cq: int = 4) -> dict:
+    """The TAS step scan's edge case (module docstring), in
+    perf/tas.build_tas_env's spec form. ``tas-a``: 2 blocks x 3 racks x 6
+    hosts of 8 cpu, 4 gpu, 32 GiB and 32 pods; ``tas-t``: 4 racks x 24
+    hosts of one pod each. cq-0 and cq-2 on tas-a ask for cpu, gpu and
+    memory; cq-1 and cq-3 on tas-t for cpu and memory, their gangs
+    Unconstrained or Preferred at a rack, the first of each of 40-72
+    pods at one timestamp and priority, so both nominate the same
+    leaves; the plain cq-plain and cq-lend share a cohort as in
+    ``tas_spec``."""
+    rng = np.random.default_rng(seed + 83000)
+    gib = 1 << 30
+    nodes = []
+    for b in range(2):
+        for r in range(3):
+            for h in range(6):
+                nodes.append((f"a-{b}-{r}-{h}", {"pool": "a", BLOCK: f"b{b}", RACK: f"b{b}-r{r}",
+                                                 HOST: f"ha-{b}-{r}-{h}"},
+                              {"cpu": 8000, "example.com/gpu": 4, "memory": 32 * gib,
+                               "pods": 32}))
+    for r in range(4):
+        for h in range(24):
+            nodes.append((f"t-{r}-{h}", {"pool": "t", RACK: f"tr{r}", HOST: f"ht-{r}-{h}"},
+                          {"cpu": 4000, "memory": 8 * gib, "pods": 1}))
+    deep = {"cpu": "80", "example.com/gpu": "40", "memory": "320Gi"}
+    thin = {"cpu": "200", "memory": "400Gi"}
+    cqs = [(f"cq-{i}", "tas-a" if i % 2 == 0 else "tas-t", deep if i % 2 == 0 else thin)
+           for i in range(4)]
+    cqs += [("cq-plain", "plain", "12", "plain-co"), ("cq-lend", "plain", "4", "plain-co")]
+    workloads = []
+    t = 0.0
+    for w in range(gangs_per_cq):
+        t += 1.0
+        prio = int(rng.integers(0, 2)) * 10
+        for i in range(4):
+            # every queue's w-th gang at one timestamp and priority: ties
+            # broken by the queue index
+            name = f"wl-{i}-{w}"
+            if i % 2 == 0:
+                workloads.append(dict(
+                    name=name, cq=f"cq-{i}", count=int(rng.integers(2, 13)),
+                    cpu=str(int(rng.integers(1, 3))),
+                    requests={"example.com/gpu": str(int(rng.integers(0, 2))),
+                              "memory": f"{int(rng.integers(1, 5))}Gi"},
+                    mode=("Required", "Preferred")[int(rng.integers(0, 2))],
+                    level=(BLOCK, RACK, HOST)[int(rng.integers(0, 3))], prio=prio, t=t))
+            else:
+                count = int(rng.integers(40, 73)) if w == 0 else int(rng.integers(4, 30))
+                workloads.append(dict(
+                    name=name, cq=f"cq-{i}", count=count, cpu="1",
+                    requests={"memory": f"{int(rng.integers(1, 5))}Gi"},
+                    mode=("Unconstrained", "Preferred")[int(rng.integers(0, 2))] if w else
+                    "Unconstrained", level=RACK, prio=prio, t=t))
+    for w in range(3):
+        t += 1.0
+        workloads.append(dict(name=f"lend-{w}", cq="cq-lend", count=1, cpu="5", mode=None,
+                              level=None, prio=0, t=t))
+    for w in range(gangs_per_cq):
+        t += 1.0
+        workloads.append(dict(name=f"plain-{w}", cq="cq-plain", count=int(rng.integers(1, 4)),
+                              cpu=str(int(rng.integers(1, 4))), mode=None, level=None,
+                              prio=int(rng.integers(0, 3)) * 10, t=t))
+    return {
+        "topologies": {"deep": (BLOCK, RACK, HOST), "thin": (RACK, HOST)},
+        "flavors": [("tas-a", "deep", {"pool": "a"}), ("tas-t", "thin", {"pool": "t"}),
                     ("plain", None, {})],
         "nodes": nodes,
         "cqs": cqs,

@@ -1,6 +1,8 @@
 """Two builds of a kernel timed side by side on one card: B3
 (``cycle_phase2``), B4's nomination (``drain_nominate``), B1
-(``quota_tree``, per call site) and B4's phase 2 (``drain_phase2``).
+(``quota_tree``, per call site), B4's phase 2 (``drain_phase2``), the TAS
+drain's step scan (``drain_tas_phase2``, B13) and the unsegmented cycle's
+walk (``cycle_global``, B3').
 
     python -m kueue_tpu_torch.perf.kernel_ab [--parent DIR] [--split]
                                              [--kernel NAME ...]
@@ -21,6 +23,10 @@ enqueues the start event, the launch and the end event, so the events
 bracket the launch's device time and no host time. The two builds'
 outputs are held equal at every launch (int64, tolerance 0).
 
+The parent's ``cycle_global`` takes the argument list it had before its
+shared-memory check went (six ints, sixteen pointers): a build that
+still exports ``cycle_global_smem_limit`` is called so.
+
 B1's parent build runs a call site as several launches (two entries,
 ``quota_bottom_up`` and ``quota_top_down``, one recurrence a launch:
 two at the drain's site, four at the cycle's); each is timed alone and
@@ -29,16 +35,20 @@ their times are summed against the new build's one launch.
 ``--parent DIR``: a directory holding another build's sources (the
 parent commit's ``kueue_tpu_torch/csrc``), built here with the same
 nvcc flags. Without it only the current sources are timed (new, new).
-``--split``: each build's split too: ``cycle_phase2`` and
-``drain_phase2`` with ``n_steps = 0`` (the order and the ranks, no
-walk), ``drain_nominate``, ``drain_phase2`` and the drain's quota site
-with the done flag set (the launch's floor).
+``--split``: each build's split too: ``cycle_phase2``, ``drain_phase2``
+and ``drain_tas_phase2`` with ``n_steps = 0`` (the order and the ranks,
+no walk), ``drain_nominate``, ``drain_phase2``, ``drain_tas_phase2`` and
+the drain's quota site with the done flag set (the launch's floor), and
+``cycle_global`` with every head made no-fit (chosen and preempt_k -1:
+the positions alone).
 ``--kernel NAME``: record and time that kernel only (repeatable).
 
 It also measures the card's shared-memory load latency (one thread
 chasing pointers through shared memory; the slope between two chase
 lengths, so the launch cancels) and counts each serial launch's chain:
-the walked heads of its longest segment. Prints the ptxas lines
+the walked heads of its longest segment (``cycle_global``: of its
+longest root cohort, beside all its walked heads; ``drain_tas_phase2``:
+every walked head, a shared topology couples them). Prints the ptxas lines
 (registers, stack frame, spills) of each build, a line per kernel, path
 and build, and as its last line a JSON object with every number.
 """
@@ -58,7 +68,8 @@ from pathlib import Path
 
 import numpy as np
 
-KERNELS = ("cycle_phase2", "drain_nominate", "quota_tree", "drain_phase2")
+KERNELS = ("cycle_phase2", "drain_nominate", "quota_tree", "drain_phase2", "drain_tas_phase2",
+           "cycle_global")
 CYCLES = 30  # headline Scheduler cycles recorded (chip_smoke.py's STEADY_CYCLES)
 SPIN = 2_000_000  # about 1 ms of the card's clock before each timed launch
 CHASE_HOPS = (1 << 20, 1 << 21)
@@ -317,6 +328,26 @@ def record_drains(dev, kernels) -> dict:
     return out
 
 
+def record_tas(dev) -> list:
+    """(ctx, state copy, buffers copy) before every drain_tas_phase2
+    launch with work of tas-drain-10k."""
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.perf import tas as pt
+    from kueue_tpu_torch.perf.lockstep import TAS_STEPS
+
+    env = pt.build_tas_drain(np.random.default_rng(pt.TAS_DRAIN_SEED))
+    inp = pd.tas_drain_inputs(take_snapshot(env.cache), env.pending, env.cache.flavors, env.tas,
+                              dev, timestamp_fn=env.ts_fn)
+    ctx = dk.tas_context(inp.tree, inp.queues, inp.paths, inp.topo.free, inp.topo.seg_ids,
+                         inp.theads, inp.n_domains, inp.n_steps, inp.plan.max_cycles)
+    state = dk.TASState.initial_tas(inp.local, inp.queues, inp.plan.max_cycles,
+                                    inp.topo.tas_usage)
+    buf = dk.TASBuffers.empty_tas(inp.local, inp.queues, inp.topo.free.shape[0])
+    return _record_drain(ctx, state, buf, TAS_STEPS, ("drain_tas_phase2",))["drain_tas_phase2"]
+
+
 # ---- the launches ---------------------------------------------------------
 #
 # make(record, variant, built) -> (launches, outputs getter); variant is
@@ -347,6 +378,31 @@ def drain_chain_heads(rec) -> int:
     walked &= (seg >= 0) & (seg < ctx.n_segments)
     counts = np.bincount(seg[walked], minlength=1)
     return int(min(int(counts.max()), ctx.n_steps))
+
+
+def root_chain_heads(rec) -> int:
+    """Walked heads of a cycle_global launch's longest root cohort (the
+    cycle's root segments, no segment or step dropped)."""
+    _, _, _, _, _, heads, seg_t, _, _, _, chosen, _, pk = rec
+    seg = seg_t.cpu().numpy()
+    walked = ((chosen >= 0) | (pk >= 0)).cpu().numpy() & (heads.cq_row >= 0).cpu().numpy()
+    return int(np.bincount(seg[walked & (seg >= 0)], minlength=1).max())
+
+
+def all_walked_heads(rec) -> int:
+    """Every walked head of a cycle's heads: the chain the parent's
+    cycle_global walked, one warp over all of them."""
+    _, _, _, _, _, heads, _, _, _, _, chosen, _, pk = rec
+    return int((((chosen >= 0) | (pk >= 0)) & (heads.cq_row >= 0)).sum().item())
+
+
+def tas_chain_heads(rec) -> int:
+    """Walked heads of a drain_tas_phase2 launch: its nominated, active
+    queues on a ClusterQueue, at most n_steps (one global scan)."""
+    ctx, state, buf = rec
+    q = ctx.queues
+    walked = (buf.is_fit | buf.is_pre) & (state.cursor < q.qlen) & state.alive & (q.cq_rows >= 0)
+    return int(min(int(walked.sum().item()), ctx.n_steps))
 
 
 def cycle_launch(rec, variant, built):
@@ -383,6 +439,51 @@ def _drain_launch(kernel):
 
 nominate_launch = _drain_launch("drain_nominate")
 phase2_launch = _drain_launch("drain_phase2")
+tas_phase2_launch = _drain_launch("drain_tas_phase2")
+
+
+def _old_global(built, tree, sub, g, usage, paths, heads, chosen, borrows, pk):
+    """The parent's cycle_global entry (six ints, sixteen pointers: the
+    whole usage tree in one block's shared memory)."""
+    import torch
+
+    w, k, c = heads.cells.shape
+    n, fr = tree.nominal.shape
+    packed = torch.empty((5, w), dtype=torch.int64, device=usage.device)
+    tensors = (heads.cq_row, heads.cells, heads.qty, heads.priority, heads.timestamp,
+               heads.no_reclaim, chosen, borrows, pk, tree.nominal, tree.borrowing_limit, sub,
+               g, paths, usage, packed)
+    ints = (ctypes.c_int * 6)(w, k, c, n, fr, tree.max_depth)
+    ptrs = (ctypes.c_void_p * 16)(*(t.data_ptr() for t in tensors))
+    fn, stream = entry(built, "cycle_global"), _stream(usage)
+
+    def call():
+        rc = fn(ctypes.addressof(ints), 6, ctypes.addressof(ptrs), 16, stream)
+        if rc != 0:
+            raise RuntimeError(f"the parent's cycle_global failed: cudaError {rc}")
+        return packed
+    return call
+
+
+def global_launch(rec, variant, built):
+    """One cycle_global launch on the heads of a recorded cycle_phase2
+    launch, on a fresh copy of its usage tree; "positions": every head
+    no-fit, so nothing is walked."""
+    import torch
+
+    from kueue_tpu_torch.ops import assign_kernel as ak
+
+    tree, sub, g, usage, paths, heads = rec[:6]
+    chosen, borrows, pk = rec[10:13]
+    if variant == "positions":
+        chosen, pk = torch.full_like(chosen, -1), torch.full_like(pk, -1)
+    u = usage.clone()
+    args = (tree, sub, g, u, paths, heads, chosen, borrows, pk)
+    if hasattr(built["cycle_global"][0], "cycle_global_smem_limit"):
+        fn = _old_global(built, *args)
+    else:
+        fn = lambda: ak.cycle_global(*args)  # noqa: E731
+    return [fn], lambda packed: (packed, u)
 
 
 def _views(like, names):
@@ -536,7 +637,8 @@ def smem_latency_ns(dev, work: Path) -> float:
 
 # each kernel's splits with --split (quota_tree's drain call site: "done")
 SPLITS = {"cycle_phase2": ("n_steps=0",), "drain_nominate": ("done",),
-          "drain_phase2": ("n_steps=0", "done")}
+          "drain_phase2": ("n_steps=0", "done"), "drain_tas_phase2": ("n_steps=0", "done"),
+          "cycle_global": ("positions",)}
 
 
 def main(argv=None) -> int:
@@ -573,7 +675,8 @@ def main(argv=None) -> int:
     _build.load(_build.KERNELS)  # the other kernels the recording runs
 
     t0 = time.perf_counter()
-    cyc = record_cycles(dev) if {"cycle_phase2", "quota_tree"} & set(kernels) else {}
+    cyc = (record_cycles(dev) if {"cycle_phase2", "quota_tree", "cycle_global"} & set(kernels)
+           else {})
     drain_kernels = tuple(k for k in ("drain_nominate", "quota_tree", "drain_phase2")
                           if k in kernels)
     drains = record_drains(dev, drain_kernels) if drain_kernels else {}
@@ -589,6 +692,11 @@ def main(argv=None) -> int:
         paths.append(("drain_nominate", f"{label} drain", recs, nominate_launch))
     for label, recs in drains.get("drain_phase2", {}).items():
         paths.append(("drain_phase2", f"{label} drain", recs, phase2_launch))
+    tas = record_tas(dev) if "drain_tas_phase2" in kernels else []
+    if tas:
+        paths.append(("drain_tas_phase2", "tas-drain-10k", tas, tas_phase2_launch))
+    if "cycle_global" in kernels:
+        paths.append(("cycle_global", "headline cycles", cyc["cycle_phase2"], global_launch))
     print(f"recorded {[(k, label, len(r)) for k, label, r, _ in paths]} "
           f"({time.perf_counter() - t0:.1f} s)")
     lat = smem_latency_ns(dev, work)
@@ -596,10 +704,18 @@ def main(argv=None) -> int:
         b: {k: built[k][1] for k in kernels} for b, built in builds.items()},
         "chains": {}, "times_us": {}}
     print(f"shared-memory load latency {lat:.3f} ns")
-    for kname, label, recs, count in (
-            [("cycle_phase2", "headline cycles", cyc.get("cycle_phase2", []), chain_heads)]
-            + [("drain_phase2", f"{label} drain", recs, drain_chain_heads)
-               for label, recs in drains.get("drain_phase2", {}).items()]):
+    chain_paths = [("drain_phase2", f"{label} drain", recs, drain_chain_heads)
+                   for label, recs in drains.get("drain_phase2", {}).items()]
+    if "cycle_phase2" in kernels:
+        chain_paths.append(("cycle_phase2", "headline cycles", cyc["cycle_phase2"], chain_heads))
+    if "cycle_global" in kernels:
+        chain_paths += [("cycle_global", "headline cycles, longest root", cyc["cycle_phase2"],
+                         root_chain_heads),
+                        ("cycle_global", "headline cycles, every walked head",
+                         cyc["cycle_phase2"], all_walked_heads)]
+    if tas:
+        chain_paths.append(("drain_tas_phase2", "tas-drain-10k", tas, tas_chain_heads))
+    for kname, label, recs, count in chain_paths:
         chains = [count(r) for r in recs] or [0]
         chain_us = float(np.mean(chains)) * HOPS_PER_HEAD * lat * 1e-3
         result["chains"][f"{kname} [{label}]"] = {"heads": chains, "bound_us": chain_us}

@@ -89,9 +89,11 @@ def build_tas_env(spec: dict, api=None) -> SimpleNamespace:
     """A cluster from a spec (plain data, so both packages build the
     same one): ``topologies`` {name: level keys}, ``flavors`` [(name,
     topology name or None, node labels)], ``nodes`` [(name, labels,
-    allocatable)], ``cqs`` [(name, flavor, cpu quota[, cohort])] each with one
-    LocalQueue ``lq-<name>``, and ``workloads`` [dict(name, cq, count,
-    cpu, mode, level, prio, t)] (mode None: no topology request).
+    allocatable)], ``cqs`` [(name, flavor, cpu quota or {resource:
+    quota}[, cohort])] each with one LocalQueue ``lq-<name>``, and
+    ``workloads`` [dict(name, cq, count, cpu, mode, level, prio, t[,
+    requests])] (mode None: no topology request; ``requests``: per-pod
+    requests beside the cpu).
     Returns ``cache`` (its tas_cache set), ``mgr`` (the workloads
     queued), ``tas``, ``pending`` in per-CQ heap order, ``ts_fn`` and
     ``api``."""
@@ -111,10 +113,11 @@ def build_tas_env(spec: dict, api=None) -> SimpleNamespace:
         tas.add_or_update_node(a.Node(name=name, labels=dict(labels), allocatable=dict(alloc)))
     cache.tas_cache = tas
     for name, flavor, quota, *cohort in spec["cqs"]:
+        quotas = quota if isinstance(quota, dict) else {"cpu": quota}
         cq = a.ClusterQueue(
             name=name, namespace_selector={}, cohort=cohort[0] if cohort else None,
             resource_groups=(
-                a.ResourceGroup(("cpu",), (a.FlavorQuotas.build(flavor, {"cpu": quota}),)),
+                a.ResourceGroup(tuple(quotas), (a.FlavorQuotas.build(flavor, quotas),)),
             ),
         )
         cache.add_or_update_cluster_queue(cq)
@@ -131,7 +134,8 @@ def build_tas_env(spec: dict, api=None) -> SimpleNamespace:
         mgr.add_or_update_workload(a.Workload(
             namespace="ns", name=w["name"], queue_name=f"lq-{w['cq']}",
             priority=w["prio"], creation_time=w["t"],
-            pod_sets=(a.PodSet.build("main", w["count"], {"cpu": w["cpu"]},
+            pod_sets=(a.PodSet.build("main", w["count"],
+                                     {"cpu": w["cpu"], **w.get("requests", {})},
                                      topology_request=tr),),
         ))
     pending = [(wl, cq_name) for cq_name, pq in mgr.cluster_queues.items()

@@ -33,17 +33,19 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   NULL);
 - every launch of the TAS drain (B13's drain_tas_place and
   drain_tas_phase2 beside the plain cycle's kernels) bit-exact to its
-  plain version at every cycle of perf.cases.tas_spec and a cut of
-  bench.py's tas_drain stage, the drain on the card equal to its CPU
-  run; B12's two entries (tas_leaf_counts) bit-exact on a batch with
+  plain version at every cycle of perf.cases.tas_spec, a cut of
+  bench.py's tas_drain stage and perf.cases.tas_scan_spec (with and
+  without dropped ranks), the drain on the card equal to its CPU run;
+  B12's two entries (tas_leaf_counts) bit-exact on a batch with
   assumed usage, simulate_empty and tainted leaves, and the snapshot's
   device path equal to the CPU; a drain_tas_place that does not build
   makes the TAS drain raise KernelError.
 
 - the unsegmented cycle's kernel B3' (cycle_global) bit-exact to its
-  plain version on random batches up to W=1024 and equal to the
-  segmented B3, its refusal of a usage tree beyond one block's shared
-  memory, and a trapping build raising at ShardedSolver's first sync;
+  plain version on random batches up to W=1024 and at its edges (a
+  usage tree beyond one block's shared memory among them) and equal to
+  the segmented B3, and a trapping build raising at ShardedSolver's
+  first sync;
   B1' (quota_drs) bit-exact to its plain versions, and a build that
   fails raising KernelError; run_drain (plain and fair) and
   dispatch_lowered on a one-card mesh (and on the card repeated eight
@@ -818,6 +820,27 @@ def test_tas_drain_kernels_bit_exact_every_cycle(cuda, case):
     assert tas_perf.drain_summary(outs[0]) == tas_perf.drain_summary(outs[1])
 
 
+@pytest.mark.parametrize("n_steps", [None, 2])
+@pytest.mark.parametrize("seed", range(4))
+def test_tas_phase2_bit_exact_at_the_scan_edges(cuda, seed, n_steps):
+    """drain_tas_phase2, with the TAS cycle's other launches, equal to its
+    plain version at every cycle of perf.cases.tas_scan_spec (four
+    topology resources, gangs over more than 64 leaves, two heads on the
+    same leaves in one cycle, plain heads, ties, reserves); with
+    n_steps = 2 a cycle's later ranks are dropped."""
+    from kueue_tpu_torch.perf.lockstep import TAS_DRAIN_KERNELS, lockstep_tas
+
+    _, inp = _tas_inputs(cuda, cases.tas_scan_spec(seed))
+    args = list(inp.solve_args())
+    if n_steps is not None:
+        args[9:11] = [n_steps, 48]
+    errs = {}
+    _, state, cycles = lockstep_tas(*args, errs, label=f"tas_scan_spec({seed})")
+    assert cycles > 0 and set(errs) == set(TAS_DRAIN_KERNELS)
+    assert all(e == 0 for e in errs.values())
+    assert int((state.adm_cycle >= 0).sum()) > 0
+
+
 @pytest.mark.parametrize("shape", [(8, 16, 8), (4, 8, 64)])
 def test_tas_leaf_counts_bit_exact(cuda, shape):
     """B12's two entries against their plain versions on a batch with
@@ -973,14 +996,13 @@ def test_planner_raises_when_a_plan_kernel_does_not_build(cuda, monkeypatch, tmp
 # ---- the mesh harness: the unsegmented cycle (B3') and the DRS (B1') --------
 
 
-@pytest.mark.parametrize("seed,kw", [(s, {}) for s in range(6)]
-                         + [(s, {"w": 200, "n_cq": 60, "fr": 12}) for s in (6, 7)]
-                         + [(8, {"w": 1024, "n_cq": 400, "fr": 17, "depth": 1})])
-def test_cycle_global_bit_exact_on_random_batches(cuda, seed, kw):
+def _cycle_global_exact(cuda, b):
+    """One cycle_global launch on the batch equal to cycle_global_plain
+    bit for bit, usage tree included; solve_cycle (B3') equal to the
+    segmented solve (B3) on the same heads."""
     from kueue_tpu_torch.ops import assign_kernel as ak
     from kueue_tpu_torch.ops import quota as q
 
-    b = cases.cycle_batch(seed, **kw)
     tree, heads = interop.quota_tree(b, cuda), interop.heads_batch(b, cuda)
     local = torch.tensor(b["local_usage"], device=cuda)
     paths = torch.tensor(b["paths"], device=cuda)
@@ -1000,18 +1022,30 @@ def test_cycle_global_bit_exact_on_random_batches(cuda, seed, kw):
         assert torch.equal(getattr(got, f), getattr(seg, f)), f
 
 
-def test_cycle_global_refuses_a_tree_beyond_shared_memory(cuda):
-    from kueue_tpu_torch.ops import assign_kernel as ak
-    from kueue_tpu_torch.ops import quota as q
+@pytest.mark.parametrize("seed,kw", [(s, {}) for s in range(6)]
+                         + [(s, {"w": 200, "n_cq": 60, "fr": 12}) for s in (6, 7)]
+                         + [(8, {"w": 1024, "n_cq": 400, "fr": 17, "depth": 1})])
+def test_cycle_global_bit_exact_on_random_batches(cuda, seed, kw):
+    _cycle_global_exact(cuda, cases.cycle_batch(seed, **kw))
 
-    b = cases.cycle_batch(0, w=8, n_cq=3000, fr=12)  # 288 kB of usage tree
-    tree, heads = interop.quota_tree(b, cuda), interop.heads_batch(b, cuda)
-    local = torch.tensor(b["local_usage"], device=cuda)
-    sub, g = q.subtree_quota(tree)
-    usage = q.usage_tree(tree, g, local)
-    ph = ak.phase1_classify(tree, sub, g, local, heads)
-    with pytest.raises(_build.KernelInputError, match="shared memory"):
-        ak.cycle_global(tree, sub, g, usage, torch.tensor(b["paths"], device=cuda), heads, *ph)
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("edge", cases.GLOBAL_EDGES)
+def test_cycle_global_bit_exact_at_the_edges(cuda, edge, seed):
+    """The CPU tests' edges (tests/test_torch_tas_scan.py): a tree beyond
+    one block's shared memory, one root holding most heads, cohort-less
+    ClusterQueues, paths of 8 levels, pads and no-fit heads, W = 37."""
+    _cycle_global_exact(cuda, cases.global_batch(edge, seed))
+
+
+def test_cycle_global_refuses_a_tree_beyond_shared_memory(cuda):
+    """The refusal this test held is gone: the 288 kB usage tree of 3000
+    ClusterQueues x FR 12, beyond one block's shared memory, launches
+    once, equals cycle_global_plain bit for bit and equals the segmented
+    solve."""
+    b = cases.cycle_batch(0, w=8, n_cq=3000, fr=12)
+    assert 8 * b["nominal"].size > 232448
+    _cycle_global_exact(cuda, b)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -1130,7 +1164,7 @@ def test_a_faulting_cycle_global_raises_and_is_not_contained(cuda, tmp_path):
         if src.suffix in (".cu", ".cuh"):
             (csrc / src.name).write_text(src.read_text())
     body = (csrc / "cycle_global.cu").read_text()
-    entry = "  const size_t nfr = (size_t)a.N * a.FR;\n"
+    entry = "  const int b = blockIdx.x, G = gridDim.x;\n"
     assert entry in body
     (csrc / "cycle_global.cu").write_text(
         body.replace(entry, entry + "  if (threadIdx.x == 0) __trap();\n", 1))
