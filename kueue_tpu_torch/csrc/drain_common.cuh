@@ -13,8 +13,8 @@
 //   ptrs: 17 DrainQueues fields, 7 tree tensors, 12 DrainState
 //         fields, 12 CycleBuffers fields, seg_offsets, seg_members,
 //         8 megaloop round-log fields, 6 fair-drain fields, 33
-//         preempt-drain fields, 8 fair-preempt-drain fields, 17
-//         TAS-drain fields
+//         preempt-drain fields, 8 fair-preempt-drain fields, 22
+//         TAS-drain fields, the fair-preempt drain's fit scratch
 // in the order of the structs below, and returns cudaGetLastError()
 // (cudaErrorInvalidValue when the array lengths do not match).
 // max_rounds is 0 outside the megaloop, whose round-log pointers are
@@ -175,6 +175,14 @@ struct Tas {                     // the TAS drain (merged domain forest)
   int* adm_step;                 // [Q,L] state
   uint8_t* tas_nom_ok;           // [Q] buffers
   long long* taken0;             // [Q,Lf] buffers
+  // the leaves grouped by domain (ops/drain_kernel.tas_leaf_groups): one
+  // leaf order in which every level's domains are runs, each domain's
+  // run, and each level's domains grouped by their parent
+  const int* leaf_order;         // [Lf]
+  const int* dom_beg;            // [Dt,ND] first position of the run
+  const int* dom_end;            // [Dt,ND] one past its last
+  const int* child_off;          // [Dt,ND+1] children of parent p at level d:
+  const int* child_list;         // [Dt,ND]   child_list[d][child_off[d][p] ..)
 };
 
 struct Buffers {
@@ -211,10 +219,12 @@ struct Args {
   Preempt p;
   FairPreempt fp;
   Tas tas;
+  long long* fit_usage;    // [N,FR] the fair-preempt phase 2's fit tree
+                           // when its rows stay in device memory
 };
 
 constexpr int kNumInts = 29;
-constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8 + 17;
+constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8 + 22 + 1;
 
 // Fills `a` from the two arrays; false when their lengths do not match.
 inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args* a) {
@@ -352,6 +362,12 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->tas.adm_step = (int*)p[i++];
   a->tas.tas_nom_ok = (uint8_t*)p[i++];
   a->tas.taken0 = (long long*)p[i++];
+  a->tas.leaf_order = (const int*)p[i++];
+  a->tas.dom_beg = (const int*)p[i++];
+  a->tas.dom_end = (const int*)p[i++];
+  a->tas.child_off = (const int*)p[i++];
+  a->tas.child_list = (const int*)p[i++];
+  a->fit_usage = (long long*)p[i++];
   return true;
 }
 

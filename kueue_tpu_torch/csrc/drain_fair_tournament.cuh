@@ -1,6 +1,7 @@
-// The fair-sharing admission tournament of one drain cycle's step,
-// shared by drain_fair_phase2.cu (B7, the fair drain) and
-// drain_fair_preempt_phase2.cu (B11, the fair-preempt drain).
+// The fair-sharing admission tournament of one drain cycle's step, of
+// drain_fair_phase2.cu (B7, the fair drain). The fair-preempt drain's
+// step scan (drain_fair_preempt_phase2.cu, B11) has its own, on rows
+// staged in shared memory; B7 is to move to it.
 //
 // Replaces kueue_tpu/ops/drain_kernel.py _fair_chain (:1179) and
 // _fair_tournament (:1238):

@@ -1,12 +1,11 @@
 // The preempt drains' candidate pools, shared by drain_preempt_search.cu
 // and drain_preempt_phase2.cu (B10, the classic preempt drain) and
-// drain_fair_preempt_search.cu and drain_fair_preempt_phase2.cu (B11,
-// the fair-preempt drain).
+// drain_fair_preempt_search.cu (B11, the fair-preempt drain).
 //
 // Replaces the pool reads of kueue_tpu/ops/drain_kernel.py
 // solve_drain_preempt (:1890-1925, the candidate eligibility) and the
-// eviction moves of its step scan (:2050-2090), which
-// solve_drain_fair_preempt repeats (:2480-2540, :2650-2680):
+// eviction moves of its step scan (:2050-2090); solve_drain_fair_preempt
+// repeats the reads (:2480-2540):
 //   - victim_qty: a pool slot's usage at one cell, summed from its Cv
 //     cells;
 //   - owner_borrowing: which segment nodes borrow at cycle start in a

@@ -67,6 +67,7 @@ from dataclasses import dataclass, fields
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
+import numpy as np
 
 from kueue_tpu_torch._torch import BOOL, I32, I64, torch
 from kueue_tpu_torch.ops import _build
@@ -100,7 +101,7 @@ MAX_R = 16
 # kernels' argument layout
 PREEMPT_PTRS = 15 + 8 + 10
 FAIR_PREEMPT_PTRS = 8
-TAS_PTRS = 13 + 4
+TAS_PTRS = 13 + 4 + 5
 
 
 class DrainQueues(NamedTuple):
@@ -763,6 +764,9 @@ class FairPreemptInputs:
     panels: FairSegPanels
     strategy1: int
     has_second: bool
+    # drain_fair_preempt_phase2's fit tree where its rows stay in device
+    # memory (int64[N, FR] scratch, filled by the kernel)
+    fit_usage: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -809,6 +813,12 @@ class DrainContext:
         tas = extra.get("tas")
         if tas is not None and tas.nd is None:
             tas.nd = torch.tensor(tas.n_domains, dtype=I32).to(tree.device)
+            if bool((tas.heads.t_count >= 0).all()):
+                tas.groups = tas_leaf_groups(tas.seg_ids.cpu().numpy(), tas.n_domains,
+                                             tas.heads.parent_map.cpu().numpy(), tree.device)
+        fp = extra.get("fair_preempt")
+        if fp is not None and fp.fit_usage is None and tree.nominal.is_cuda:
+            fp.fit_usage = torch.empty_like(tree.nominal)
         return cls(
             tree, subtree, guaranteed, potential, paths, queues, segments,
             n_segments, n_steps, max_cycles, **extra,
@@ -1043,8 +1053,22 @@ class DrainContext:
                 ("tas_nom_ok", buf.tas_nom_ok, BOOL, (q,)),
                 ("taken0", buf.taken0, I64, (q, lf)),
             ]
+            grp = tas.groups
+            if grp is None:
+                raise _build.KernelInputError(
+                    f"{kernel}: the TAS kernels take a nested domain forest (each domain's "
+                    "leaves inside one domain of the level above) and gang sizes >= 0"
+                )
+            spec += [
+                ("leaf_order", grp.leaf_order, I32, (lf,)),
+                ("dom_beg", grp.dom_beg, I32, (d_t, nd)),
+                ("dom_end", grp.dom_end, I32, (d_t, nd)),
+                ("child_off", grp.child_off, I32, (d_t, nd + 1)),
+                ("child_list", grp.child_list, I32, (d_t, nd)),
+            ]
         else:
             spec += [(name, None, None, None) for name in range(TAS_PTRS)]
+        spec.append(("fit_usage", fp.fit_usage if fp is not None else None, I64, (n, fr)))
         ptrs = [_build.ptr(kernel, name, t, dt, sh) for name, t, dt, sh in spec]
         ints = [
             q, l, pmax, k, c, g, n, fr, tree.max_depth,
@@ -2443,6 +2467,64 @@ class TASInputs:
     n_domains: tuple
     heads: TASHeads
     nd: Optional[torch.Tensor] = None  # int32[D_t], filled by DrainContext.build
+    # the leaves grouped by domain (tas_leaf_groups), filled by
+    # DrainContext.build; None when the forest is not nested or a gang
+    # size is negative (drain_tas_place's split assumes counts >= 0)
+    groups: Optional["TASLeafGroups"] = None
+
+
+class TASLeafGroups(NamedTuple):
+    """The merged forest's leaves grouped by domain, for
+    drain_tas_place: one leaf order in which every level's domains are
+    runs of consecutive positions (a domain's total is a prefix
+    difference), and each level's domains grouped by their parent."""
+
+    leaf_order: torch.Tensor  # int32[Lf] leaf ids in (seg_ids[0], ..., seg_ids[D_t-1]) order
+    dom_beg: torch.Tensor  # int32[D_t, ND] first position of domain j's run (0 when empty)
+    dom_end: torch.Tensor  # int32[D_t, ND] one past its last (0 when empty)
+    child_off: torch.Tensor  # int32[D_t, ND+1] level d's domains of parent p:
+    child_list: torch.Tensor  # int32[D_t, ND]   child_list[d, child_off[d, p]:child_off[d, p+1]]
+
+
+def tas_leaf_groups(seg_ids: np.ndarray, n_domains, parent_map: np.ndarray,
+                    device) -> Optional[TASLeafGroups]:
+    """Group the leaves of a merged TAS forest by domain, on the host.
+
+    Leaves sorted by their domain ids from the top level down make every
+    level's domains runs when the forest is nested (a domain's leaves
+    all lie in one domain of the level above, as ``_merge_tas_forests``
+    builds it); returns None when some run is broken. Leaves whose id
+    at a level is outside [0, n_domains[d]) belong to no run there.
+    Level d's domains j < n_domains[d] are grouped by their parent
+    ``max(parent_map[d, j], 0)`` (level 0's list is unused)."""
+    d_t, lf = seg_ids.shape
+    nd = parent_map.shape[1]
+    order = np.lexsort(seg_ids[::-1]) if d_t else np.arange(lf)
+    pos = np.arange(lf)
+    beg = np.zeros((d_t, nd), dtype=np.int32)
+    end = np.zeros((d_t, nd), dtype=np.int32)
+    child_off = np.zeros((d_t, nd + 1), dtype=np.int32)
+    child_list = np.zeros((d_t, nd), dtype=np.int32)
+    for d in range(d_t):
+        n = int(n_domains[d])
+        s = seg_ids[d][order].astype(np.int64)
+        ok = (s >= 0) & (s < n)
+        count = np.bincount(s[ok], minlength=nd)[:nd]
+        first = np.full(nd, lf, dtype=np.int64)
+        last = np.full(nd, -1, dtype=np.int64)
+        np.minimum.at(first, s[ok], pos[ok])
+        np.maximum.at(last, s[ok], pos[ok])
+        has = count > 0
+        if (last[has] - first[has] + 1 != count[has]).any():
+            return None
+        beg[d] = np.where(has, first, 0)
+        end[d] = np.where(has, last + 1, 0)
+        if d:
+            par = np.maximum(parent_map[d, :n].astype(np.int64), 0)
+            child_list[d, :n] = np.argsort(par, kind="stable")
+            child_off[d, 1:] = np.cumsum(np.bincount(par, minlength=nd)[:nd])
+    return TASLeafGroups(*(torch.as_tensor(x.astype(np.int32)).to(device)
+                           for x in (order, beg, end, child_off, child_list)))
 
 
 class TASDrainResult(NamedTuple):

@@ -45,6 +45,17 @@ thin flavor, heads of two queues that nominate the same leaves in one
 cycle (the later one's re-validation fails on the live usage), ties on
 priority and timestamp across queues, and plain queues riding along
 that reserve when blocked.
+``tas_edge_spec(seed)`` reaches the edges of the TAS drain's placement
+(kernel B13a): hosts that non-TAS pods overcommit (negative headroom, so
+domains of a split total -1 or less), an Unconstrained gang that fits no
+single host and takes a whole flavor, Preferred gangs relaxing to their
+flavor's top, two flavors of unequal depth and a gang larger than its
+flavor.
+``fair_preempt_edge_spec(seed)`` reaches the edges of the fair-preempt
+drain's step scan (kernel B11b): ``fair_preempt_spec`` (weight-0 queues,
+a one-queue segment, ties in the DRS) with a cohort where two reclaiming
+heads target the same victim in one cycle (the later one's targets
+overlap the earlier eviction) and a no-reclaim head, blocked, reserves.
 ``build_scheduler(spec)`` builds the interactive cycle over a spec: the
 cache, a QueueManager with one LocalQueue ``lq-<cq>`` per ClusterQueue
 holding the spec's workloads, and a ``Scheduler`` with the host
@@ -813,6 +824,90 @@ def tas_spec(seed: int, n_tas_cq: int = 4, workloads_per_cq: int = 5) -> dict:
         "cqs": cqs,
         "workloads": workloads,
     }
+
+
+def tas_edge_spec(seed: int) -> dict:
+    """The TAS placement's edge case (module docstring), in
+    perf/tas.build_tas_env's spec form. ``tas-a``: 2 blocks x 3 racks x
+    4 hosts of 4 cpu and 8 pods, where non-TAS pods use 4, 5 or 6 cpu of
+    some hosts (0, -1 or -2 one-cpu pods left): in each block one rack
+    totals exactly -1, one -3 and one 16 (the block 12), their order
+    drawn from the seed; ``tas-b``: 3 racks x 3 hosts of 2 cpu and 4
+    pods, one level shallower. cq-a (tas-a) queues, in this order, a
+    Preferred gang at the host level of 20 pods (no block holds it: the
+    take at the flavor's top, over both blocks, then racks at 16, -1 and
+    -3), a Required gang of 5 at a block (its racks split with the -1 and
+    -3 ones), an Unconstrained gang of 6 (no host holds it), a Required
+    gang of 3 at a rack and one of 200 (larger than the flavor: parked);
+    cq-b (tas-b) Preferred gangs at the host level of 5 (one rack) and 7
+    (the take at the flavor's top, the rack level), then an
+    Unconstrained gang of 6, the rest of the flavor, over every host
+    with room."""
+    rng = np.random.default_rng(seed + 85000)
+    nodes = []
+    kinds = [(5000, 4000, 4000, 4000), (6000, 5000, 4000, 4000), (0, 0, 0, 0)]
+    for b in range(2):
+        for r, k in enumerate(rng.permutation(3)):
+            for h, used in enumerate(kinds[int(k)]):
+                nodes.append((f"a-{b}-{r}-{h}", {"pool": "a", BLOCK: f"b{b}",
+                                                 RACK: f"b{b}-r{r}", HOST: f"ha-{b}-{r}-{h}"},
+                              {"cpu": 4000, "pods": 8}, {"cpu": used} if used else {}))
+    for r in range(3):
+        for h in range(3):
+            nodes.append((f"b-{r}-{h}", {"pool": "b", RACK: f"fr{r}", HOST: f"hb-{r}-{h}"},
+                          {"cpu": 2000, "pods": 4}))
+    cqs = [("cq-a", "tas-a", "400"), ("cq-b", "tas-b", "400")]
+    gangs = [("cq-a", 20, "Preferred", HOST, 20), ("cq-a", 5, "Required", BLOCK, 20),
+             ("cq-a", 6, "Unconstrained", None, 10), ("cq-a", 3, "Required", RACK, 10),
+             ("cq-a", 200, "Required", BLOCK, 0),
+             ("cq-b", 5, "Preferred", HOST, 20), ("cq-b", 7, "Preferred", HOST, 20),
+             ("cq-b", 6, "Unconstrained", None, 10)]
+    workloads = [dict(name=f"wl-{t}", cq=cq, count=count, cpu="1", mode=mode, level=level,
+                      prio=prio, t=float(t))
+                 for t, (cq, count, mode, level, prio) in enumerate(gangs)]
+    return {
+        "topologies": {"deep": (BLOCK, RACK, HOST), "flat": (RACK, HOST)},
+        "flavors": [("tas-a", "deep", {"pool": "a"}), ("tas-b", "flat", {"pool": "b"})],
+        "nodes": nodes,
+        "cqs": cqs,
+        "workloads": workloads,
+    }
+
+
+def fair_preempt_edge_spec(seed: int) -> dict:
+    """The fair-preempt step scan's edge case (module docstring):
+    ``fair_preempt_spec(seed)`` plus a root cohort ``ovl`` over four
+    ClusterQueues of 2 cpu in flavor fa: ``ovl-hog`` (no preemption) holds
+    one 6-cpu victim, borrowing 4; ``ovl-a`` and ``ovl-b`` (reclaim Any)
+    each queue a 2-cpu workload at one priority and timestamp, so both
+    target the hog's one victim in the same cycle and tie in the DRS;
+    ``ovl-c`` (weight 0, within LowerPriority, reclaim Never) holds a
+    1-cpu victim and queues a 4-cpu workload its own victim cannot make
+    room for: blocked in preempt mode, it reserves."""
+    spec = fair_preempt_spec(seed)
+    spec["cohorts"].append({"name": "ovl", "parent": None, "groups": []})
+
+    def cq(name, within, reclaim, weight):
+        return {"name": name, "cohort": "ovl", "within": within, "reclaim": reclaim,
+                "fair_weight": weight,
+                "groups": [{"resources": ["cpu", "memory"],
+                            "flavors": [("fa", {"cpu": "2", "memory": "64Gi"}, None, None)]}]}
+
+    spec["cqs"] += [cq("ovl-hog", "NEVER", "NEVER", 1000), cq("ovl-a", "NEVER", "ANY", 1000),
+                    cq("ovl-b", "NEVER", "ANY", 1000),
+                    cq("ovl-c", "LOWER_PRIORITY", "NEVER", 0)]
+    t = max(w["t"] for w in spec["workloads"]) + 1.0
+    fa = {"cpu": "fa", "memory": "fa"}
+    spec["victims"] += [("ovl-hog-v", "ovl-hog", fa, {"cpu": "6", "memory": "1Gi"}, 0, t),
+                        ("ovl-c-v", "ovl-c", fa, {"cpu": "1", "memory": "1Gi"}, 0, t)]
+    for name, cpu, prio in (("ovl-a", "2", 10), ("ovl-b", "2", 10), ("ovl-c", "4", 20)):
+        spec["workloads"].append({
+            "name": f"wl-{name}", "queue": f"lq-{name}", "cq": name, "prio": prio,
+            "t": t + 1.0,
+            "pod_sets": [{"name": "main", "count": 1,
+                          "requests": {"cpu": cpu, "memory": "1Gi"}}],
+        })
+    return spec
 
 
 # the unsegmented cycle's edges (kernel B3', cycle_global): ``global_batch``

@@ -348,7 +348,7 @@ WIDE_WL_PER_CQ = 3
 
 
 def build_fair_wide(rng: np.random.Generator, n_roots: int = WIDE_ROOTS,
-                    api=None) -> SimpleNamespace:
+                    api=None, flavor_sets: int = 1) -> SimpleNamespace:
     """A fair-preempt drain at the panel caps, where B11's multi-bucket
     DRS, deep walks and wide panels have work: ``n_roots`` root cohorts,
     each over 3 cohorts over 2 cohorts over 9 ClusterQueues (M = 64
@@ -359,7 +359,10 @@ def build_fair_wide(rng: np.random.Generator, n_roots: int = WIDE_ROOTS,
     ClusterQueue holds one admitted 4-cpu, 4Gi victim a flavor (priority
     0-10, borrowing); every ClusterQueue queues 3 workloads of 1-4 cpu
     and 1-4Gi at priority 20/30/40. Preemption as fair-preempt-1k's.
-    Returns the env ``build_fair_preempt`` returns."""
+    ``flavor_sets`` > 1 gives root r its own 32 flavors (set r modulo
+    ``flavor_sets``): the tree is that many times wider (FR = 64 x sets
+    cells) while each segment keeps Cu = 64. Returns the env
+    ``build_fair_preempt`` returns."""
     a = api or port_api()
     prem = a.Preemption(
         within_cluster_queue=a.PreemptionPolicy.LOWER_PRIORITY,
@@ -368,7 +371,7 @@ def build_fair_wide(rng: np.random.Generator, n_roots: int = WIDE_ROOTS,
     clock = a.FakeClock(0.0)
     cache = a.Cache()
     mgr = a.QueueManager(clock)
-    flavors = [f"wf-{i}" for i in range(WIDE_FLAVORS)]
+    flavors = [f"wf-{i}" for i in range(WIDE_FLAVORS * flavor_sets)]
     for f in flavors:
         cache.add_or_update_flavor(a.ResourceFlavor(name=f))
 
@@ -387,7 +390,8 @@ def build_fair_wide(rng: np.random.Generator, n_roots: int = WIDE_ROOTS,
                 cache.add_or_update_cohort(a.Cohort(name=sub, parent=mid, fair_sharing=weight()))
                 for _ in range(WIDE_CQS):
                     name = f"widecq-{i}"
-                    own = [flavors[(i * WIDE_FLAVORS_PER_CQ + k) % WIDE_FLAVORS]
+                    own = [flavors[(r % flavor_sets) * WIDE_FLAVORS
+                                   + (i * WIDE_FLAVORS_PER_CQ + k) % WIDE_FLAVORS]
                            for k in range(WIDE_FLAVORS_PER_CQ)]
                     cq = a.ClusterQueue(
                         name=name, cohort=sub, namespace_selector={},

@@ -1,8 +1,11 @@
 """Two builds of a kernel timed side by side on one card: B3
 (``cycle_phase2``), B4's nomination (``drain_nominate``), B1
 (``quota_tree``, per call site), B4's phase 2 (``drain_phase2``), the TAS
-drain's step scan (``drain_tas_phase2``, B13) and the unsegmented cycle's
-walk (``cycle_global``, B3').
+drain's step scan (``drain_tas_phase2``, B13) and placement
+(``drain_tas_place``, B13a), the unsegmented cycle's walk
+(``cycle_global``, B3'), the fair-preempt drain's step scan
+(``drain_fair_preempt_phase2``, B11b) and the fair drain's (B7,
+``drain_fair_phase2``).
 
     python -m kueue_tpu_torch.perf.kernel_ab [--parent DIR] [--split]
                                              [--kernel NAME ...]
@@ -16,7 +19,11 @@ contended preempt drain at each panel width of its schedule, the
 fair-preempt drain at the panel caps, ``build_fair_wide``); the drain's
 quota call site (``usage_and_available``) and ``drain_phase2`` over the
 headline plain drain, and ``drain_phase2`` also over the first launch of
-the headline's megaloop chain (perf/megaloop.py's rounds). Then it times
+the headline's megaloop chain (perf/megaloop.py's rounds); ``drain_tas_place``
+and ``drain_tas_phase2`` over tas-drain-10k; ``drain_fair_preempt_phase2``
+over fair-preempt-1k (perf/fairpreempt.build_fair_preempt) and the panel
+caps (``build_fair_wide``); ``drain_fair_phase2`` over the headline fair
+drain. Then it times
 each recorded launch alone on the device, once per build in turns:
 parent, new, new, parent. A spin kernel holds the stream while the host
 enqueues the start event, the launch and the end event, so the events
@@ -37,10 +44,12 @@ parent commit's ``kueue_tpu_torch/csrc``), built here with the same
 nvcc flags. Without it only the current sources are timed (new, new).
 ``--split``: each build's split too: ``cycle_phase2``, ``drain_phase2``
 and ``drain_tas_phase2`` with ``n_steps = 0`` (the order and the ranks,
-no walk), ``drain_nominate``, ``drain_phase2``, ``drain_tas_phase2`` and
-the drain's quota site with the done flag set (the launch's floor), and
-``cycle_global`` with every head made no-fit (chosen and preempt_k -1:
-the positions alone).
+no walk), ``drain_fair_preempt_phase2`` with ``n_steps = 0`` (its
+staging alone), ``drain_nominate``, ``drain_phase2``, ``drain_tas_phase2``,
+``drain_tas_place``, ``drain_fair_preempt_phase2`` and the drain's quota
+site with the done flag set (the launch's floor), and ``cycle_global``
+with every head made no-fit (chosen and preempt_k -1: the positions
+alone).
 ``--kernel NAME``: record and time that kernel only (repeatable).
 
 It also measures the card's shared-memory load latency (one thread
@@ -48,7 +57,8 @@ chasing pointers through shared memory; the slope between two chase
 lengths, so the launch cancels) and counts each serial launch's chain:
 the walked heads of its longest segment (``cycle_global``: of its
 longest root cohort, beside all its walked heads; ``drain_tas_phase2``:
-every walked head, a shared topology couples them). Prints the ptxas lines
+every walked head, a shared topology couples them; ``drain_fair_preempt_phase2``:
+the pops of its longest segment, 2(D+1) trips a pop). Prints the ptxas lines
 (registers, stack frame, spills) of each build, a line per kernel, path
 and build, and as its last line a JSON object with every number.
 """
@@ -69,7 +79,7 @@ from pathlib import Path
 import numpy as np
 
 KERNELS = ("cycle_phase2", "drain_nominate", "quota_tree", "drain_phase2", "drain_tas_phase2",
-           "cycle_global")
+           "cycle_global", "drain_tas_place", "drain_fair_preempt_phase2", "drain_fair_phase2")
 CYCLES = 30  # headline Scheduler cycles recorded (chip_smoke.py's STEADY_CYCLES)
 SPIN = 2_000_000  # about 1 ms of the card's clock before each timed launch
 CHASE_HOPS = (1 << 20, 1 << 21)
@@ -111,6 +121,15 @@ def _drain_ints(csrc: Path) -> int:
     return int(text.split("constexpr int kNumInts = ")[1].split(";")[0])
 
 
+def _drain_ptrs(csrc: Path) -> int:
+    """The number of pointers a drain kernel of ``csrc`` takes (its
+    drain_common.cuh's kNumPtrs, a sum of section sizes): a build with
+    fewer takes the first ones, the later sections being appended."""
+    text = (csrc / "drain_common.cuh").read_text()
+    expr = text.split("constexpr int kNumPtrs = ")[1].split(";")[0]
+    return sum(int(x) for x in expr.split("+"))
+
+
 def build(csrc: Path, out: Path, names=KERNELS) -> dict:
     """Build ``names`` from ``csrc`` into ``out`` (in parallel); returns
     {name: (library, ptxas lines)}. A drain kernel of a build with fewer
@@ -127,6 +146,7 @@ def build(csrc: Path, out: Path, names=KERNELS) -> dict:
                  if "registers" in ln or "spill" in ln or "stack frame" in ln]
         built[name] = (lib, lines)
     built["_drain_ints"] = _drain_ints(csrc)
+    built["_drain_ptrs"] = _drain_ptrs(csrc)
     return built
 
 
@@ -139,9 +159,9 @@ def entry(built: dict, kernel: str, symbol: str = None):
     if symbol is None or symbol == kernel:
         fn.argtypes = _argtypes()
     if kernel.startswith("drain_"):
-        n_ints = built["_drain_ints"]
-        return lambda ints, n, ptrs, n_ptrs, stream: fn(ints, min(n, n_ints), ptrs, n_ptrs,
-                                                        stream)
+        n_ints, n_own = built["_drain_ints"], built["_drain_ptrs"]
+        return lambda ints, n, ptrs, n_ptrs, stream: fn(ints, min(n, n_ints), ptrs,
+                                                        min(n_ptrs, n_own), stream)
     return fn
 
 
@@ -328,9 +348,9 @@ def record_drains(dev, kernels) -> dict:
     return out
 
 
-def record_tas(dev) -> list:
-    """(ctx, state copy, buffers copy) before every drain_tas_phase2
-    launch with work of tas-drain-10k."""
+def record_tas(dev, names=("drain_tas_phase2",)) -> dict:
+    """{kernel: [(ctx, state copy, buffers copy)]} before every launch of
+    ``names`` with work of tas-drain-10k."""
     from kueue_tpu_torch.core import drain as pd
     from kueue_tpu_torch.core.snapshot import take_snapshot
     from kueue_tpu_torch.ops import drain_kernel as dk
@@ -345,7 +365,55 @@ def record_tas(dev) -> list:
     state = dk.TASState.initial_tas(inp.local, inp.queues, inp.plan.max_cycles,
                                     inp.topo.tas_usage)
     buf = dk.TASBuffers.empty_tas(inp.local, inp.queues, inp.topo.free.shape[0])
-    return _record_drain(ctx, state, buf, TAS_STEPS, ("drain_tas_phase2",))["drain_tas_phase2"]
+    return _record_drain(ctx, state, buf, TAS_STEPS, names)
+
+
+def record_fair_preempt(dev) -> dict:
+    """{path: records} of drain_fair_preempt_phase2 over fair-preempt-1k
+    and the panel caps."""
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.perf import fairpreempt as fp
+    from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_STEPS
+
+    out = {}
+    for label, env in (("fair-preempt-1k", fp.build_fair_preempt(1000)),
+                       ("caps", fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED)))):
+        plan, _, tree, paths, local, queues, victims, panels, fair = (
+            pd.fair_preempt_drain_inputs(take_snapshot(env.cache), env.pending,
+                                         env.cache.flavors, dev, timestamp_fn=env.ts_fn))
+        ctx = dk.fair_preempt_context(tree, queues, victims, panels, paths, fair,
+                                      plan.n_segments, plan.n_steps, plan.max_cycles, 0, True)
+        out[label] = _record_drain(
+            ctx, dk.FairPreemptState.initial_fair(local, queues, plan.max_cycles, victims, panels),
+            dk.PreemptBuffers.empty_preempt(local, queues, victims), FAIR_PREEMPT_STEPS,
+            ("drain_fair_preempt_phase2",))["drain_fair_preempt_phase2"]
+    return out
+
+
+def record_fair(dev) -> list:
+    """Records of drain_fair_phase2 (B7) over the headline fair drain, as
+    run_drain(fair_sharing=True) builds it."""
+    from kueue_tpu_torch.core import drain as pd
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.perf import headline
+    from kueue_tpu_torch.perf.lockstep import FAIR_STEPS
+
+    rng = np.random.default_rng(headline.HEADLINE_SEED)
+    cache = headline.build_cluster(rng)
+    pending = headline.build_backlog(rng)
+    snap = take_snapshot(cache)
+    plan = pd.plan_drain(snap, pending, cache.flavors, max_cells=headline.HEADLINE_MAX_CELLS)
+    pd._route_preempt_capable(snap, plan)
+    tree, paths, local, queues = pd._drain_device_inputs(snap, plan, dev)
+    fair = pd.fair_inputs(snap, tree.max_depth, dev)
+    ctx = dk.DrainContext.build(tree, queues, paths, plan.n_segments, plan.n_steps,
+                                plan.max_cycles, seg_id=plan.queues_np["seg_id"], fair=fair)
+    return _record_drain(ctx, dk.DrainState.initial(local, queues, plan.max_cycles),
+                         dk.CycleBuffers.empty(local, queues), FAIR_STEPS,
+                         ("drain_fair_phase2",))["drain_fair_phase2"]
 
 
 # ---- the launches ---------------------------------------------------------
@@ -396,6 +464,20 @@ def all_walked_heads(rec) -> int:
     return int((((chosen >= 0) | (pk >= 0)) & (heads.cq_row >= 0)).sum().item())
 
 
+def fair_pops(rec) -> int:
+    """Pops of a drain_fair_preempt_phase2 launch's longest segment: its
+    heads taking part in the tournament (active, nominated, on a
+    ClusterQueue), at most n_steps."""
+    ctx, state, buf = rec
+    q = ctx.queues
+    seg = q.seg_id.cpu().numpy()
+    rem = ((buf.is_fit | buf.is_pre) & (state.cursor < q.qlen) & state.alive
+           & (q.cq_rows >= 0)).cpu().numpy()
+    rem &= (seg >= 0) & (seg < ctx.segments.count)
+    counts = np.bincount(seg[rem], minlength=1)
+    return int(min(int(counts.max()), ctx.n_steps))
+
+
 def tas_chain_heads(rec) -> int:
     """Walked heads of a drain_tas_phase2 launch: its nominated, active
     queues on a ClusterQueue, at most n_steps (one global scan)."""
@@ -440,6 +522,9 @@ def _drain_launch(kernel):
 nominate_launch = _drain_launch("drain_nominate")
 phase2_launch = _drain_launch("drain_phase2")
 tas_phase2_launch = _drain_launch("drain_tas_phase2")
+tas_place_launch = _drain_launch("drain_tas_place")
+fair_preempt_launch = _drain_launch("drain_fair_preempt_phase2")
+fair_launch = _drain_launch("drain_fair_phase2")
 
 
 def _old_global(built, tree, sub, g, usage, paths, heads, chosen, borrows, pk):
@@ -638,7 +723,8 @@ def smem_latency_ns(dev, work: Path) -> float:
 # each kernel's splits with --split (quota_tree's drain call site: "done")
 SPLITS = {"cycle_phase2": ("n_steps=0",), "drain_nominate": ("done",),
           "drain_phase2": ("n_steps=0", "done"), "drain_tas_phase2": ("n_steps=0", "done"),
-          "cycle_global": ("positions",)}
+          "cycle_global": ("positions",), "drain_tas_place": ("done",),
+          "drain_fair_preempt_phase2": ("n_steps=0", "done")}
 
 
 def main(argv=None) -> int:
@@ -692,9 +778,19 @@ def main(argv=None) -> int:
         paths.append(("drain_nominate", f"{label} drain", recs, nominate_launch))
     for label, recs in drains.get("drain_phase2", {}).items():
         paths.append(("drain_phase2", f"{label} drain", recs, phase2_launch))
-    tas = record_tas(dev) if "drain_tas_phase2" in kernels else []
+    tas_names = tuple(k for k in ("drain_tas_place", "drain_tas_phase2") if k in kernels)
+    tas_recs = record_tas(dev, tas_names) if tas_names else {}
+    tas = tas_recs.get("drain_tas_phase2", [])
     if tas:
         paths.append(("drain_tas_phase2", "tas-drain-10k", tas, tas_phase2_launch))
+    if "drain_tas_place" in tas_recs:
+        paths.append(("drain_tas_place", "tas-drain-10k", tas_recs["drain_tas_place"],
+                      tas_place_launch))
+    fpre = record_fair_preempt(dev) if "drain_fair_preempt_phase2" in kernels else {}
+    for label, recs in fpre.items():
+        paths.append(("drain_fair_preempt_phase2", label, recs, fair_preempt_launch))
+    if "drain_fair_phase2" in kernels:
+        paths.append(("drain_fair_phase2", "headline fair drain", record_fair(dev), fair_launch))
     if "cycle_global" in kernels:
         paths.append(("cycle_global", "headline cycles", cyc["cycle_phase2"], global_launch))
     print(f"recorded {[(k, label, len(r)) for k, label, r, _ in paths]} "
@@ -706,6 +802,10 @@ def main(argv=None) -> int:
     print(f"shared-memory load latency {lat:.3f} ns")
     chain_paths = [("drain_phase2", f"{label} drain", recs, drain_chain_heads)
                    for label, recs in drains.get("drain_phase2", {}).items()]
+    # B11b: 2(D+1) dependent trips a pop (its chain's levels, then the
+    # charge bubbled up its path)
+    chain_paths += [("drain_fair_preempt_phase2", label, recs, fair_pops)
+                    for label, recs in fpre.items()]
     if "cycle_phase2" in kernels:
         chain_paths.append(("cycle_phase2", "headline cycles", cyc["cycle_phase2"], chain_heads))
     if "cycle_global" in kernels:
@@ -717,11 +817,14 @@ def main(argv=None) -> int:
         chain_paths.append(("drain_tas_phase2", "tas-drain-10k", tas, tas_chain_heads))
     for kname, label, recs, count in chain_paths:
         chains = [count(r) for r in recs] or [0]
-        chain_us = float(np.mean(chains)) * HOPS_PER_HEAD * lat * 1e-3
-        result["chains"][f"{kname} [{label}]"] = {"heads": chains, "bound_us": chain_us}
+        hops = (2 * (recs[0][0].tree.max_depth + 1) if kname == "drain_fair_preempt_phase2"
+                else HOPS_PER_HEAD)
+        chain_us = float(np.mean(chains)) * hops * lat * 1e-3
+        result["chains"][f"{kname} [{label}]"] = {"heads": chains, "bound_us": chain_us,
+                                                   "trips": hops}
         print(f"{kname} [{label}]: the longest segments walk {float(np.mean(chains)):.2f} "
               f"heads (max {max(chains)}): chain bound {chain_us:.4f} us a launch "
-              f"({HOPS_PER_HEAD} trips a head)")
+              f"({hops} trips a head)")
 
     for kname, label, recs, make in paths:
         splits = SPLITS.get(kname, ())

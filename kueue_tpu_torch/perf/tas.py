@@ -89,8 +89,9 @@ def build_tas_env(spec: dict, api=None) -> SimpleNamespace:
     """A cluster from a spec (plain data, so both packages build the
     same one): ``topologies`` {name: level keys}, ``flavors`` [(name,
     topology name or None, node labels)], ``nodes`` [(name, labels,
-    allocatable)], ``cqs`` [(name, flavor, cpu quota or {resource:
-    quota}[, cohort])] each with one LocalQueue ``lq-<name>``, and
+    allocatable[, usage of pods TAS does not manage])], ``cqs``
+    [(name, flavor, cpu quota or {resource: quota}[, cohort])] each
+    with one LocalQueue ``lq-<name>``, and
     ``workloads`` [dict(name, cq, count, cpu, mode, level, prio, t[,
     requests])] (mode None: no topology request; ``requests``: per-pod
     requests beside the cpu).
@@ -109,8 +110,9 @@ def build_tas_env(spec: dict, api=None) -> SimpleNamespace:
         fl = a.ResourceFlavor(name=name, topology_name=topo_name, node_labels=dict(labels))
         cache.add_or_update_flavor(fl)
         tas.add_or_update_flavor(fl)
-    for name, labels, alloc in spec["nodes"]:
-        tas.add_or_update_node(a.Node(name=name, labels=dict(labels), allocatable=dict(alloc)))
+    for name, labels, alloc, *non_tas in spec["nodes"]:
+        tas.add_or_update_node(a.Node(name=name, labels=dict(labels), allocatable=dict(alloc),
+                                      non_tas_usage=dict(non_tas[0]) if non_tas else {}))
     cache.tas_cache = tas
     for name, flavor, quota, *cohort in spec["cqs"]:
         quotas = quota if isinstance(quota, dict) else {"cpu": quota}

@@ -84,6 +84,18 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   levels, heads whose merged cells repeat a cell, a segment whose keys
   outgrow shared memory, and a set done flag.
 
+- the placement and the fair-preempt step scan redesigned for the card:
+  drain_tas_place with the TAS cycle's other launches bit-exact at every
+  cycle of perf.cases.tas_edge_spec (negative headroom, gangs spread
+  over every host, Preferred relaxing to the flavor's top, two flavors
+  of unequal depth) and of a cut of bench.py's tas_drain stage at
+  ND = 2048 hosts; drain_fair_preempt_phase2 with the fair-preempt
+  cycle's other launches bit-exact at every cycle of
+  perf.cases.fair_preempt_edge_spec (overlapping targets, reserves,
+  weight 0, ties; PrioritySortingWithinCohort on and off) and of the
+  panel caps widened to FR = 128 cells, whose rows exceed a block's
+  shared memory (the device-row path).
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
@@ -674,6 +686,48 @@ def test_fair_preempt_drain_kernels_bit_exact_every_cycle(cuda, case):
     assert set(errs) == set(FAIR_PREEMPT_KERNELS) and not any(errs.values())
 
 
+@pytest.mark.parametrize("prio_tie", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fair_preempt_phase2_bit_exact_at_the_scan_edges(cuda, seed, prio_tie):
+    """drain_fair_preempt_phase2, with the fair-preempt cycle's other
+    launches, equal to its plain version at every cycle of
+    perf.cases.fair_preempt_edge_spec."""
+    from kueue_tpu_torch import features
+    from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_KERNELS, lockstep_fair_preempt
+
+    cache, pending = build_cache(cases.fair_preempt_edge_spec(seed))
+    with features.override("PrioritySortingWithinCohort", prio_tie):
+        plan, _, tree, paths, local, queues, victims, panels, fair = (
+            pd.fair_preempt_drain_inputs(take_snapshot(cache), pending, cache.flavors, cuda))
+    errs = {}
+    _, state, cycles = lockstep_fair_preempt(
+        tree, local, queues, victims, panels, paths, fair, plan.n_segments, plan.n_steps, 32,
+        0, True, errs, label=f"fair_preempt_edge_spec({seed})")
+    assert cycles > 0 and bool(state.vevicted.any())
+    assert set(errs) == set(FAIR_PREEMPT_KERNELS) and not any(errs.values())
+
+
+def test_fair_preempt_phase2_on_device_rows(cuda):
+    """The panel caps with two flavor sets (FR = 128 cells, M = 64
+    nodes): the segment's rows exceed a block's shared memory, so
+    drain_fair_preempt_phase2 keeps them in device memory; bit-exact at
+    every cycle."""
+    from kueue_tpu_torch.perf import fairpreempt as fp
+    from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_KERNELS, lockstep_fair_preempt
+
+    env = fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED), 2, flavor_sets=2)
+    plan, _, tree, paths, local, queues, victims, panels, fair = pd.fair_preempt_drain_inputs(
+        take_snapshot(env.cache), env.pending, env.cache.flavors, cuda, timestamp_fn=env.ts_fn)
+    m, fr = victims.seg_nodes.shape[1], tree.nominal.shape[1]
+    assert 6 * m * fr * 8 > 232448  # six row arrays of the segment: beyond the block's room
+    errs = {}
+    _, state, cycles = lockstep_fair_preempt(
+        tree, local, queues, victims, panels, paths, fair, plan.n_segments, plan.n_steps,
+        plan.max_cycles, 0, True, errs, label="caps, FR 128")
+    assert cycles > 0 and bool(state.vevicted.any())
+    assert set(errs) == set(FAIR_PREEMPT_KERNELS) and not any(errs.values())
+
+
 @pytest.mark.parametrize("case", ["spec-1", "bench-60"])
 def test_fair_preempt_drain_on_card_matches_cpu(cuda, case):
     from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_KERNELS
@@ -884,6 +938,35 @@ def test_tas_leaf_counts_bit_exact(cuda, shape):
         assert outs[0] == outs[1]
     finally:
         TASFlavorSnapshot.DEVICE_LEAF_THRESHOLD = old
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tas_place_bit_exact_at_the_placement_edges(cuda, seed):
+    """drain_tas_place, with the TAS cycle's other launches, equal to its
+    plain version at every cycle of perf.cases.tas_edge_spec."""
+    from kueue_tpu_torch.perf.lockstep import TAS_DRAIN_KERNELS, lockstep_tas
+
+    _, inp = _tas_inputs(cuda, cases.tas_edge_spec(seed))
+    errs = {}
+    _, state, cycles = lockstep_tas(*inp.solve_args(), errs, label=f"tas_edge_spec({seed})")
+    assert cycles > 0 and set(errs) == set(TAS_DRAIN_KERNELS)
+    assert all(e == 0 for e in errs.values())
+    assert int((state.adm_cycle >= 0).sum()) > 0
+
+
+def test_tas_place_bit_exact_at_2048_domains(cuda):
+    """drain_tas_place at the lowering's cap of ND = 2048 domains a level
+    (16 blocks x 8 racks x 16 hosts), 24 cycles of a 12-queue cut."""
+    from kueue_tpu_torch.perf import tas as tas_perf
+    from kueue_tpu_torch.perf.lockstep import TAS_DRAIN_KERNELS, lockstep_tas
+
+    spec = tas_perf.drain_spec(np.random.default_rng(6), 12, 12, shape=(16, 8, 16))
+    _, inp = _tas_inputs(cuda, spec)
+    assert max(inp.n_domains) == 2048 == dk.MAX_TAS_ND
+    errs = {}
+    _, _, cycles = lockstep_tas(*inp.solve_args(), errs, label="nd-2048", stop_after=24)
+    assert cycles > 0 and set(errs) == set(TAS_DRAIN_KERNELS)
+    assert all(e == 0 for e in errs.values())
 
 
 def test_tas_drain_raises_when_a_kernel_does_not_build(cuda, monkeypatch, tmp_path):
