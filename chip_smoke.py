@@ -24,9 +24,10 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
    the build seconds and each kernel's registers, stack frame and
    spills, and the card's shared-memory load latency (a one-thread
    pointer chase): the serial kernels' chain bound (cycle_phase2,
-   cycle_global, drain_fair_phase2, drain_tas_phase2, plan_phase2) is
-   two such trips a walked head of the launch's longest segment (root
-   cohort; the TAS drain's one global scan).
+   cycle_global, drain_tas_phase2, plan_phase2) is two such trips a
+   walked head of the launch's longest segment (root cohort; the TAS
+   drain's one global scan), drain_fair_phase2's 2(D+1) a pop of its
+   longest segment (a chain's levels, then the charge up the path).
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
    (int64, tolerance 0), in lockstep at EVERY cycle of two drains: the
    real 50k x 1k headline plan, and a small seeded case with three
@@ -1424,7 +1425,7 @@ def fair_path(dev, cache, pending) -> dict:
         del per["drain_phase2"]
         per["drain_fair_phase2"] = [fair_bytes(bd, cursor, alive, buf, fair.n_res)]
         timer.add_bytes(per)
-        timer.add_chain("drain_fair_phase2", drain_chain(bd, buf, plan.n_steps))
+        timer.add_chain("drain_fair_phase2", drain_chain(bd, buf, plan.n_steps) * bd.d1)
     timing = {name: timing_of(timer, name, plain) for name in _build.FAIR_KERNELS}
     print(f"{stamp()} timed fair drain: "
           f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "

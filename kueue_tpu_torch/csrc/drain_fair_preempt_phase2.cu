@@ -57,35 +57,18 @@
 // bytes from its data, kernel_ab its chain). A set `done` flag makes the
 // launch a no-op.
 
-#include <climits>
-
-#include "drain_common.cuh"
+#include "fair_pop.cuh"
 
 namespace drain {
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr long long kInf = 1LL << 62;
-constexpr long long kDrsMax = 0x7fffffffffffffffLL;
-constexpr int kMaxSmem = 232448 - 1024;  // the opt-in limit, less the static part
-// head flags
-constexpr uint8_t kRem = 1, kFitF = 2, kPre = 4, kPs = 8, kNoRe = 16, kBorrow = 32,
-                  kStale = 64;
-
-struct Bump {
-  size_t off = 0;
-  __host__ __device__ size_t take(size_t bytes) {
-    const size_t at = off;
-    off += (bytes + 15) & ~(size_t)15;
-    return at;
-  }
-};
+using namespace fair_pop;
 
 // Byte offsets of the block's shared memory. `rows`: the segment's six
 // row arrays (and res_of_fr) are staged; `pool`: the pool's slots;
 // `tb`: each head's targets as bits. The fixed part always is.
 struct Layout {
-  size_t node_of, lpar, depth, haspar, haschild, npath, plist, poff, win;
+  size_t node_of, lpar, depth, haspar, haschild, npath, plist, poff, win, wstep;
   size_t weight, lend, bsum;
   size_t hq, hnode, hd, hcell, hres, hflag, htie, hts, hqty, hchain, hdelta, hbd, hmask;
   size_t bdl, ev, tbits, tl;
@@ -121,6 +104,7 @@ __host__ __device__ inline Layout plan(const Args& a, bool rows, bool pool, bool
   L.plist = b.take(4 * M);
   L.poff = b.take(4 * (D1 + 1));
   L.win = b.take(4 * M);
+  L.wstep = b.take(4 * M);
   L.hq = b.take(4 * m);
   L.hnode = b.take(4 * m);
   L.hd = b.take(4 * m);
@@ -147,56 +131,6 @@ __host__ __device__ inline Layout plan(const Args& a, bool rows, bool pool, bool
 struct Flags {
   int pool, tb;
 };
-
-// The segment's rows: staged [M][FR] (kRows) or the device's [N][FR].
-template <bool kRows>
-struct Rows {
-  long long *U, *F, *SUB, *G, *BL, *LEAF;
-  const int* node_of;
-  int FR;
-  __device__ __forceinline__ size_t at(int l, int cell) const {
-    return kRows ? (size_t)l * FR + cell : (size_t)node_of[l] * FR + cell;
-  }
-};
-
-// add delta at column `cell` of local node path[0] and bubble each
-// node's over-guaranteed change up the path, on tree T
-template <bool kRows>
-__device__ __forceinline__ void bubble(const Rows<kRows>& rw, long long* T, const int* path,
-                                       int D1, int cell, long long delta) {
-  for (int d = 0; d < D1; ++d) {
-    const int node = path[d];
-    if (node < 0) continue;
-    const size_t x = rw.at(node, cell);
-    const long long old = T[x], g = rw.G[x];
-    T[x] = old + delta;
-    delta = max(0LL, old + delta - g) - max(0LL, old - g);
-  }
-}
-
-// available() at path[0] for one cell over the fit tree: the root-down
-// recurrence of resource_node.go:89-104 (quota_path.cuh on local rows)
-template <bool kRows>
-__device__ __forceinline__ long long avail(const Rows<kRows>& rw, const int* path, int D1,
-                                           int cell) {
-  int root_pos = -1;
-  for (int d = 0; d < D1; ++d) root_pos += path[d] >= 0;
-  long long av = 0;
-  for (int d = D1 - 1; d >= 0; --d) {
-    const int node = path[d];
-    if (node < 0) continue;
-    const size_t x = rw.at(node, cell);
-    const long long s = rw.SUB[x], g = rw.G[x], bl = rw.BL[x], u = rw.F[x];
-    if (d == root_pos) {
-      av = s - u;
-    } else {
-      const long long with_max = (s - g) - max(0LL, u - g) + bl;
-      const long long clamped = bl < kNoLimit ? min(with_max, av) : av;
-      av = max(0LL, g - u) + clamped;
-    }
-  }
-  return av;
-}
 
 // The segment's pool slots: staged (`powner`: the local owner, -1 for a
 // pad) or the device's.
@@ -228,18 +162,6 @@ __device__ __forceinline__ void move_targets(const Rows<kRows>& rw, const Pool& 
     }
     if (rq != 0) bubble(rw, rw.F, npath + (size_t)ol * D1, D1, cell, sign * rq);
   }
-}
-
-struct Key {
-  long long dws, tie, ts;
-  int q, i;
-};
-
-__device__ __forceinline__ bool less(const Key& x, const Key& y) {
-  if (x.dws != y.dws) return x.dws < y.dws;
-  if (x.tie != y.tie) return x.tie < y.tie;
-  if (x.ts != y.ts) return x.ts < y.ts;
-  return x.q < y.q;
 }
 
 struct Sh {
@@ -294,6 +216,7 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
   int* plist = (int*)(smem + L.plist);
   int* poff = (int*)(smem + L.poff);
   int* win = (int*)(smem + L.win);
+  int* wstep = (int*)(smem + L.wstep);
   int* hq = (int*)(smem + L.hq);
   int* hnode = (int*)(smem + L.hnode);
   int* hd = (int*)(smem + L.hd);
@@ -347,7 +270,7 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
       haspar[l] = node >= 0 && a.t.parent[nn] >= 0;
       haschild[l] = 0;
       weight[l] = a.f.weight[nn];
-      win[l] = -1;
+      wstep[l] = -1;
       for (int d = 0; d < D1; ++d) npath[l * D1 + d] = lp_seg[(size_t)l * D1 + d];
       for (int r = 0; r < R; ++r) lend[l * R + r] = a.f.lendable[(size_t)nn * R + r];
     }
@@ -457,18 +380,7 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
   }
   __syncthreads();
   // C: node sums, parents, masks
-  for (int i = tid; i < M * R; i += kThreads) {
-    const int l = i / R, r = i % R;
-    long long b = 0;
-    if (node_of[l] >= 0) {
-      for (int fr = 0; fr < FR; ++fr) {
-        if (res[fr] != r) continue;
-        const size_t x = rw.at(l, fr);
-        b += max(0LL, rw.U[x] - rw.SUB[x]);
-      }
-    }
-    bsum[i] = b;
-  }
+  node_sums<kRows, kThreads>(rw, res, M, FR, R, bsum);
   for (int i = tid; i < m; i += kThreads) {
     const int* path = npath + (size_t)hnode[i] * D1;
     unsigned long long mask = 0;
@@ -478,19 +390,7 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
     hmask[i] = mask;
   }
   if (warp == 0) {
-    // parents by depth: plist[poff[dd] .. poff[dd+1]) at depth dd
-    int base = 0;
-    for (int dd = 0; dd < D1; ++dd) {
-      if (lane == 0) poff[dd] = base;
-      for (int l0 = 0; l0 < M; l0 += 32) {
-        const int l = l0 + lane;
-        const bool p = l < M && node_of[l] >= 0 && haschild[l] && depth[l] == dd;
-        const unsigned bal = __ballot_sync(kFull, p);
-        if (p) plist[base + __popc(bal & ((1u << lane) - 1))] = l;
-        base += __popc(bal);
-      }
-    }
-    if (lane == 0) poff[D1] = base;
+    parents_by_depth(node_of, haschild, depth, M, D1, plist, poff);
     int n = 0;
     for (int i = lane; i < m; i += 32) n += hflag[i] & kRem;
     for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(kFull, n, o);
@@ -502,6 +402,33 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
   __syncthreads();
 
   // ---- the pops ----
+  Pop P;
+  P.weight = weight;
+  P.lend = lend;
+  P.bsum = bsum;
+  P.htie = htie;
+  P.hts = hts;
+  P.hqty = hqty;
+  P.hchain = hchain;
+  P.lpar = lpar;
+  P.depth = depth;
+  P.haspar = haspar;
+  P.npath = npath;
+  P.plist = plist;
+  P.poff = poff;
+  P.hq = hq;
+  P.hnode = hnode;
+  P.hd = hd;
+  P.hcell = hcell;
+  P.hres = hres;
+  P.win = win;
+  P.wstep = wstep;
+  P.hflag = hflag;
+  P.m = m;
+  P.M = M;
+  P.D1 = D1;
+  P.R = R;
+  P.PC = PC;
   for (int step = 0; step < a.n_steps && sh.n_rem > 0; ++step) {
     // 1. the chains of the heads whose path the last charge touched
     const unsigned long long touched = sh.touched;
@@ -509,79 +436,14 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
       const uint8_t f = hflag[i];
       if (!(f & kRem) || (!(f & kStale) && !(hmask[i] & touched))) continue;
       hflag[i] = f & ~kStale;
-      const int* path = npath + (size_t)hnode[i] * D1;
-      long long* delta = hdelta + (size_t)i * PC;
-      long long* bd = hbd + (size_t)i * PC;
-      const int* cells = hcell + (size_t)i * PC;
-      const int* rs = hres + (size_t)i * PC;
-      for (int c = 0; c < PC; ++c) delta[c] = cells[c] >= 0 ? hqty[(size_t)i * PC + c] : 0;
-      for (int d = 0; d < D1; ++d) {
-        const int node = path[d];
-        long long dws = 0;
-        if (node >= 0) {
-          for (int c = 0; c < PC; ++c) {
-            const int cell = cells[c];
-            if (cell < 0) continue;
-            const size_t x = rw.at(node, cell);
-            const long long u = rw.U[x], sub = rw.SUB[x], g = rw.G[x], dl = delta[c];
-            bd[c] = max(0LL, u + dl - sub) - max(0LL, u - sub);
-            delta[c] = max(0LL, u + dl - g) - max(0LL, u - g);
-          }
-          long long drs = -1;
-          bool any = false;
-          for (int r = 0; r < R; ++r) {
-            long long b = bsum[(size_t)node * R + r];
-            for (int c = 0; c < PC; ++c) {
-              if (cells[c] >= 0 && rs[c] == r) b += bd[c];
-            }
-            const long long ld = lend[(size_t)node * R + r];
-            const long long ratio = (b > 0 && ld > 0) ? b * 1000 / ld : -1;
-            drs = r == 0 ? ratio : max(drs, ratio);
-            any = any || b > 0;
-          }
-          if (any && haspar[node]) {
-            const long long wt = weight[node];
-            dws = wt == 0 ? kDrsMax : (drs * 1000) / max(wt, 1LL);
-          }
-        }
-        hchain[(size_t)i * D1 + d] = dws;
-      }
+      chain(P, rw, i, hdelta + (size_t)i * PC, hbd + (size_t)i * PC);
     }
-    for (int l = tid; l < M; l += kThreads) win[l] = -1;
+    propose<kThreads>(P, step);
     __syncthreads();
     // 2. the tournament, bottom-up: every node at depth d with a winner
     // proposes to its parent; a warp a parent takes the smallest key
     if (tid == 0) sh.touched = 0;  // every thread has read it
-    for (int i = tid; i < m; i += kThreads) {
-      if (hflag[i] & kRem) win[hnode[i]] = i;
-    }
-    __syncthreads();
-    for (int d = D1 - 1; d >= 1; --d) {
-      const int p0 = poff[d - 1], np = poff[d] - p0;
-      if (np == 0) continue;
-      for (int jp = warp; jp < np; jp += kWarps) {
-        const int p = plist[p0 + jp];
-        Key best = {LLONG_MAX, LLONG_MAX, LLONG_MAX, INT_MAX, -1};
-        for (int l = lane; l < M; l += 32) {
-          const int w = win[l];
-          if (w < 0 || lpar[l] != p || depth[l] != d) continue;
-          const Key k = {hchain[(size_t)w * D1 + (hd[w] - d)], htie[w], hts[w], hq[w], w};
-          if (less(k, best)) best = k;
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-          Key y;
-          y.dws = __shfl_xor_sync(kFull, best.dws, o);
-          y.tie = __shfl_xor_sync(kFull, best.tie, o);
-          y.ts = __shfl_xor_sync(kFull, best.ts, o);
-          y.q = __shfl_xor_sync(kFull, best.q, o);
-          y.i = __shfl_xor_sync(kFull, best.i, o);
-          if (less(y, best)) best = y;
-        }
-        if (lane == 0 && best.i >= 0 && best.dws < kInf) win[p] = best.i;
-      }
-      __syncthreads();
-    }
-    const int h = win[sh.root];
+    const int h = tournament<kThreads>(P, sh.root, step);
     if (h < 0) break;  // no winner: every later step is the same
     const uint8_t f = hflag[h];
     const int x = hq[h];
@@ -637,7 +499,7 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
       const bool valid = cell >= 0;
       const bool own = do_pre && valid;
       if (own) move_targets(rw, pool, tl, n_t, npath, D1, cell, -1);
-      const bool ok = !valid || avail(rw, path, D1, cell) >= qv;
+      const bool ok = !valid || avail(rw, rw.F, path, D1, cell) >= qv;
       if (own) move_targets(rw, pool, tl, n_t, npath, D1, cell, 1);
       const bool fits = __all_sync(kFull, ok);
       // 5. the charge: admitted heads, successful preempters, reserves
@@ -660,32 +522,12 @@ __global__ void __launch_bounds__(kThreads, 1) phase2(Args a, Flags fl) {
           delta = (f & kBorrow) ? borrow_cap : nominal_cap;
         }
         rw.LEAF[lx] += delta;
-        long long du = delta;
-        for (int d = 0; d < D1; ++d) {
-          const int node = path[d];
-          if (node < 0) continue;
-          const size_t xx = rw.at(node, cell);
-          const long long old = rw.U[xx], sub = rw.SUB[xx], g = rw.G[xx];
-          rw.U[xx] = old + du;
-          bdl[(size_t)lane * D1 + d] = max(0LL, old + du - sub) - max(0LL, old - sub);
-          du = max(0LL, old + du - g) - max(0LL, old - g);
-        }
+        fair_pop::charge(rw, path, D1, cell, delta, bdl + (size_t)lane * D1);
         bubble(rw, rw.F, path, D1, cell, delta);
       }
       const bool any_charge = __any_sync(kFull, charge);
       __syncwarp();
-      if (any_charge) {
-        for (int d = lane; d < D1; d += 32) {
-          const int node = path[d];
-          if (node < 0) continue;
-          for (int c = 0; c < PC; ++c) {
-            const int r = hres[(size_t)h * PC + c];
-            if (hcell[(size_t)h * PC + c] >= 0 && r < R) {
-              bsum[(size_t)node * R + r] += bdl[(size_t)c * D1 + d];
-            }
-          }
-        }
-      }
+      if (any_charge) add_sums(P, h, path, bdl);
       // 6. a successful preempter's victims join the cycle's evictions:
       // out of the fit tree once, a lane a column
       if (pre_ok) {

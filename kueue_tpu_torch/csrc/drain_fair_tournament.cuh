@@ -1,7 +1,8 @@
-// The fair-sharing admission tournament of one drain cycle's step, of
-// drain_fair_phase2.cu (B7, the fair drain). The fair-preempt drain's
-// step scan (drain_fair_preempt_phase2.cu, B11) has its own, on rows
-// staged in shared memory; B7 is to move to it.
+// The fair drain's step scan over device memory: the kernel
+// drain_fair_phase2.cu (B7) launches for a segment whose heads' and
+// nodes' tables do not fit in a block's shared memory (its staged design,
+// fair_pop.cuh, takes every other segment). Every value is read from
+// device memory at each pop.
 //
 // Replaces kueue_tpu/ops/drain_kernel.py _fair_chain (:1179) and
 // _fair_tournament (:1238):
@@ -29,6 +30,7 @@
 #pragma once
 
 #include "drain_common.cuh"
+#include "quota_path.cuh"
 
 namespace drain {
 namespace fair_tournament {
@@ -36,6 +38,7 @@ namespace fair_tournament {
 constexpr long long kInf = 1LL << 62;
 constexpr long long kDrsMax = 0x7fffffffffffffffLL;
 constexpr uint8_t kRemaining = 1, kSurvives = 2, kLoses = 4;
+constexpr int kThreads = 128;
 
 struct Key {
   long long dws, tie, ts;
@@ -184,6 +187,74 @@ __device__ int pop(const Args& a, const int* members, int m, int* winner_sh) {
   }
   __syncthreads();
   return winner;
+}
+
+// The step scan: each of n_steps steps pops one head per root cohort and
+// gives the winner its fit, admission or reservation and the bubble
+// (drain_fair_phase2.cu's, on device memory). One block of kThreads a
+// segment.
+__global__ void device_phase2(Args a) {
+  const int s = blockIdx.x;
+  if (*a.s.done || s >= a.n_seg) return;
+  const int beg = a.seg_offsets[s], m = a.seg_offsets[s + 1] - beg;
+  const int* members = a.seg_members + beg;
+  uint8_t* flags = a.f.flags;
+  __shared__ int n_rem, winner;
+  fair_tournament::mark(a, members, m, &n_rem);
+
+  const int D = a.D, FR = a.FR, PC = a.P * a.C;
+  for (int step = 0; step < a.n_steps && n_rem > 0; ++step) {
+    fair_tournament::pop(a, members, m, &winner);
+    const int h = winner;
+    if (h < 0) break;  // no winner: every later step is the same
+    // 3. the winner's fit, admission or reservation, and the bubble
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const int cq = cq_of(a, h);
+      const int* path = a.t.paths + (size_t)cq * (D + 1);
+      int cell = -1;
+      long long qv = 0;
+      if (lane < PC) {
+        cell = a.b.cells_eff[(size_t)h * PC + lane];
+        qv = a.b.qty_eff[(size_t)h * PC + lane];
+      }
+      const bool cell_valid = cell >= 0 && qv > 0;
+      const bool ok = !cell_valid ||
+                      quota_path::avail_along_path(path, D, FR, cell, a.t.subtree,
+                                                   a.t.guaranteed, a.t.borrowing_limit,
+                                                   a.b.usage) >= qv;
+      const bool fits = __all_sync(0xffffffffu, ok);
+      const bool admit = a.b.is_fit[h] && fits;
+      const bool reserve = a.b.is_pre[h] && a.q.no_reclaim[h];
+      if (cell_valid && (admit || reserve)) {
+        long long delta = qv;
+        if (!admit) {
+          const size_t lx = (size_t)cq * FR + cell;
+          const long long nom = a.t.nominal[lx], bl = a.t.borrowing_limit[lx];
+          const long long leaf = a.b.usage[lx];
+          const long long borrow_cap = bl < kNoLimit ? min(qv, nom + bl - leaf) : qv;
+          const long long nominal_cap = max(0LL, min(qv, nom - leaf));
+          delta = a.b.head_borrow[h] ? borrow_cap : nominal_cap;
+        }
+        for (int d = 0; d <= D; ++d) {
+          const int node = path[d];
+          if (node < 0) continue;
+          const size_t x = (size_t)node * FR + cell;
+          const long long old = a.b.usage[x], g = a.t.guaranteed[x];
+          a.b.usage[x] = old + delta;
+          delta = max(0LL, old + delta - g) - max(0LL, old - g);
+        }
+        if (admit) a.s.local[(size_t)cq * FR + cell] += qv;
+      }
+      if (lane == 0) {
+        a.b.admitted[h] = admit;
+        flags[h] = 0;
+        n_rem -= 1;
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace fair_tournament

@@ -1,6 +1,7 @@
-// The fair-sharing victim tournament on a local subtree panel, shared by
-// fair_search.cu (B9, the cycle's batched fair victim search) and
-// drain_fair_preempt_search.cu (B11, the fair-preempt drain's search).
+// The fair-sharing victim tournament on a local subtree panel, of
+// fair_search.cu (B9, the cycle's batched fair victim search). The
+// fair-preempt drain's search (drain_fair_preempt_search.cu, B11a) has its
+// own, on state staged once a search.
 //
 // Replaces kueue_tpu/ops/fair_preempt_kernel.py _bubble (:131) and
 // _solve_one_fair (:151-427): the panel DRS (drs_panel, :198-237), the

@@ -740,8 +740,8 @@ MAX_CV = 32
 MAX_SEARCH_WIDTH = 512
 MAX_M = 64
 # widest fair panels the fair-preempt drain's kernels take
-# (csrc/fair_local.cuh): panel cells (resource buckets one more) and
-# segment nodes
+# (csrc/drain_fair_preempt_search.cu): panel cells (resource buckets one
+# more) and segment nodes
 MAX_FAIR_CU = 64
 MAX_FAIR_M = 64
 

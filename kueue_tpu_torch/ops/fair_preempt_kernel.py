@@ -42,7 +42,7 @@ together, a row that is done keeps its state.
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 from kueue_tpu_torch._torch import BOOL, I32, I64, torch
 from kueue_tpu_torch.ops import _build
@@ -237,10 +237,14 @@ def _almost_lca(paths, row, lca):
 
 
 def solve_fair(p: FairProblem, depth: int, n_cand: int, n_local: int, n_res: int,
-               strategy1: int, has_second: bool) -> FairResult:
+               strategy1: int, has_second: bool, trace: Optional[dict] = None) -> FairResult:
     """Every row's fair victim tournament, then its fill-back (the JAX
     ``_solve_one_fair`` vmapped over rows): ``n_res`` resource buckets
-    (the inert one included), at most ``2V + S + 4`` picks a row."""
+    (the inert one included), at most ``2V + S + 4`` picks a row.
+    ``trace``, when given, receives each row's tournament iterations
+    ("iterations") and accepted removals before the fill-back
+    ("removed"), int64[W] (perf/kernel_ab.py's chain bound, the tests'
+    edge guards)."""
     w = p.hrow.shape[0]
     dev = p.usage0.device
     w_idx = torch.arange(w, device=dev)
@@ -273,10 +277,12 @@ def solve_fair(p: FairProblem, depth: int, n_cand: int, n_local: int, n_res: int
     done = ~p.row_valid
     fits = torch.zeros(w, dtype=BOOL, device=dev)
     n_removed = torch.zeros(w, dtype=I64, device=dev)
+    iterations = torch.zeros(w, dtype=I64, device=dev)
     for _ in range(2 * n_cand + n_local + 4):
         live = ~done
         if not bool(live.any()):
             break  # every row has left its loop
+        iterations += live.to(I64)
         avail_v = p.cvalid & ~removed & torch.where((phase == 1)[:, None], ~retried, retried)
         drs = _drs_panel(p, usage, lendable, n_res)
         pick = _tournament(
@@ -334,6 +340,8 @@ def solve_fair(p: FairProblem, depth: int, n_cand: int, n_local: int, n_res: int
         fits = fits | now_fits
         done = done | now_fits
     fits = fits & p.row_valid
+    if trace is not None:
+        trace["iterations"], trace["removed"] = iterations, n_removed.clone()
 
     # fill-back: reverse removal order, skipping the last removal
     _bubble_local(hpath, -p.need_qty, usage, p.guaranteed, depth, fits)

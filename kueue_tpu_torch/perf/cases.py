@@ -241,15 +241,16 @@ def preempt_spec(seed: int, victims_per_cq: int = 3, workloads_per_cq: int = 5) 
     return spec
 
 
-def fair_spec(seed: int, workloads_per_cq: int = 6) -> dict:
+def fair_spec(seed: int, workloads_per_cq: int = 6, cqs_per_team: int = 2) -> dict:
     """``mixed_spec``'s depth-3 cohort forest with fairSharing weights on
     its ClusterQueues (0, 500, 1000 or 2000), for the fair drain: its
     cohort tournament then runs at every level of the forest (team,
     dept, org), weight 0 ranks a borrowing queue last (DRS_MAX), and
     the queues with reclaimWithinCohort Any are preempt-capable and
-    route to fallback."""
+    route to fallback. ``cqs_per_team`` widens the org's segment (four
+    teams)."""
     rng = np.random.default_rng(seed + 1000)
-    spec = mixed_spec(seed, workloads_per_cq=workloads_per_cq)
+    spec = mixed_spec(seed, cqs_per_team=cqs_per_team, workloads_per_cq=workloads_per_cq)
     weights = (0, 500, 1000, 2000)
     for cq, w in zip(spec["cqs"], rng.permutation(len(spec["cqs"]))):
         cq["fair_weight"] = weights[int(w) % len(weights)]

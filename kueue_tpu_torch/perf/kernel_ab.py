@@ -3,7 +3,8 @@
 (``quota_tree``, per call site), B4's phase 2 (``drain_phase2``), the TAS
 drain's step scan (``drain_tas_phase2``, B13) and placement
 (``drain_tas_place``, B13a), the unsegmented cycle's walk
-(``cycle_global``, B3'), the fair-preempt drain's step scan
+(``cycle_global``, B3'), the fair-preempt drain's victim search
+(``drain_fair_preempt_search``, B11a) and step scan
 (``drain_fair_preempt_phase2``, B11b) and the fair drain's (B7,
 ``drain_fair_phase2``).
 
@@ -20,9 +21,10 @@ fair-preempt drain at the panel caps, ``build_fair_wide``); the drain's
 quota call site (``usage_and_available``) and ``drain_phase2`` over the
 headline plain drain, and ``drain_phase2`` also over the first launch of
 the headline's megaloop chain (perf/megaloop.py's rounds); ``drain_tas_place``
-and ``drain_tas_phase2`` over tas-drain-10k; ``drain_fair_preempt_phase2``
-over fair-preempt-1k (perf/fairpreempt.build_fair_preempt) and the panel
-caps (``build_fair_wide``); ``drain_fair_phase2`` over the headline fair
+and ``drain_tas_phase2`` over tas-drain-10k; ``drain_fair_preempt_search``
+and ``drain_fair_preempt_phase2`` over fair-preempt-1k
+(perf/fairpreempt.build_fair_preempt) and the panel caps
+(``build_fair_wide``); ``drain_fair_phase2`` over the headline fair
 drain. Then it times
 each recorded launch alone on the device, once per build in turns:
 parent, new, new, parent. A spin kernel holds the stream while the host
@@ -44,12 +46,13 @@ parent commit's ``kueue_tpu_torch/csrc``), built here with the same
 nvcc flags. Without it only the current sources are timed (new, new).
 ``--split``: each build's split too: ``cycle_phase2``, ``drain_phase2``
 and ``drain_tas_phase2`` with ``n_steps = 0`` (the order and the ranks,
-no walk), ``drain_fair_preempt_phase2`` with ``n_steps = 0`` (its
-staging alone), ``drain_nominate``, ``drain_phase2``, ``drain_tas_phase2``,
-``drain_tas_place``, ``drain_fair_preempt_phase2`` and the drain's quota
-site with the done flag set (the launch's floor), and ``cycle_global``
-with every head made no-fit (chosen and preempt_k -1: the positions
-alone).
+no walk), ``drain_fair_preempt_phase2`` and ``drain_fair_phase2`` with
+``n_steps = 0`` (their staging alone), ``drain_fair_preempt_search``
+with ``no_cand`` (the cycle's need_pre cleared, so no slot is a
+candidate and every search gives up at its first pick, one a phase:
+the staging alone), every drain kernel and the drain's quota site with
+the done flag set (the launch's floor), and ``cycle_global`` with every
+head made no-fit (chosen and preempt_k -1: the positions alone).
 ``--kernel NAME``: record and time that kernel only (repeatable).
 
 It also measures the card's shared-memory load latency (one thread
@@ -57,8 +60,10 @@ chasing pointers through shared memory; the slope between two chase
 lengths, so the launch cancels) and counts each serial launch's chain:
 the walked heads of its longest segment (``cycle_global``: of its
 longest root cohort, beside all its walked heads; ``drain_tas_phase2``:
-every walked head, a shared topology couples them; ``drain_fair_preempt_phase2``:
-the pops of its longest segment, 2(D+1) trips a pop). Prints the ptxas lines
+every walked head, a shared topology couples them; ``drain_fair_preempt_phase2``
+and ``drain_fair_phase2``: the pops of its longest segment, 2(D+1) trips a
+pop; ``drain_fair_preempt_search``: the iterations of its longest search,
+counted by the plain version, 4(D+1) + 8 trips an iteration). Prints the ptxas lines
 (registers, stack frame, spills) of each build, a line per kernel, path
 and build, and as its last line a JSON object with every number.
 """
@@ -79,11 +84,16 @@ from pathlib import Path
 import numpy as np
 
 KERNELS = ("cycle_phase2", "drain_nominate", "quota_tree", "drain_phase2", "drain_tas_phase2",
-           "cycle_global", "drain_tas_place", "drain_fair_preempt_phase2", "drain_fair_phase2")
+           "cycle_global", "drain_tas_place", "drain_fair_preempt_search",
+           "drain_fair_preempt_phase2", "drain_fair_phase2")
 CYCLES = 30  # headline Scheduler cycles recorded (chip_smoke.py's STEADY_CYCLES)
 SPIN = 2_000_000  # about 1 ms of the card's clock before each timed launch
 CHASE_HOPS = (1 << 20, 1 << 21)
 HOPS_PER_HEAD = 2  # a walked head's dependent shared-memory trips: read its rows, add
+# a fair victim search iteration's dependent shared-memory trips beyond its
+# bubbles' levels: the pick's DRS and cursor reads, the popped candidate,
+# the target's path, the two shares, the sums and the new DRS
+SEARCH_TRIPS = 8
 
 CHASE_SRC = r"""
 #include <cuda_runtime.h>
@@ -368,16 +378,16 @@ def record_tas(dev, names=("drain_tas_phase2",)) -> dict:
     return _record_drain(ctx, state, buf, TAS_STEPS, names)
 
 
-def record_fair_preempt(dev) -> dict:
-    """{path: records} of drain_fair_preempt_phase2 over fair-preempt-1k
-    and the panel caps."""
+def record_fair_preempt(dev, names=("drain_fair_preempt_phase2",)) -> dict:
+    """{kernel: {path: records}} of ``names`` (the fair-preempt drain's
+    search and step scan) over fair-preempt-1k and the panel caps."""
     from kueue_tpu_torch.core import drain as pd
     from kueue_tpu_torch.core.snapshot import take_snapshot
     from kueue_tpu_torch.ops import drain_kernel as dk
     from kueue_tpu_torch.perf import fairpreempt as fp
     from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_STEPS
 
-    out = {}
+    out = {k: {} for k in names}
     for label, env in (("fair-preempt-1k", fp.build_fair_preempt(1000)),
                        ("caps", fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED)))):
         plan, _, tree, paths, local, queues, victims, panels, fair = (
@@ -385,10 +395,11 @@ def record_fair_preempt(dev) -> dict:
                                          env.cache.flavors, dev, timestamp_fn=env.ts_fn))
         ctx = dk.fair_preempt_context(tree, queues, victims, panels, paths, fair,
                                       plan.n_segments, plan.n_steps, plan.max_cycles, 0, True)
-        out[label] = _record_drain(
+        recs = _record_drain(
             ctx, dk.FairPreemptState.initial_fair(local, queues, plan.max_cycles, victims, panels),
-            dk.PreemptBuffers.empty_preempt(local, queues, victims), FAIR_PREEMPT_STEPS,
-            ("drain_fair_preempt_phase2",))["drain_fair_preempt_phase2"]
+            dk.PreemptBuffers.empty_preempt(local, queues, victims), FAIR_PREEMPT_STEPS, names)
+        for k in names:
+            out[k][label] = recs[k]
     return out
 
 
@@ -478,6 +489,31 @@ def fair_pops(rec) -> int:
     return int(min(int(counts.max()), ctx.n_steps))
 
 
+def search_iterations(rec) -> int:
+    """Tournament iterations of a drain_fair_preempt_search launch's
+    longest search, counted by its plain version on a copy."""
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
+
+    ctx, state, buf = rec
+    counts = []
+
+    def counted(p, *args):
+        trace = {}
+        out = fpk.solve_fair(p, *args, trace=trace)
+        iters = trace["iterations"]
+        counts.append(int(iters.max().item()) if iters.numel() else 0)
+        return out
+
+    saved = dk.solve_fair
+    dk.solve_fair = counted
+    try:
+        dk.drain_fair_preempt_search_plain(ctx, state.clone(), buf.clone())
+    finally:
+        dk.solve_fair = saved
+    return max(counts, default=0)
+
+
 def tas_chain_heads(rec) -> int:
     """Walked heads of a drain_tas_phase2 launch: its nominated, active
     queues on a ClusterQueue, at most n_steps (one global scan)."""
@@ -506,6 +542,8 @@ def _drain_launch(kernel):
         state, buf = state.clone(), buf.clone()
         if variant == "done":
             state.done.fill_(1)
+        if variant == "no_cand":
+            buf.need_pre.zero_()
         if variant == "n_steps=0":
             ctx = dataclasses.replace(ctx, n_steps=0, _args=None)
 
@@ -524,6 +562,7 @@ phase2_launch = _drain_launch("drain_phase2")
 tas_phase2_launch = _drain_launch("drain_tas_phase2")
 tas_place_launch = _drain_launch("drain_tas_place")
 fair_preempt_launch = _drain_launch("drain_fair_preempt_phase2")
+fair_search_launch = _drain_launch("drain_fair_preempt_search")
 fair_launch = _drain_launch("drain_fair_phase2")
 
 
@@ -724,7 +763,9 @@ def smem_latency_ns(dev, work: Path) -> float:
 SPLITS = {"cycle_phase2": ("n_steps=0",), "drain_nominate": ("done",),
           "drain_phase2": ("n_steps=0", "done"), "drain_tas_phase2": ("n_steps=0", "done"),
           "cycle_global": ("positions",), "drain_tas_place": ("done",),
-          "drain_fair_preempt_phase2": ("n_steps=0", "done")}
+          "drain_fair_preempt_search": ("no_cand", "done"),
+          "drain_fair_preempt_phase2": ("n_steps=0", "done"),
+          "drain_fair_phase2": ("n_steps=0", "done")}
 
 
 def main(argv=None) -> int:
@@ -786,11 +827,16 @@ def main(argv=None) -> int:
     if "drain_tas_place" in tas_recs:
         paths.append(("drain_tas_place", "tas-drain-10k", tas_recs["drain_tas_place"],
                       tas_place_launch))
-    fpre = record_fair_preempt(dev) if "drain_fair_preempt_phase2" in kernels else {}
-    for label, recs in fpre.items():
+    fp_names = tuple(k for k in ("drain_fair_preempt_search", "drain_fair_preempt_phase2")
+                     if k in kernels)
+    fpre = record_fair_preempt(dev, fp_names) if fp_names else {}
+    for label, recs in fpre.get("drain_fair_preempt_search", {}).items():
+        paths.append(("drain_fair_preempt_search", label, recs, fair_search_launch))
+    for label, recs in fpre.get("drain_fair_preempt_phase2", {}).items():
         paths.append(("drain_fair_preempt_phase2", label, recs, fair_preempt_launch))
-    if "drain_fair_phase2" in kernels:
-        paths.append(("drain_fair_phase2", "headline fair drain", record_fair(dev), fair_launch))
+    fair = record_fair(dev) if "drain_fair_phase2" in kernels else []
+    if fair:
+        paths.append(("drain_fair_phase2", "headline fair drain", fair, fair_launch))
     if "cycle_global" in kernels:
         paths.append(("cycle_global", "headline cycles", cyc["cycle_phase2"], global_launch))
     print(f"recorded {[(k, label, len(r)) for k, label, r, _ in paths]} "
@@ -802,10 +848,14 @@ def main(argv=None) -> int:
     print(f"shared-memory load latency {lat:.3f} ns")
     chain_paths = [("drain_phase2", f"{label} drain", recs, drain_chain_heads)
                    for label, recs in drains.get("drain_phase2", {}).items()]
-    # B11b: 2(D+1) dependent trips a pop (its chain's levels, then the
-    # charge bubbled up its path)
+    # B11b and B7: 2(D+1) dependent trips a pop (its chain's levels, then
+    # the charge bubbled up its path); B11a: 4(D+1) + 8 an iteration
     chain_paths += [("drain_fair_preempt_phase2", label, recs, fair_pops)
-                    for label, recs in fpre.items()]
+                    for label, recs in fpre.get("drain_fair_preempt_phase2", {}).items()]
+    if fair:
+        chain_paths.append(("drain_fair_phase2", "headline fair drain", fair, fair_pops))
+    chain_paths += [("drain_fair_preempt_search", label, recs, search_iterations)
+                    for label, recs in fpre.get("drain_fair_preempt_search", {}).items()]
     if "cycle_phase2" in kernels:
         chain_paths.append(("cycle_phase2", "headline cycles", cyc["cycle_phase2"], chain_heads))
     if "cycle_global" in kernels:
@@ -817,8 +867,10 @@ def main(argv=None) -> int:
         chain_paths.append(("drain_tas_phase2", "tas-drain-10k", tas, tas_chain_heads))
     for kname, label, recs, count in chain_paths:
         chains = [count(r) for r in recs] or [0]
-        hops = (2 * (recs[0][0].tree.max_depth + 1) if kname == "drain_fair_preempt_phase2"
-                else HOPS_PER_HEAD)
+        hops = HOPS_PER_HEAD
+        if kname.startswith("drain_fair") and recs:
+            d1 = recs[0][0].tree.max_depth + 1
+            hops = 4 * d1 + SEARCH_TRIPS if kname == "drain_fair_preempt_search" else 2 * d1
         chain_us = float(np.mean(chains)) * hops * lat * 1e-3
         result["chains"][f"{kname} [{label}]"] = {"heads": chains, "bound_us": chain_us,
                                                    "trips": hops}

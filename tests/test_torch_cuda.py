@@ -96,6 +96,20 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   panel caps widened to FR = 128 cells, whose rows exceed a block's
   shared memory (the device-row path).
 
+- the fair-preempt search and the fair step scan redesigned for the card:
+  drain_fair_preempt_search with the fair-preempt cycle's other launches
+  bit-exact at every cycle of perf.cases.fair_preempt_spec seeds 1 and 8
+  (weight 0, DRS ties, the second strategy's pruning, own-queue victims,
+  fill-backs that keep victims, a rootless head) under both strategies
+  and each alone, and of the panel caps (V = 512, M = 64, Cu = 64);
+  drain_fair_phase2 with the fair cycle's other launches bit-exact at
+  every cycle of perf.cases.fair_spec (depth 3: admissions charge team
+  and dept cohorts; parents whose every proposal is DRS_MAX),
+  PrioritySortingWithinCohort on and off, and over the first cycles of
+  fair_spec with 70 and 150 ClusterQueues a team, whose org segment's
+  rows, then its heads' tables, exceed a block's shared memory (the
+  device-row path, then the step scan over device memory).
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
@@ -1683,3 +1697,76 @@ def test_drain_phase2_done_is_a_no_op(cuda):
     for x, y in ((state, before_s), (buf, before_b)):
         for f in dataclasses.fields(x):
             assert torch.equal(getattr(x, f.name), getattr(y, f.name)), f.name
+
+
+# ---- the fair-preempt search (B11a) and the fair step scan (B7) redesigned ----
+
+
+@pytest.mark.parametrize("case", ["spec-1", "spec-8", "spec-1-initial", "spec-8-final",
+                                  "wide-1"])
+def test_fair_preempt_search_bit_exact_at_its_edges(cuda, case):
+    """drain_fair_preempt_search, with the fair-preempt cycle's other
+    launches, equal to its plain version at every cycle (the search
+    edges: tests/test_torch_fair_redesign_edges.py guards that these
+    drains reach them)."""
+    from kueue_tpu_torch.ops import fair_preempt_kernel as fpk
+    from kueue_tpu_torch.perf import fairpreempt as fp
+    from kueue_tpu_torch.perf.lockstep import FAIR_PREEMPT_KERNELS, lockstep_fair_preempt
+
+    kind, n, *stack = case.split("-")
+    strategy1, has_second = fpk.LESS_THAN_OR_EQUAL_TO_FINAL, True
+    if stack:
+        strategy1 = {"initial": fpk.LESS_THAN_INITIAL,
+                     "final": fpk.LESS_THAN_OR_EQUAL_TO_FINAL}[stack[0]]
+        has_second = False
+    if kind == "spec":
+        cache, pending = build_cache(cases.fair_preempt_spec(int(n)))
+        kw, max_cycles = {}, 32
+    else:
+        env = fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED), int(n))
+        cache, pending, kw, max_cycles = env.cache, env.pending, {"timestamp_fn": env.ts_fn}, 0
+    plan, _, tree, paths, local, queues, victims, panels, fair = pd.fair_preempt_drain_inputs(
+        take_snapshot(cache), pending, cache.flavors, cuda, **kw)
+    if kind == "wide":
+        assert victims.perm.shape[1] == 512 and victims.seg_nodes.shape[1] == 64
+        assert panels.seg_cells.shape[1] == 64
+    errs = {}
+    _, state, cycles = lockstep_fair_preempt(
+        tree, local, queues, victims, panels, paths, fair, plan.n_segments, plan.n_steps,
+        max_cycles or plan.max_cycles, strategy1, has_second, errs, label=case)
+    assert cycles > 0 and bool(state.vevicted.any())
+    assert set(errs) == set(FAIR_PREEMPT_KERNELS) and not any(errs.values())
+
+
+@pytest.mark.parametrize("prio_tie", [True, False])
+@pytest.mark.parametrize("seed", [2, 4])
+def test_fair_phase2_bit_exact_at_its_edges(cuda, seed, prio_tie):
+    from kueue_tpu_torch import features
+
+    with features.override("PrioritySortingWithinCohort", prio_tie):
+        cache, pending = build_cache(fair_spec(seed))
+        _, plan, tree, paths, local, queues, fair = _drain_case(cache, pending, cuda, fair=True)
+        errs = {}
+        _, state, cycles = lockstep(
+            tree, local, queues, paths, plan.n_segments, plan.n_steps, plan.max_cycles, errs,
+            label=f"fair seed {seed}, prio_tie {prio_tie}", fair=fair)
+    assert cycles > 0 and bool(state.adm_cycle.ge(0).any())
+    assert set(errs) == set(FAIR_KERNELS) and not any(errs.values())
+
+
+@pytest.mark.parametrize("per_team", [70, 150])
+def test_fair_phase2_on_segments_beyond_shared_memory(cuda, per_team):
+    """fair_spec with 70 and 150 ClusterQueues a team: the org's segment
+    holds some 190 and 400 queues. At 70 its usage, subtree, guaranteed
+    and borrowing-limit rows (one a node, FR cells) no longer fit beside
+    its heads' and nodes' tables; at 150 the tables alone do not."""
+    cache, pending = build_cache(fair_spec(4, workloads_per_cq=2, cqs_per_team=per_team))
+    _, plan, tree, paths, local, queues, fair = _drain_case(cache, pending, cuda, fair=True)
+    seg = plan.queues_np["seg_id"]
+    assert np.bincount(seg[seg >= 0]).max() >= 2.5 * per_team
+    errs = {}
+    _, _, cycles = lockstep(
+        tree, local, queues, paths, plan.n_segments, plan.n_steps, plan.max_cycles, errs,
+        label=f"fair_spec, {per_team} a team", fair=fair, stop_after=6)
+    assert cycles > 0
+    assert set(errs) == set(FAIR_KERNELS) and not any(errs.values())
