@@ -27,7 +27,9 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
    cycle_global, drain_tas_phase2, plan_phase2) is two such trips a
    walked head of the launch's longest segment (root cohort; the TAS
    drain's one global scan), drain_fair_phase2's 2(D+1) a pop of its
-   longest segment (a chain's levels, then the charge up the path).
+   longest segment (a chain's levels, then the charge up the path),
+   drain_preempt_phase2's two a walked head of its longest segment and
+   two more a preempter among them (its victims' rows, then removed).
 2. Holds each kernel to its plain PyTorch version on the card, bit-exact
    (int64, tolerance 0), in lockstep at EVERY cycle of two drains: the
    real 50k x 1k headline plan, and a small seeded case with three
@@ -1682,6 +1684,25 @@ def preempt_cycle_bytes(ctx, state_before, buf, state_after) -> dict:
     }
 
 
+def preempt_chain(ctx, state_before, buf) -> int:
+    """drain_preempt_phase2's chain on one cycle, in walked heads' worth
+    of TRIPS_PER_HEAD trips: its longest segment's walked heads (the
+    nominated, active queues, at most n_steps), each a path read and an
+    add, and its preempters among them again (their victims' rows read,
+    then removed)."""
+    q = ctx.queues
+    seg = q.seg_id.cpu().numpy()
+    active = (state_before["cursor"] < q.qlen.cpu().numpy()) & state_before["alive"]
+    walked = (buf.is_fit | buf.is_pre).cpu().numpy() & active & (seg >= 0)
+    pre = buf.psuccess.cpu().numpy()
+    best = 0
+    for g in np.unique(seg[walked]):
+        heads = walked & (seg == g)
+        n = min(int(heads.sum()), ctx.n_steps)
+        best = max(best, n + min(int((heads & pre).sum()), n))
+    return best
+
+
 def contended_drain_path(dev) -> dict:
     """Phase 8: the drain with classic preemption over the contended
     cluster, and a small depth-3 multi-podset case (module
@@ -1819,10 +1840,12 @@ def contended_drain_path(dev) -> dict:
         state = dk.PreemptState.initial_preempt(local, queues, plan.max_cycles, victims)
         buf = dk.PreemptBuffers.empty_preempt(local, queues, victims)
         while not state.done.item():
-            before = {"cursor": state.cursor.cpu().numpy(), "pcells": state.pcells.cpu().numpy()}
+            before = {"cursor": state.cursor.cpu().numpy(), "pcells": state.pcells.cpu().numpy(),
+                      "alive": state.alive.cpu().numpy()}
             for name, kern, _ in PREEMPT_STEPS:
                 timer(name, lambda: kern(ctx, state, buf), None)
             timer.add_bytes(preempt_cycle_bytes(ctx, before, buf, state))
+            timer.add_chain("drain_preempt_phase2", preempt_chain(ctx, before, buf))
     timing = {name: timing_of(timer, name, plain) for name in PREEMPT_KERNELS}
     print(f"{stamp()} timed contended drain (tiers {list(schedule)}): "
           f"{json.dumps({k: len(v) for k, v in timer.dev_ms.items()})} launches each timed "

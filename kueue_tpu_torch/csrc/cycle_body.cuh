@@ -1,23 +1,18 @@
-// The per-head body of phase 1 and the per-segment body of phase 2 of
-// the admission cycle, shared by cycle_phase1.cu / cycle_phase2.cu (the
-// interactive cycle, one scenario) and plan_phase1.cu / plan_phase2.cu
-// (the planner's scenario-batched solve, kernel B14). Each body takes
-// base pointers: a caller with a scenario axis offsets the per-scenario
-// arrays (quota views, scores, phase-1 outputs, the usage tree, the
-// packed rows) by its scenario before the call; the heads' cells,
-// quantities, flags and the ancestor paths are shared.
+// The per-head body of phase 1 of the admission cycle, shared by
+// cycle_phase1.cu (the interactive cycle, one scenario) and
+// plan_phase1.cu (the planner's scenario-batched solve, kernel B14), and
+// cycle_phase2.cu's ranking of a segment's heads. The body takes base
+// pointers: a caller with a scenario axis offsets the per-scenario arrays
+// (quota views, scores, phase-1 outputs) by its scenario before the call;
+// the heads' cells, quantities, flags and the parents are shared.
 //
-// Phase 1 replaces phase1_classify (kueue_tpu/ops/assign_kernel.py:199);
-// phase 2's walk replaces the lax.scan step of solve_cycle_segmented
-// (:475) with _avail_along_path (:282) and _bubble_usage (:315).
+// Phase 1 replaces phase1_classify (kueue_tpu/ops/assign_kernel.py:199).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
-
-#include "quota_path.cuh"
 
 namespace cycle_body {
 
@@ -105,30 +100,6 @@ __device__ __forceinline__ void classify_head(const Phase1View& a, int w, int la
   }
 }
 
-// One scenario's phase-2 view.
-struct Phase2View {
-  int K, C, FR, D;
-  const int* cq_row;          // [W]
-  const int* cells;           // [W,K,C]
-  const long long* qty;       // [W,K,C]
-  const uint8_t* no_reclaim;  // [W]
-  const int* chosen;          // [W]
-  const int* preempt_k;       // [W]
-  const long long* nominal;   // [N,FR]
-  const long long* borrowing_limit;
-  const long long* subtree;
-  const long long* guaranteed;
-  const int* paths;           // [N,D+1]
-  long long* usage;           // [N,FR] the usage tree, updated
-  long long* out_admitted;    // [W]
-  long long* out_reserved;    // [W]
-};
-
-__device__ __forceinline__ int eff_k(const int* chosen, const int* preempt_k, int x) {
-  const int c = chosen[x];
-  return c >= 0 ? c : preempt_k[x];
-}
-
 // A segment's walk order: each of its m members with an entry position
 // (spos[i] >= 0; -1 = not walked) gets its rank among them, and member
 // i lands in walk[rank] when the rank is below n_steps (the JAX
@@ -147,71 +118,6 @@ __device__ __forceinline__ void rank_members(const int* spos, int m, const int* 
       r += q >= 0 && q < p;
     }
     if (r < n_steps) walk[r] = members[i];
-  }
-}
-
-// Warp 0 walks a segment's heads in rank order, one lane per cell
-// (C <= 32): available() root-down along the path, a warp vote for
-// fits, admit (chosen >= 0 and fits) or reserve (chosen < 0, a
-// preempt-mode candidate and reclaimWithinCohort != Any) with the
-// borrow or nominal cap, then the bubble of each node's over-guaranteed
-// delta up the path. Every lane reads its level before any lane adds
-// (atomicAdd), as the JAX .at[].add does. borrow_of(h) is the head's
-// borrow bit of its effective candidate.
-template <class BorrowOf>
-__device__ __forceinline__ void walk_segment(const Phase2View& a, const int* walk,
-                                             int n_walk, int lane, BorrowOf borrow_of) {
-  const int FR = a.FR, D = a.D;
-  for (int r = 0; r < n_walk; ++r) {
-    const int h = walk[r];
-    const int cq = a.cq_row[h];
-    const int* path = a.paths + (size_t)cq * (D + 1);
-    const int e = eff_k(a.chosen, a.preempt_k, h);
-    int cell = -1;
-    long long qv = 0;
-    if (lane < a.C) {
-      const size_t ci = ((size_t)h * a.K + e) * a.C + lane;
-      cell = a.cells[ci];
-      qv = a.qty[ci];
-    }
-    const bool cv = cell >= 0 && qv > 0;
-    bool ok = true;
-    long long cap = 0;
-    if (cv) {
-      ok = quota_path::avail_along_path(path, D, FR, cell, a.subtree, a.guaranteed,
-                                        a.borrowing_limit, a.usage) >= qv;
-      // reservation caps from the leaf row as this step found it
-      const size_t lx = (size_t)cq * FR + cell;
-      const long long nom = a.nominal[lx], bl = a.borrowing_limit[lx];
-      const long long leaf = a.usage[lx];
-      cap = borrow_of(h) ? (bl < quota_path::kNoLimit ? min(qv, nom + bl - leaf) : qv)
-                         : max(0LL, min(qv, nom - leaf));
-    }
-    const bool fits = __all_sync(kFull, ok);
-    const bool admit = a.chosen[h] >= 0 && fits;
-    const bool reserve = a.chosen[h] < 0 && a.preempt_k[h] >= 0 && a.no_reclaim[h];
-    long long delta = !cv ? 0 : admit ? qv : reserve ? cap : 0;
-    for (int d = 0; d <= D; ++d) {
-      const int node = path[d];  // the same on every lane
-      if (node < 0) break;
-      const size_t x = (size_t)node * FR + (cv ? cell : 0);
-      long long old = 0, g = 0;
-      if (cv) {
-        old = a.usage[x];
-        g = a.guaranteed[x];
-      }
-      __syncwarp();
-      if (cv && delta != 0) {
-        atomicAdd((unsigned long long*)&a.usage[x], (unsigned long long)delta);
-      }
-      __syncwarp();
-      delta = max(0LL, old + delta - g) - max(0LL, old - g);
-    }
-    if (lane == 0) {
-      a.out_admitted[h] = admit;
-      a.out_reserved[h] = reserve;
-    }
-    __syncwarp();
   }
 }
 

@@ -1,6 +1,8 @@
 // The phase-2 walk of the admission cycle on one warp, shared by
-// cycle_phase2.cu (B3: a root-cohort segment a block) and cycle_global.cu
-// (B3': the unsegmented cycle, a group of whole root subtrees a block):
+// cycle_phase2.cu (B3: a root-cohort segment a block), cycle_global.cu
+// (B3': the unsegmented cycle, a group of whole root subtrees a block)
+// and plan_phase2.cu (B14's phase 2: a root segment of one scenario a
+// one-warp block):
 // each head's position in the global entry order (position), the staged
 // step operands of a window of walked heads (Window, stage), and warp 0's
 // walk of a window (walk_steps): available() root-down along the path,

@@ -1,11 +1,10 @@
 // The preempt drains' candidate pools, shared by drain_preempt_search.cu
-// and drain_preempt_phase2.cu (B10, the classic preempt drain) and
-// drain_fair_preempt_search.cu (B11, the fair-preempt drain).
+// (B10, the classic preempt drain) and drain_fair_preempt_search.cu (B11,
+// the fair-preempt drain).
 //
 // Replaces the pool reads of kueue_tpu/ops/drain_kernel.py
-// solve_drain_preempt (:1890-1925, the candidate eligibility) and the
-// eviction moves of its step scan (:2050-2090); solve_drain_fair_preempt
-// repeats the reads (:2480-2540):
+// solve_drain_preempt (:1890-1925, the candidate eligibility);
+// solve_drain_fair_preempt repeats them (:2480-2540):
 //   - victim_qty: a pool slot's usage at one cell, summed from its Cv
 //     cells;
 //   - owner_borrowing: which segment nodes borrow at cycle start in a
@@ -14,10 +13,7 @@
 //     slot: it uses a cell needing preemption; a same-CQ slot passes
 //     the nomination's priority rule (`elig_same`); an other-CQ slot
 //     needs reclaimWithinCohort, its priority rule and its owner
-//     borrowing;
-//   - move_victim: a slot's usage taken off (or put back at) its
-//     owner's leaf row, each cell's change bubbled up the owner's path
-//     (exact: a bubble of -q undoes a bubble of +q).
+//     borrowing.
 
 #pragma once
 
@@ -73,27 +69,6 @@ __device__ __forceinline__ bool pool_eligible(const Args& a, int q, int sq, int 
                           (!a.p.only_lower[q] || lower) && borrow_by_local[max(ol, 0)];
   *same = same_q;
   return uses && (a.p.elig_same[(size_t)q * a.V + v] || elig_other);
-}
-
-// add sign x a victim's usage at its owner's leaf row and bubble each
-// cell's change up the owner's path (one thread)
-__device__ __forceinline__ void move_victim(const Args& a, size_t slot, long long sign) {
-  const int owner = max(a.p.sowner[slot], 0);
-  const int* path = a.t.paths + (size_t)owner * (a.D + 1);
-  for (int cv = 0; cv < a.Cv; ++cv) {
-    const int cell = a.p.pcells[slot * a.Cv + cv];
-    if (cell < 0) continue;
-    long long delta = sign * a.p.pqty[slot * a.Cv + cv];
-    a.p.leaf[(size_t)owner * a.FR + cell] += delta;
-    for (int d = 0; d <= a.D; ++d) {
-      const int node = path[d];
-      if (node < 0) continue;
-      const size_t x = (size_t)node * a.FR + cell;
-      const long long old = a.b.usage[x], g = a.t.guaranteed[x];
-      a.b.usage[x] = old + delta;
-      delta = max(0LL, old + delta - g) - max(0LL, old - g);
-    }
-  }
 }
 
 }  // namespace pool

@@ -18,9 +18,10 @@ as a grid dimension:
   scenario (quota_tree's bodies);
 - ``plan_phase1`` (``csrc/plan_phase1.cu``): cycle_phase1's body, one
   warp per (scenario, head);
-- ``plan_phase2`` (``csrc/plan_phase2.cu``): the entry order (a merge
-  sort a scenario) and cycle_phase2's segment walk, one block per
-  (segment, scenario).
+- ``plan_phase2`` (``csrc/plan_phase2.cu``): the entry order (one sort
+  a distinct priority row, then a stable partition by class a
+  scenario), each (segment, scenario)'s walk list and the segment walk
+  of cycle_walk.cuh, one warp a (segment, scenario).
 
 Per scenario it returns, packed for one host fetch:
   per_head int64[S, 6, W]  — chosen candidate, admitted flag, borrows,
@@ -64,8 +65,6 @@ from kueue_tpu_torch.ops.quota import (
     usage_tree_plain,
 )
 
-# the shared memory a plan_phase2 walk block may take (227 KB)
-MAX_SMEM = 232448
 # per-head rows of the packed result
 PER_HEAD_ROWS = 6
 # the plain phase 1 gathers [S, W, K, C] tensors: scenarios in chunks of
@@ -84,6 +83,11 @@ def _snf(x: torch.Tensor, s: int) -> torch.Tensor:
     n = x.shape[0]
     return x.reshape(n, s, -1).permute(1, 0, 2).contiguous()
 
+
+# the shared memory a plan_phase2 block may take (227 KB, less the static
+# part): a walk list is ranked in a bitmap of the W positions or, past
+# it, among the segment's positions
+MAX_SMEM = 232448 - 1024
 
 # ---- plan_quota_tree (csrc/plan_quota_tree.cu) ---------------------------
 
@@ -339,6 +343,10 @@ def plan_phase2_plain(nominal_s, borrowing_s, subtree_s, guaranteed_s, usage_s, 
     )
 
 
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
 def plan_phase2(nominal_s, borrowing_s, subtree_s, guaranteed_s, usage_s, paths,
                 heads: HeadsBatch, priority_s, seg_id, segments: Segments,
                 n_segments: int, n_steps: int, chosen, borrows_wk, preempt_k,
@@ -364,20 +372,25 @@ def plan_phase2(nominal_s, borrowing_s, subtree_s, guaranteed_s, usage_s, paths,
         raise _build.KernelInputError(f"{kernel}: takes C<={MAX_C} cells, got {c}")
     if s > 65535:
         raise _build.KernelInputError(f"{kernel}: takes S<=65535 scenarios, got {s}")
-    if 8 * segments.max_size > MAX_SMEM:
+    bitmap, positions = 2 * _align16(4 * -(-w // 32)), _align16(4 * segments.max_size)
+    if bitmap > MAX_SMEM and positions > MAX_SMEM:
         raise _build.KernelInputError(
-            f"{kernel}: a segment of {segments.max_size} heads needs "
-            f"{8 * segments.max_size} B of shared memory, above the card's {MAX_SMEM}"
+            f"{kernel}: neither a bitmap of {w} heads nor a segment of "
+            f"{segments.max_size} heads' positions fits the card's {MAX_SMEM} B of shared "
+            "memory"
         )
     dev = usage_s.device
     if out is None:
         out = torch.empty((s, PER_HEAD_ROWS, w), dtype=I64, device=dev)
     n_seg = segments.count
     q = (s, n, fr)
-    # scratch: each head's class, its position, the sort's two buffers
-    # (held here until the launch is enqueued)
+    # scratch: each head's class and position, the sort's two buffers
+    # (then the walk lists), per scenario its flags and class counts, per
+    # walk its length (held here until the launches are enqueued)
     cls = torch.empty((s, w), dtype=torch.uint8, device=dev)
     pos, idx_a, idx_b = (torch.empty((s, w), dtype=I32, device=dev) for _ in range(3))
+    ctl = torch.empty((s, 4), dtype=I32, device=dev)
+    n_walk = torch.empty((s, max(n_seg, 1)), dtype=I32, device=dev)
     ptr = _build.ptr
     ptrs = [
         ptr(kernel, "cq_row", heads.cq_row, I32, (w,)),
@@ -399,7 +412,8 @@ def plan_phase2(nominal_s, borrowing_s, subtree_s, guaranteed_s, usage_s, paths,
         ptr(kernel, "paths", paths, I32, (n, d + 1)),
         ptr(kernel, "usage", usage_s, I64, q),
         ptr(kernel, "per_head", out, I64, (s, PER_HEAD_ROWS, w)),
-        cls.data_ptr(), pos.data_ptr(), idx_a.data_ptr(), idx_b.data_ptr(),
+        cls.data_ptr(), pos.data_ptr(), idx_a.data_ptr(), idx_b.data_ptr(), ctl.data_ptr(),
+        n_walk.data_ptr(),
     ]
     ints = [s, w, k, c, n, fr, d, n_segments, n_steps, n_seg, segments.max_size]
     _call(kernel, ints, ptrs, dev)

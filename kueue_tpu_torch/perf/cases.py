@@ -75,9 +75,13 @@ def _quota(rng, lo, hi, unit=""):
     return f"{int(rng.integers(lo, hi))}{unit}"
 
 
-def mixed_spec(seed: int, cqs_per_team: int = 2, workloads_per_cq: int = 6) -> dict:
+def mixed_spec(seed: int, cqs_per_team: int = 2, workloads_per_cq: int = 6,
+               extra_flavors: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     cpu_flavors = ["fa", "fb", "fc"]
+    # flavors of a resource no workload requests, in every ClusterQueue
+    # with a fixed quota (no draw): they widen the quota tree's cells
+    extra = [f"fx-{i}" for i in range(extra_flavors)]
     gpu_flavors = ["gpu-a", "gpu-b"]
     cohorts = [{"name": "org", "parent": None, "groups": []}]
     teams = []
@@ -130,7 +134,8 @@ def mixed_spec(seed: int, cqs_per_team: int = 2, workloads_per_cq: int = 6) -> d
                      None)
                     for f in gpu_flavors[:n_gpu]
                 ],
-            }]
+            }] + ([{"resources": ["ex"], "flavors": [(f, {"ex": "1"}, None, None)
+                                                     for f in extra]}] if extra else [])
             cqs.append({
                 "name": name,
                 "cohort": team,
@@ -166,7 +171,7 @@ def mixed_spec(seed: int, cqs_per_team: int = 2, workloads_per_cq: int = 6) -> d
                 "pod_sets": pod_sets,
             })
     return {
-        "flavors": cpu_flavors + gpu_flavors,
+        "flavors": cpu_flavors + gpu_flavors + extra,
         "cohorts": cohorts,
         "cqs": cqs,
         "workloads": workloads,
@@ -209,16 +214,20 @@ def cycle_spec(seed: int, workloads_per_cq: int = 10) -> dict:
     return spec
 
 
-def preempt_spec(seed: int, victims_per_cq: int = 3, workloads_per_cq: int = 5) -> dict:
+def preempt_spec(seed: int, victims_per_cq: int = 3, workloads_per_cq: int = 5,
+                 cqs_per_team: int = 2, extra_flavors: int = 0) -> dict:
     """``mixed_spec``'s depth-3 forest (multi-podset workloads, two
     resource groups, limits) as a preemption case: each ClusterQueue
     preempts within itself (LowerPriority or LowerOrNewerEqualPriority)
     or not, reclaims within its cohort (Any, LowerPriority or Never) and
     may borrow within it (LowerPriority, maxPriorityThreshold 10 or
     none), and holds ``victims_per_cq`` admitted workloads of priority
-    0-20 on one of its cpu/memory flavors."""
+    0-20 on one of its cpu/memory flavors. ``cqs_per_team`` widens the
+    org's segment (four teams), ``extra_flavors`` the quota tree's cells
+    (``mixed_spec``)."""
     rng = np.random.default_rng(seed + 2000)
-    spec = mixed_spec(seed, workloads_per_cq=workloads_per_cq)
+    spec = mixed_spec(seed, cqs_per_team=cqs_per_team, workloads_per_cq=workloads_per_cq,
+                      extra_flavors=extra_flavors)
     within = ("LOWER_PRIORITY", "LOWER_OR_NEWER_EQUAL_PRIORITY", "NEVER")
     reclaim = ("ANY", "LOWER_PRIORITY", "NEVER")
     victims = []
@@ -424,7 +433,7 @@ def build_scheduler(spec: dict, device=None, use_solver=True, guard=None, fair_s
 
 def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
                 n_cq: int = 10, fr: int = 6, drop_steps: bool = False,
-                cohortless: float = 0.1) -> dict:
+                cohortless: float = 0.1, n_pad: int = None) -> dict:
     """A random cycle-solver input as numpy arrays: a cohort forest of
     ``depth`` levels with quotas, lending and borrowing limits (NO_LIMIT
     where unset), leaf usage, and a heads batch of ``w`` rows (a few of
@@ -436,7 +445,8 @@ def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
     HeadsBatch fields, ``paths``, ``seg_id``, ``n_segments`` and
     ``n_steps`` (below the largest segment when ``drop_steps``, so
     phase 2 drops ranks). A ClusterQueue but the first is without a
-    cohort with probability ``cohortless``."""
+    cohort with probability ``cohortless``. The last ``n_pad`` rows are
+    pads (default: an eighth of them, at least one)."""
     from kueue_tpu_torch.ops.assign_kernel import build_paths, build_roots
     from kueue_tpu_torch.ops.quota import NO_LIMIT
 
@@ -476,8 +486,9 @@ def cycle_batch(seed: int, w: int = 24, k: int = 4, c: int = 5, depth: int = 3,
     local[:n_cq] = rng.integers(0, 45, size=(n_cq, fr))
 
     cq_row = rng.integers(0, n_cq, size=w).astype(np.int32)
-    n_pad = max(1, w // 8)
-    cq_row[-n_pad:] = -1
+    n_pad = max(1, w // 8) if n_pad is None else n_pad
+    if n_pad:
+        cq_row[-n_pad:] = -1
     cells = np.full((w, k, c), -1, dtype=np.int32)
     qty = np.zeros((w, k, c), dtype=np.int64)
     for i in range(w):
@@ -718,7 +729,8 @@ def phase2_batch(seed: int, q: int = 48, depth: int = 1, big: float = 0.0, fr: i
     }
 
 
-def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, **kw) -> dict:
+def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, keep_priority=(),
+               all_tied: bool = False, all_nofit: bool = False, **kw) -> dict:
     """A random input of the planner's scenario-batched solve (kernel
     B14), as numpy arrays in ``interop.plan_inputs``' form: scenario 0
     is ``cycle_batch(seed)`` itself and every other scenario varies a
@@ -728,7 +740,12 @@ def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, **kw) -> dict:
     ``parent``, ``level_mask``, the [S, ...] stacks (``nominal_s``,
     ``lending_s``, ``borrowing_s``, ``usage_s``, ``priority_s``,
     ``score_s``), ``heads`` (the HeadsBatch fields), ``paths``,
-    ``seg_id``, ``n_segments`` and ``n_steps``."""
+    ``seg_id``, ``n_segments`` and ``n_steps``. The scenarios in
+    ``keep_priority`` keep scenario 0's priorities (a sweep's shared
+    row beside the moved ones); ``all_tied`` gives every head the same
+    priority and timestamp in every scenario (the index orders them);
+    ``all_nofit`` leaves every head without a valid candidate (one
+    class). Other keywords go to ``cycle_batch``."""
     from kueue_tpu_torch.ops.quota import NO_LIMIT
 
     b = cycle_batch(seed, drop_steps=drop_steps, **kw)
@@ -757,9 +774,16 @@ def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, **kw) -> dict:
                 lim[si],
             )
         moved = rng.random(w) < 0.3
-        priority_s[si] = np.where(moved, priority_s[si] + rng.integers(-20, 25, w), priority_s[si])
+        delta = rng.integers(-20, 25, w)
+        if si not in keep_priority:
+            priority_s[si] = np.where(moved, priority_s[si] + delta, priority_s[si])
         if si % 2:
             score_s[si] = rng.integers(-3, 4, size=(w, k))
+    if all_tied:
+        priority_s[:] = 0
+        heads["timestamp"] = np.zeros_like(heads["timestamp"])
+    if all_nofit:
+        heads["valid"] = np.zeros_like(heads["valid"])
     return {
         "parent": b["parent"], "level_mask": b["level_mask"],
         "nominal_s": nominal_s, "lending_s": lending_s, "borrowing_s": borrowing_s,
@@ -767,6 +791,35 @@ def plan_batch(seed: int, s: int = 5, drop_steps: bool = False, **kw) -> dict:
         "heads": heads, "paths": b["paths"], "seg_id": b["seg_id"],
         "n_segments": b["n_segments"], "n_steps": b["n_steps"],
     }
+
+
+# plan_batch's arguments at the edges of plan_phase2's design (one tile
+# or several, the index deciding ties, shared and own priority rows, one
+# class, dropped ranks and pads, a root whose walked paths hold more
+# nodes than a walk block stages)
+PLAN_EDGES = {
+    "W=1": dict(seed=0, s=3, w=1, n_pad=0),
+    "W=37": dict(seed=1, s=4, w=37),
+    "W=4099, tiles and merges": dict(seed=2, s=3, w=4099, n_cq=24, keep_priority=(1,)),
+    "ties": dict(seed=3, s=4, all_tied=True),
+    "shared and own priority rows": dict(seed=4, s=6, keep_priority=(1, 3, 4)),
+    "one class": dict(seed=5, s=3, all_nofit=True),
+    "dropped ranks and pads": dict(seed=6, s=5, drop_steps=True, w=40),
+    "past the walk's rows": dict(seed=7, s=3, w=96, n_cq=40, fr=64, c=6, cohortless=0.0),
+}
+
+# preempt_spec's arguments at the edges of drain_preempt_phase2's design,
+# with the drain's: overlapping targets, restored rows, both reserves,
+# other queues' victims at Cv >= 4 (16 ClusterQueues in the org); a pool
+# of 1203 slots past a block's shared memory (its victims and its pending
+# entries, under a max_victims of 2048, over 4 cycles); 12 ClusterQueues
+# a team with 56 more flavors of a resource no workload requests, whose
+# org segment's rows (M = 64 nodes, FR = 64 cells) are past it too
+PREEMPT_EDGES = {
+    "step edges": (dict(seed=4, cqs_per_team=4), {}),
+    "wide pool": (dict(seed=4, workloads_per_cq=600), dict(max_victims=2048, max_cycles=4)),
+    "wide rows": (dict(seed=4, cqs_per_team=12, extra_flavors=56), dict(max_cycles=6)),
+}
 
 
 def tas_spec(seed: int, n_tas_cq: int = 4, workloads_per_cq: int = 5) -> dict:

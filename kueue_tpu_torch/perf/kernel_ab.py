@@ -16,7 +16,8 @@ It records the inputs of every launch with work of the chosen kernels:
 ``cycle_phase2`` and the cycle's quota call site (``quota_all``) over
 the headline cycles (perf/cycle.py's Scheduler, ``CYCLES`` cycles);
 ``drain_nominate`` over three drains (the headline plain drain, the
-contended preempt drain at each panel width of its schedule, the
+contended preempt drain at each panel width of its schedule (a path
+each), the
 fair-preempt drain at the panel caps, ``build_fair_wide``); the drain's
 quota call site (``usage_and_available``) and ``drain_phase2`` over the
 headline plain drain, and ``drain_phase2`` also over the first launch of
@@ -25,7 +26,10 @@ and ``drain_tas_phase2`` over tas-drain-10k; ``drain_fair_preempt_search``
 and ``drain_fair_preempt_phase2`` over fair-preempt-1k
 (perf/fairpreempt.build_fair_preempt) and the panel caps
 (``build_fair_wide``); ``drain_fair_phase2`` over the headline fair
-drain. Then it times
+drain; ``drain_preempt_phase2`` over the contended preempt drain at each
+panel width of its schedule (a path each); ``plan_phase2`` over the one B14 call of
+``Planner.plan`` at planner-sweep-50k and at planner-stage-500. Then it
+times
 each recorded launch alone on the device, once per build in turns:
 parent, new, new, parent. A spin kernel holds the stream while the host
 enqueues the start event, the launch and the end event, so the events
@@ -51,8 +55,16 @@ no walk), ``drain_fair_preempt_phase2`` and ``drain_fair_phase2`` with
 with ``no_cand`` (the cycle's need_pre cleared, so no slot is a
 candidate and every search gives up at its first pick, one a phase:
 the staging alone), every drain kernel and the drain's quota site with
-the done flag set (the launch's floor), and ``cycle_global`` with every
-head made no-fit (chosen and preempt_k -1: the positions alone).
+the done flag set (the launch's floor), ``cycle_global`` with every
+head made no-fit (chosen and preempt_k -1: the positions alone),
+``drain_preempt_phase2`` with ``n_steps = 0`` (its staging and ranking
+alone) and ``done``, and ``plan_phase2`` as the device time of its
+launches by part, read from a ``torch.profiler`` trace of each recorded
+call: the entry order (every launch but the walk's) and the walk
+(launches whose kernel name holds ``walk``), beside a stable
+``torch.argsort`` lexsort of the same keys (the plain version's
+``_lexsort_rows``, timed alone; a yardstick for the sort, used on no
+path).
 ``--kernel NAME``: record and time that kernel only (repeatable).
 
 It also measures the card's shared-memory load latency (one thread
@@ -63,7 +75,11 @@ longest root cohort, beside all its walked heads; ``drain_tas_phase2``:
 every walked head, a shared topology couples them; ``drain_fair_preempt_phase2``
 and ``drain_fair_phase2``: the pops of its longest segment, 2(D+1) trips a
 pop; ``drain_fair_preempt_search``: the iterations of its longest search,
-counted by the plain version, 4(D+1) + 8 trips an iteration). Prints the ptxas lines
+counted by the plain version, 4(D+1) + 8 trips an iteration;
+``drain_preempt_phase2``: two trips a walked head of its longest
+segment and two more a preempter among them, which removes its victims
+first; ``plan_phase2``: the longest (segment, scenario) walk's heads).
+Prints the ptxas lines
 (registers, stack frame, spills) of each build, a line per kernel, path
 and build, and as its last line a JSON object with every number.
 """
@@ -85,7 +101,8 @@ import numpy as np
 
 KERNELS = ("cycle_phase2", "drain_nominate", "quota_tree", "drain_phase2", "drain_tas_phase2",
            "cycle_global", "drain_tas_place", "drain_fair_preempt_search",
-           "drain_fair_preempt_phase2", "drain_fair_phase2")
+           "drain_fair_preempt_phase2", "drain_fair_phase2", "drain_preempt_phase2",
+           "plan_phase2")
 CYCLES = 30  # headline Scheduler cycles recorded (chip_smoke.py's STEADY_CYCLES)
 SPIN = 2_000_000  # about 1 ms of the card's clock before each timed launch
 CHASE_HOPS = (1 << 20, 1 << 21)
@@ -140,6 +157,13 @@ def _drain_ptrs(csrc: Path) -> int:
     return sum(int(x) for x in expr.split("+"))
 
 
+def _plan_ptrs(csrc: Path) -> int:
+    """The number of pointers ``csrc``'s plan_phase2 takes (an older
+    build takes fewer scratch pointers, the last ones)."""
+    text = (csrc / "plan_phase2.cu").read_text()
+    return int(text.split("n_ptrs != ")[1].split(")")[0])
+
+
 def build(csrc: Path, out: Path, names=KERNELS) -> dict:
     """Build ``names`` from ``csrc`` into ``out`` (in parallel); returns
     {name: (library, ptxas lines)}. A drain kernel of a build with fewer
@@ -157,6 +181,7 @@ def build(csrc: Path, out: Path, names=KERNELS) -> dict:
         built[name] = (lib, lines)
     built["_drain_ints"] = _drain_ints(csrc)
     built["_drain_ptrs"] = _drain_ptrs(csrc)
+    built["_plan_ptrs"] = _plan_ptrs(csrc)
     return built
 
 
@@ -168,6 +193,10 @@ def entry(built: dict, kernel: str, symbol: str = None):
     fn.restype = ctypes.c_int
     if symbol is None or symbol == kernel:
         fn.argtypes = _argtypes()
+    if kernel == "plan_phase2":
+        n_own = built["_plan_ptrs"]
+        return lambda ints, n, ptrs, n_ptrs, stream: fn(ints, n, ptrs, min(n_ptrs, n_own),
+                                                        stream)
     if kernel.startswith("drain_"):
         n_ints, n_own = built["_drain_ints"], built["_drain_ptrs"]
         return lambda ints, n, ptrs, n_ptrs, stream: fn(ints, min(n, n_ints), ptrs,
@@ -316,7 +345,8 @@ def record_drains(dev, kernels) -> dict:
     recs = _record_drain(ctx, dk.DrainState.initial(local, queues, plan.max_cycles),
                          dk.CycleBuffers.empty(local, queues), STEPS, kernels)
     for k in kernels:
-        out[k]["headline"] = recs[k]
+        if k != "drain_preempt_phase2":  # not a plain drain's kernel
+            out[k]["headline"] = recs[k]
 
     if "drain_phase2" in kernels:
         bound = megaloop.CHUNK_CYCLES * megaloop.MAX_ROUNDS
@@ -329,21 +359,24 @@ def record_drains(dev, kernels) -> dict:
                              MEGALOOP_STEPS, ("drain_phase2",))
         out["drain_phase2"]["megaloop"] = recs["drain_phase2"]
 
-    if "drain_nominate" not in kernels:
+    pre_names = tuple(k for k in ("drain_nominate", "drain_preempt_phase2") if k in kernels)
+    if not pre_names:
         return out
     env = contended.build_contended(np.random.default_rng(contended.SEED))
     plan, _, tree, paths, local, queues, victims = pd.preempt_drain_inputs(
         take_snapshot(env.cache), env.pending, env.cache.flavors, dev, timestamp_fn=env.ts_fn)
-    recs = []
     for width in contended.CONTENDED_PANELS["widths"]:
         ctx = dk.DrainContext.build(
             tree, queues, paths, plan.n_segments, plan.n_steps, plan.max_cycles,
             preempt=dk.PreemptInputs(victims=victims, search_width=int(width)))
-        recs += _record_drain(ctx, dk.PreemptState.initial_preempt(local, queues,
-                                                                   plan.max_cycles, victims),
-                              dk.PreemptBuffers.empty_preempt(local, queues, victims),
-                              PREEMPT_STEPS, ("drain_nominate",))["drain_nominate"]
-    out["drain_nominate"]["contended"] = recs
+        tier = _record_drain(ctx, dk.PreemptState.initial_preempt(local, queues,
+                                                                  plan.max_cycles, victims),
+                             dk.PreemptBuffers.empty_preempt(local, queues, victims),
+                             PREEMPT_STEPS, pre_names)
+        for k in pre_names:
+            out[k][f"contended drain at width {width}"] = tier[k]
+    if "drain_nominate" not in kernels:
+        return out
 
     wenv = fp.build_fair_wide(np.random.default_rng(fp.WIDE_SEED))
     plan, _, tree, paths, local, queues, victims, panels, fair = pd.fair_preempt_drain_inputs(
@@ -425,6 +458,37 @@ def record_fair(dev) -> list:
     return _record_drain(ctx, dk.DrainState.initial(local, queues, plan.max_cycles),
                          dk.CycleBuffers.empty(local, queues), FAIR_STEPS,
                          ("drain_fair_phase2",))["drain_fair_phase2"]
+
+
+def record_plans(dev) -> dict:
+    """{path: [plan_phase2 arguments]}: the one plan_phase2 call of
+    ``Planner.plan`` at planner-sweep-50k and at planner-stage-500 (its
+    usage trees copied before the launch)."""
+    from kueue_tpu_torch.core.snapshot import take_snapshot
+    from kueue_tpu_torch.ops import plan_kernel as plk
+    from kueue_tpu_torch.perf import planner as pp
+
+    out = {}
+    saved = plk.plan_phase2
+    for label, build in (("planner-sweep-50k", lambda: pp.build_sweep(
+            np.random.default_rng(pp.SWEEP_SEED), device=dev)),
+            ("planner-stage-500", lambda: pp.build_stage(device=dev))):
+        planner, scens, cache, _ = build()
+        recs = []
+
+        def spy(*args, **kw):
+            kw = dict(kw)
+            kw.pop("out", None)
+            recs.append((_clone(args), kw))
+            return saved(*args, **kw)
+
+        plk.plan_phase2 = spy
+        try:
+            planner.plan(scenarios=scens, heads_mode="backlog", include_reasons="none")
+        finally:
+            plk.plan_phase2 = saved
+        out[label] = recs
+    return out
 
 
 # ---- the launches ---------------------------------------------------------
@@ -514,6 +578,46 @@ def search_iterations(rec) -> int:
     return max(counts, default=0)
 
 
+def preempt_chain_trips(rec) -> int:
+    """Dependent shared-memory trips of a drain_preempt_phase2 launch's
+    longest segment: two a walked head (read its path's rows, add) and
+    two more a preempter among them (its victims' rows read, then
+    removed); walked heads are the nominated, active queues, at most
+    n_steps a segment in entry order."""
+    ctx, state, buf = rec
+    q = ctx.queues
+    seg = q.seg_id.cpu().numpy()
+    active = ((state.cursor < q.qlen) & state.alive).cpu().numpy()
+    walked = (buf.is_fit | buf.is_pre).cpu().numpy() & active
+    walked &= (seg >= 0) & (seg < ctx.n_segments)
+    pre = buf.psuccess.cpu().numpy() & walked
+    best = 0
+    for g in np.unique(seg[walked]):
+        heads = np.nonzero(walked & (seg == g))[0]
+        n = min(len(heads), ctx.n_steps)
+        # preempters among all the segment's walkable heads: exact where
+        # no rank is dropped (n_steps covers the segment)
+        best = max(best, 2 * n + 2 * min(int(pre[heads].sum()), n))
+    return best
+
+
+def plan_chain_heads(rec) -> int:
+    """Walked heads of a plan_phase2 call's longest (segment, scenario)
+    walk: heads with an effective candidate, a ClusterQueue and a
+    segment below n_segments, at most n_steps a segment."""
+    args, _ = rec
+    heads, seg_t, n_segments, n_steps, chosen, pk = (args[6], args[8], args[10], args[11],
+                                                      args[12], args[14])
+    seg = seg_t.cpu().numpy()
+    live = (heads.cq_row.cpu().numpy() >= 0) & (seg >= 0) & (seg < n_segments)
+    walked = ((chosen >= 0) | (pk >= 0)).cpu().numpy() & live[None]
+    best = 0
+    for si in range(walked.shape[0]):
+        if walked[si].any():
+            best = max(best, int(min(np.bincount(seg[walked[si]]).max(), n_steps)))
+    return best
+
+
 def tas_chain_heads(rec) -> int:
     """Walked heads of a drain_tas_phase2 launch: its nominated, active
     queues on a ClusterQueue, at most n_steps (one global scan)."""
@@ -564,6 +668,77 @@ tas_place_launch = _drain_launch("drain_tas_place")
 fair_preempt_launch = _drain_launch("drain_fair_preempt_phase2")
 fair_search_launch = _drain_launch("drain_fair_preempt_search")
 fair_launch = _drain_launch("drain_fair_phase2")
+preempt_phase2_launch = _drain_launch("drain_preempt_phase2")
+
+
+def plan_launch(rec, variant, built):
+    """One plan_phase2 call on a fresh copy of its usage trees."""
+    from kueue_tpu_torch.ops import plan_kernel as plk
+
+    args, kw = rec
+    args = list(args)
+    args[4] = args[4].clone()
+    return [lambda: plk.plan_phase2(*args, **kw)], lambda packed: (packed, args[4])
+
+
+def plan_split_us(records, builds, order) -> dict:
+    """plan_phase2's device time by part, per build: each recorded call
+    traced by torch.profiler once per entry of ``order``, its launches'
+    device times summed into the entry order (every launch whose kernel
+    name does not hold ``walk``) and the walk; beside them a stable
+    torch.argsort lexsort of the order's keys (``_lexsort_rows``), timed
+    alone on the same card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kueue_tpu_torch.ops import plan_kernel as plk
+
+    parts = {name: {"order": [], "walk": []} for name in builds}
+    by_kernel = {name: {} for name in builds}
+    for rec in records:
+        for name in order:
+            with using(builds[name]):
+                fns, _ = plan_launch(rec, None, builds[name])
+                fns[0]()  # warm
+                torch.cuda.synchronize()
+                fns, _ = plan_launch(rec, None, builds[name])
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fns[0]()
+                    torch.cuda.synchronize()
+            us = {"order": 0.0, "walk": 0.0}
+            for ev in prof.events():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                if "memset" in ev.name.lower() or "memcpy" in ev.name.lower():
+                    continue
+                t = ev.time_range.elapsed_us()
+                us["walk" if "walk" in ev.name else "order"] += t
+                short = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
+                short = short.split("::")[-1].split("<")[0]
+                by_kernel[name].setdefault(short, []).append(t)
+            for k, v in us.items():
+                parts[name][k].append(v)
+    out = {f"{name} {k}": float(np.mean(v)) for name, d in parts.items() for k, v in d.items()}
+    # each kernel's device us a call (summed over its launches, e.g. the
+    # merge passes), for the record
+    n_calls = {name: len(records) * order.count(name) for name in builds}
+    out["by kernel"] = {name: {k: float(np.sum(v)) / n_calls[name] for k, v in d.items()}
+                        for name, d in by_kernel.items()}
+    timer = Timer()
+    lex = []
+    for rec in records:
+        args, _ = rec
+        heads, priority_s = args[6], args[7]
+        chosen, borrows_wk, pk = args[12], args[13], args[14]
+        s, w = priority_s.shape
+        eff = torch.where(chosen >= 0, chosen, pk)
+        hb = borrows_wk.gather(2, eff.clamp_min(0).long()[..., None])[..., 0] & (eff >= 0)
+        keys = (heads.timestamp.expand(s, w), -priority_s, hb.to(torch.int64),
+                (eff < 0).to(torch.int64))
+        t, _ = timer(lambda: ([lambda: plk._lexsort_rows(keys)], lambda o: (o,)))
+        lex.append(t)
+    out["torch.argsort lexsort"] = float(np.mean(lex))
+    return out
 
 
 def _old_global(built, tree, sub, g, usage, paths, heads, chosen, borrows, pk):
@@ -765,7 +940,8 @@ SPLITS = {"cycle_phase2": ("n_steps=0",), "drain_nominate": ("done",),
           "cycle_global": ("positions",), "drain_tas_place": ("done",),
           "drain_fair_preempt_search": ("no_cand", "done"),
           "drain_fair_preempt_phase2": ("n_steps=0", "done"),
-          "drain_fair_phase2": ("n_steps=0", "done")}
+          "drain_fair_phase2": ("n_steps=0", "done"),
+          "drain_preempt_phase2": ("n_steps=0", "done")}
 
 
 def main(argv=None) -> int:
@@ -804,8 +980,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     cyc = (record_cycles(dev) if {"cycle_phase2", "quota_tree", "cycle_global"} & set(kernels)
            else {})
-    drain_kernels = tuple(k for k in ("drain_nominate", "quota_tree", "drain_phase2")
-                          if k in kernels)
+    drain_kernels = tuple(k for k in ("drain_nominate", "quota_tree", "drain_phase2",
+                                      "drain_preempt_phase2") if k in kernels)
     drains = record_drains(dev, drain_kernels) if drain_kernels else {}
     paths = []
     if "cycle_phase2" in kernels:
@@ -815,10 +991,18 @@ def main(argv=None) -> int:
                       quota_drain_launch))
         paths.append(("quota_tree", "headline cycle call site", cyc["quota_tree"],
                       quota_cycle_launch))
+    def named(label):  # a drain's path
+        return label if "drain" in label else f"{label} drain"
+
     for label, recs in drains.get("drain_nominate", {}).items():
-        paths.append(("drain_nominate", f"{label} drain", recs, nominate_launch))
+        paths.append(("drain_nominate", named(label), recs, nominate_launch))
     for label, recs in drains.get("drain_phase2", {}).items():
         paths.append(("drain_phase2", f"{label} drain", recs, phase2_launch))
+    for label, recs in drains.get("drain_preempt_phase2", {}).items():
+        paths.append(("drain_preempt_phase2", named(label), recs, preempt_phase2_launch))
+    plans = record_plans(dev) if "plan_phase2" in kernels else {}
+    for label, recs in plans.items():
+        paths.append(("plan_phase2", label, recs, plan_launch))
     tas_names = tuple(k for k in ("drain_tas_place", "drain_tas_phase2") if k in kernels)
     tas_recs = record_tas(dev, tas_names) if tas_names else {}
     tas = tas_recs.get("drain_tas_phase2", [])
@@ -865,19 +1049,33 @@ def main(argv=None) -> int:
                          cyc["cycle_phase2"], all_walked_heads)]
     if tas:
         chain_paths.append(("drain_tas_phase2", "tas-drain-10k", tas, tas_chain_heads))
+    chain_paths += [("plan_phase2", label, recs, plan_chain_heads)
+                    for label, recs in plans.items()]
+    # B10b: its count is in trips (two a walked head, two more a preempter)
+    chain_paths += [("drain_preempt_phase2", named(label), recs, preempt_chain_trips)
+                    for label, recs in drains.get("drain_preempt_phase2", {}).items()]
     for kname, label, recs, count in chain_paths:
         chains = [count(r) for r in recs] or [0]
-        hops = HOPS_PER_HEAD
+        hops = 1 if kname == "drain_preempt_phase2" else HOPS_PER_HEAD
         if kname.startswith("drain_fair") and recs:
             d1 = recs[0][0].tree.max_depth + 1
             hops = 4 * d1 + SEARCH_TRIPS if kname == "drain_fair_preempt_search" else 2 * d1
         chain_us = float(np.mean(chains)) * hops * lat * 1e-3
         result["chains"][f"{kname} [{label}]"] = {"heads": chains, "bound_us": chain_us,
                                                    "trips": hops}
+        what = ("dependent trips" if kname == "drain_preempt_phase2"
+                else f"heads, {hops} trips a head")
         print(f"{kname} [{label}]: the longest segments walk {float(np.mean(chains)):.2f} "
-              f"heads (max {max(chains)}): chain bound {chain_us:.4f} us a launch "
-              f"({hops} trips a head)")
+              f"{what} (max {max(chains)}): chain bound {chain_us:.4f} us a launch")
 
+    for label, recs in plans.items():
+        if args.split:
+            key = f"plan_phase2 [{label}, split]"
+            res = plan_split_us(recs, builds, order)
+            result["times_us"][key] = res
+            print(f"{key}: " + ", ".join(f"{k} {v:.2f} us" for k, v in res.items()
+                                         if k != "by kernel")
+                  + f"; by kernel {json.dumps(res['by kernel'])}")
     for kname, label, recs, make in paths:
         splits = SPLITS.get(kname, ())
         if kname == "quota_tree" and "drain" in label:

@@ -110,6 +110,15 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   rows, then its heads' tables, exceed a block's shared memory (the
   device-row path, then the step scan over device memory).
 
+- the preempt step scan and the planner's order and walk redesigned for
+  the card: drain_preempt_phase2 with the preempt cycle's other launches
+  bit-exact at every cycle of perf.cases.PREEMPT_EDGES (overlapping
+  targets, restored rows, reserves under a cap and NO_LIMIT, other
+  queues' victims; a pool of 2048 slots and a segment of 512 nodes past
+  a block's shared memory); the B14 launches bit-exact at
+  perf.cases.PLAN_EDGES (W = 1, 37 and 4099, ties, shared and own
+  priority rows, one class, dropped ranks, pads, a walk on device rows).
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
@@ -1770,3 +1779,54 @@ def test_fair_phase2_on_segments_beyond_shared_memory(cuda, per_team):
         label=f"fair_spec, {per_team} a team", fair=fair, stop_after=6)
     assert cycles > 0
     assert set(errs) == set(FAIR_KERNELS) and not any(errs.values())
+
+
+# ---- the preempt step scan (B10b) and the planner's order and walk (B14's
+# phase 2) redesigned: at the CPU tests' edges (tests/test_torch_preempt_plan_edges.py)
+
+
+@pytest.mark.parametrize("edge", sorted(cases.PREEMPT_EDGES))
+def test_preempt_phase2_bit_exact_at_the_step_edges(cuda, edge):
+    """drain_preempt_phase2, with the preempt cycle's other launches,
+    equal to its plain version at every cycle: the step edges (overlap,
+    restored rows, both reserves, other queues' victims), a pool and a
+    segment's rows past a block's shared memory (the device paths)."""
+    from kueue_tpu_torch.perf.lockstep import PREEMPT_KERNELS, lockstep_preempt
+
+    spec_kw, drain_kw = cases.PREEMPT_EDGES[edge]
+    cache, pending = build_cache(cases.preempt_spec(**spec_kw))
+    plan, _, tree, paths, local, queues, victims = pd.preempt_drain_inputs(
+        take_snapshot(cache), pending, cache.flavors, cuda,
+        max_victims=drain_kw.get("max_victims", 512))
+    if edge == "wide pool":
+        assert victims.scells.shape[1] * (12 * victims.scells.shape[2] + 4) > 231424
+    if edge == "wide rows":
+        assert victims.seg_nodes.shape[1] * tree.nominal.shape[1] * 64 > 231424
+    errs = {}
+    _, state, cycles = lockstep_preempt(
+        tree, local, queues, victims, paths, plan.n_segments, plan.n_steps, plan.max_cycles,
+        32, errs, label=edge, stop_after=drain_kw.get("max_cycles"))
+    assert cycles > 0
+    assert set(errs) == set(PREEMPT_KERNELS) and not any(errs.values())
+
+
+@pytest.mark.parametrize("edge", sorted(cases.PLAN_EDGES))
+def test_plan_phase2_bit_exact_at_the_order_edges(cuda, edge):
+    """The B14 launches equal to their plain versions at plan_phase2's
+    edges (one tile or several, ties, shared and own priority rows, one
+    class, dropped ranks, pads, device rows), and the packed result to
+    the CPU's: the order row is the lexsort's in every scenario."""
+    from kueue_tpu_torch.ops import plan_kernel as plk
+    from kueue_tpu_torch.perf.lockstep import PLAN_KERNELS, plan_solve
+
+    b = cases.plan_batch(**cases.PLAN_EDGES[edge])
+    errs = {}
+    buf = plan_solve(**interop.plan_inputs(b, cuda), n_segments=b["n_segments"],
+                     n_steps=b["n_steps"], check=Lockstep(errs, label=edge))
+    torch.cuda.synchronize()
+    assert errs == {name: 0 for name in PLAN_KERNELS}
+    s, n, fr = b["nominal_s"].shape
+    per_head, usage = plk.solve_scenarios_plain(
+        **interop.plan_inputs(b, "cpu"), n_segments=b["n_segments"], n_steps=b["n_steps"])
+    ph, u = plk.unpack(buf.cpu(), s, b["heads"]["cq_row"].shape[0], n, fr)
+    assert torch.equal(ph, per_head) and torch.equal(u, usage)
