@@ -217,7 +217,7 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
       cycles of a Gavel Scheduler on cuda (every cycle launch held to
       its plain version) equal to the same cycles on the CPU, score
       breakdowns included;
-   d. times at both planner cells: the plan's wall (median of 3) and
+   d. times at both planner cells: the plan's wall (median of 2) and
       its spans (snapshot and lowering, stacking, the device solve with
       its upload and fetch, decode, ranking), the solve with its inputs
       on the card, every B14 launch alone with its bytes bound, and
@@ -237,7 +237,8 @@ GlobalScheduler at bench.py's 50-worker stage (phase 14).
       seconds a cycle); B3' held to its plain version on seeded
       ``cycle_batch`` problems (reservations, preempt-mode heads,
       depth 3, a 3000-ClusterQueue tree beyond one block's shared
-      memory) and ``entry(device="cuda")``'s;
+      memory), ``entry(device="cuda")``'s and at W = 17,500, whose
+      classes and member lists take the wide layout (a device scratch);
    b. kernel B1' (quota_drs: lendable_per_resource and
       dominant_resource_share) on fair-preempt-1k's snapshot and the
       headline's after its 30 cycles, with a zero and a seeded nonzero
@@ -323,6 +324,7 @@ SMALL_FAIR_PREEMPT_SEED = 1  # fair_preempt_spec seed: depth 3, weights 0-2000
 SMALL_FAIR_PREEMPT_CYCLES = 32  # its decisions end by cycle 13; stalled heads then spin
 TAS_LOCKSTEP_CYCLES = 160  # tas-drain-10k is held in lockstep over its first 160 of
 # 490 cycles (its main-path run goes all 490 against TAS_DRAIN_EXPECT)
+PLAN_REPS = 2  # the planner cells' timed repeats (host-bound walls; medians of 2)
 SMALL_PREEMPT_SEED = 6  # preempt_spec seed: depth 3, three podsets, 65 cycles,
 # within-CQ preemption and cross-CQ reclamation, a stuck queue
 TRIPS_PER_HEAD = 2  # a walked head's dependent shared-memory trips: read its rows, add
@@ -3038,13 +3040,13 @@ def planner_path(dev) -> dict:
     print(f"{stamp()} planner-stage-500 with verify_host=True: the numpy mirror equals the "
           f"card in all {len(rep.scenarios)} scenarios")
 
-    # 12d. times: the plan's wall and spans (median of 3, warm), the
+    # 12d. times: the plan's wall and spans (median of PLAN_REPS, warm), the
     # solve with its inputs on the card, every launch alone, the
     # sequential shape
     out = {"errs": errs, "launches": launches, "cells": {}}
     for label, c in cells.items():
         walls, span_runs = [], []
-        for _ in range(3):
+        for _ in range(PLAN_REPS):
             spans = {}
             torch.cuda.synchronize()
             with timed_plan_spans(spans):
@@ -3055,7 +3057,7 @@ def planner_path(dev) -> dict:
             span_runs.append(spans)
         inp, steps = c["cap"].inputs, c["cap"].steps
         solves = []
-        for _ in range(3):
+        for _ in range(PLAN_REPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             plk.solve_scenarios_packed(**inp, **steps).cpu()
@@ -3069,7 +3071,7 @@ def planner_path(dev) -> dict:
             return o
 
         s_, n_, fr_ = inp["nominal_s"].shape
-        for _ in range(3):
+        for _ in range(PLAN_REPS):
             buf = plan_solve(**inp, **steps, check=check)
         # the same inputs every time: the bytes once
         ph, _ = plk.unpack(buf, s_, inp["heads"].cq_row.shape[0], n_, fr_)
@@ -3079,7 +3081,7 @@ def planner_path(dev) -> dict:
             seg < steps["n_segments"])
         p_chain = max(chain_heads(live & ((chosen[si] >= 0) | (pk[si] >= 0)), seg,
                                   steps["n_steps"]) for si in range(s_))
-        for _ in range(3):
+        for _ in range(PLAN_REPS):
             timer.add_bytes(plan_launch_bytes(inp, captured["plan_phase1"], ph))
             timer.add_chain("plan_phase2", p_chain)
         timing = {n: timing_of(timer, n, plain[label]) for n in PLAN_KERNELS}
@@ -3093,7 +3095,7 @@ def planner_path(dev) -> dict:
                                "timing": timing, "sequential_ms_per_scenario": seq,
                                "batched_ms_per_scenario": solve_ms / s_,
                                "shape": c["shape"], "sweep_ms": 1e3 * rep.sweep_s}
-        print(f"{stamp()} Planner.plan at {label} (median of 3): {wall:.1f} ms; spans "
+        print(f"{stamp()} Planner.plan at {label} (median of {PLAN_REPS}): {wall:.1f} ms; spans "
               + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
               + f" ms; the solve with its inputs on the card (three launches, one fetch) "
               f"{solve_ms:.2f} ms = {solve_ms / s_:.4f} ms a scenario; the sequential shape "
@@ -3404,6 +3406,31 @@ def mesh_path(dev, cache, pending, walls) -> dict:
           f"W up to 200; a 3000-ClusterQueue tree): bit-exact to its plain version and to "
           f"B3; entry(device='cuda') ({int(got.admitted.sum())} of {got.admitted.shape[0]} "
           f"admitted) equal to solve_cycle_plain")
+    # ... and past the classes and member lists a block holds: W = 17,500,
+    # the wide layout (its lists in a device scratch), held to its plain
+    # version on the card
+    t0 = time.perf_counter()
+    b = cases.global_wide_batch(0, 17500)
+    tree, heads = interop.quota_tree(b, dev), interop.heads_batch(b, dev)
+    local, paths = torch.tensor(b["local_usage"], device=dev), torch.tensor(b["paths"], device=dev)
+    sub, g = q.subtree_quota(tree)
+    usage = q.usage_tree(tree, g, local)
+    ph = ak.phase1_classify(tree, sub, g, local, heads)
+    forest = ak.tree_forest(tree)
+    lay = ak.global_layout(17500, b["cells"].shape[2], tree.nominal.shape[1], tree.max_depth,
+                           forest.bins.shape[0], forest.max_bin)
+    if lay["keys"] != 2:
+        fail(f"B3' at W=17,500 did not take the wide layout: {lay}")
+    u2 = usage.clone()
+    check("cycle_global",
+          lambda: (ak.cycle_global(tree, sub, g, usage, paths, heads, *ph), usage),
+          lambda: (ak.cycle_global_plain(tree, sub, g, u2, paths, heads, *ph), u2))
+    errs["cycle_global"] = max(errs["cycle_global"], check_errs.get("cycle_global", 0))
+    if check.failures:
+        fail(f"B3' at W=17,500: {check.failures}")
+    print(f"{stamp()} B3' at W=17,500 (C=3, FR=17, depth 1; the classes and member lists in "
+          f"a device scratch of {lay['scratch']} ints): bit-exact to its plain version "
+          f"({int(u2.ne(0).sum())} usage cells; {time.perf_counter() - t0:.1f} s)")
 
     # 13d. B3' timed alone at every headline cycle, B3 beside it on the
     # same heads; the plain step loop on the card at the first cycle

@@ -20,6 +20,13 @@
 //      is too wide for them);
 //   2. takes as its members the heads whose ClusterQueue lies in its
 //      group, and the pads (cq_row < 0) of index b modulo the grid;
+//      where W is too wide for the classes and member lists in shared
+//      memory (beyond ~17,000 heads), they go to a device scratch: the
+//      classes written once by a first launch (`classes`), each block's
+//      member lists in a region of 3 x its member count claimed from a
+//      counter once it has counted them (the regions tile 3 x W ints),
+//      its position bits and their prefix in a region of its own; the
+//      windows and rows take the shared memory;
 //   3. gives each member its global position in the entry order (no-fit
 //      last, non-borrowing first, priority desc, timestamp asc, head index
 //      asc: the index is jnp.lexsort's stability), a warp a member, the
@@ -68,7 +75,8 @@ struct Layout {
   int rows;          // the group's rows, `rows_bytes` of them
   int rows_bytes;
   int win;
-  int keys;          // 1 when the priorities and timestamps are staged
+  int keys;          // 1 when the priorities and timestamps are staged, 2 when
+                     // the classes and member lists are in the device scratch
   int total;
 };
 
@@ -93,25 +101,47 @@ struct Args {
   const int* bins;            // [n_bins, bins_stride]: a bin's level starts, its end last
   long long* usage;           // [N,FR] the cycle usage tree, updated
   long long* packed;          // [5,W]
+  int* scratch;               // keys == 2: the counter, the member lists [3W], the
+                              // blocks' position bits [grid, 2 ceil(W/32)], the classes
   Layout lay;
 };
 
-template <bool kKeys>
+// The device scratch of the wide layout (keys == 2), in ints.
+__host__ __device__ inline size_t scratch_lists(const Args&) { return 1; }
+__host__ __device__ inline size_t scratch_bits(const Args& a) { return 1 + 3 * (size_t)a.W; }
+__host__ __device__ inline size_t scratch_cls(const Args& a, int grid) {
+  return scratch_bits(a) + (size_t)grid * 2 * ((a.W + 31) / 32);
+}
+
+// The wide layout's first launch: every head's class, once, and the
+// member-list counter zeroed.
+__global__ void classes(Args a, int grid) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  uint8_t* cls = (uint8_t*)(a.scratch + scratch_cls(a, grid));
+  if (j == 0) a.scratch[0] = 0;
+  if (j >= a.W) return;
+  const int ch = __ldg(a.chosen + j), pk = __ldg(a.preempt_k + j);
+  const int e = ch >= 0 ? ch : pk;
+  cls[j] = e < 0 ? 2 : (__ldg(a.borrows + (size_t)j * a.K + e) ? 1 : 0);
+}
+
+template <bool kKeys, bool kDev>
 __global__ void __launch_bounds__(kThreads) walk_roots(Args a) {
   const Layout& L = a.lay;
   long long* prio = (long long*)(smem + L.prio);
   long long* ts = (long long*)(smem + L.ts);
-  uint8_t* cls = smem + L.cls;
   const int W = a.W, nw = (W + 31) / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x, G = gridDim.x;
+  uint8_t* cls = kDev ? (uint8_t*)(a.scratch + scratch_cls(a, G)) : smem + L.cls;
   int* mem = (int*)(smem + L.mem);
   int* members = mem;
   int* spos = members + W;
   int* walk = spos + W;
-  unsigned* bits = (unsigned*)(walk + W);
+  unsigned* bits = kDev ? (unsigned*)(a.scratch + scratch_bits(a) + (size_t)b * 2 * nw)
+                        : (unsigned*)(walk + W);
   int* pre = (int*)(bits + nw);
-  __shared__ int n_mem, n_walk_s;
+  __shared__ int n_mem, n_walk_s, m_base;
 
   // the group's bins and its run of forest positions
   const int lo = (int)((long long)b * a.n_bins / G);
@@ -121,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) walk_roots(Args a) {
 
   // a thread's heads j = tid + i * kThreads, kStage at a time: every
   // load of a round issued before the round's dependent borrow bits
-  for (int base = 0; base < W; base += kStage * kThreads) {
+  for (int base = 0; base < (kDev ? 0 : W); base += kStage * kThreads) {
     int e[kStage];
     long long pr[kStage], tm[kStage];
 #pragma unroll
@@ -153,19 +183,33 @@ __global__ void __launch_bounds__(kThreads) walk_roots(Args a) {
   if (tid == 0) n_mem = 0;
   __syncthreads();
 
-  // the members, appended a warp at a time
+  // the members, appended a warp at a time (in the wide layout counted
+  // first, then appended to the region claimed for them)
+  auto is_member = [&](int x) {
+    if (x >= W) return false;
+    const int cq = __ldg(a.cq_row + x);
+    if (cq < 0) return x % G == b;
+    const int p = __ldg(a.pos_of + cq);
+    return p >= p_lo && p < p_hi;
+  };
+  if (kDev) {
+    for (int base = 0; base < W; base += kThreads) {
+      const unsigned hit = __ballot_sync(kFull, is_member(base + tid));
+      if (lane == 0 && hit) atomicAdd(&n_mem, __popc(hit));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      m_base = n_mem ? atomicAdd(a.scratch, n_mem) : 0;
+      n_mem = 0;
+    }
+    __syncthreads();
+    members = a.scratch + scratch_lists(a) + m_base;
+    spos = members + W;
+    walk = spos + W;
+  }
   for (int base = 0; base < W; base += kThreads) {
     const int x = base + tid;
-    bool mine = false;
-    if (x < W) {
-      const int cq = __ldg(a.cq_row + x);
-      if (cq >= 0) {
-        const int p = __ldg(a.pos_of + cq);
-        mine = p >= p_lo && p < p_hi;
-      } else {
-        mine = x % G == b;
-      }
-    }
+    const bool mine = is_member(x);
     const unsigned hit = __ballot_sync(kFull, mine);
     int first = 0;
     if (lane == 0 && hit) first = atomicAdd(&n_mem, __popc(hit));
@@ -272,14 +316,15 @@ __global__ void __launch_bounds__(kThreads) walk_roots(Args a) {
   }
 }
 
-template <bool kKeys>
+template <bool kKeys, bool kDev>
 int launch(const Args& a, int grid, cudaStream_t stream) {
   if (a.lay.total > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
-        walk_roots<kKeys>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.lay.total);
+        walk_roots<kKeys, kDev>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.lay.total);
     if (rc != cudaSuccess) return (int)rc;
   }
-  walk_roots<kKeys><<<grid, kThreads, a.lay.total, stream>>>(a);
+  if (kDev) classes<<<(a.W + 255) / 256, 256, 0, stream>>>(a, grid);
+  walk_roots<kKeys, kDev><<<grid, kThreads, a.lay.total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -288,12 +333,13 @@ int launch(const Args& a, int grid, cudaStream_t stream) {
 
 // ints: W K C N FR D n_bins bins_stride grid, then the layout (prio ts
 // stage stage_buf cls mem rows rows_bytes win keys total); ptrs: the Args
-// pointers in order. Returns cudaGetLastError() (cudaErrorInvalidValue on
-// a bad argument list, C > 32 or a layout beyond a block's shared
-// memory).
+// pointers in order, the scratch last (NULL unless keys == 2: then
+// 1 + 3W + grid * 2 * ceil(W/32) + ceil(W/4) ints). Returns
+// cudaGetLastError() (cudaErrorInvalidValue on a bad argument list,
+// C > 32, a layout beyond a block's shared memory or a missing scratch).
 extern "C" int cycle_global(const int* ints, int n_ints, void* const* p, int n_ptrs,
                             void* stream) {
-  if (n_ints != 20 || n_ptrs != 19) return (int)cudaErrorInvalidValue;
+  if (n_ints != 20 || n_ptrs != 20) return (int)cudaErrorInvalidValue;
   cycle2::Args a;
   a.W = ints[0]; a.K = ints[1]; a.C = ints[2]; a.N = ints[3]; a.FR = ints[4];
   a.D = ints[5]; a.n_bins = ints[6]; a.bins_stride = ints[7];
@@ -322,10 +368,14 @@ extern "C" int cycle_global(const int* ints, int n_ints, void* const* p, int n_p
   a.bins = (const int*)p[i++];
   a.usage = (long long*)p[i++];
   a.packed = (long long*)p[i++];
+  a.scratch = (int*)p[i++];
   if (a.W == 0) return (int)cudaGetLastError();
-  if (a.C > 32 || grid < 1 || grid > a.n_bins || L.total > cycle2::kSmemMax || L.win < 1) {
+  if (a.C > 32 || grid < 1 || grid > a.n_bins || L.total > cycle2::kSmemMax || L.win < 1 ||
+      L.keys < 0 || L.keys > 2 || (L.keys == 2 && a.scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  return L.keys ? cycle2::launch<true>(a, grid, s) : cycle2::launch<false>(a, grid, s);
+  if (L.keys == 2) return cycle2::launch<false, true>(a, grid, s);
+  return L.keys ? cycle2::launch<true, false>(a, grid, s)
+                : cycle2::launch<false, false>(a, grid, s);
 }

@@ -14,7 +14,8 @@
 //         fields, 12 CycleBuffers fields, seg_offsets, seg_members,
 //         8 megaloop round-log fields, 6 fair-drain fields, 33
 //         preempt-drain fields, 8 fair-preempt-drain fields, 22
-//         TAS-drain fields, the fair-preempt drain's fit scratch
+//         TAS-drain fields, the fair-preempt drain's fit scratch, the
+//         preempt motion's scratch
 // in the order of the structs below, and returns cudaGetLastError()
 // (cudaErrorInvalidValue when the array lengths do not match).
 // max_rounds is 0 outside the megaloop, whose round-log pointers are
@@ -221,10 +222,12 @@ struct Args {
   Tas tas;
   long long* fit_usage;    // [N,FR] the fair-preempt phase 2's fit tree
                            // when its rows stay in device memory
+  int* motion_scratch;     // [4 + ceil(Q/4)] drain_preempt_motion's reductions
+                           // and flags, zeroed (the max slot INT_MIN) between launches
 };
 
 constexpr int kNumInts = 29;
-constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8 + 22 + 1;
+constexpr int kNumPtrs = 17 + 7 + 12 + 12 + 2 + 8 + 6 + 33 + 8 + 22 + 1 + 1;
 
 // Fills `a` from the two arrays; false when their lengths do not match.
 inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args* a) {
@@ -368,6 +371,7 @@ inline bool unpack(const int* ints, int n_ints, void* const* p, int n_ptrs, Args
   a->tas.child_off = (const int*)p[i++];
   a->tas.child_list = (const int*)p[i++];
   a->fit_usage = (long long*)p[i++];
+  a->motion_scratch = (int*)p[i++];
   return true;
 }
 

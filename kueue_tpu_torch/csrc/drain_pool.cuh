@@ -1,6 +1,7 @@
 // The preempt drains' candidate pools, shared by drain_preempt_search.cu
-// (B10, the classic preempt drain) and drain_fair_preempt_search.cu (B11,
-// the fair-preempt drain).
+// (B10, the classic preempt drain: victim_qty, its eligibility its own
+// since it loads a chunk of slots at once) and
+// drain_fair_preempt_search.cu (B11, the fair-preempt drain: all three).
 //
 // Replaces the pool reads of kueue_tpu/ops/drain_kernel.py
 // solve_drain_preempt (:1890-1925, the candidate eligibility);

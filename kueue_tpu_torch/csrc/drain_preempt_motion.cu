@@ -24,43 +24,85 @@
 //   - the cycle counter advances and `done` is set once no unstuck
 //     queue has a pending entry or max_cycles is reached.
 //
-// Design: one block of 1024 threads striding over the pool slots, then
-// twice over the queues, split by __syncthreads() so the stagnation
-// test sees this cycle's progress; leaf usage with 64-bit atomicAdd
-// (victims of one owner and admitted heads may share a row); the
-// reductions in shared memory. What bounds it: launch latency and the
-// passes over Q queues and S x V slots (chip_smoke.py counts the bytes
-// of each launch). A set `done` flag makes the launch a no-op.
+// Design: the whole card, one launch. A block of 8 warps takes a run of
+// the S x V pool slots (a thread a slot: the eviction record and the
+// owner's release, 64-bit atomicAdd, since victims of one owner and
+// admitted heads may share a row) and 8 queues, a warp a queue: its
+// scalars loaded once by every lane, its cells a lane each (the charge,
+// the slot fill, the fair panel's sums by shuffles), its segment's
+// eviction bytes read a word a lane and voted (`released`), its L
+// statuses a lane each, all L of them updated, and its next head the
+// first set bit of a ballot.
+// The whole-drain reductions (anything evicted or advanced, the largest
+// retry cap, a live queue) go through a last-arriving-block ticket in a
+// small scratch (`motion_scratch`, reset by that block for the next
+// launch): every block folds its partials in with atomics, fences, and
+// takes a ticket; the last one computes no_prog and the stagnation test,
+// freezes the queues that were active and did not advance (flagged in
+// the scratch by their warps) only when the drain is stagnant, which is
+// rare, and writes the cycle, no_prog and done. A cooperative launch's
+// grid barrier would do the same with every block resident at once and
+// a second wait for all of them; the ticket lets every block but the
+// last leave as soon as it is done. What bounds it: launch latency and a
+// few dependent trips to device memory a block (chip_smoke.py counts the
+// bytes of each launch). A set `done` flag makes the launch a no-op.
+
+#include <limits.h>
 
 #include "drain_common.cuh"
 
 namespace drain {
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+// motion_scratch: the ticket, anything evicted or advanced, the largest
+// retry cap, a live queue; then a byte a queue: active and not advanced
+enum { kTicket, kAnyProg, kMaxCap, kAnyLive, kCand };
 
 __device__ __forceinline__ void add_to(long long* x, long long v) {
   atomicAdd(reinterpret_cast<unsigned long long*>(x), static_cast<unsigned long long>(v));
 }
 
-__global__ void motion(Args a) {
+// Whether any slot of the segment's pool row was evicted this cycle: a
+// word (or a byte, for rows not a multiple of 4) a lane, voted.
+__device__ __forceinline__ bool segment_released(const uint8_t* ev, int V, int lane) {
+  bool any = false;
+  if ((V & 3) == 0) {
+    const unsigned* w = reinterpret_cast<const unsigned*>(ev);
+    for (int i = lane; i < (V >> 2); i += 32) any |= w[i] != 0u;
+  } else {
+    for (int v = lane; v < V; v += 32) any |= ev[v] != 0;
+  }
+  return __any_sync(kFull, any);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) motion(Args a) {
   if (*a.s.done) return;
-  __shared__ int any_prog, max_cap, any_live;
-  if (threadIdx.x == 0) {
+  __shared__ int any_prog, max_cap, any_live, last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
     any_prog = 0;
-    max_cap = -2147483647 - 1;
+    max_cap = INT_MIN;
     any_live = 0;
   }
   __syncthreads();
   const int cycle = *a.s.cycle;
   const int V = a.V, Cv = a.Cv, FR = a.FR, L = a.L, P = a.P, G = a.G;
   const int PC = a.P * a.C;
-  const size_t slots = (size_t)a.n_segments * V;
+  int* scratch = a.motion_scratch;
+  uint8_t* cand = reinterpret_cast<uint8_t*>(scratch + kCand);
 
-  // this cycle's evictions
-  for (size_t x = threadIdx.x; x < slots; x += blockDim.x) {
+  // this cycle's evictions: the block's run of slots
+  const long long slots = (long long)a.n_segments * V;
+  const long long x_lo = slots * blockIdx.x / gridDim.x;
+  const long long x_hi = slots * (blockIdx.x + 1) / gridDim.x;
+  bool evicted = false;
+  for (long long x = x_lo + tid; x < x_hi; x += kThreads) {
     if (!a.p.ev_now[x]) continue;
-    any_prog = 1;
+    evicted = true;
     a.p.vevicted[x] = 1;
     a.p.evict_cycle[x] = cycle;
     a.p.evict_by[x] = a.p.ev_by[x];
@@ -70,110 +112,147 @@ __global__ void motion(Args a) {
       if (cell >= 0) add_to(&a.s.local[(size_t)owner * FR + cell], -a.p.pqty[x * Cv + cv]);
     }
   }
-  __syncthreads();
+  if (evicted) any_prog = 1;
 
-  // admissions, pool fill, status and the per-queue motion
-  for (int q = threadIdx.x; q < a.Q; q += blockDim.x) {
-    const bool active = a.s.cursor[q] < a.q.qlen[q] && a.s.alive[q];
-    const int cur = min(a.s.cursor[q], L - 1);
+  // a warp a queue: admission, pool fill, status and the motion
+  const int q = blockIdx.x * kWarps + warp;
+  if (q < a.Q) {
+    const int cur_raw = a.s.cursor[q];
+    const bool active = cur_raw < a.q.qlen[q] && a.s.alive[q];
+    const int cur = min(cur_raw, L - 1);
     const bool is_fit = a.b.is_fit[q], pend = a.b.pend[q];
     const bool admitted = a.b.admitted[q], preempt_ok = a.p.preempt_ok[q];
-    const int cq = max(a.q.cq_rows[q], 0);
-    if (admitted) {
-      for (int i = 0; i < PC; ++i) {
-        const int cell = a.b.cells_eff[(size_t)q * PC + i];
-        const long long qv = a.b.qty_eff[(size_t)q * PC + i];
-        if (cell >= 0 && qv > 0) add_to(&a.s.local[(size_t)cq * FR + cell], qv);
-      }
-    }
+    const bool psuccess = a.p.psuccess[q], untrusted = a.p.untrusted[q];
+    const bool stuck0 = a.s.stuck[q];
+    const int retries = a.s.retries[q], cap = a.s.cap[q];
+    const int cq = max(a.q.cq_rows[q], 0), seg = a.q.seg_id[q];
     const int slot = a.p.entry_slot[(size_t)q * L + cur];
+    int cell = -1;
+    long long qv = 0;
+    if (lane < PC) {
+      cell = a.b.cells_eff[(size_t)q * PC + lane];
+      qv = a.b.qty_eff[(size_t)q * PC + lane];
+    }
+    if (admitted && cell >= 0 && qv > 0) add_to(&a.s.local[(size_t)cq * FR + cell], qv);
     if (admitted && active && slot >= 0) {
-      const size_t x = (size_t)max(a.q.seg_id[q], 0) * V + slot;
-      for (int cv = 0; cv < Cv; ++cv) {
-        a.p.pcells[x * Cv + cv] = cv < PC ? a.b.cells_eff[(size_t)q * PC + cv] : -1;
-        a.p.pqty[x * Cv + cv] = cv < PC ? a.b.qty_eff[(size_t)q * PC + cv] : 0;
+      const size_t x = (size_t)max(seg, 0) * V + slot;
+      for (int cv = lane; cv < Cv; cv += 32) {
+        // lane cv holds head cell cv (PC <= 32 <= cv past the first round)
+        a.p.pcells[x * Cv + cv] = cv < PC ? cell : -1;
+        a.p.pqty[x * Cv + cv] = cv < PC ? qv : 0;
       }
-      a.p.pvalid[x] = 1;
+      if (lane == 0) a.p.pvalid[x] = 1;
       if (a.fp.pq_cu) {
         // the fair panels' view of the slot: the head's request at its
-        // segment's panel cells
-        const int* seg_cells = a.fp.seg_cells + (size_t)max(a.q.seg_id[q], 0) * a.Cu;
-        for (int c = 0; c < a.Cu; ++c) {
+        // segment's panel cells, a panel cell a lane
+        const int* seg_cells = a.fp.seg_cells + (size_t)max(seg, 0) * a.Cu;
+        for (int c0 = 0; c0 < a.Cu; c0 += 32) {
+          const int c = c0 + lane;
+          const int sc = c < a.Cu ? seg_cells[c] : -1;
           long long sum = 0;
-          for (int i = 0; seg_cells[c] >= 0 && i < PC; ++i) {
-            const int cell = a.b.cells_eff[(size_t)q * PC + i];
-            const long long qv = a.b.qty_eff[(size_t)q * PC + i];
-            if (cell >= 0 && qv > 0 && cell == seg_cells[c]) sum += qv;
+          for (int i = 0; i < PC; ++i) {
+            const int ci = __shfl_sync(kFull, cell, i);
+            const long long qi = __shfl_sync(kFull, qv, i);
+            if (sc >= 0 && ci >= 0 && qi > 0 && ci == sc) sum += qi;
           }
-          a.fp.pq_cu[x * a.Cu + c] = sum;
+          if (c < a.Cu) a.fp.pq_cu[x * a.Cu + c] = sum;
         }
       }
     }
-    const bool pre_skipped = a.p.psuccess[q] && !preempt_ok;
+    const bool pre_skipped = psuccess && !preempt_ok;
     const bool undecided = active && !is_fit && !preempt_ok && !pre_skipped;
-    const int retries = a.s.retries[q];
-    bool stuck = a.s.stuck[q] || a.p.untrusted[q] || (undecided && pend && retries >= a.s.cap[q]);
+    bool stuck = stuck0 || untrusted || (undecided && pend && retries >= cap);
     const bool retrying = undecided && pend && !stuck;
-    const int status = admitted ? 2 : ((undecided && !pend) ? 1 : 0);
-    const bool advanced = active && status != 0;
+    const int status_new = admitted ? 2 : ((undecided && !pend) ? 1 : 0);
+    const bool advanced = active && status_new != 0;
     stuck = stuck && !advanced;
-    a.s.retries[q] = (advanced || !active) ? 0 : (retrying ? retries + 1 : retries);
-    a.s.stuck[q] = stuck;
-    if (advanced) any_prog = 1;
-    atomicMax(&max_cap, a.s.cap[q]);
+    if (lane == 0) {
+      a.s.retries[q] = (advanced || !active) ? 0 : (retrying ? retries + 1 : retries);
+      a.s.stuck[q] = stuck;
+      cand[q] = active && !advanced;  // frozen if the drain is stagnant
+      if (admitted && active) a.s.adm_cycle[(size_t)q * L + cur] = cycle;
+      if (advanced) any_prog = 1;
+      atomicMax(&max_cap, cap);
+    }
     if (admitted && active) {
-      for (int p = 0; p < P; ++p) {
+      for (int p = lane; p < P; p += 32) {
         a.s.adm_k[((size_t)q * L + cur) * P + p] = a.b.rep_k[q * P + p];
       }
-      a.s.adm_cycle[(size_t)q * L + cur] = cycle;
     }
-    if (active) a.p.status[(size_t)q * L + cur] = status;
     const bool lost = active && is_fit && !admitted;
     const bool reset = admitted || (active && !is_fit && !retrying) || preempt_ok;
-    for (int i = 0; i < P * G; ++i) {
-      const size_t x = (size_t)q * P * G + i;
-      a.s.g_start[x] = reset ? 0 : ((lost || retrying) ? a.b.walk_next[x] : a.s.g_start[x]);
+    if (reset || lost || retrying) {
+      for (int i = lane; i < P * G; i += 32) {
+        const size_t x = (size_t)q * P * G + i;
+        a.s.g_start[x] = reset ? 0 : a.b.walk_next[x];
+      }
     }
-  }
-  __syncthreads();
-  const int no_prog = any_prog ? 0 : *a.s.no_prog + 1;
-  const bool stagnant = no_prog >= 2 * max_cap;
-
-  // the stagnation freeze, reactivation and the next heads
-  for (int q = threadIdx.x; q < a.Q; q += blockDim.x) {
-    const bool active = a.s.cursor[q] < a.q.qlen[q] && a.s.alive[q];
-    const bool preempt_ok = a.p.preempt_ok[q];
-    const bool undecided = active && !a.b.is_fit[q] && !preempt_ok &&
-                           !(a.p.psuccess[q] && !preempt_ok);
-    const bool advanced = active && (a.b.admitted[q] || (undecided && !a.b.pend[q]));
-    bool stuck = a.s.stuck[q] || (stagnant && active && !advanced);
-    a.s.stuck[q] = stuck;
+    // reactivation and the next head: a status a lane, every run of 32
+    // updated (the head's new status and the released parked entries
+    // may lie past the first pending one)
+    const bool released = seg >= 0 && segment_released(a.p.ev_now + (size_t)seg * V, V, lane);
     int* status = a.p.status + (size_t)q * L;
-    if (a.q.seg_id[q] >= 0) {
-      const uint8_t* ev = a.p.ev_now + (size_t)a.q.seg_id[q] * V;
-      bool released = false;
-      for (int v = 0; v < V && !released; ++v) released = ev[v];
-      if (released) {
-        for (int l = 0; l < L; ++l) {
-          if (status[l] == 1) status[l] = 0;
-        }
-      }
-    }
     int next = L;
-    for (int l = 0; l < L; ++l) {
-      if (status[l] == 0) {
-        next = l;
-        break;
+    for (int l0 = 0; l0 < L; l0 += 32) {
+      const int l = l0 + lane;
+      int st = -1;
+      if (l < L) {
+        const int was = status[l];
+        st = (active && l == cur) ? status_new : was;
+        if (released && st == 1) st = 0;
+        if (st != was) status[l] = st;
       }
+      const unsigned pending = __ballot_sync(kFull, st == 0);
+      if (pending && next == L) next = l0 + __ffs(pending) - 1;
     }
-    a.s.cursor[q] = next;
-    if (next < a.q.qlen[q] && !stuck) any_live = 1;
+    if (lane == 0) {
+      a.s.cursor[q] = next;
+      if (next < a.q.qlen[q] && !stuck) any_live = 1;
+    }
+  }
+
+  // the whole drain's reductions: the last block to arrive finishes them
+  __syncthreads();
+  if (tid == 0) {
+    if (any_prog) atomicOr(scratch + kAnyProg, 1);
+    atomicMax(scratch + kMaxCap, max_cap);
+    if (any_live) atomicOr(scratch + kAnyLive, 1);
+    __threadfence();
+    last = atomicAdd(scratch + kTicket, 1) == (int)gridDim.x - 1;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (!last) return;
+  __threadfence();
+  const volatile int* vs = scratch;
+  const int no_prog = vs[kAnyProg] ? 0 : *a.s.no_prog + 1;
+  const int cap_max = vs[kMaxCap];
+  const bool stagnant = no_prog >= 2 * cap_max;
+  bool live = vs[kAnyLive];
+  if (stagnant) {
+    // the stagnation freeze: every queue active this cycle that did not
+    // advance is stuck, and a live queue is one still unstuck
+    __syncthreads();
+    if (tid == 0) any_live = 0;
+    __syncthreads();
+    for (int i = tid; i < a.Q; i += kThreads) {
+      bool st = __ldcg(a.s.stuck + i);
+      if (__ldcg(cand + i)) {
+        st = true;
+        a.s.stuck[i] = 1;
+      }
+      if (__ldcg(a.s.cursor + i) < a.q.qlen[i] && !st) any_live = 1;
+    }
+    __syncthreads();
+    live = any_live;
+  }
+  if (tid == 0) {
     *a.s.no_prog = no_prog;
     *a.s.cycle = cycle + 1;
-    if (!(any_live && cycle + 1 < a.max_cycles)) *a.s.done = 1;
+    if (!(live && cycle + 1 < a.max_cycles)) *a.s.done = 1;
+    scratch[kAnyProg] = 0;
+    scratch[kMaxCap] = INT_MIN;
+    scratch[kAnyLive] = 0;
+    scratch[kTicket] = 0;
   }
 }
 
@@ -184,7 +263,11 @@ extern "C" int drain_preempt_motion(const int* ints, int n_ints, void* const* pt
                                     int n_ptrs, void* stream) {
   drain::Args a;
   if (!drain::unpack(ints, n_ints, ptrs, n_ptrs, &a)) return (int)cudaErrorInvalidValue;
-  if (a.p.status == nullptr || a.Cv < a.P * a.C) return (int)cudaErrorInvalidValue;
-  drain::motion<<<1, drain::kThreads, 0, (cudaStream_t)stream>>>(a);
+  if (a.p.status == nullptr || a.motion_scratch == nullptr || a.Cv < a.P * a.C ||
+      a.P * a.C > 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int grid = max(1, (a.Q + drain::kWarps - 1) / drain::kWarps);
+  drain::motion<<<grid, drain::kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -84,6 +84,7 @@ constexpr int kSmemMax = 232448 - 1024;     // a block's opt-in shared memory, l
 constexpr int kWalkBudget = 232448 / 14;    // a walk block's room: 14 blocks an SM (its
                                             // rows staged beyond it go to device rows)
 constexpr int kMaxClsStaged = 196608;       // heads whose classes a partition block stages
+constexpr int kListBlocks = 264;            // blocks of the device-memory walk lists
 
 struct Args {
   int S, W, K, C, N, FR, D, n_segments, n_steps, n_seg, max_members;
@@ -113,6 +114,8 @@ struct Args {
   int* idx_b;
   int* ctl;                   // [S,4] scratch, zeroed: differs, class-0 count, class-1 count
   int* n_walk;                // [S,n_seg] scratch: each walk's heads
+  unsigned* list_bits;        // [grid, 2 ceil(W/32)] scratch of the device-memory walk
+                              // lists (NULL where their bitmap or positions fit a block)
 };
 
 // A walk block's shared memory (byte offsets, multiples of 16), planned
@@ -572,39 +575,57 @@ __device__ __forceinline__ const int* bpos_row(const Args& a, const int* bpos, s
   return bpos + (size_t)(shared && !sorts(a, (int)s) ? 0 : s) * a.W;
 }
 
-// Each (root segment, scenario)'s walk list, a block each, where W is
-// past one tile: the lists into `lists` at the segment's CSR offset,
-// their lengths into `n_walk`. Where the bitmap of W positions exceeds
-// shared memory (`by_bits` false, W past ~1.8 million heads), the
-// members' positions are ranked by counting (cycle_body::rank_members).
+// How a walk list is made where W is past one tile: its bitmap of
+// positions in shared memory; its members' positions there, ranked by
+// counting; or, where neither fits (W past ~925,000 heads and a segment
+// past ~57,800), its bitmap in device memory (`list_bits`, a region a
+// block, each of kListBlocks blocks taking (segment, scenario) pairs in
+// turn).
+enum ListMode { kBits, kRanks, kDeviceBits };
+
+// Each (root segment, scenario)'s walk list, a block each (kDeviceBits:
+// a block a run of pairs), where W is past one tile: the lists into
+// `lists` at the segment's CSR offset, their lengths into `n_walk`.
+// Where the bitmap of W positions exceeds shared memory (W past ~925,000
+// heads), the members' positions are ranked by counting
+// (cycle_body::rank_members) where they fit, else the bitmap is built in
+// device memory.
 __global__ void __launch_bounds__(kListThreads) walk_lists(Args a, const int* bpos, int* lists,
-                                                           bool shared, bool by_bits) {
+                                                           bool shared, int mode) {
   __shared__ int wsum[33];
-  const int g = blockIdx.x;
-  const size_t s = blockIdx.y;
-  const int* brow = bpos_row(a, bpos, s, shared);
-  int n;
-  if (by_bits) {
-    const int nw = (a.W + 31) / 32;
-    n = build_list(a, s, g, brow, lists + s * a.W, (unsigned*)smem,
-                   (int*)(smem + align16(4LL * nw)), nw, wsum);
-  } else {
-    int* spos = (int*)smem;
-    const size_t h = s * a.W;
-    const int beg = a.seg_offsets[g], m = a.seg_offsets[g + 1] - beg;
-    const int* members = a.seg_members + beg;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const int x = members[i];
-      const bool ok = a.cls[h + x] < 2 && a.cq_row[x] >= 0;
-      spos[i] = ok ? a.pos[h + brow[x]] : -1;
+  const int nw = (a.W + 31) / 32;
+  const bool dev_bits = mode == kDeviceBits;
+  const int n_segs = min(a.n_seg, a.n_segments);
+  const long long n_pairs = dev_bits ? (long long)n_segs * a.S : 1;
+  unsigned* bits = dev_bits ? a.list_bits + (size_t)blockIdx.x * 2 * nw : (unsigned*)smem;
+  int* pre = dev_bits ? (int*)(bits + nw) : (int*)(smem + align16(4LL * nw));
+  for (long long pair = dev_bits ? blockIdx.x : 0; pair < n_pairs;
+       pair += dev_bits ? gridDim.x : 1) {
+    const int g = dev_bits ? (int)(pair % n_segs) : (int)blockIdx.x;
+    const size_t s = dev_bits ? (size_t)(pair / n_segs) : blockIdx.y;
+    const int* brow = bpos_row(a, bpos, s, shared);
+    int n;
+    if (mode != kRanks) {
+      n = build_list(a, s, g, brow, lists + s * a.W, bits, pre, nw, wsum);
+    } else {
+      int* spos = (int*)smem;
+      const size_t h = s * a.W;
+      const int beg = a.seg_offsets[g], m = a.seg_offsets[g + 1] - beg;
+      const int* members = a.seg_members + beg;
+      for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        const int x = members[i];
+        const bool ok = a.cls[h + x] < 2 && a.cq_row[x] >= 0;
+        spos[i] = ok ? a.pos[h + brow[x]] : -1;
+      }
+      if (threadIdx.x == 0) wsum[0] = 0;
+      __syncthreads();
+      cycle_body::rank_members(spos, m, members, a.n_steps, lists + h + beg, wsum);
+      __syncthreads();
+      n = min(wsum[0], a.n_steps);
     }
-    if (threadIdx.x == 0) wsum[0] = 0;
+    if (threadIdx.x == 0) a.n_walk[s * a.n_seg + g] = n;
     __syncthreads();
-    cycle_body::rank_members(spos, m, members, a.n_steps, lists + h + beg, wsum);
-    __syncthreads();
-    n = min(wsum[0], a.n_steps);
   }
-  if (threadIdx.x == 0) a.n_walk[s * a.n_seg + g] = n;
 }
 
 // ---- 4. the walk --------------------------------------------------------
@@ -749,15 +770,16 @@ int opt_in(K kernel, int bytes) {
 }  // namespace plan2
 
 // ints: S W K C N FR D n_segments n_steps n_seg max_members; ptrs: the
-// Args pointers in order. Returns the first launch error
-// (cudaErrorInvalidValue on a bad argument list or a shape the kernel
-// does not take: C > 32, S > 65535, or a W past one tile whose bitmap of
-// positions and whose largest segment's positions both exceed a block's
-// shared memory).
+// Args pointers in order, `list_bits` last (NULL unless W is past one
+// tile and neither its bitmap of positions nor its largest segment's
+// positions fit a block's shared memory: then min(segments walked x S,
+// 264) x 2 ceil(W/32) words). Returns the first launch error
+// (cudaErrorInvalidValue on a bad argument list, a shape the kernel
+// does not take, C > 32 or S > 65535, or a missing `list_bits`).
 extern "C" int plan_phase2(const int* ints, int n_ints, void* const* p, int n_ptrs,
                            void* stream) {
   using namespace plan2;
-  if (n_ints != 11 || n_ptrs != 25) return (int)cudaErrorInvalidValue;
+  if (n_ints != 11 || n_ptrs != 26) return (int)cudaErrorInvalidValue;
   Args a;
   a.S = ints[0]; a.W = ints[1]; a.K = ints[2]; a.C = ints[3]; a.N = ints[4];
   a.FR = ints[5]; a.D = ints[6]; a.n_segments = ints[7]; a.n_steps = ints[8];
@@ -789,6 +811,7 @@ extern "C" int plan_phase2(const int* ints, int n_ints, void* const* p, int n_pt
   a.idx_b = (int*)p[i++];
   a.ctl = (int*)p[i++];
   a.n_walk = (int*)p[i++];
+  a.list_bits = (unsigned*)p[i++];
   if (a.W == 0 || a.S == 0) return (int)cudaGetLastError();
   // the sort's tile: a power of two, at most kTile, a pair a thread
   int tile = 1;
@@ -808,9 +831,10 @@ extern "C" int plan_phase2(const int* ints, int n_ints, void* const* p, int n_pt
   const int part_smem = small ? (int)(small_fixed + 8LL * nw * a.n_seg)
                               : (staged ? align16(a.W) : 0);
   const long long bits_smem = 2LL * align16(4LL * ((a.W + 31) / 32));
-  const bool by_bits = bits_smem <= kSmemMax;
-  const long long list_smem = by_bits ? bits_smem : align16(4LL * max(a.max_members, 1));
-  if (!small && list_smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  const long long ranks_smem = align16(4LL * max(a.max_members, 1));
+  const int mode = bits_smem <= kSmemMax ? kBits : (ranks_smem <= kSmemMax ? kRanks : kDeviceBits);
+  const long long list_smem = mode == kBits ? bits_smem : (mode == kRanks ? ranks_smem : 0);
+  if (!small && mode == kDeviceBits && a.list_bits == nullptr) return (int)cudaErrorInvalidValue;
   WalkLayout wl;
   plan_walk(a, &wl);
   auto part = staged ? partition<true> : partition<false>;
@@ -845,8 +869,11 @@ extern "C" int plan_phase2(const int* ints, int n_ints, void* const* p, int n_pt
   // over the sorted rows
   part<<<a.S, kPartThreads, part_smem, st>>>(a, src, dst);
   if (n_walk_segs > 0) {
-    walk_lists<<<dim3(n_walk_segs, a.S), kListThreads, (int)list_smem, st>>>(a, dst, src, true,
-                                                                               by_bits);
+    const long long pairs = (long long)n_walk_segs * a.S;
+    const dim3 list_grid = mode == kDeviceBits
+        ? dim3((unsigned)(pairs < kListBlocks ? pairs : kListBlocks))
+        : dim3(n_walk_segs, a.S);
+    walk_lists<<<list_grid, kListThreads, (int)list_smem, st>>>(a, dst, src, true, mode);
     walk<<<dim3(n_walk_segs, a.S), 32, wl.total, st>>>(a, wl, src);
   }
   return (int)cudaGetLastError();

@@ -1,6 +1,8 @@
-// The minimalPreemptions search on a local subtree panel, shared by
-// preempt_search.cu (B8, the cycle's batched victim search) and
-// drain_preempt_search.cu (B10, the preempt drain's strategy ladder).
+// The minimalPreemptions search on a local subtree panel, kernel B8's
+// (preempt_search.cu, the cycle's batched victim search); its bubble
+// also serves the fair-preempt drain's search (fair_local.cuh,
+// drain_fair_preempt_search.cu). The preempt drain's search
+// (drain_preempt_search.cu, B10a) runs a ladder of its own.
 //
 // Replaces kueue_tpu/ops/preempt_kernel.py _avail_local (:110),
 // _bubble_local (:142) and the remove-until-fit / fill-back scans of

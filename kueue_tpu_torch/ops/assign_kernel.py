@@ -466,19 +466,22 @@ def global_layout(w: int, c: int, fr: int, max_depth: int, n_bins: int, max_bin:
     B a head, left in device memory when they do not fit) and
     ``rows_bytes`` for a group's subtree, guaranteed, borrowing-limit and
     usage rows (a group whose rows need more walks on the device-memory
-    rows). None when even the classes, member lists and one-head windows
-    do not fit (W beyond ~17,000 heads)."""
+    rows). Where the classes, member lists and one-head windows do not
+    fit (W beyond ~17,000 heads), ``keys`` is 2: the classes and member
+    lists go to a device scratch of ``scratch`` ints
+    (``global_scratch_ints``) and the windows and rows take the block's
+    shared memory. ``scratch`` is 0 otherwise."""
 
     def window(win):
         return _align8(4 * win * (c + max_depth + 4)) + 24 * win * c
 
     grid = max(1, min(n_bins, GLOBAL_BLOCKS))
     base = _align8(w) + _align8(4 * (3 * w + 2 * ((w + 31) // 32)))  # classes, members
+    if base + 2 * window(1) > PHASE2_SHARED_BYTES:
+        return _global_layout_wide(w, window, grid, n_bins, max_bin, fr)
     win = PHASE2_WINDOW
     while win > 1 and base + 2 * window(win) > PHASE2_SHARED_BYTES:
         win >>= 1
-    if base + 2 * window(win) > PHASE2_SHARED_BYTES:
-        return None
     keys = base + 2 * window(win) + 16 * w <= PHASE2_SHARED_BYTES
     off, at = {}, 0
     for name, size in (("prio", 8 * w if keys else 0), ("ts", 8 * w if keys else 0),
@@ -489,7 +492,29 @@ def global_layout(w: int, c: int, fr: int, max_depth: int, n_bins: int, max_bin:
     need = -(-n_bins // grid) * max_bin * fr * 32
     rows = min(need, PHASE2_SHARED_BYTES - at)
     return {**off, "grid": grid, "stage_buf": window(win), "rows": at, "rows_bytes": rows,
-            "win": win, "keys": int(keys), "total": at + rows}
+            "win": win, "keys": int(keys), "total": at + rows, "scratch": 0}
+
+
+def global_scratch_ints(w: int, grid: int) -> int:
+    """The wide layout's device scratch (csrc/cycle_global.cu): the
+    member-list counter, the lists (3 ints a head), each block's position
+    bits and their prefix (2 words a 32 heads), the classes (1 B a
+    head)."""
+    return 1 + 3 * w + grid * 2 * -(-w // 32) + -(-w // 4)
+
+
+def _global_layout_wide(w, window, grid, n_bins, max_bin, fr):
+    """global_layout where the classes and member lists of W heads do not
+    fit a block: only the windows and rows are in shared memory."""
+    win = PHASE2_WINDOW
+    while win > 1 and 2 * window(win) > PHASE2_SHARED_BYTES:
+        win >>= 1
+    at = 2 * window(win)
+    need = -(-n_bins // grid) * max_bin * fr * 32
+    rows = min(need, PHASE2_SHARED_BYTES - at)
+    return {"prio": 0, "ts": 0, "stage": 0, "cls": at, "mem": at, "grid": grid,
+            "stage_buf": window(win), "rows": at, "rows_bytes": rows, "win": win, "keys": 2,
+            "total": at + rows, "scratch": global_scratch_ints(w, grid)}
 
 
 def _bubble_usage(
@@ -829,7 +854,9 @@ def cycle_global(
     updated in place by the admissions and reservations. On the card a
     block walks each group of whole root subtrees of the tree's forest
     (``tree_forest``: quota_tree's bins), on its rows in shared memory
-    where they fit and on the device-memory rows where they do not."""
+    where they fit and on the device-memory rows where they do not; past
+    ~17,000 heads its classes and member lists are in a device scratch
+    (``global_layout``'s wide layout)."""
     if not usage.is_cuda:
         res = cycle_global_plain(
             tree, subtree, guaranteed, usage, paths, heads, chosen, borrows_wk, preempt_k
@@ -847,11 +874,9 @@ def cycle_global(
     forest = tree_forest(tree)
     n_bins = forest.bins.shape[0]
     lay = global_layout(w, c, fr, d, n_bins, forest.max_bin)
-    if lay is None:
-        raise _build.KernelInputError(
-            f"{kernel}: the classes, member lists and one-head windows of {w} heads do "
-            f"not fit a block's shared memory"
-        )
+    scratch = None
+    if lay["scratch"]:
+        scratch = torch.empty(lay["scratch"], dtype=I32, device=usage.device)
     if packed is None:
         packed = torch.empty((5, w), dtype=I64, device=usage.device)
     ptr = _build.ptr
@@ -875,6 +900,7 @@ def cycle_global(
         ptr(kernel, "bins", forest.bins, I32, (n_bins, forest.depth + 2)),
         ptr(kernel, "usage", usage, I64, (n, fr)),
         ptr(kernel, "packed", packed, I64, (5, w)),
+        ptr(kernel, "scratch", scratch, I32, None),
     ]
     ints = [w, k, c, n, fr, d, n_bins, forest.depth + 2, lay["grid"]] + [
         int(lay[f]) for f in GLOBAL_LAYOUT_FIELDS]

@@ -753,6 +753,9 @@ class PreemptInputs:
 
     victims: SegVictims
     search_width: int
+    # drain_preempt_motion's reductions and per-queue flags (int32[4 +
+    # ceil(Q/4)], the kernel resets it after each launch)
+    motion_scratch: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -767,6 +770,19 @@ class FairPreemptInputs:
     # drain_fair_preempt_phase2's fit tree where its rows stay in device
     # memory (int64[N, FR] scratch, filled by the kernel)
     fit_usage: Optional[torch.Tensor] = None
+
+
+def _motion_scratch_len(q: int) -> int:
+    return 4 + -(-q // 4)
+
+
+def motion_scratch(q: int, device) -> torch.Tensor:
+    """drain_preempt_motion's scratch as a launch finds it: the ticket,
+    the progress and live flags zero, the largest retry cap at INT_MIN,
+    then a byte a queue."""
+    t = torch.zeros(_motion_scratch_len(q), dtype=I32, device=device)
+    t[2] = torch.iinfo(torch.int32).min
+    return t
 
 
 @dataclass
@@ -819,6 +835,9 @@ class DrainContext:
         fp = extra.get("fair_preempt")
         if fp is not None and fp.fit_usage is None and tree.nominal.is_cuda:
             fp.fit_usage = torch.empty_like(tree.nominal)
+        pre = extra.get("preempt")
+        if pre is not None and pre.motion_scratch is None and tree.nominal.is_cuda:
+            pre.motion_scratch = motion_scratch(queues.qlen.shape[0], tree.device)
         return cls(
             tree, subtree, guaranteed, potential, paths, queues, segments,
             n_segments, n_steps, max_cycles, **extra,
@@ -1069,6 +1088,8 @@ class DrainContext:
         else:
             spec += [(name, None, None, None) for name in range(TAS_PTRS)]
         spec.append(("fit_usage", fp.fit_usage if fp is not None else None, I64, (n, fr)))
+        spec.append(("motion_scratch", pre.motion_scratch if pre is not None else None, I32,
+                     (_motion_scratch_len(q),)))
         ptrs = [_build.ptr(kernel, name, t, dt, sh) for name, t, dt, sh in spec]
         ints = [
             q, l, pmax, k, c, g, n, fr, tree.max_depth,
@@ -1990,7 +2011,8 @@ def drain_preempt_phase2(ctx: DrainContext, state: PreemptState, buf: PreemptBuf
 
 def drain_preempt_motion(ctx: DrainContext, state: PreemptState, buf: PreemptBuffers) -> None:
     """Kernel 8: cycle-end usage, pool fill, queue motion and the done
-    flag (one block striding over the slots and the queues)."""
+    flag (blocks over the slots, a warp a queue; the last block to
+    finish takes the whole drain's reductions)."""
     if not state.local.is_cuda:
         return drain_preempt_motion_plain(ctx, state, buf)
     _launch("drain_preempt_motion", ctx, state, buf)

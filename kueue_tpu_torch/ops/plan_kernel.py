@@ -86,8 +86,10 @@ def _snf(x: torch.Tensor, s: int) -> torch.Tensor:
 
 # the shared memory a plan_phase2 block may take (227 KB, less the static
 # part): a walk list is ranked in a bitmap of the W positions or, past
-# it, among the segment's positions
+# it, among the segment's positions; past both, in a bitmap in device
+# memory
 MAX_SMEM = 232448 - 1024
+LIST_BLOCKS = 264  # plan_phase2's blocks of device-memory walk lists (kListBlocks)
 
 # ---- plan_quota_tree (csrc/plan_quota_tree.cu) ---------------------------
 
@@ -372,14 +374,15 @@ def plan_phase2(nominal_s, borrowing_s, subtree_s, guaranteed_s, usage_s, paths,
         raise _build.KernelInputError(f"{kernel}: takes C<={MAX_C} cells, got {c}")
     if s > 65535:
         raise _build.KernelInputError(f"{kernel}: takes S<=65535 scenarios, got {s}")
-    bitmap, positions = 2 * _align16(4 * -(-w // 32)), _align16(4 * segments.max_size)
-    if bitmap > MAX_SMEM and positions > MAX_SMEM:
-        raise _build.KernelInputError(
-            f"{kernel}: neither a bitmap of {w} heads nor a segment of "
-            f"{segments.max_size} heads' positions fits the card's {MAX_SMEM} B of shared "
-            "memory"
-        )
     dev = usage_s.device
+    # the walk lists' bitmaps in device memory where neither a bitmap of
+    # W positions nor the largest segment's positions fit a block
+    list_bits = None
+    bitmap, positions = 2 * _align16(4 * -(-w // 32)), _align16(4 * segments.max_size)
+    n_walk_segs = min(segments.count, n_segments)
+    if bitmap > MAX_SMEM and positions > MAX_SMEM and n_walk_segs > 0:
+        blocks = min(n_walk_segs * s, LIST_BLOCKS)
+        list_bits = torch.empty(blocks * 2 * -(-w // 32), dtype=I32, device=dev)
     if out is None:
         out = torch.empty((s, PER_HEAD_ROWS, w), dtype=I64, device=dev)
     n_seg = segments.count
@@ -413,7 +416,7 @@ def plan_phase2(nominal_s, borrowing_s, subtree_s, guaranteed_s, usage_s, paths,
         ptr(kernel, "usage", usage_s, I64, q),
         ptr(kernel, "per_head", out, I64, (s, PER_HEAD_ROWS, w)),
         cls.data_ptr(), pos.data_ptr(), idx_a.data_ptr(), idx_b.data_ptr(), ctl.data_ptr(),
-        n_walk.data_ptr(),
+        n_walk.data_ptr(), ptr(kernel, "list_bits", list_bits, I32, None),
     ]
     ints = [s, w, k, c, n, fr, d, n_segments, n_steps, n_seg, segments.max_size]
     _call(kernel, ints, ptrs, dev)

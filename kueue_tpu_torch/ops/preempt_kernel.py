@@ -35,7 +35,7 @@ package's: ``int32[W*V]`` targets, then ``int32[W]`` fits, one copy.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 from kueue_tpu_torch._torch import BOOL, I32, I64, torch
 from kueue_tpu_torch.ops import _build
@@ -140,10 +140,13 @@ def _bubble_local(path, qty, usage, guaranteed, depth: int, apply) -> None:
         )
 
 
-def solve_preempt(p: PreemptProblem, depth: int, n_cand: int) -> PreemptResult:
+def solve_preempt(p: PreemptProblem, depth: int, n_cand: int,
+                  trace: Optional[dict] = None) -> PreemptResult:
     """Remove-until-fit then fill-back for every row at once (the JAX
     ``_solve_one`` vmapped over rows); the candidate loop runs only
-    while some row is still searching."""
+    while some row is still searching. With ``trace`` (a dict) it
+    records each row's steps, int64[W]: the candidates it visited while
+    searching and the removals it tried to put back."""
     w = p.hrow.shape[0]
     dev = p.usage0.device
     w_idx = torch.arange(w, device=dev)
@@ -164,8 +167,10 @@ def solve_preempt(p: PreemptProblem, depth: int, n_cand: int) -> PreemptResult:
     done = ~p.row_valid  # padding rows do no work
     fit_at = torch.full((w,), -1, dtype=I64, device=dev)
     removed = torch.zeros((w, n_cand), dtype=BOOL, device=dev)
+    steps = torch.zeros(w, dtype=I64, device=dev)
     for v in range(n_cand):
         is_live = p.cvalid[:, v] & ~done
+        steps += is_live
         if not bool(is_live.any()):
             continue  # no row acts: nothing changes at this step
         crow = p.crow[:, v].clamp_min(0).long()
@@ -186,6 +191,7 @@ def solve_preempt(p: PreemptProblem, depth: int, n_cand: int) -> PreemptResult:
     # fill-back: reverse removal order, skipping the fitting removal
     for v in range(n_cand - 1, -1, -1):
         act = found & removed[:, v] & (fit_at != v)
+        steps += act
         if not bool(act.any()):
             continue
         crow = p.crow[:, v].clamp_min(0).long()
@@ -197,6 +203,8 @@ def solve_preempt(p: PreemptProblem, depth: int, n_cand: int) -> PreemptResult:
         usage = torch.where(keep[:, None, None], usage2, usage)
         leaf = torch.where(keep[:, None, None], leaf2, leaf)
         removed[:, v] = removed[:, v] & ~keep
+    if trace is not None:
+        trace["steps"] = steps
     return PreemptResult(targets=removed & found[:, None], fits=found)
 
 

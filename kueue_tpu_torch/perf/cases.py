@@ -76,14 +76,22 @@ def _quota(rng, lo, hi, unit=""):
 
 
 def mixed_spec(seed: int, cqs_per_team: int = 2, workloads_per_cq: int = 6,
-               extra_flavors: int = 0) -> dict:
+               extra_flavors: int = 0, podsets: int = 3, extra_levels: int = 0) -> dict:
+    # podsets: a workload's most pod sets (drawn from 1 on); extra_levels:
+    # cohorts chained above the org, deepening its forest, each with a
+    # fixed cpu/memory quota of which a part is guaranteed (not lent)
     rng = np.random.default_rng(seed)
     cpu_flavors = ["fa", "fb", "fc"]
     # flavors of a resource no workload requests, in every ClusterQueue
     # with a fixed quota (no draw): they widen the quota tree's cells
     extra = [f"fx-{i}" for i in range(extra_flavors)]
     gpu_flavors = ["gpu-a", "gpu-b"]
-    cohorts = [{"name": "org", "parent": None, "groups": []}]
+    tops = [f"top-{i}" for i in range(extra_levels)]
+    top_group = {"resources": ["cpu", "memory"],
+                 "flavors": [("fa", {"cpu": "40", "memory": "12Gi"}, None, "10")]}
+    cohorts = [{"name": top, "parent": tops[i - 1] if i else None, "groups": [top_group]}
+               for i, top in enumerate(tops)]
+    cohorts.append({"name": "org", "parent": tops[-1] if tops else None, "groups": []})
     teams = []
     for d in range(2):
         dept = f"dept-{d}"
@@ -153,12 +161,12 @@ def mixed_spec(seed: int, cqs_per_team: int = 2, workloads_per_cq: int = 6,
         for wi in range(workloads_per_cq):
             t += 1.0
             pod_sets = []
-            for pp in range(int(rng.integers(1, 4))):
+            for pp in range(int(rng.integers(1, podsets + 1))):
                 req = {"cpu": _quota(rng, 1, 5), "memory": _quota(rng, 1, 8, "Gi")}
                 if rng.random() < 0.4:
                     req["gpu"] = _quota(rng, 1, 3)
                 pod_sets.append({
-                    "name": ["driver", "worker", "aux"][pp],
+                    "name": ["driver", "worker", "aux"][pp] if pp < 3 else f"ps-{pp}",
                     "count": int(rng.integers(1, 3)),
                     "requests": req,
                 })
@@ -215,7 +223,8 @@ def cycle_spec(seed: int, workloads_per_cq: int = 10) -> dict:
 
 
 def preempt_spec(seed: int, victims_per_cq: int = 3, workloads_per_cq: int = 5,
-                 cqs_per_team: int = 2, extra_flavors: int = 0) -> dict:
+                 cqs_per_team: int = 2, extra_flavors: int = 0, podsets: int = 3,
+                 extra_levels: int = 0) -> dict:
     """``mixed_spec``'s depth-3 forest (multi-podset workloads, two
     resource groups, limits) as a preemption case: each ClusterQueue
     preempts within itself (LowerPriority or LowerOrNewerEqualPriority)
@@ -223,11 +232,12 @@ def preempt_spec(seed: int, victims_per_cq: int = 3, workloads_per_cq: int = 5,
     may borrow within it (LowerPriority, maxPriorityThreshold 10 or
     none), and holds ``victims_per_cq`` admitted workloads of priority
     0-20 on one of its cpu/memory flavors. ``cqs_per_team`` widens the
-    org's segment (four teams), ``extra_flavors`` the quota tree's cells
+    org's segment (four teams), ``extra_flavors`` the quota tree's cells,
+    ``podsets`` a workload's pod sets, ``extra_levels`` the forest's depth
     (``mixed_spec``)."""
     rng = np.random.default_rng(seed + 2000)
     spec = mixed_spec(seed, cqs_per_team=cqs_per_team, workloads_per_cq=workloads_per_cq,
-                      extra_flavors=extra_flavors)
+                      extra_flavors=extra_flavors, podsets=podsets, extra_levels=extra_levels)
     within = ("LOWER_PRIORITY", "LOWER_OR_NEWER_EQUAL_PRIORITY", "NEVER")
     reclaim = ("ANY", "LOWER_PRIORITY", "NEVER")
     victims = []
@@ -820,6 +830,76 @@ PREEMPT_EDGES = {
     "wide pool": (dict(seed=4, workloads_per_cq=600), dict(max_victims=2048, max_cycles=4)),
     "wide rows": (dict(seed=4, cqs_per_team=12, extra_flavors=56), dict(max_cycles=6)),
 }
+
+
+# preempt_spec's arguments, with the drain's, at the edges of the
+# preempt cycle's end (drain_preempt_motion, B10c): a drain that runs to
+# the stagnation guard (527 cycles at a window of 2: untrusted searches
+# freezing their queues, retry budgets reaching their caps, evictions
+# reactivating parked entries, then no progress for 2 x max(retry cap)
+# cycles); a drain ended by max_cycles with live queues; queues of 40
+# entries, one of which sees its segment release slots while an entry
+# before position 32 is parked and its cursor is past 32 (cycle 43), so
+# the statuses' second run of 32 is updated with the first. The
+# fair-panel fill is the fair-preempt drain's: ``fair_preempt_spec(1)``
+# at 32 cycles.
+MOTION_EDGES = {
+    "stagnation": (dict(seed=0, cqs_per_team=4), dict(search_width=2)),
+    "max_cycles": (dict(seed=3), dict(search_width=2, max_cycles=24)),
+    "past 32 entries": (dict(seed=6, workloads_per_cq=40), dict(search_width=8, max_cycles=48)),
+}
+
+# preempt_spec's arguments, with the drain's, at the edges of the victim
+# search (drain_preempt_search, B10a): ladder cases a, b and c, the
+# borrowWithinCohort threshold, windows of 2 that truncate (a miss, a
+# hit, an attempt-1 miss tainting an attempt-2 success) and attempt 2
+# succeeding; a forest two levels deeper (paths of six levels, past the
+# four the ladder holds in registers) at a window of 32, where nothing
+# truncates; and the widest shape the kernel takes, four pod sets of
+# eight cells (P*C = 32) at a window of 512, whose staged candidates
+# exceed a block's shared memory, so the ladder reads them from the pool
+# in device memory, on the deeper forest too (both cut at 24 cycles:
+# untruncated, their heads spin ~1500).
+SEARCH_EDGES = {
+    "window of 2": (dict(seed=8), dict(search_width=2)),
+    "deep forest": (dict(seed=8, extra_levels=2), dict(search_width=32, max_cycles=24)),
+    "widest shape": (dict(seed=8, podsets=4, extra_levels=2),
+                     dict(search_width=512, max_cells=8, max_cycles=24)),
+}
+
+
+def global_wide_batch(seed: int, w: int) -> dict:
+    """A ``cycle_batch`` of ``w`` heads past the classes and member lists
+    a cycle_global block holds (W >= 17,500 at C = 3, FR = 17, depth 1):
+    300 ClusterQueues in a depth-1 forest."""
+    return cycle_batch(seed, w=w, k=4, c=3, depth=1, n_cq=300, fr=17)
+
+
+def plan_wide_batch(seed: int, w: int = 940_000, s: int = 2, n_steps: int = 48) -> dict:
+    """A ``plan_batch`` of ``w`` heads in one or two root segments, past
+    both the bitmap of positions (W > ~925,000) and a segment's positions
+    (> ~57,800 heads) a plan_phase2 block holds: the heads of a 512-head
+    batch over 40 ClusterQueues drawn ``w`` times (the generator is
+    vectorized), each scenario's priority row moved at random, and
+    ``n_steps`` walked heads a segment (the plain version walks that
+    many steps)."""
+    from kueue_tpu_torch.ops.assign_kernel import build_roots
+
+    b = plan_batch(seed, s=s, w=512, n_cq=40, depth=1, cohortless=0.0, n_pad=0)
+    rng = np.random.default_rng(seed + 73000)
+    idx = rng.integers(0, 512, size=w)
+    heads = {f: np.ascontiguousarray(v[idx]) for f, v in b["heads"].items()}
+    heads["timestamp"] = rng.integers(0, 50, size=w).astype(np.int64) * 10**9
+    heads["cq_row"][-64:] = -1  # pads
+    priority_s = b["priority_s"][:, idx] + rng.integers(0, 3, size=(s, w)) * 10
+    roots = build_roots(b["parent"])
+    cq = heads["cq_row"]
+    seg_id = np.full(w, -1, dtype=np.int32)
+    uniq, inv = np.unique(roots[cq[cq >= 0]], return_inverse=True)
+    seg_id[cq >= 0] = inv
+    return {**b, "heads": heads, "priority_s": priority_s,
+            "score_s": np.ascontiguousarray(b["score_s"][:, idx]), "seg_id": seg_id,
+            "n_segments": len(uniq), "n_steps": n_steps}
 
 
 def tas_spec(seed: int, n_tas_cq: int = 4, workloads_per_cq: int = 5) -> dict:

@@ -5,8 +5,11 @@ drain's step scan (``drain_tas_phase2``, B13) and placement
 (``drain_tas_place``, B13a), the unsegmented cycle's walk
 (``cycle_global``, B3'), the fair-preempt drain's victim search
 (``drain_fair_preempt_search``, B11a) and step scan
-(``drain_fair_preempt_phase2``, B11b) and the fair drain's (B7,
-``drain_fair_phase2``).
+(``drain_fair_preempt_phase2``, B11b), the fair drain's (B7,
+``drain_fair_phase2``), the preempt drain's step scan
+(``drain_preempt_phase2``, B10b), victim search (``drain_preempt_search``,
+B10a) and cycle end (``drain_preempt_motion``, B10c), and the planner's
+order and walk (``plan_phase2``).
 
     python -m kueue_tpu_torch.perf.kernel_ab [--parent DIR] [--split]
                                              [--kernel NAME ...]
@@ -26,8 +29,10 @@ and ``drain_tas_phase2`` over tas-drain-10k; ``drain_fair_preempt_search``
 and ``drain_fair_preempt_phase2`` over fair-preempt-1k
 (perf/fairpreempt.build_fair_preempt) and the panel caps
 (``build_fair_wide``); ``drain_fair_phase2`` over the headline fair
-drain; ``drain_preempt_phase2`` over the contended preempt drain at each
-panel width of its schedule (a path each); ``plan_phase2`` over the one B14 call of
+drain; ``drain_preempt_phase2`` and ``drain_preempt_search`` over the
+contended preempt drain at each panel width of its schedule (a path
+each); ``drain_preempt_motion`` over the contended drain at each width,
+fair-preempt-1k and the panel caps; ``plan_phase2`` over the one B14 call of
 ``Planner.plan`` at planner-sweep-50k and at planner-stage-500. Then it
 times
 each recorded launch alone on the device, once per build in turns:
@@ -58,7 +63,11 @@ the staging alone), every drain kernel and the drain's quota site with
 the done flag set (the launch's floor), ``cycle_global`` with every
 head made no-fit (chosen and preempt_k -1: the positions alone),
 ``drain_preempt_phase2`` with ``n_steps = 0`` (its staging and ranking
-alone) and ``done``, and ``plan_phase2`` as the device time of its
+alone) and ``done``, ``drain_preempt_search`` with ``no_cand`` (need_pre
+cleared: the staging and eligibility, no ladder) and ``done``,
+``drain_preempt_motion`` with ``alive=0`` (every queue retired: the
+eviction pass and the reductions, the queue pass reduced to its flags)
+and ``done``, and ``plan_phase2`` as the device time of its
 launches by part, read from a ``torch.profiler`` trace of each recorded
 call: the entry order (every launch but the walk's) and the walk
 (launches whose kernel name holds ``walk``), beside a stable
@@ -78,7 +87,15 @@ pop; ``drain_fair_preempt_search``: the iterations of its longest search,
 counted by the plain version, 4(D+1) + 8 trips an iteration;
 ``drain_preempt_phase2``: two trips a walked head of its longest
 segment and two more a preempter among them, which removes its victims
-first; ``plan_phase2``: the longest (segment, scenario) walk's heads).
+first; ``drain_preempt_search``: the removal and fill-back steps of its
+longest search, both attempts, counted by the plain version, (D+1) + 5
+trips a step (the owner row, the owner vote, the candidate's usage and
+path, the bubble a level, the fit's reads and vote);
+``drain_preempt_motion``: seven dependent trips to the L2 cache, timed by
+a chase through device memory (the done flag, a slot's eviction byte or
+a queue's scalars, its cells or statuses, the writes and atomics, the
+ticket, the last block's reads of the partials, its writes);
+``plan_phase2``: the longest (segment, scenario) walk's heads).
 Prints the ptxas lines
 (registers, stack frame, spills) of each build, a line per kernel, path
 and build, and as its last line a JSON object with every number.
@@ -102,7 +119,7 @@ import numpy as np
 KERNELS = ("cycle_phase2", "drain_nominate", "quota_tree", "drain_phase2", "drain_tas_phase2",
            "cycle_global", "drain_tas_place", "drain_fair_preempt_search",
            "drain_fair_preempt_phase2", "drain_fair_phase2", "drain_preempt_phase2",
-           "plan_phase2")
+           "plan_phase2", "drain_preempt_search", "drain_preempt_motion")
 CYCLES = 30  # headline Scheduler cycles recorded (chip_smoke.py's STEADY_CYCLES)
 SPIN = 2_000_000  # about 1 ms of the card's clock before each timed launch
 CHASE_HOPS = (1 << 20, 1 << 21)
@@ -111,6 +128,11 @@ HOPS_PER_HEAD = 2  # a walked head's dependent shared-memory trips: read its row
 # bubbles' levels: the pick's DRS and cursor reads, the popped candidate,
 # the target's path, the two shares, the sums and the new DRS
 SEARCH_TRIPS = 8
+# a preempt search step's dependent shared-memory trips beyond its bubble's
+# levels: the owner row, the owner vote, the candidate's usage and path,
+# the fit's reads and its vote
+LADDER_TRIPS = 5
+MOTION_L2_TRIPS = 7  # drain_preempt_motion's dependent trips to the L2 cache
 
 CHASE_SRC = r"""
 #include <cuda_runtime.h>
@@ -125,6 +147,16 @@ __global__ void chase(const int* next, int hops, int* out) {
 }
 extern "C" int smem_chase(const int* next, int hops, int* out, void* stream) {
   chase<<<1, 128, 0, (cudaStream_t)stream>>>(next, hops, out);
+  return (int)cudaGetLastError();
+}
+// the same chase through device memory, past the L1 (the loads hit L2)
+__global__ void chase_l2(const int* next, int hops, int* out) {
+  int j = 0;
+  for (int h = 0; h < hops; ++h) j = __ldcg(next + j);
+  *out = j;
+}
+extern "C" int l2_chase(const int* next, int hops, int* out, void* stream) {
+  chase_l2<<<1, 1, 0, (cudaStream_t)stream>>>(next, hops, out);
   return (int)cudaGetLastError();
 }
 """
@@ -157,10 +189,12 @@ def _drain_ptrs(csrc: Path) -> int:
     return sum(int(x) for x in expr.split("+"))
 
 
-def _plan_ptrs(csrc: Path) -> int:
-    """The number of pointers ``csrc``'s plan_phase2 takes (an older
-    build takes fewer scratch pointers, the last ones)."""
-    text = (csrc / "plan_phase2.cu").read_text()
+def _entry_ptrs(csrc: Path, kernel: str) -> int:
+    """The number of pointers ``csrc``'s plan_phase2 or cycle_global
+    takes (an older build takes fewer scratch pointers, the last ones)."""
+    text = (csrc / f"{kernel}.cu").read_text()
+    if "n_ptrs != " not in text:  # an entry with its own argument list
+        return 1 << 30
     return int(text.split("n_ptrs != ")[1].split(")")[0])
 
 
@@ -181,7 +215,8 @@ def build(csrc: Path, out: Path, names=KERNELS) -> dict:
         built[name] = (lib, lines)
     built["_drain_ints"] = _drain_ints(csrc)
     built["_drain_ptrs"] = _drain_ptrs(csrc)
-    built["_plan_ptrs"] = _plan_ptrs(csrc)
+    for k in ("plan_phase2", "cycle_global"):
+        built[f"_{k}_ptrs"] = _entry_ptrs(csrc, k)
     return built
 
 
@@ -193,8 +228,8 @@ def entry(built: dict, kernel: str, symbol: str = None):
     fn.restype = ctypes.c_int
     if symbol is None or symbol == kernel:
         fn.argtypes = _argtypes()
-    if kernel == "plan_phase2":
-        n_own = built["_plan_ptrs"]
+    if kernel in ("plan_phase2", "cycle_global"):
+        n_own = built[f"_{kernel}_ptrs"]
         return lambda ints, n, ptrs, n_ptrs, stream: fn(ints, n, ptrs, min(n_ptrs, n_own),
                                                         stream)
     if kernel.startswith("drain_"):
@@ -345,7 +380,7 @@ def record_drains(dev, kernels) -> dict:
     recs = _record_drain(ctx, dk.DrainState.initial(local, queues, plan.max_cycles),
                          dk.CycleBuffers.empty(local, queues), STEPS, kernels)
     for k in kernels:
-        if k != "drain_preempt_phase2":  # not a plain drain's kernel
+        if k in ("drain_nominate", "quota_tree", "drain_phase2"):  # a plain drain's kernels
             out[k]["headline"] = recs[k]
 
     if "drain_phase2" in kernels:
@@ -359,7 +394,8 @@ def record_drains(dev, kernels) -> dict:
                              MEGALOOP_STEPS, ("drain_phase2",))
         out["drain_phase2"]["megaloop"] = recs["drain_phase2"]
 
-    pre_names = tuple(k for k in ("drain_nominate", "drain_preempt_phase2") if k in kernels)
+    pre_names = tuple(k for k in ("drain_nominate", "drain_preempt_phase2", "drain_preempt_search",
+                                  "drain_preempt_motion") if k in kernels)
     if not pre_names:
         return out
     env = contended.build_contended(np.random.default_rng(contended.SEED))
@@ -578,6 +614,31 @@ def search_iterations(rec) -> int:
     return max(counts, default=0)
 
 
+def ladder_steps(rec) -> int:
+    """Removal and fill-back steps of a drain_preempt_search launch's
+    longest search (both attempts of a head), counted by its plain
+    version on a copy."""
+    from kueue_tpu_torch.ops import drain_kernel as dk
+    from kueue_tpu_torch.ops import preempt_kernel as pk
+
+    ctx, state, buf = rec
+    steps = []
+
+    def counted(p, depth, n_cand):
+        trace = {}
+        out = pk.solve_preempt(p, depth, n_cand, trace=trace)
+        steps.append(trace["steps"])
+        return out
+
+    saved = dk.solve_preempt
+    dk.solve_preempt = counted
+    try:
+        dk.drain_preempt_search_plain(ctx, state.clone(), buf.clone())
+    finally:
+        dk.solve_preempt = saved
+    return int(sum(steps).max().item()) if steps else 0
+
+
 def preempt_chain_trips(rec) -> int:
     """Dependent shared-memory trips of a drain_preempt_phase2 launch's
     longest segment: two a walked head (read its path's rows, add) and
@@ -650,6 +711,8 @@ def _drain_launch(kernel):
             buf.need_pre.zero_()
         if variant == "n_steps=0":
             ctx = dataclasses.replace(ctx, n_steps=0, _args=None)
+        if variant == "alive=0":
+            state.alive.zero_()
 
         def outputs(_):
             return tuple(getattr(x, f.name) for x in (state, buf)
@@ -669,6 +732,8 @@ fair_preempt_launch = _drain_launch("drain_fair_preempt_phase2")
 fair_search_launch = _drain_launch("drain_fair_preempt_search")
 fair_launch = _drain_launch("drain_fair_phase2")
 preempt_phase2_launch = _drain_launch("drain_preempt_phase2")
+preempt_search_launch = _drain_launch("drain_preempt_search")
+preempt_motion_launch = _drain_launch("drain_preempt_motion")
 
 
 def plan_launch(rec, variant, built):
@@ -900,18 +965,21 @@ def time_path(records, make, builds: dict, order, variant) -> dict:
         "uncovered, timed again": timer.uncovered}
 
 
-def smem_latency_ns(dev, work: Path) -> float:
+def smem_latency_ns(dev, work: Path, symbol: str = "smem_chase") -> float:
     """ns per dependent shared-memory load: the slope of a one-thread
-    pointer chase between two lengths (a random cycle of 4096 entries)."""
+    pointer chase between two lengths (a random cycle of 4096 entries);
+    with ``symbol="l2_chase"`` the same chase through device memory, its
+    loads past the L1 (ns per dependent L2 hit)."""
     import torch
 
     src, lib = work / "smem_chase.cu", work / "libsmem_chase.so"
-    src.write_text(CHASE_SRC)
-    proc = _nvcc(src, lib)
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for the chase:\n{log}")
-    fn = ctypes.CDLL(str(lib)).smem_chase
+    if not lib.exists():
+        src.write_text(CHASE_SRC)
+        proc = _nvcc(src, lib)
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the chase:\n{log}")
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     perm = np.random.default_rng(0).permutation(4096)
@@ -941,7 +1009,9 @@ SPLITS = {"cycle_phase2": ("n_steps=0",), "drain_nominate": ("done",),
           "drain_fair_preempt_search": ("no_cand", "done"),
           "drain_fair_preempt_phase2": ("n_steps=0", "done"),
           "drain_fair_phase2": ("n_steps=0", "done"),
-          "drain_preempt_phase2": ("n_steps=0", "done")}
+          "drain_preempt_phase2": ("n_steps=0", "done"),
+          "drain_preempt_search": ("no_cand", "done"),
+          "drain_preempt_motion": ("alive=0", "done")}
 
 
 def main(argv=None) -> int:
@@ -981,7 +1051,8 @@ def main(argv=None) -> int:
     cyc = (record_cycles(dev) if {"cycle_phase2", "quota_tree", "cycle_global"} & set(kernels)
            else {})
     drain_kernels = tuple(k for k in ("drain_nominate", "quota_tree", "drain_phase2",
-                                      "drain_preempt_phase2") if k in kernels)
+                                      "drain_preempt_phase2", "drain_preempt_search",
+                                      "drain_preempt_motion") if k in kernels)
     drains = record_drains(dev, drain_kernels) if drain_kernels else {}
     paths = []
     if "cycle_phase2" in kernels:
@@ -1000,6 +1071,10 @@ def main(argv=None) -> int:
         paths.append(("drain_phase2", f"{label} drain", recs, phase2_launch))
     for label, recs in drains.get("drain_preempt_phase2", {}).items():
         paths.append(("drain_preempt_phase2", named(label), recs, preempt_phase2_launch))
+    for label, recs in drains.get("drain_preempt_search", {}).items():
+        paths.append(("drain_preempt_search", named(label), recs, preempt_search_launch))
+    for label, recs in drains.get("drain_preempt_motion", {}).items():
+        paths.append(("drain_preempt_motion", named(label), recs, preempt_motion_launch))
     plans = record_plans(dev) if "plan_phase2" in kernels else {}
     for label, recs in plans.items():
         paths.append(("plan_phase2", label, recs, plan_launch))
@@ -1011,13 +1086,15 @@ def main(argv=None) -> int:
     if "drain_tas_place" in tas_recs:
         paths.append(("drain_tas_place", "tas-drain-10k", tas_recs["drain_tas_place"],
                       tas_place_launch))
-    fp_names = tuple(k for k in ("drain_fair_preempt_search", "drain_fair_preempt_phase2")
-                     if k in kernels)
+    fp_names = tuple(k for k in ("drain_fair_preempt_search", "drain_fair_preempt_phase2",
+                                 "drain_preempt_motion") if k in kernels)
     fpre = record_fair_preempt(dev, fp_names) if fp_names else {}
     for label, recs in fpre.get("drain_fair_preempt_search", {}).items():
         paths.append(("drain_fair_preempt_search", label, recs, fair_search_launch))
     for label, recs in fpre.get("drain_fair_preempt_phase2", {}).items():
         paths.append(("drain_fair_preempt_phase2", label, recs, fair_preempt_launch))
+    for label, recs in fpre.get("drain_preempt_motion", {}).items():
+        paths.append(("drain_preempt_motion", named(label), recs, preempt_motion_launch))
     fair = record_fair(dev) if "drain_fair_phase2" in kernels else []
     if fair:
         paths.append(("drain_fair_phase2", "headline fair drain", fair, fair_launch))
@@ -1026,10 +1103,11 @@ def main(argv=None) -> int:
     print(f"recorded {[(k, label, len(r)) for k, label, r, _ in paths]} "
           f"({time.perf_counter() - t0:.1f} s)")
     lat = smem_latency_ns(dev, work)
-    result = {"card": card, "smem_latency_ns": lat, "ptxas": {
+    l2 = smem_latency_ns(dev, work, "l2_chase")
+    result = {"card": card, "smem_latency_ns": lat, "l2_latency_ns": l2, "ptxas": {
         b: {k: built[k][1] for k in kernels} for b, built in builds.items()},
         "chains": {}, "times_us": {}}
-    print(f"shared-memory load latency {lat:.3f} ns")
+    print(f"shared-memory load latency {lat:.3f} ns, L2 {l2:.3f} ns")
     chain_paths = [("drain_phase2", f"{label} drain", recs, drain_chain_heads)
                    for label, recs in drains.get("drain_phase2", {}).items()]
     # B11b and B7: 2(D+1) dependent trips a pop (its chain's levels, then
@@ -1054,17 +1132,28 @@ def main(argv=None) -> int:
     # B10b: its count is in trips (two a walked head, two more a preempter)
     chain_paths += [("drain_preempt_phase2", named(label), recs, preempt_chain_trips)
                     for label, recs in drains.get("drain_preempt_phase2", {}).items()]
+    chain_paths += [("drain_preempt_search", named(label), recs, ladder_steps)
+                    for label, recs in drains.get("drain_preempt_search", {}).items()]
+    motion_paths = list(drains.get("drain_preempt_motion", {}).items()) + list(
+        fpre.get("drain_preempt_motion", {}).items())
+    chain_paths += [("drain_preempt_motion", named(label), recs, lambda _: MOTION_L2_TRIPS)
+                    for label, recs in motion_paths]
     for kname, label, recs, count in chain_paths:
         chains = [count(r) for r in recs] or [0]
-        hops = 1 if kname == "drain_preempt_phase2" else HOPS_PER_HEAD
+        hops = 1 if kname in ("drain_preempt_phase2", "drain_preempt_motion") else HOPS_PER_HEAD
         if kname.startswith("drain_fair") and recs:
             d1 = recs[0][0].tree.max_depth + 1
             hops = 4 * d1 + SEARCH_TRIPS if kname == "drain_fair_preempt_search" else 2 * d1
-        chain_us = float(np.mean(chains)) * hops * lat * 1e-3
+        if kname == "drain_preempt_search" and recs:
+            hops = recs[0][0].tree.max_depth + 1 + LADDER_TRIPS
+        trip_ns = l2 if kname == "drain_preempt_motion" else lat
+        chain_us = float(np.mean(chains)) * hops * trip_ns * 1e-3
         result["chains"][f"{kname} [{label}]"] = {"heads": chains, "bound_us": chain_us,
                                                    "trips": hops}
-        what = ("dependent trips" if kname == "drain_preempt_phase2"
-                else f"heads, {hops} trips a head")
+        what = {"drain_preempt_phase2": "dependent trips",
+                "drain_preempt_motion": "dependent L2 trips",
+                "drain_preempt_search": f"ladder steps, {hops} trips a step"}.get(
+                    kname, f"heads, {hops} trips a head")
         print(f"{kname} [{label}]: the longest segments walk {float(np.mean(chains)):.2f} "
               f"{what} (max {max(chains)}): chain bound {chain_us:.4f} us a launch")
 

@@ -119,6 +119,23 @@ no CUDA device or no nvcc, since a CUDA kernel has no CPU mode).
   perf.cases.PLAN_EDGES (W = 1, 37 and 4099, ties, shared and own
   priority rows, one class, dropped ranks, pads, a walk on device rows).
 
+- the preempt drain's victim search and cycle end redesigned for the
+  card, and two limits lifted: drain_preempt_search and
+  drain_preempt_motion with the preempt cycle's other launches bit-exact
+  at every cycle of perf.cases.MOTION_EDGES and SEARCH_EDGES (the
+  stagnation freeze, untrusted searches, retry caps, reactivation, a
+  drain ended by max_cycles; ladder cases a, b and c, the
+  borrowWithinCohort threshold, truncated windows, attempt 2; queues of
+  40 entries released past position 32; paths of six levels; P*C = 32
+  at a window of 512, whose candidates stay in device memory; the
+  motion's fair-panel fill is held with the fair-preempt drain's
+  kernels above), and, under
+  -m slow, the contended drain at both widths of its panel schedule; cycle_global at W = 17,500 and 50,000
+  (its classes and member lists in a device scratch) bit-exact to its
+  plain version and through ShardedSolver; plan_phase2 at W = 940,000
+  with segments of ~470,000 heads (its walk lists' bitmaps in device
+  memory) bit-exact to its plain version.
+
 These tests import neither JAX nor kueue_tpu. On the machine with the
 card, which has no JAX, run them without the repository's conftest:
 
@@ -1830,3 +1847,94 @@ def test_plan_phase2_bit_exact_at_the_order_edges(cuda, edge):
         **interop.plan_inputs(b, "cpu"), n_segments=b["n_segments"], n_steps=b["n_steps"])
     ph, u = plk.unpack(buf.cpu(), s, b["heads"]["cq_row"].shape[0], n, fr)
     assert torch.equal(ph, per_head) and torch.equal(u, usage)
+
+
+# ---- the preempt drain's search and cycle end (B10a, B10c) and the lifted
+# ---- limits of B3' and plan_phase2 ------------------------------------------
+
+
+@pytest.mark.parametrize("edge", sorted(cases.MOTION_EDGES) + sorted(cases.SEARCH_EDGES))
+def test_preempt_search_and_motion_bit_exact_at_their_edges(cuda, edge):
+    """Every launch of the preempt cycle against its plain version at
+    every cycle of the edge cases the CPU tests hold the plain versions
+    to the JAX package on (tests/test_torch_preempt_motion_edges.py)."""
+    from kueue_tpu_torch.perf.lockstep import PREEMPT_KERNELS, lockstep_preempt
+
+    spec_kw, drain_kw = {**cases.MOTION_EDGES, **cases.SEARCH_EDGES}[edge]
+    cache, pending = build_cache(cases.preempt_spec(**spec_kw))
+    plan, _, tree, paths, local, queues, victims = pd.preempt_drain_inputs(
+        take_snapshot(cache), pending, cache.flavors, cuda,
+        max_cells=drain_kw.get("max_cells", 4))
+    max_cycles = drain_kw.get("max_cycles", plan.max_cycles)
+    errs = {}
+    _, state, cycles = lockstep_preempt(
+        tree, local, queues, victims, paths, plan.n_segments, plan.n_steps, max_cycles,
+        drain_kw["search_width"], errs, label=edge)
+    assert cycles > 0 and bool(state.vevicted.any())
+    assert set(errs) == set(PREEMPT_KERNELS) and not any(errs.values())
+    if edge == "max_cycles":
+        assert int(state.cycle) == max_cycles
+    if edge == "widest shape":
+        assert queues.cells.shape[2] * queues.cells.shape[4] == 32
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("width", [16, 64])
+def test_preempt_drain_kernels_bit_exact_on_the_contended_drain(cuda, width):
+    """bench.py's contended drain (500 queues, 128 pools of 128 slots) at
+    both widths of its panel schedule, every launch at every cycle."""
+    from kueue_tpu_torch.perf import contended
+    from kueue_tpu_torch.perf.lockstep import PREEMPT_KERNELS, lockstep_preempt
+
+    env = contended.build_contended(np.random.default_rng(contended.SEED))
+    assert width in contended.CONTENDED_PANELS["widths"]
+    plan, _, tree, paths, local, queues, victims = _preempt_case(env.cache, env.pending, cuda,
+                                                                 env.ts_fn)
+    errs = {}
+    _, state, cycles = lockstep_preempt(
+        tree, local, queues, victims, paths, plan.n_segments, plan.n_steps, plan.max_cycles,
+        width, errs, label=f"contended at {width}")
+    assert cycles > 0 and bool(state.vevicted.any())
+    assert set(errs) == set(PREEMPT_KERNELS) and not any(errs.values())
+
+
+@pytest.mark.parametrize("w", [17500, 50000])
+def test_cycle_global_bit_exact_past_the_member_lists_room(cuda, w):
+    """W heads whose classes and member lists exceed a block's shared
+    memory (C = 3, FR = 17, depth 1): cycle_global keeps them in a device
+    scratch, bit-exact to its plain version, and ShardedSolver on one
+    card (the path that reaches B3') equals solve_cycle_plain."""
+    from kueue_tpu_torch.ops import assign_kernel as ak
+    from kueue_tpu_torch.parallel import ShardedSolver, make_mesh
+
+    b = cases.global_wide_batch(0, w)
+    f = ak.tree_forest(interop.quota_tree(b, cuda))
+    assert ak.global_layout(w, 3, 17, 1, f.bins.shape[0], f.max_bin)["keys"] == 2
+    _cycle_global_exact(cuda, b)
+    tree, heads = interop.quota_tree(b, cuda), interop.heads_batch(b, cuda)
+    local = torch.tensor(b["local_usage"], device=cuda)
+    paths = torch.tensor(b["paths"], device=cuda)
+    got = ShardedSolver(make_mesh(1, "cuda"))(tree, local, heads, paths)
+    ref = ak.solve_cycle_plain(tree, local, heads, paths)
+    for name in ("chosen", "admitted", "borrows", "reserved"):
+        assert torch.equal(getattr(got, name)[:w], getattr(ref, name)), name
+    assert torch.equal(got.usage, ref.usage)
+
+
+def test_plan_phase2_bit_exact_past_the_walk_lists_room(cuda):
+    """W = 940,000 heads in two root segments of ~470,000: neither the
+    bitmap of W positions nor a segment's positions fit a block, so the
+    walk lists' bitmaps are built in device memory; the B14 launches
+    bit-exact to their plain versions."""
+    from kueue_tpu_torch.ops import plan_kernel as plk
+    from kueue_tpu_torch.perf.lockstep import PLAN_KERNELS, plan_solve
+
+    b = cases.plan_wide_batch(0)
+    w = b["heads"]["cq_row"].shape[0]
+    seg = b["seg_id"]
+    assert 2 * 4 * -(-w // 32) > plk.MAX_SMEM and 4 * np.bincount(seg[seg >= 0]).max() > plk.MAX_SMEM
+    errs = {}
+    plan_solve(**interop.plan_inputs(b, cuda), n_segments=b["n_segments"],
+               n_steps=b["n_steps"], check=Lockstep(errs, label="plan wide"))
+    torch.cuda.synchronize()
+    assert errs == {name: 0 for name in PLAN_KERNELS}

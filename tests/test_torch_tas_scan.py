@@ -18,7 +18,9 @@ tolerance 0), on the same seeded numpy inputs:
   holding most heads, ClusterQueues without a cohort, paths of 8
   levels, pads and no-fit heads, W not a multiple of 32;
 - ``global_layout``, the grid and shared memory cycle_global takes, at
-  the headline and its edges.
+  the headline and its edges, and past the classes and member lists a
+  block holds (W = 17,500 and 50,000: the wide layout), where the plain
+  cycle is held to the JAX package's at W = 17,500 under ``-m slow``.
 """
 
 import numpy as np
@@ -215,8 +217,45 @@ def test_global_layout_at_the_headline_and_its_edges():
     # W too wide for the keys: they stay in device memory
     wide = tak.global_layout(12000, 16, 17, 3, 132, 60)
     assert not wide["keys"] and wide["total"] <= tak.PHASE2_SHARED_BYTES
-    # W too wide for the member lists: the shape is refused
-    assert tak.global_layout(20000, 16, 17, 1, 50, 21) is None
+    # W too wide for the member lists: the classes and lists go to the
+    # device scratch, the windows and rows keep the shared memory
+    wide = tak.global_layout(20000, 16, 17, 1, 50, 21)
+    assert wide["keys"] == 2 and wide["win"] == tak.PHASE2_WINDOW
+    assert wide["scratch"] == tak.global_scratch_ints(20000, 50)
+    assert wide["rows_bytes"] == 21 * 17 * 32 and wide["total"] <= tak.PHASE2_SHARED_BYTES
+
+
+@pytest.mark.parametrize("w", [17500, 50000])
+def test_global_layout_past_the_member_lists_room(w):
+    """C = 3, FR = 17, depth 1: the classes and member lists of 17,000
+    heads still fit a block (the shared layout, its windows cut to 16
+    heads), those of 17,500 and 50,000 do not: the wide layout keeps them
+    in a device scratch and gives the block's room to full windows and
+    the group's rows."""
+    assert tak.global_layout(17000, 3, 17, 1, 50, 21)["keys"] == 0
+    lay = tak.global_layout(w, 3, 17, 1, 50, 21)
+    assert lay is not None and lay["keys"] == 2 and lay["win"] == tak.PHASE2_WINDOW
+    assert lay["rows_bytes"] == 21 * 17 * 32 and lay["total"] <= tak.PHASE2_SHARED_BYTES
+    grid = lay["grid"]
+    assert lay["scratch"] == 1 + 3 * w + grid * 2 * -(-w // 32) + -(-w // 4)
+
+
+@pytest.mark.slow
+def test_solve_cycle_matches_jax_past_the_member_lists_room():
+    """The port's plain unsegmented cycle (the version cycle_global's wide
+    layout is held to on the card) against the JAX package's solve_cycle
+    at W = 17,500 heads (~16 s of the plain step loop)."""
+    b = cases.global_wide_batch(0, 17500)
+    jtree = jq.QuotaTree(**{f: jnp.asarray(b[f]) for f in TREE_FIELDS})
+    jheads = jak.HeadsBatch(**{f: jnp.asarray(b[f]) for f in interop.HEADS_DTYPES})
+    want = jak.solve_cycle_jit(jtree, jnp.asarray(b["local_usage"]), jheads,
+                               jnp.asarray(b["paths"]))
+    got = tak.solve_cycle(interop.quota_tree(b, "cpu"), torch.tensor(b["local_usage"]),
+                          interop.heads_batch(b, "cpu"), torch.tensor(b["paths"]))
+    for f in CYCLE_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+    assert int(np.asarray(want.admitted).sum()) > 1000
 
 
 def test_forest_positions_invert_its_packing():
